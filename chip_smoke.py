@@ -9,31 +9,47 @@ and the script exits non-zero without the final ``ok`` line:
 
 1. device — the card's name and power limit, torch/CUDA versions, and the
    build of every kernel from ``dmlc_core_tpu_torch/ops/csrc`` (one
-   ``nvcc`` per source, all started together);
-2. kernels — each kernel at the main path's shapes (10M rows, 28 features,
+   ``nvcc`` per source, all started together); then the data, made from
+   seeds: HIGGS-like 10M × 28 (bench.py's rule, seed 7) and covtype-schema
+   581,012 × 54 (:func:`covtype_like`);
+2. kernels — each kernel at the flagship's shapes (10M rows, 28 features,
    256 bins: ``hist`` at the root, ``fused_round`` at n_prev 1..16) against
    its plain PyTorch version on the same inputs (bit-identical), twice on
    the same inputs (identical bytes), timed with CUDA events (median of
    ``REPS``) beside its bound and, where one PyTorch call computes the
    same function, that call;
-3. main path — ``HistGBT(n_trees=5, max_depth=6, n_bins=256).fit`` on
-   HIGGS-like data (bench.py's rule, seed 7), launch counts read around the
-   fit, train logloss falling every round, ``predict`` on held-out rows,
-   ``save_model`` → ``load_model`` giving the same predictions, and the
-   round's bin-matrix bound from ``bins_bytes_per_round``;
-4. cross-device — the same fit on a 100k-row slice on the GPU and on the
-   CPU (plain versions): tree 0 bit-identical, every tree's split
-   structure identical, predictions allclose;
-5. deep kernels — the checks of phase 2 for ``fused_round`` at the levels
-   of deeper trees (n_prev 32, 64 and 2048, up to ``max_depth=12``),
-   where the histogram outgrows shared memory and the kernel adds
-   straight into the global one;
-6. the ``kernels`` line, then the card's name and power limit, then the
-   ``ok`` line.
+3. kernels_layout — the same for the LAYOUT MODES (``hist_layout``,
+   ``fused_round_layout`` at n_prev 1, 4, 16) on the physical matrices of
+   configurations 2a (12 rows: two bundles) and 2b (34 rows: 22 int4
+   pairs);
+4. main — the depth-wise ``HistGBT(n_trees=5, max_depth=6, n_bins=256)``
+   fit on the HIGGS-like data: launch counts set to 0 before and read
+   after the fit, train logloss falling every round, ``predict`` on
+   held-out rows, ``save_model`` → ``load_model`` giving the same
+   predictions, and the round's bin-matrix bound;
+5. main_lossguide — configuration 1, the bench's levers
+   (``DMLC_GROW_POLICY=lossguide``, ``DMLC_MAX_LEAVES=16``,
+   ``DMLC_BIN_PACK=1``, ``DMLC_FEATURE_BUNDLE=1``) on the same data: no
+   layout fires, exactly 1 ``hist`` + 15 ``fused_round`` per tree, the
+   checks of phase 4;
+6. levers — configurations 2a (the bench's levers) and 2b (pack only) on
+   the covtype-schema data, the checks of phase 4 with the layout modes'
+   launches, against the lossguide fit with both levers off: 2b's model
+   file byte-identical, 2a's split structure identical;
+7. cross-device — depth-wise, 1, 2a and 2b on 100k-row slices, on the GPU
+   and on the CPU (plain versions): every tree bit-identical;
+8. deep kernels — the checks of phases 2 and 3 for ``fused_round`` at
+   the levels of deeper trees (n_prev 32, 64 and 2048 on the flagship's
+   shapes, 64 and 2048 under each covtype layout, up to
+   ``max_depth=12``), where the histogram outgrows shared memory and the
+   kernel adds straight into the global one;
+9. the ``kernels`` line (launches summed over phases 4-6), then the card's
+   name and power limit, then the ``ok`` line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -42,6 +58,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+#: the card every phase runs on
+DEVICE = "cuda"
 
 #: the flagship's shapes: rows of the kernel checks and of the fit
 #: (HIGGS-like 10M × 28, 256 bins, depth 6)
@@ -58,6 +76,31 @@ SEED = 0
 #: n_prev of the levels of trees deeper than the main path's (depth 7's
 #: last level, the first level past shared memory, ``max_depth=12``'s last)
 DEEP_N_PREV = (32, 64, 2048)
+#: covtype's row count and schema (UCI Covertype / LIBSVM covtype.binary):
+#: 10 integer columns, 4 one-hot wilderness columns at these counts, 40
+#: one-hot soil columns
+COVTYPE_ROWS = 581_012
+COVTYPE_FEATURES = 54
+WILDERNESS_COUNTS = (260_796, 29_884, 253_364, 36_968)
+COVTYPE_SEED = 11
+#: seed of the covtype-schema label's fixed soil effects
+LABEL_SEED = 54
+#: n_prev of the layout-mode fused_round checks: lossguide's expansion,
+#: and depth-wise levels under a layout
+LAYOUT_N_PREV = (1, 4, 16)
+#: n_prev of the layout-mode checks past shared memory (the first level
+#: past it, ``max_depth=12``'s last)
+DEEP_LAYOUT_N_PREV = (64, 2048)
+#: rows of the cross-device fits
+CROSS_ROWS = 100_000
+#: the bench's levers (bench.py's flagship) and the A/B variants
+MAX_LEAVES = 16
+LEVER_NAMES = ("DMLC_GROW_POLICY", "DMLC_MAX_LEAVES", "DMLC_BIN_PACK",
+               "DMLC_FEATURE_BUNDLE")
+LEVERS_OFF = {"DMLC_GROW_POLICY": "lossguide",
+              "DMLC_MAX_LEAVES": str(MAX_LEAVES)}
+PACK_ONLY = {**LEVERS_OFF, "DMLC_BIN_PACK": "1"}
+BENCH_LEVERS = {**PACK_ONLY, "DMLC_FEATURE_BUNDLE": "1"}
 
 
 def emit(obj) -> None:
@@ -126,68 +169,110 @@ def phase_device(torch, device_mod, build_mod):
 
 
 def check_fused_round(torch, H, bins, g, h, masked, gen, n_prev, kg, kh,
-                      rates):
+                      rates, layout=None):
     """``fused_round`` at one level (``n_prev`` parents) against its
-    plain version, twice over, in both split-table forms; then timed."""
-    F, n = bins.shape
-    B = N_BINS
+    plain version, twice over, in both split-table forms; then timed.
+    Under a ``layout`` ``bins`` is the physical matrix, the split tables
+    name ORIGINAL features and bins, and the histograms are in storage
+    space (the layout mode)."""
+    P, n = bins.shape
+    if layout is None:
+        F = S = P
+        B = N_BINS
+    else:
+        F, S, B = layout.n_features, layout.storage_features, layout.sync_bins
     dev = bins.device
     nd = torch.randint(0, n_prev, (n,), dtype=torch.int32, device=dev,
                        generator=gen)
     nd = torch.where(masked, -1, nd).to(torch.int32)
     feat = torch.randint(0, F, (n_prev,), dtype=torch.int32, device=dev,
                          generator=gen)
-    thr = torch.randint(0, B - 1, (n_prev,), dtype=torch.int32,
-                        device=dev, generator=gen)
-    prev = H.hist_kernel(bins, nd, g, h, n_prev, B, kg, kh)
+    if layout is None:
+        thr = torch.randint(0, N_BINS - 1, (n_prev,), dtype=torch.int32,
+                            device=dev, generator=gen)
+    else:
+        thr = torch.from_numpy(layout_thresholds(
+            layout, feat.cpu().numpy(), n_prev)).to(dev)
+    prev = H.hist_kernel(bins, nd, g, h, n_prev, B, kg, kh, layout)
     require(torch.equal(prev, H.hist_plain(bins, nd, g, h, n_prev, B, kg,
-                                           kh)),
-            f"hist kernel != hist_plain (n_nodes={n_prev})")
-    a = H.fused_round_kernel(bins, nd, feat, thr, g, h, prev, n_prev, B,
-                             kg, kh, True)
-    b = H.fused_round_kernel(bins, nd, feat, thr, g, h, prev, n_prev, B,
-                             kg, kh, True)
+                                           kh, layout)),
+            f"hist kernel != hist_plain (n_nodes={n_prev}, layout "
+            f"{layout is not None})")
+
+    def run(f_, t_, by_node):
+        return H.fused_round_kernel(bins, nd, f_, t_, g, h, prev, n_prev, B,
+                                    kg, kh, by_node, layout)
+
+    a = run(feat, thr, True)
+    b = run(feat, thr, True)
     c = H.fused_round_plain(bins, nd, feat, thr, g, h, prev, n_prev, B,
-                            kg, kh, True)
+                            kg, kh, True, layout)
     torch.cuda.synchronize()
-    require(torch.equal(a[0], c[0]), f"fused_round new_node != plain "
-            f"(n_prev={n_prev})")
-    require(torch.equal(a[1], c[1]), f"fused_round hist != plain "
-            f"(n_prev={n_prev})")
+    what = f"(n_prev={n_prev}, layout {layout is not None})"
+    require(torch.equal(a[0], c[0]), f"fused_round new_node != plain {what}")
+    require(torch.equal(a[1], c[1]), f"fused_round hist != plain {what}")
     require(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
-            f"fused_round not reproducible (n_prev={n_prev})")
+            f"fused_round not reproducible {what}")
     # per-row split arrays (the JAX signature) give the same result
     safe = nd.clamp(min=0).long()
-    r = H.fused_round_kernel(bins, nd, feat[safe], thr[safe], g, h, prev,
-                             n_prev, B, kg, kh, False)
+    r = run(feat[safe], thr[safe], False)
     require(torch.equal(r[0], a[0]) and torch.equal(r[1], a[1]),
-            f"fused_round per-row form differs (n_prev={n_prev})")
-    nbytes = (F * n + 4 * n + 8 * n + 2 * n_prev * F * B * 4
-              + 8 * n_prev + 4 * n + 2 * 2 * n_prev * F * B * 4)
-    b_ms, b_by = bound(nbytes, 2 * F * n, rates)
+            f"fused_round per-row form differs {what}")
+    routed = a[0] >= 0
+    right_share = float((a[0][routed] % 2).float().mean())
+    require(0.0 < right_share < 1.0,
+            f"fused_round sent every row one way {what}")
+    cells = n_prev * S * B
+    nbytes = (P * n + 4 * n + 8 * n + 2 * cells * 4 + 8 * n_prev + 4 * n
+              + 2 * 2 * cells * 4)
+    b_ms, b_by = bound(nbytes, 2 * S * n, rates)
     return {
-        "n_prev": n_prev,
-        "ms": time_ms(torch, lambda: H.fused_round_kernel(
-            bins, nd, feat, thr, g, h, prev, n_prev, B, kg, kh, True), REPS),
+        "n_prev": n_prev, "right_share": right_share,
+        "ms": time_ms(torch, lambda: run(feat, thr, True), REPS),
         "plain_ms": time_ms(torch, lambda: H.fused_round_plain(
-            bins, nd, feat, thr, g, h, prev, n_prev, B, kg, kh, True),
-            max(3, REPS // 3)),
+            bins, nd, feat, thr, g, h, prev, n_prev, B, kg, kh, True,
+            layout), max(3, REPS // 3)),
         "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": max(max_abs_err(torch, a[1], c[1]),
                            max_abs_err(torch, a[0], c[0])),
         "bytes": nbytes}
 
 
-def kernel_inputs(torch, H):
-    """The kernel checks' inputs, made on the card from ``SEED``: bins,
-    logistic g/h, a 1% mask of rows (node −1), the fixed-point scales and
-    the generator for the split tables."""
-    dev = torch.device("cuda")
-    n, F, B = ROWS, FEATURES, N_BINS
+def layout_thresholds(layout, feat, n_prev):
+    """Per-node thresholds in the ORIGINAL bin space that split each
+    node's feature: an occupied original bin other than the largest
+    (a compact feature's remap lists them), or a bin below a wide
+    feature's width — so both sides of every decoded feature are taken
+    and the bundle decode and compact remap change where rows go."""
+    import numpy as np
+
+    from dmlc_core_tpu_torch.ops import binlayout as bl
+
+    rng = np.random.default_rng([SEED, n_prev])
+    owner = bl.layout_tables(layout)["owner"]
+    thr = np.empty(len(feat), np.int32)
+    for i, f in enumerate(feat):
+        occ = layout.bin_maps[f]
+        if occ is None:
+            thr[i] = rng.integers(0, max(layout.widths[owner[f]] - 1, 1))
+        else:
+            occ = sorted(occ)
+            thr[i] = occ[rng.integers(0, max(len(occ) - 1, 1))]
+    return thr
+
+
+def kernel_inputs(torch, H, bins=None):
+    """The kernel checks' inputs, made on the card from ``SEED``: bins
+    (random ``[FEATURES, ROWS]`` unless given), logistic g/h, a 1% mask of
+    rows (node −1), the fixed-point scales and the generator for the split
+    tables."""
+    dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    bins = torch.randint(0, B, (F, n), dtype=torch.uint8, device=dev,
-                         generator=gen)
+    if bins is None:
+        bins = torch.randint(0, N_BINS, (FEATURES, ROWS), dtype=torch.uint8,
+                             device=dev, generator=gen)
+    n = bins.shape[1]
     margin = 0.5 * torch.randn(n, device=dev, generator=gen)
     p = torch.sigmoid(margin)
     y = (torch.rand(n, device=dev, generator=gen) < p).float()
@@ -197,30 +282,37 @@ def kernel_inputs(torch, H):
     return bins, g, h, masked, gen, kg, kh
 
 
-def phase_kernels(torch, H, rates):
-    """Each kernel against its plain version at the main path's shapes."""
-    dev = torch.device("cuda")
-    n, F, B = ROWS, FEATURES, N_BINS
-    bins, g, h, masked, gen, kg, kh = kernel_inputs(torch, H)
-    out = {}
+def check_hist(torch, H, bins, g, h, masked, kg, kh, rates, layout=None):
+    """``hist`` at the root against its plain version, twice over, then
+    timed beside its bound and ``index_add_``'s time.  Under a ``layout``
+    ``bins`` is the physical matrix and the histogram is in storage space
+    (the layout mode)."""
+    from dmlc_core_tpu_torch.ops import binlayout as bl
 
-    # -- hist at the root --------------------------------------------------
+    dev = bins.device
+    P, n = bins.shape
+    B = N_BINS if layout is None else layout.sync_bins
     node = torch.where(masked, -1, 0).to(torch.int32)
-    k1 = H.hist_kernel(bins, node, g, h, 1, B, kg, kh)
-    k2 = H.hist_kernel(bins, node, g, h, 1, B, kg, kh)
-    pl = H.hist_plain(bins, node, g, h, 1, B, kg, kh)
+    k1 = H.hist_kernel(bins, node, g, h, 1, B, kg, kh, layout)
+    k2 = H.hist_kernel(bins, node, g, h, 1, B, kg, kh, layout)
+    pl = H.hist_plain(bins, node, g, h, 1, B, kg, kh, layout)
     torch.cuda.synchronize()
-    require(torch.equal(k1, pl), "hist kernel != hist_plain")
-    require(torch.equal(k1, k2), "hist kernel not reproducible run to run")
+    what = f"(layout {layout is not None})"
+    require(torch.equal(k1, pl), f"hist kernel != hist_plain {what}")
+    require(torch.equal(k1, k2), f"hist kernel not reproducible {what}")
     require(bool(torch.isfinite(k1).all()), "hist not finite")
     # the one-call library yardstick: index_add_ over a precomputed flat
-    # (plane, feature, bin) index (index build left out of the timing)
+    # (plane, storage feature, bin) index (index build left out of the
+    # timing)
+    store = bins if layout is None else bl.unpack_matrix(bins, layout)
+    S = store.shape[0]
     valid = ~masked
-    idx = (torch.arange(F, device=dev)[:, None] * B + bins.long())
-    idx = torch.cat([idx.reshape(-1), idx.reshape(-1) + F * B])
-    vals = torch.cat([torch.where(valid, g, 0.0).expand(F, n).reshape(-1),
-                      torch.where(valid, h, 0.0).expand(F, n).reshape(-1)])
-    lib_out = torch.zeros(2 * F * B, device=dev)
+    idx = (torch.arange(S, device=dev)[:, None] * B + store.long())
+    idx = torch.cat([idx.reshape(-1), idx.reshape(-1) + S * B])
+    vals = torch.cat([torch.where(valid, g, 0.0).expand(S, n).reshape(-1),
+                      torch.where(valid, h, 0.0).expand(S, n).reshape(-1)])
+    del store
+    lib_out = torch.zeros(2 * S * B, device=dev)
 
     def lib_call():
         lib_out.zero_()
@@ -228,26 +320,42 @@ def phase_kernels(torch, H, rates):
 
     lib_call()
     torch.cuda.synchronize()
-    # f32 atomics over ~4e4 rows per cell: agree to ~1e-6 of the largest
-    lib_err = float((lib_out.reshape(2, 1, F, B) - k1).abs().max()
+    # f32 atomics over many rows per cell: agree to ~1e-6 of the largest
+    lib_err = float((lib_out.reshape(2, 1, S, B) - k1).abs().max()
                     / k1.abs().max())
     require(lib_err < 1e-3, f"index_add_ yardstick disagrees ({lib_err})")
     t_lib = time_ms(torch, lib_call, REPS)
     del idx, vals
-    nbytes = F * n + 4 * n + 8 * n + 2 * F * B * 4
-    b_ms, b_by = bound(nbytes, 2 * F * n, rates)
-    out["hist"] = {
+    nbytes = P * n + 4 * n + 8 * n + 2 * S * B * 4
+    b_ms, b_by = bound(nbytes, 2 * S * n, rates)
+    return {
         "ms": time_ms(torch, lambda: H.hist_kernel(bins, node, g, h, 1, B,
-                                                   kg, kh), REPS),
-        "plain_ms": time_ms(torch, lambda: H.hist_plain(bins, node, g, h, 1,
-                                                        B, kg, kh),
-                            max(3, REPS // 3)),
+                                                   kg, kh, layout), REPS),
+        "plain_ms": time_ms(torch, lambda: H.hist_plain(
+            bins, node, g, h, 1, B, kg, kh, layout), max(3, REPS // 3)),
         "library_ms": t_lib, "library_rel_err": lib_err, "bound_ms": b_ms,
         "bound_by": b_by, "max_abs_err": max_abs_err(torch, k1, pl),
         "bytes": nbytes}
+
+
+def summarize(cases, library_ms=None):
+    """One ``kernels`` entry from several checked shapes: the mean time,
+    plain time and bound, the largest error."""
+    mean = {k: statistics.fmean(c[k] for c in cases)
+            for k in ("ms", "plain_ms", "bound_ms")}
+    by = {c["bound_by"] for c in cases}
+    return {**mean, "library_ms": library_ms,
+            "bound_by": by.pop() if len(by) == 1 else "mixed",
+            "max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+
+def phase_kernels(torch, H, rates):
+    """Each kernel against its plain version at the main path's shapes."""
+    n, F, B = ROWS, FEATURES, N_BINS
+    bins, g, h, masked, gen, kg, kh = kernel_inputs(torch, H)
+    out = {"hist": check_hist(torch, H, bins, g, h, masked, kg, kh, rates)}
     emit({"phase": "kernel", "name": "hist", "n": n, "F": F, "B": B,
           "n_nodes": 1, **out["hist"]})
-
     # -- fused_round at every level of a depth-6 tree ----------------------
     cases = []
     for level in range(1, MAX_DEPTH):
@@ -257,27 +365,78 @@ def phase_kernels(torch, H, rates):
         emit({"phase": "kernel", "name": "fused_round", "n": n, "F": F,
               "B": B, **case})
     # one entry per kernel: the mean over one depth-6 tree's five levels
-    mean = {k: statistics.fmean(c[k] for c in cases)
-            for k in ("ms", "plain_ms", "bound_ms")}
-    by = {c["bound_by"] for c in cases}
-    out["fused_round"] = {**mean, "library_ms": None,
-                          "bound_by": by.pop() if len(by) == 1 else "mixed",
-                          "max_abs_err": max(c["max_abs_err"] for c in cases)}
+    out["fused_round"] = summarize(cases)
     return out
 
 
-def phase_deep_kernels(torch, H, rates):
+def phase_kernels_layout(torch, np, H, rates, X, y):
+    """The layout modes at the covtype-schema shapes, through the layouts
+    the model itself derives: 2a (pack + bundle, the bench's levers) and
+    2b (pack only).  ``hist`` at the root and ``fused_round`` at
+    ``LAYOUT_N_PREV``, each against its plain version.  Returns the
+    entries of the ``kernels`` line and each configuration's layout and
+    physical matrix."""
+    from dmlc_core_tpu_torch import HistGBT
+
+    hists, rounds, mats = [], [], {}
+    for cfg, env in (("2a", BENCH_LEVERS), ("2b", PACK_ONLY)):
+        with levers(env):
+            dd = HistGBT(max_depth=MAX_DEPTH, n_bins=N_BINS,
+                         device=DEVICE).make_device_data(X, y)
+        lay = dd["layout"]
+        require(lay is not None, f"config {cfg}: no layout fired")
+        mats[cfg] = (lay, dd["bins_t"])
+        bins, g, h, masked, gen, kg, kh = kernel_inputs(
+            torch, H, dd["bins_t"])
+        del dd
+        shape = {"config": cfg, "n": bins.shape[1], "phys_rows": lay.phys_rows,
+                 "S": lay.storage_features, "Bs": lay.sync_bins,
+                 "pairs": len(lay.pairs),
+                 "bundles": sum(len(m) > 1 for m in lay.members)}
+        case = check_hist(torch, H, bins, g, h, masked, kg, kh, rates, lay)
+        hists.append(case)
+        emit({"phase": "kernels_layout", "name": "hist_layout", **shape,
+              "n_nodes": 1, **case})
+        for n_prev in LAYOUT_N_PREV:
+            case = check_fused_round(torch, H, bins, g, h, masked, gen,
+                                     n_prev, kg, kh, rates, lay)
+            rounds.append(case)
+            emit({"phase": "kernels_layout", "name": "fused_round_layout",
+                  **shape, **case})
+        del bins, g, h, masked
+    return {"hist_layout": summarize(
+                hists, statistics.fmean(c["library_ms"] for c in hists)),
+            "fused_round_layout": summarize(rounds)}, mats
+
+
+def phase_deep_kernels(torch, H, rates, mats):
     """``fused_round`` at the levels of deeper trees, where the histogram
-    outgrows shared memory and the kernel adds into the global one.  Run
-    after the main path: run before it, they slow the fit's first tree
-    by 10–30 ms (PERF.md)."""
+    outgrows shared memory and the kernel adds into the global one: on
+    the flagship's shapes at ``DEEP_N_PREV``, and in the layout mode on
+    the physical matrices ``mats`` of 2a and 2b at ``DEEP_LAYOUT_N_PREV``.
+    Run after the main path: run before it, they slow the fit's first
+    tree by 10–30 ms (PERF.md)."""
     bins, g, h, masked, gen, kg, kh = kernel_inputs(torch, H)
     for n_prev in DEEP_N_PREV:
         case = check_fused_round(torch, H, bins, g, h, masked, gen, n_prev,
                                  kg, kh, rates)
         emit({"phase": "kernel", "name": "fused_round", "n": ROWS,
               "F": FEATURES, "B": N_BINS, "beyond_main_path": True, **case})
+    del bins, g, h, masked
+    for cfg, (lay, phys) in mats.items():
+        bins, g, h, masked, gen, kg, kh = kernel_inputs(torch, H, phys)
+        for n_prev in DEEP_LAYOUT_N_PREV:
+            case = check_fused_round(torch, H, bins, g, h, masked, gen,
+                                     n_prev, kg, kh, rates, lay)
+            emit({"phase": "kernels_layout", "name": "fused_round_layout",
+                  "config": cfg, "n": bins.shape[1],
+                  "phys_rows": lay.phys_rows, "S": lay.storage_features,
+                  "Bs": lay.sync_bins, "beyond_main_path": True, **case})
 
+
+# ---------------------------------------------------------------------------
+# data
+# ---------------------------------------------------------------------------
 
 def higgs_like(np, n, F, seed):
     """bench.py's HIGGS-like rule: dense gaussians, a nonlinear label."""
@@ -287,34 +446,105 @@ def higgs_like(np, n, F, seed):
     return X, (margin > 0).astype(np.float32)
 
 
-def phase_main(torch, np, H, rates):
+def covtype_like(np, n, seed):
+    """Seeded synthetic rows with the schema of UCI Covertype (LIBSVM
+    ``covtype.binary``): 10 integer-valued columns in the documented
+    ranges (elevation 1859–3858, aspect 0–360, slope 0–66, distances to
+    hydrology (horizontal ≥ 0, vertical −173–601), roads and fire points
+    ≥ 0, hillshades 0–254); 4 one-hot wilderness columns at covtype's
+    counts (scaled to ``n``); 40 one-hot soil columns from a Zipf(1.3)
+    draw independent of wilderness; a nonlinear label, half positive."""
+    rng = np.random.default_rng(seed)
+
+    def ints(x, lo, hi):
+        return np.clip(np.rint(x), lo, hi)
+
+    X = np.zeros((n, COVTYPE_FEATURES), np.float32)
+    X[:, 0] = ints(rng.normal(2959, 280, n), 1859, 3858)
+    X[:, 1] = rng.integers(0, 361, n)
+    X[:, 2] = ints(rng.gamma(3.0, 4.7, n), 0, 66)
+    X[:, 3] = ints(rng.exponential(270, n), 0, 1397)
+    X[:, 4] = ints(rng.normal(46, 58, n), -173, 601)
+    X[:, 5] = ints(rng.exponential(2350, n), 0, 7117)
+    X[:, 6] = ints(rng.normal(212, 27, n), 0, 254)
+    X[:, 7] = ints(rng.normal(223, 20, n), 0, 254)
+    X[:, 8] = ints(rng.normal(143, 38, n), 0, 254)
+    X[:, 9] = ints(rng.exponential(1980, n), 0, 7173)
+    counts = np.floor(np.array(WILDERNESS_COUNTS) * n
+                      / sum(WILDERNESS_COUNTS)).astype(np.int64)
+    counts[0] += n - counts.sum()
+    wild = rng.permutation(np.repeat(np.arange(4), counts))
+    X[np.arange(n), 10 + wild] = 1.0
+    p = np.arange(1, 41, dtype=np.float64) ** -1.3
+    soil = rng.choice(40, n, p=p / p.sum())
+    X[np.arange(n), 14 + soil] = 1.0
+    # the label's soil effects are part of the schema: one fixed draw,
+    # whatever the data's seed and size
+    effect = np.random.default_rng(LABEL_SEED).normal(0.0, 0.8, 40)
+    z = (((X[:, 0] - 2950) / 280) ** 2 + 0.5 * (wild == 1)
+         - 0.7 * (wild == 3) + effect[soil]
+         + 0.3 * np.sin(np.deg2rad(X[:, 1])) - 0.02 * X[:, 2]
+         + 0.5 * rng.normal(size=n))
+    return X, (z < np.median(z)).astype(np.float32)
+
+
+@contextlib.contextmanager
+def levers(env):
+    """The model's levers (``DMLC_*`` environment) set for a block, as the
+    bench sets them, and restored after."""
+    saved = {k: os.environ.get(k) for k in LEVER_NAMES}
+    for k in LEVER_NAMES:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# ---------------------------------------------------------------------------
+# the model's paths
+# ---------------------------------------------------------------------------
+
+def zero_counts(H):
+    for fn in (H.hist_kernel, H.fused_round_kernel):
+        fn.launches = 0
+        fn.layout_launches = 0
+
+
+def read_counts(H):
+    return {"hist": H.hist_kernel.launches,
+            "fused_round": H.fused_round_kernel.launches,
+            "hist_layout": H.hist_kernel.layout_launches,
+            "fused_round_layout": H.fused_round_kernel.layout_launches}
+
+
+def fit_path(torch, np, H, X, y, Xv, yv, env, min_acc):
+    """Drive one path: ``HistGBT.fit`` under ``env`` with the launch
+    counts set to 0 just before and read just after, train logloss after
+    every round (replayed from the trees), held-out accuracy, and
+    ``save_model`` → ``load_model`` giving the same predictions."""
     from dmlc_core_tpu_torch import HistGBT
     from dmlc_core_tpu_torch.models.histgbt import _predict_trees
     from dmlc_core_tpu_torch.ops.quantile import apply_bins
 
-    t0 = time.perf_counter()
-    X, y = higgs_like(np, ROWS, FEATURES, 7)
-    Xv, yv = higgs_like(np, 100_000, FEATURES, 8)
-    datagen_s = time.perf_counter() - t0
-    model = HistGBT(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS)
-    H.hist_kernel.launches = 0
-    H.fused_round_kernel.launches = 0
-    t0 = time.perf_counter()
-    model.fit(X, y)
-    wall_s = time.perf_counter() - t0
-    launches = {"hist": H.hist_kernel.launches,
-                "fused_round": H.fused_round_kernel.launches}
-    require(launches["hist"] == TREES,
-            f"hist launched {launches['hist']} times, want {TREES}")
-    want = (MAX_DEPTH - 1) * TREES
-    require(launches["fused_round"] == want,
-            f"fused_round launched {launches['fused_round']} times, want "
-            f"{want}")
-    # train logloss after each round, from the trees' margins
-    bins_t = apply_bins(torch.from_numpy(X).cuda(), model.cuts)
-    y_d = torch.from_numpy(y).cuda()
+    model = HistGBT(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS,
+                    device=DEVICE)
+    with levers(env):
+        zero_counts(H)
+        t0 = time.perf_counter()
+        model.fit(X, y)
+        wall_s = time.perf_counter() - t0
+        launches = read_counts(H)
+    n = len(X)
+    bins_t = apply_bins(torch.from_numpy(X).to(DEVICE), model.cuts)
+    y_d = torch.from_numpy(y).to(DEVICE)
     stacked = model._stacked_trees(model.trees)
-    margin = torch.zeros(ROWS, device="cuda")
+    margin = torch.zeros(n, device=DEVICE)
     losses = []
     for t in range(TREES):
         margin = _predict_trees(bins_t, stacked["feat"][t:t + 1],
@@ -332,60 +562,159 @@ def phase_main(torch, np, H, rates):
             and pv.min() >= 0.0 and pv.max() <= 1.0,
             "held-out predictions malformed")
     acc = float(((pv > 0.5) == (yv > 0.5)).mean())
-    require(acc > 0.6, f"held-out accuracy {acc} too low")
+    require(acc > min_acc, f"held-out accuracy {acc} too low")
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "model.bin")
         model.save_model(path)
-        again = HistGBT.load_model(path)
+        again = HistGBT.load_model(path, device=DEVICE)
         require(np.array_equal(again.predict(Xv), pv),
                 "load_model predictions differ")
+        with open(path, "rb") as f:
+            model_bytes = f.read()
+    steady_s = (model.last_tree_times[-1] - model.last_tree_times[0]) / (
+        TREES - 1)
+    stats = {"rows": n, "features": X.shape[1], "trees": TREES,
+             "max_depth": MAX_DEPTH, "n_bins": N_BINS, "levers": env,
+             "fit_seconds": model.last_fit_seconds,
+             "rounds_per_sec": TREES / model.last_fit_seconds,
+             # trees 2.. only: the first tree also pays each torch
+             # kernel's first launch on the card
+             "steady_rounds_per_sec": 1.0 / steady_s,
+             "tree_times": model.last_tree_times,
+             "bin_seconds": model.last_bin_seconds,
+             "fit_wall_seconds": wall_s, "train_logloss": losses,
+             "holdout_accuracy": acc, "launches": launches}
+    return model, stats, model_bytes
+
+
+def require_launches(launches, want, what):
+    for k, v in want.items():
+        require(launches[k] == v,
+                f"{what}: {k} launched {launches[k]} times, want {v}")
+
+
+def phase_main(torch, np, H, rates, X, y, Xv, yv):
+    """The depth-wise fit at the flagship's shapes (default levers)."""
+    _, stats, _ = fit_path(torch, np, H, X, y, Xv, yv, {}, 0.6)
+    require_launches(stats["launches"], {
+        "hist": TREES, "fused_round": (MAX_DEPTH - 1) * TREES,
+        "hist_layout": 0, "fused_round_layout": 0}, "main")
     # a round streams the [F, n] bin matrix once per level (fused) at the
     # least: the floor of a round's time on this card's HBM
     round_bytes = H.bins_bytes_per_round(MAX_DEPTH, ROWS, FEATURES,
                                          fused=True)
-    steady_s = (model.last_tree_times[-1] - model.last_tree_times[0]) / (
-        TREES - 1)
-    emit({"phase": "main", "rows": ROWS, "features": FEATURES,
-          "trees": TREES, "max_depth": MAX_DEPTH, "n_bins": N_BINS,
-          "fit_seconds": model.last_fit_seconds,
-          "rounds_per_sec": TREES / model.last_fit_seconds,
-          # trees 2.. only: the first tree also pays each torch kernel's
-          # first launch on the card
-          "steady_rounds_per_sec": 1.0 / steady_s,
+    emit({"phase": "main", **stats, "round_bin_bytes": round_bytes,
+          "round_bound_ms": round_bytes / rates[0] * 1e3,
+          "hist_builds_per_round": H.leaves_built_per_round(MAX_DEPTH)})
+    return stats["launches"]
+
+
+def phase_main_lossguide(torch, np, H, rates, X, y, Xv, yv):
+    """Configuration 1: the bench's flagship levers (lossguide, 16
+    leaves, int4 packing, feature bundling) on the HIGGS-like data, where
+    neither bin lever fires."""
+    model, stats, _ = fit_path(torch, np, H, X, y, Xv, yv, BENCH_LEVERS, 0.6)
+    require(model._bin_layout is None,
+            "configuration 1: a bin layout fired on HIGGS-like data")
+    require_launches(stats["launches"], {
+        "hist": TREES, "fused_round": (MAX_LEAVES - 1) * TREES,
+        "hist_layout": 0, "fused_round_layout": 0}, "main_lossguide")
+    kw = dict(grow_policy="lossguide", max_leaves=MAX_LEAVES, fused=True)
+    round_bytes = H.bins_bytes_per_round(MAX_DEPTH, ROWS, FEATURES, **kw)
+    emit({"phase": "main_lossguide", **stats, "bin_layout": None,
+          "launches_per_tree": {k: v / TREES
+                                for k, v in stats["launches"].items()},
           "round_bin_bytes": round_bytes,
           "round_bound_ms": round_bytes / rates[0] * 1e3,
-          "hist_builds_per_round": H.leaves_built_per_round(MAX_DEPTH),
-          "tree_times": model.last_tree_times,
-          "bin_seconds": model.last_bin_seconds, "fit_wall_seconds": wall_s,
-          "datagen_seconds": datagen_s, "train_logloss": losses,
-          "holdout_accuracy": acc, "launches": launches})
-    return launches, X[:100_000], y[:100_000]
+          "hist_builds_per_round": H.leaves_built_per_round(
+              MAX_DEPTH, "lossguide", MAX_LEAVES)})
+    return stats["launches"]
 
 
-def phase_cross_device(np, X, y):
+def phase_levers(torch, np, H, rates, X, y, Xv, yv):
+    """Configurations 2a (pack + bundle) and 2b (pack only) at covtype's
+    row count, each against the same lossguide fit with both levers off:
+    2b's model file byte-identical, 2a's split structure identical."""
+    off, off_stats, off_bytes = fit_path(torch, np, H, X, y, Xv, yv,
+                                         LEVERS_OFF, 0.7)
+    require(off._bin_layout is None, "levers-off fit has a layout")
+    total = {k: 0 for k in off_stats["launches"]}
+    for cfg, env in (("2a", BENCH_LEVERS), ("2b", PACK_ONLY)):
+        model, stats, model_bytes = fit_path(torch, np, H, X, y, Xv, yv, env,
+                                             0.7)
+        lay = model._bin_layout
+        require(lay is not None, f"config {cfg}: no layout fired")
+        n_bundles = sum(len(m) > 1 for m in lay.members)
+        if cfg == "2a":
+            require(n_bundles >= 1, "config 2a: no feature bundle")
+            require(all(np.array_equal(a["feat"], b["feat"])
+                        and np.array_equal(a["thr"], b["thr"])
+                        for a, b in zip(off.trees, model.trees)),
+                    "config 2a: split structure differs from levers off")
+        else:
+            require(len(lay.pairs) >= 1, "config 2b: no int4 pair")
+            require(model_bytes == off_bytes,
+                    "config 2b: model file differs from levers off")
+        require_launches(stats["launches"], {
+            "hist": 0, "fused_round": 0, "hist_layout": TREES,
+            "fused_round_layout": (MAX_LEAVES - 1) * TREES}, cfg)
+        for k, v in stats["launches"].items():
+            total[k] += v
+        kw = dict(grow_policy="lossguide", max_leaves=MAX_LEAVES, fused=True)
+        round_bytes = H.bins_bytes_per_round(MAX_DEPTH, len(X),
+                                             lay.phys_rows, **kw)
+        emit({"phase": "levers", "config": cfg, **stats,
+              "layout": {"phys_rows": lay.phys_rows,
+                         "storage_features": lay.storage_features,
+                         "sync_bins": lay.sync_bins,
+                         "pairs": len(lay.pairs), "bundles": n_bundles,
+                         "bundle_widths": [lay.widths[s] for s, m in
+                                           enumerate(lay.members)
+                                           if len(m) > 1]},
+              "levers_off_rounds_per_sec": off_stats["rounds_per_sec"],
+              "levers_off_steady_rounds_per_sec":
+                  off_stats["steady_rounds_per_sec"],
+              "same_structure_as_levers_off": all(
+                  np.array_equal(a["feat"], b["feat"])
+                  and np.array_equal(a["thr"], b["thr"])
+                  for a, b in zip(off.trees, model.trees)),
+              "same_model_file_as_levers_off": model_bytes == off_bytes,
+              "round_bin_bytes": round_bytes,
+              "round_bound_ms": round_bytes / rates[0] * 1e3})
+    return total
+
+
+def phase_cross_device(np, slices):
+    """Each configuration on a ``CROSS_ROWS`` slice, fit on the card and
+    on the CPU (plain versions): every tree bit-identical."""
     from dmlc_core_tpu_torch import HistGBT
 
     kw = dict(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS)
-    gpu = HistGBT(device="cuda", **kw).fit(X, y)
-    cpu = HistGBT(device="cpu", **kw).fit(X, y)
-    require(np.array_equal(gpu.cuts.cpu().numpy().view(np.uint32),
-                           cpu.cuts.numpy().view(np.uint32)),
-            "cuts differ between cuda and cpu")
-    for key in ("feat", "thr", "gain", "leaf"):
-        require(gpu.trees[0][key].tobytes() == cpu.trees[0][key].tobytes(),
-                f"tree 0 {key} differs between cuda and cpu")
-    for i, (a, b) in enumerate(zip(gpu.trees, cpu.trees)):
-        require(np.array_equal(a["feat"], b["feat"])
-                and np.array_equal(a["thr"], b["thr"]),
-                f"tree {i} split structure differs between cuda and cpu")
-    pg, pc = gpu.predict(X), cpu.predict(X)
-    require(np.allclose(pg, pc, rtol=1e-5, atol=1e-6),
-            "cuda and cpu predictions differ")
-    emit({"phase": "cross_device", "rows": len(X), "trees": TREES,
-          "max_abs_pred_diff": float(np.abs(pg - pc).max()),
-          "identical_trees": sum(
-              all(a[k].tobytes() == b[k].tobytes() for k in a)
-              for a, b in zip(gpu.trees, cpu.trees))})
+    for name, (X, y, env) in slices.items():
+        with levers(env):
+            gpu = HistGBT(device=DEVICE, **kw).fit(X, y)
+            cpu = HistGBT(device="cpu", **kw).fit(X, y)
+        require(np.array_equal(gpu.cuts.cpu().numpy().view(np.uint32),
+                               cpu.cuts.numpy().view(np.uint32)),
+                f"{name}: cuts differ between cuda and cpu")
+        require((gpu._bin_layout is None) == (cpu._bin_layout is None)
+                and (gpu._bin_layout is None
+                     or tuple(gpu._bin_layout) == tuple(cpu._bin_layout)),
+                f"{name}: layouts differ between cuda and cpu")
+        for i, (a, b) in enumerate(zip(gpu.trees, cpu.trees)):
+            for key in ("feat", "thr", "gain", "leaf"):
+                require(a[key].tobytes() == b[key].tobytes(),
+                        f"{name}: tree {i} {key} differs between cuda and "
+                        "cpu")
+        pg, pc = gpu.predict(X), cpu.predict(X)
+        require(np.array_equal(pg, pc),
+                f"{name}: cuda and cpu predictions differ")
+        emit({"phase": "cross_device", "config": name, "rows": len(X),
+              "trees": TREES, "levers": env,
+              "layout_phys_rows": (None if gpu._bin_layout is None
+                                   else gpu._bin_layout.phys_rows),
+              "identical_trees": len(gpu.trees),
+              "max_abs_pred_diff": float(np.abs(pg - pc).max())})
 
 
 def main() -> int:
@@ -403,14 +732,38 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device(torch, device_mod, _build)
     rates = card_rates(torch.cuda.get_device_name(0))
+    t0 = time.perf_counter()
+    X, y = higgs_like(np, ROWS, FEATURES, 7)
+    Xv, yv = higgs_like(np, 100_000, FEATURES, 8)
+    C, cy = covtype_like(np, COVTYPE_ROWS, COVTYPE_SEED)
+    Cv, cyv = covtype_like(np, 100_000, COVTYPE_SEED + 1)
+    emit({"phase": "data", "seconds": time.perf_counter() - t0,
+          "higgs_like": list(X.shape), "covtype_like": list(C.shape),
+          "covtype_positive_share": float(cy.mean())})
     kernels = phase_kernels(torch, H, rates)
-    launches, Xs, ys = phase_main(torch, np, H, rates)
-    phase_cross_device(np, Xs, ys)
-    del Xs, ys
-    phase_deep_kernels(torch, H, rates)
+    layout_kernels, mats = phase_kernels_layout(torch, np, H, rates, C, cy)
+    kernels.update(layout_kernels)
+    launches = {k: 0 for k in kernels}
+    for counts in (phase_main(torch, np, H, rates, X, y, Xv, yv),
+                   phase_main_lossguide(torch, np, H, rates, X, y, Xv, yv),
+                   phase_levers(torch, np, H, rates, C, cy, Cv, cyv)):
+        for k, v in counts.items():
+            launches[k] += v
+    for k, v in launches.items():
+        require(v > 0, f"{k} was never launched on the main paths")
+    s = slice(0, CROSS_ROWS)
+    phase_cross_device(np, {
+        "depthwise": (X[s], y[s], {}),
+        "1": (X[s], y[s], BENCH_LEVERS),
+        "2a": (C[s], cy[s], BENCH_LEVERS),
+        "2b": (C[s], cy[s], PACK_ONLY)})
+    del X, y, C, cy
+    phase_deep_kernels(torch, H, rates, mats)
     src = "dmlc_core_tpu_torch/ops/csrc/histogram.cu"
     replaces = {"hist": "dmlc_core_tpu/ops/histogram.py:369",
-                "fused_round": "dmlc_core_tpu/ops/histogram.py:531"}
+                "fused_round": "dmlc_core_tpu/ops/histogram.py:531",
+                "hist_layout": "dmlc_core_tpu/ops/histogram.py:450",
+                "fused_round_layout": "dmlc_core_tpu/ops/histogram.py:587"}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src,
          "replaces": replaces[name], "launches": launches[name],

@@ -9,8 +9,9 @@ path.  The Pallas TPU kernels on the ported path are hand-written CUDA
 kernels here (``ops/csrc``), each beside a plain PyTorch version of the
 same function that the CPU runs.
 
-Ported so far: dense in-core depth-wise ``HistGBT`` — fit, predict,
-save/load (model files interchangeable with the JAX package's).
+Ported so far: dense in-core ``HistGBT`` — depth-wise and loss-guide
+growth, int4 bin packing and feature bundling, fit, predict, save/load
+(model files interchangeable with the JAX package's).
 """
 
 from dmlc_core_tpu_torch.models.histgbt import HistGBT, HistGBTParam

@@ -16,6 +16,7 @@ the same dict in both packages.
 
 from __future__ import annotations
 
+import os
 from typing import (
     Any,
     Callable,
@@ -26,12 +27,16 @@ from typing import (
     Optional,
     Sequence,
     Tuple,
+    Type,
+    TypeVar,
     Union,
 )
 
 from dmlc_core_tpu_torch.base.logging import Error
 
-__all__ = ["Parameter", "field", "FieldEntry", "ParamInitOption"]
+__all__ = ["Parameter", "field", "FieldEntry", "ParamInitOption", "get_env"]
+
+T = TypeVar("T")
 
 _MISSING = object()
 
@@ -264,3 +269,19 @@ class Parameter(metaclass=_ParameterMeta):
 
     def __eq__(self, other: Any) -> bool:
         return type(other) is type(self) and other.to_dict() == self.to_dict()
+
+
+def get_env(name: str, default: T, type: Optional[Type[T]] = None) -> T:
+    """Typed environment-variable read.
+
+    Reference parity: ``dmlc::GetEnv<T>(name, default)`` (parameter.h).
+    The type is inferred from ``default`` unless given explicitly.
+    """
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    ty = type if type is not None else (default.__class__ if default is not None else str)
+    try:
+        return _str2type(raw, ty)  # type: ignore[return-value]
+    except ValueError as e:
+        raise Error(f"environment variable {name}: {e}") from e

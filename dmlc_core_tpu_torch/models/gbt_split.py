@@ -92,8 +92,9 @@ def _make_best_split(B: int, lam: float, gamma: float, mcw: float,
     return best_split
 
 
-def _advance_node(bins_t, node, feat, thr):
+def _advance_node(bins_t, node, feat, thr, layout=None):
     """Route rows one level down the tree by the per-node tables
     ``feat``/``thr``; padding rows (node<0) stay -1.  ``bins_t`` is
-    feature-major [F, n]."""
-    return descend_plain(bins_t, node, feat, thr, by_node=True)
+    feature-major [F, n], or the physical matrix of ``layout``."""
+    return descend_plain(bins_t, node, feat, thr, by_node=True,
+                         layout=layout)

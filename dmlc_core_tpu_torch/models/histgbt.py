@@ -1,49 +1,97 @@
 """Histogram gradient-boosted trees on one GPU (PyTorch port).
 
 The counterpart of ``dmlc_core_tpu/models/histgbt.py`` for its flagship
-path: dense, in-core, depth-wise ``HistGBT`` training
-(``binary:logistic`` / ``reg:squarederror``), prediction, and
-``save_model`` / ``load_model`` in the same file format.
+path: dense, in-core ``HistGBT`` training (``binary:logistic`` /
+``reg:squarederror``) with depth-wise or loss-guide growth, the bench's
+bin levers, prediction, and ``save_model`` / ``load_model`` in the same
+file format.
 
 One device, eager: the round is a Python loop over trees and levels in
 the JAX program's level order —
 
 * quantile cuts and binning on the device (``ops.quantile``), giving the
   feature-major uint8 ``[F, n]`` bin matrix;
-* per tree: grad/hess, then level 0 ``build_histogram`` over all rows,
-  each deeper level one ``fused_round`` (descend + left-child histograms
-  + sibling subtraction) with the split tables of the level above, split
-  scoring on the emitted histograms, a final descend, leaf values
-  ``−G/(H+λ)·η`` and ``preds += leaf[node]``.
+* with ``DMLC_BIN_PACK=1`` / ``DMLC_FEATURE_BUNDLE=1`` the matrix is
+  re-laid out once (``ops.binlayout``: int4 pairs of narrow features,
+  bundles of exclusive ones); histograms then stay in storage space and
+  split scoring sees them unbundled to the original space;
+* per tree, depth-wise (the default): grad/hess, then level 0
+  ``build_histogram`` over all rows, each deeper level one ``fused_round``
+  (descend + left-child histograms + sibling subtraction) with the split
+  tables of the level above, split scoring on the emitted histograms, a
+  final descend, leaf values ``−G/(H+λ)·η`` and ``preds += leaf[node]``;
+* per tree, loss-guide (``DMLC_GROW_POLICY=lossguide``,
+  ``DMLC_MAX_LEAVES``): the root histogram, then ``max_leaves − 1``
+  expansions of the open leaf with the best gain, each one
+  ``fused_round`` at ``n_prev=1`` over that leaf's rows, with the queue
+  kept on the device (no host sync per expansion).
 
 Trees are the JAX package's per-tree numpy arrays (``feat``, ``thr``,
-``gain`` ``[depth, 2^(depth-1)]``, ``leaf`` ``[2^depth]``), so model files
-and their consumers are unchanged.  Not ported yet: loss-guide growth, bin
-packing and feature bundling, NaN-as-missing, monotone constraints,
-multiclass and ranking objectives, row/column sampling, eval sets and
-early stopping, continued training, external memory, multi-GPU.
+``gain`` ``[depth, 2^(depth-1)]``, ``leaf`` ``[2^depth]``), in the original
+feature and bin space whatever the levers, so model files and their
+consumers are unchanged.  Not ported yet: NaN-as-missing, monotone
+constraints, multiclass and ranking objectives, row/column sampling, eval
+sets and early stopping, continued training, external memory, multi-GPU.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from dmlc_core_tpu_torch.base.logging import CHECK, CHECK_EQ, log_fatal
-from dmlc_core_tpu_torch.base.parameter import Parameter, field
+from dmlc_core_tpu_torch.base.logging import CHECK, CHECK_EQ, LOG, log_fatal
+from dmlc_core_tpu_torch.base.parameter import Parameter, field, get_env
 from dmlc_core_tpu_torch.models.gbt_objectives import (
     EVAL_METRIC_NAMES, OBJECTIVE_NAMES, OBJECTIVES, fold_scale_pos_weight)
 from dmlc_core_tpu_torch.models.gbt_split import (_advance_node,
                                                   _make_best_split, _maybe_l1)
+from dmlc_core_tpu_torch.ops import binlayout as _bl
 from dmlc_core_tpu_torch.ops.histogram import (build_histogram, fused_round,
                                                hist_scales)
-from dmlc_core_tpu_torch.ops.quantile import apply_bins, compute_cuts
+from dmlc_core_tpu_torch.ops.quantile import (apply_bins, compute_cuts,
+                                              xla_cumsum)
 from dmlc_core_tpu_torch.utils.device import resolve_device
 
 __all__ = ["HistGBT", "HistGBTParam"]
+
+
+def _grow_policy() -> str:
+    """Tree growth policy (``DMLC_GROW_POLICY``): ``depthwise`` (default)
+    or ``lossguide`` (LightGBM-style leaf-wise growth: expand the open
+    leaf with the best gain, building ONE histogram per expansion +
+    sibling subtraction)."""
+    v = os.environ.get("DMLC_GROW_POLICY", "depthwise")
+    CHECK(v in ("depthwise", "lossguide"),
+          f"DMLC_GROW_POLICY must be 'depthwise' or 'lossguide', got {v!r}")
+    return v
+
+
+def _max_leaves() -> int:
+    """``DMLC_MAX_LEAVES``: leaf budget for lossguide growth (0 = full
+    2^max_depth, i.e. no budget beyond the depth cap)."""
+    return get_env("DMLC_MAX_LEAVES", 0, int)
+
+
+def _bin_pack_requested() -> bool:
+    """``DMLC_BIN_PACK=1``: pack two ≤16-bin features per byte (int4) in
+    the feature-major bin matrix (ops.binlayout).  Bit-identical
+    histograms."""
+    return os.environ.get("DMLC_BIN_PACK", "0") == "1"
+
+
+def _feature_bundle_requested() -> bool:
+    """``DMLC_FEATURE_BUNDLE=1``: fuse mutually-exclusive (near-one-hot)
+    feature blocks into one multi-bin storage feature (EFB), with exact
+    unbundling at split evaluation (ops.binlayout.detect_bundles)."""
+    return os.environ.get("DMLC_FEATURE_BUNDLE", "0") == "1"
+
+
+#: lossguide histogram pool limit (the JAX package's CHECK)
+_POOL_LIMIT_BYTES = 256 << 20
 
 
 class HistGBTParam(Parameter):
@@ -133,6 +181,8 @@ class HistGBT:
         self.last_tree_times: List[float] = []
         self.last_bin_seconds: Optional[float] = None
         self._train_preds: Optional[torch.Tensor] = None
+        #: the storage layout of the last training matrix (None: plain)
+        self._bin_layout: Optional[_bl.BinLayout] = None
 
     def _objective(self):
         p = self.param
@@ -169,8 +219,10 @@ class HistGBT:
                          ) -> Dict[str, Any]:
         """Quantise + upload a training set once, for repeated fits: cuts
         (computed on the device, or ``cuts`` / the model's own), the
-        feature-major uint8 ``[F, n]`` bin matrix, labels and weights on
-        the device.  Sets ``self.cuts`` if unset."""
+        feature-major uint8 ``[F, n]`` bin matrix — re-laid out to the
+        physical ``[phys_rows, n]`` matrix when ``DMLC_BIN_PACK`` /
+        ``DMLC_FEATURE_BUNDLE`` find a non-trivial layout (``"layout"``) —
+        labels and weights on the device.  Sets ``self.cuts`` if unset."""
         p = self.param
         t0 = time.perf_counter()
         X = np.ascontiguousarray(X, dtype=np.float32)
@@ -194,6 +246,12 @@ class HistGBT:
                  "cuts width must be n_bins-1")
         bins_t = apply_bins(X_d, self.cuts)
         del X_d
+        layout = None
+        if _bin_pack_requested() or _feature_bundle_requested():
+            layout = self._compute_bin_layout(bins_t, F)
+            if layout is not None:
+                bins_t = _bl.pack_matrix(bins_t, layout)
+        self._bin_layout = layout
         dd = {
             "bins_t": bins_t,
             "y_d": torch.from_numpy(y).to(self.device),
@@ -201,19 +259,94 @@ class HistGBT:
                     if w_d is None else w_d),
             "n": n,
             "n_features": F,
+            "layout": layout,
         }
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_bin_seconds = time.perf_counter() - t0
         return dd
 
+    def _compute_bin_layout(self, bins_t: torch.Tensor, n_features: int
+                            ) -> Optional[_bl.BinLayout]:
+        """The packed/bundled storage layout of a binned ``[F, n]``
+        matrix (``DMLC_BIN_PACK`` / ``DMLC_FEATURE_BUNDLE``), or None.
+
+        Occupancy counts come from the binned rows (the cuts cannot say
+        how many bins a feature really uses).  Bundles are proposed on the
+        first ``min(n, 65536)`` rows, as the JAX package samples, and each
+        is verified exactly on the full matrix before it is kept."""
+        p = self.param
+        counts = _bl.bin_counts(bins_t, p.n_bins)
+        bundles: tuple = ()
+        if _feature_bundle_requested():
+            m = min(int(bins_t.shape[1]), 1 << 16)
+            sample = bins_t[:, :m].cpu().numpy()
+            proposed = _bl.detect_bundles(sample, counts, p.n_bins)
+            dflt = _bl.default_bins(counts)
+            bundles = tuple(b for b in proposed
+                            if self._bundle_exclusive(bins_t, b, dflt))
+            if len(proposed) != len(bundles):
+                LOG("INFO", "feature bundling: %d/%d sampled bundles "
+                    "survived exact full-data verification",
+                    len(bundles), len(proposed))
+        layout = _bl.compute_layout(counts, n_features, p.n_bins,
+                                    pack=_bin_pack_requested(),
+                                    bundles=bundles)
+        if layout is not None:
+            LOG("INFO", "bin layout: %d features -> %d physical rows "
+                "(%d int4 pairs, %d bundles; %d/%d sync bins)",
+                n_features, layout.phys_rows, len(layout.pairs),
+                sum(1 for mm in layout.members if len(mm) > 1),
+                layout.sync_bins, p.n_bins)
+        return layout
+
+    @staticmethod
+    def _bundle_exclusive(bins_t: torch.Tensor, bundle, defaults) -> bool:
+        """Exact mutual-exclusivity check of one proposed bundle over the
+        full matrix: no row may have two members off their DEFAULT bin."""
+        nz = torch.zeros(bins_t.shape[1], dtype=torch.int32,
+                         device=bins_t.device)
+        for f in bundle:
+            nz += (bins_t[int(f)] != int(defaults[int(f)])).to(torch.int32)
+        return int(nz.max()) <= 1
+
+    def _lossguide_leaves(self, n_features: int) -> int:
+        """The leaf budget of a lossguide tree, with the JAX package's
+        checks: at least 2 leaves, the histogram pool at most 256 MB."""
+        p = self.param
+        n_leaf = 1 << p.max_depth
+        max_leaves = _max_leaves()
+        CHECK(max_leaves >= 0, "DMLC_MAX_LEAVES must be >= 0")
+        leaves = min(max_leaves, n_leaf) if max_leaves else n_leaf
+        CHECK(leaves >= 2,
+              f"lossguide needs >= 2 leaves (max_depth={p.max_depth}, "
+              f"DMLC_MAX_LEAVES={max_leaves})")
+        CHECK(leaves * 2 * n_features * p.n_bins * 4 <= _POOL_LIMIT_BYTES,
+              f"lossguide histogram pool would exceed 256 MB "
+              f"({leaves} leaves x {n_features} features x {p.n_bins} "
+              f"bins) — lower DMLC_MAX_LEAVES or max_depth")
+        return leaves
+
     def fit_device(self, dd: Dict[str, Any]) -> "HistGBT":
         """Boost ``n_trees`` rounds over a :meth:`make_device_data`
-        handle; appends to ``self.trees``, sets ``last_fit_seconds``."""
+        handle; appends to ``self.trees``, sets ``last_fit_seconds``.
+        The growth policy is read from ``DMLC_GROW_POLICY`` here."""
         self._check_fit_params()
         p = self.param
         bins_t, y_d, w_d = dd["bins_t"], dd["y_d"], dd["w_d"]
+        layout = dd.get("layout")
+        self._bin_layout = layout
         CHECK(bins_t.dtype == torch.uint8, "n_bins > 256 is not supported")
+        if _grow_policy() == "lossguide":
+            leaves = self._lossguide_leaves(dd["n_features"])
+            heap = _heap_tables(p.max_depth, self.device)
+
+            def grow(g, h):
+                return self._grow_tree_lossguide(bins_t, g, h, layout,
+                                                 leaves, heap)
+        else:
+            def grow(g, h):
+                return self._grow_tree(bins_t, g, h, layout)
         preds = torch.full((dd["n"],), p.base_score, dtype=torch.float32,
                            device=self.device)
         self.last_tree_times = []
@@ -222,7 +355,7 @@ class HistGBT:
             g, h = self._obj.grad_hess(preds, y_d)
             g = g * w_d
             h = h * w_d
-            tree, delta = self._grow_tree(bins_t, g, h)
+            tree, delta = grow(g, h)
             preds = preds + delta
             # the copy to the host waits for the tree, so the timestamp
             # marks when its device work finished
@@ -235,7 +368,7 @@ class HistGBT:
         return self
 
     def _grow_tree(self, bins_t: torch.Tensor, g: torch.Tensor,
-                   h: torch.Tensor
+                   h: torch.Tensor, layout: Optional[_bl.BinLayout] = None
                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """One depth-wise tree on (g, h) → (tree arrays, margin delta).
 
@@ -243,16 +376,24 @@ class HistGBT:
         level is one fused round: rows descend by the level above's split
         tables, only LEFT children get a built histogram, the right child
         is parent − left.  All levels share one fixed-point scale pair,
-        so every histogram's bytes are independent of summation order."""
+        so every histogram's bytes are independent of summation order.
+        Under a ``layout`` histograms and the subtraction stay in storage
+        space; split scoring sees them unbundled."""
         p = self.param
         depth, B = p.max_depth, p.n_bins
         lam, alpha = p.reg_lambda, p.reg_alpha
         half = max((1 << depth) >> 1, 1)
-        best_split = _make_best_split(B, lam, p.gamma, p.min_child_weight,
-                                      alpha=alpha)
-        best_split_leaf = _make_best_split(B, lam, p.gamma,
-                                           p.min_child_weight,
-                                           with_child_sums=True, alpha=alpha)
+        split = _make_best_split(B, lam, p.gamma, p.min_child_weight,
+                                 alpha=alpha)
+        split_leaf = _make_best_split(B, lam, p.gamma, p.min_child_weight,
+                                      with_child_sums=True, alpha=alpha)
+
+        def best_split(hs):
+            return split(_bl.unbundle_hist(hs, layout, B))
+
+        def best_split_leaf(hs):
+            return split_leaf(_bl.unbundle_hist(hs, layout, B))
+
         scales = hist_scales(g, h)
         node = torch.zeros(bins_t.shape[1], dtype=torch.int32,
                            device=bins_t.device)
@@ -263,12 +404,13 @@ class HistGBT:
             score_fn = best_split_leaf if level == depth - 1 else best_split
             if level == 0:
                 hist = build_histogram(bins_t, node, g, h, 1, B,
-                                       scales=scales)
+                                       scales=scales, layout=layout)
                 scores = score_fn(hist)
             else:
                 node, hist, scores = fused_round(
                     bins_t, node, feat, thr, g, h, prev_hist, n_nodes >> 1,
-                    B, score_fn=score_fn, by_node=True, scales=scales)
+                    B, score_fn=score_fn, by_node=True, scales=scales,
+                    layout=layout)
             prev_hist = hist
             if level == depth - 1:
                 feat, thr, gn, gsum, hsum = scores
@@ -279,12 +421,153 @@ class HistGBT:
             thrs.append(torch.nn.functional.pad(thr, (0, pad)))
             gains.append(torch.nn.functional.pad(gn, (0, pad)))
         # final descend into the leaf layer
-        leaf_node = _advance_node(bins_t, node, feat, thr)
+        leaf_node = _advance_node(bins_t, node, feat, thr, layout)
         leaf_w = -_maybe_l1(gsum, alpha) / (hsum + lam)
         leaf = leaf_w * p.learning_rate
         tree = {"feat": torch.stack(feats), "thr": torch.stack(thrs),
                 "gain": torch.stack(gains), "leaf": leaf}
         return tree, leaf[leaf_node]
+
+    def _grow_tree_lossguide(self, bins_t: torch.Tensor, g: torch.Tensor,
+                             h: torch.Tensor,
+                             layout: Optional[_bl.BinLayout], n_leaves: int,
+                             heap: Tuple[torch.Tensor, torch.Tensor]
+                             ) -> Tuple[Dict[str, torch.Tensor],
+                                        torch.Tensor]:
+        """One LEAF-WISE tree on (g, h) → (tree arrays, margin delta).
+
+        LightGBM lossguide, as the JAX package grows it: a gain-priority
+        queue over open leaves (heap ids: root 1, children 2i / 2i+1); each
+        of the ``n_leaves − 1`` expansions splits the open leaf with the
+        best candidate gain (first maximum), builds ONE histogram — the
+        left child over that leaf's rows — and derives the right child
+        from the parent's pooled histogram, both in one ``fused_round``
+        at ``n_prev=1``.  An expansion whose best gain is not above
+        ``gamma`` changes nothing (the ``ok`` gate).
+
+        The queue lives on the device and every update is a masked
+        tensor op (writes that the gate cancels go to spare entries past
+        the end), so the loop launches all ``n_leaves − 1`` expansions
+        without a host sync, as the JAX ``scan`` does.  Trees come out in
+        depth-wise's complete-tree arrays: unexpanded slots carry feat 0,
+        thr B−1, gain 0, leaf −0.0."""
+        p = self.param
+        depth, B = p.max_depth, p.n_bins
+        lam, alpha, gamma = p.reg_lambda, p.reg_alpha, p.gamma
+        dev = bins_t.device
+        n = bins_t.shape[1]
+        n_leaf = 1 << depth
+        half = max(n_leaf >> 1, 1)
+        NH = 1 << (depth + 1)
+        L = n_leaves
+        levels, poss = heap
+        split = _make_best_split(B, lam, gamma, p.min_child_weight,
+                                 alpha=alpha)
+        scales = hist_scales(g, h)
+
+        def eval_nodes(hist_st):
+            """(feat, thr, gain, tot_g, tot_h) per node of a storage-space
+            histogram stack [2, N, S, Bs]."""
+            ev = _bl.unbundle_hist(hist_st, layout, B)
+            f_, t_, gn_ = split(ev)
+            tot = xla_cumsum(ev[:, :, :1])[..., 0, -1]        # [2, N]
+            return f_, t_, gn_, tot[0], tot[1]
+
+        i32, f32 = torch.int32, torch.float32
+        # ---- root ----
+        node = torch.ones(n, dtype=i32, device=dev)          # heap ids
+        root = build_histogram(bins_t, torch.zeros(n, dtype=i32, device=dev),
+                               g, h, 1, B, scales=scales, layout=layout)
+        f0, t0, g0, tg0, th0 = eval_nodes(root)
+        # per heap id, plus two spare entries (NH, NH+1) for cancelled writes
+        open_ = torch.zeros(NH + 2, dtype=torch.bool, device=dev)
+        open_[1] = True
+        leaf_g = torch.zeros(NH + 2, dtype=f32, device=dev)
+        leaf_h = torch.zeros(NH + 2, dtype=f32, device=dev)
+        leaf_g[1:2] = tg0
+        leaf_h[1:2] = th0
+        cand_feat = torch.zeros(NH + 2, dtype=i32, device=dev)
+        cand_thr = torch.full((NH + 2,), B - 1, dtype=i32, device=dev)
+        cand_gain = torch.full((NH + 2,), float("-inf"), dtype=f32,
+                               device=dev)
+        cand_feat[1:2] = f0
+        cand_thr[1:2] = t0
+        cand_gain[1:2] = g0
+        rec_feat = torch.zeros(NH + 2, dtype=i32, device=dev)
+        rec_thr = torch.full((NH + 2,), B - 1, dtype=i32, device=dev)
+        rec_gain = torch.zeros(NH + 2, dtype=f32, device=dev)
+        # histogram pool of the open leaves, storage space, + 2 spare slots
+        pool = torch.zeros((L + 2, 2) + tuple(root.shape[2:]), dtype=f32,
+                           device=dev)
+        pool[0] = root[:, 0]
+        pool_id = torch.zeros(L + 2, dtype=i32, device=dev)
+        pool_id[0] = 1
+        can_grow = levels < depth                               # [NH]
+
+        for _ in range(L - 1):
+            gains = torch.where(open_[:NH] & can_grow, cand_gain[:NH],
+                                float("-inf"))
+            hc = torch.argmax(gains).view(1)                    # int64 [1]
+            ok = gains.index_select(0, hc) > gamma              # [1]
+            fsel = cand_feat.index_select(0, hc)
+            tsel = cand_thr.index_select(0, hc)
+            hc_eff = torch.where(ok, hc, NH)
+            rec_feat.index_copy_(0, hc_eff, fsel)
+            rec_thr.index_copy_(0, hc_eff, tsel)
+            rec_gain.index_copy_(0, hc_eff, cand_gain.index_select(0, hc))
+            take = ok & (node == hc)                            # [n]
+            slot = torch.argmax((pool_id[:L] == hc).to(i32)).view(1)
+            # one fused round: descend the leaf's rows, build the left
+            # child, subtract it from the pooled parent
+            nn, pair, sc2 = fused_round(
+                bins_t, torch.where(take, 0, -1).to(i32), fsel, tsel, g, h,
+                pool.index_select(0, slot).transpose(0, 1), 1, B,
+                score_fn=eval_nodes, by_node=True, scales=scales,
+                layout=layout)
+            node = torch.where(take, 2 * node + (nn == 1).to(i32), node)
+            f2, t2, g2, tg2, th2 = sc2
+            # children at the depth cap never expand
+            child_lvl = levels.index_select(0, (2 * hc).clamp(max=NH - 1))
+            g2 = torch.where(child_lvl < depth, g2, float("-inf"))
+            kids = torch.cat([torch.where(ok, 2 * hc, NH),
+                              torch.where(ok, 2 * hc + 1, NH + 1)])
+            open_.index_fill_(0, hc_eff, False)
+            open_.index_fill_(0, kids, True)
+            leaf_g.index_copy_(0, kids, tg2)
+            leaf_h.index_copy_(0, kids, th2)
+            cand_feat.index_copy_(0, kids, f2)
+            cand_thr.index_copy_(0, kids, t2)
+            cand_gain.index_copy_(0, kids, g2)
+            # pool: the parent's slot takes the left child, the first free
+            # slot (searched before that overwrite) the right
+            free = torch.argmax((pool_id[:L] == 0).to(i32)).view(1)
+            slots = torch.cat([torch.where(ok, slot, L),
+                               torch.where(ok, free, L + 1)])
+            pool.index_copy_(0, slots, pair.transpose(0, 1))
+            pool_id.index_copy_(0, slots, torch.cat([2 * hc, 2 * hc + 1]
+                                                    ).to(i32))
+
+        # leaf table in depth-wise's positional layout: every position an
+        # open leaf does not own is an empty leaf, exactly −0.0
+        is_open = open_[:NH]
+        w_all = (-_maybe_l1(leaf_g[:NH], alpha) / (leaf_h[:NH] + lam)
+                 ) * p.learning_rate
+        spare = n_leaf + torch.arange(NH, device=dev)
+        pos = torch.where(is_open, poss, spare)
+        leaf = torch.full((n_leaf + NH,), -0.0, dtype=f32, device=dev)
+        leaf.index_copy_(0, pos, w_all)
+        leaf = leaf[:n_leaf]
+
+        def per_level(a):
+            return torch.stack([
+                torch.nn.functional.pad(a[1 << lv:1 << (lv + 1)],
+                                        (0, half - (1 << lv)))
+                for lv in range(depth)])
+
+        tree = {"feat": per_level(rec_feat), "thr": per_level(rec_thr),
+                "gain": per_level(rec_gain), "leaf": leaf}
+        delta = torch.where(is_open, w_all, 0.0)[node.to(torch.int64)]
+        return tree, delta
 
     def train_margins(self) -> np.ndarray:
         """Raw training-set margins after :meth:`fit`."""
@@ -416,6 +699,21 @@ class HistGBT:
         finally:
             s.close()
         return cls.from_state(payload, device=device)
+
+
+def _heap_tables(depth: int, device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per heap id ``i`` in ``[0, 2^(depth+1))``: its level and its leaf
+    position (the leftmost depth-level descendant), as device tensors."""
+    NH = 1 << (depth + 1)
+    level = np.zeros(NH, np.int32)
+    pos = np.zeros(NH, np.int64)
+    for i in range(1, NH):
+        lvl = i.bit_length() - 1
+        level[i] = lvl
+        pos[i] = (i - (1 << lvl)) << (depth - lvl)
+    return (torch.from_numpy(level).to(device),
+            torch.from_numpy(pos).to(device))
 
 
 def _predict_trees(bins_t, feats, thrs, leaves, depth: int, init):

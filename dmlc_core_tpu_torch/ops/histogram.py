@@ -16,6 +16,17 @@ function:
   descend, left-child histograms, sibling subtraction (replaces the Pallas
   ``_fused_round_kernel``).
 
+Each has a LAYOUT MODE (``layout=`` a :class:`~dmlc_core_tpu_torch.ops.
+binlayout.BinLayout`): the input is then the physical ``[phys_rows, n]``
+matrix (int4-packed and/or bundled), the histograms are in storage space
+``[2, N, S, Bs]`` (``Bs = layout.sync_bins``), and the descend decodes the
+selected feature's byte back to its ORIGINAL bin id, so thresholds stay in
+the original bin space.  One CUDA kernel serves both modes: it reads a
+per-physical-row slot table and a per-feature decode table
+(:func:`~dmlc_core_tpu_torch.ops.binlayout.kernel_tables`), the identity
+without a layout.  The wrappers count layout-mode launches apart:
+``hist_kernel.layout_launches``, ``fused_round_kernel.layout_launches``.
+
 Both accumulate in int64 FIXED POINT: each row's g/h is rounded to
 ``rint(v · 2^k)`` with one power-of-two scale per plane
 (:func:`hist_scales`, chosen so that ``n · max|q| < 2^53``), summed as
@@ -40,6 +51,7 @@ import numpy as np
 import torch
 
 from dmlc_core_tpu_torch.base.logging import CHECK, CHECK_EQ, log_fatal
+from dmlc_core_tpu_torch.ops import binlayout as bl
 
 __all__ = ["build_histogram", "fused_round", "select_feature_bins",
            "hist_scales", "hist_kernel", "hist_plain", "fused_round_kernel",
@@ -52,21 +64,34 @@ SCALE_BITS = 53
 _SCALE_CLAMP = 100
 
 
-def leaves_built_per_round(depth: int) -> int:
-    """Histogram BUILDS one depth-wise boosting round pays (sibling
-    subtraction derives the rest for free): the root plus every level's
-    left children — ``2^(depth-1)``."""
+def leaves_built_per_round(depth: int, grow_policy: str = "depthwise",
+                           max_leaves: int = 0) -> int:
+    """Histogram BUILDS one boosting round pays (sibling subtraction
+    derives the rest for free).  Depth-wise: the root plus every level's
+    left children — ``2^(depth-1)``.  Loss-guide: the root plus one per
+    expansion — ``max_leaves`` (``2^depth`` when unlimited)."""
+    if grow_policy == "lossguide":
+        return min(max_leaves, 1 << depth) if max_leaves else 1 << depth
     return 1 if depth <= 1 else 1 << (depth - 1)
 
 
 def bins_bytes_per_round(depth: int, rows: int, row_bytes: int, *,
+                         grow_policy: str = "depthwise",
+                         max_leaves: int = 0,
                          fused: bool = False) -> int:
-    """Bin-matrix bytes ONE depth-wise boosting round streams: the number
-    of full passes over the ``[F, n]`` matrix times its size.  Unfused:
-    ``2·depth − 1`` passes (root histogram, a descend plus a histogram
-    pass per deeper level, the final descend); the fused round collapses
-    each level's descend + histogram into one read — ``depth`` passes."""
-    passes = depth if fused else 2 * depth - 1
+    """Bin-matrix bytes ONE boosting round streams: the number of full
+    passes over the ``[phys_rows, n]`` matrix (``row_bytes`` =
+    ``layout.phys_rows`` under a layout, F otherwise) times its size.
+    Depth-wise unfused: ``2·depth − 1`` passes (root histogram, a descend
+    plus a histogram pass per deeper level, the final descend); the fused
+    round collapses each level's descend + histogram into one read —
+    ``depth`` passes.  Loss-guide: ``2·leaves − 1`` unfused, ``leaves``
+    fused."""
+    if grow_policy == "lossguide":
+        leaves = leaves_built_per_round(depth, "lossguide", max_leaves)
+        passes = leaves if fused else 2 * leaves - 1
+    else:
+        passes = depth if fused else 2 * depth - 1
     return max(passes, 1) * rows * row_bytes
 
 
@@ -109,13 +134,13 @@ def _dequantize(acc: torch.Tensor, k: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _accum_plain(bins_t, node_h, grad, hess, n_nodes, n_bins, kg, kh):
-    """int64 [2, n_nodes·F·n_bins] fixed-point sums over rows with
-    ``node_h >= 0`` (index_add_ per feature: integer, so order-free)."""
+    """int64 [2, n_nodes·F·n_bins] fixed-point sums over the rows of
+    ``bins_t`` (every row adds: the caller drops rows with node < 0);
+    index_add_ per feature — integer, so order-free."""
     F, n = bins_t.shape
-    valid = node_h >= 0
-    qg = torch.where(valid, _quantize(grad, kg), 0)
-    qh = torch.where(valid, _quantize(hess, kh), 0)
-    base = torch.where(valid, node_h, 0).to(torch.int64) * (F * n_bins)
+    qg = _quantize(grad, kg)
+    qh = _quantize(hess, kh)
+    base = node_h.to(torch.int64) * (F * n_bins)
     acc = torch.zeros(2, n_nodes * F * n_bins, dtype=torch.int64,
                       device=bins_t.device)
     for f in range(F):
@@ -127,28 +152,40 @@ def _accum_plain(bins_t, node_h, grad, hess, n_nodes, n_bins, kg, kh):
 
 def hist_plain(bins_t: torch.Tensor, node_id: torch.Tensor,
                grad: torch.Tensor, hess: torch.Tensor, n_nodes: int,
-               n_bins: int, kg: int, kh: int) -> torch.Tensor:
+               n_bins: int, kg: int, kh: int,
+               layout: Optional[bl.BinLayout] = None) -> torch.Tensor:
     """Plain version of :func:`hist_kernel`: the same fixed-point sums,
-    bit-identical to it on any device."""
-    F = bins_t.shape[0]
-    acc = _accum_plain(bins_t, node_id, grad, hess, n_nodes, n_bins, kg, kh)
+    bit-identical to it on any device.  Under a ``layout`` the physical
+    matrix unpacks to the storage matrix first and the result is
+    ``[2, n_nodes, S, layout.sync_bins]``."""
+    rows = torch.nonzero(node_id >= 0).squeeze(1)     # rows that add
+    bins_v = bins_t[:, rows]
+    if layout is not None:
+        bins_v = bl.unpack_matrix(bins_v, layout)
+        n_bins = layout.sync_bins
+    F = bins_v.shape[0]
+    acc = _accum_plain(bins_v, node_id[rows], grad[rows], hess[rows],
+                       n_nodes, n_bins, kg, kh)
     return torch.stack([_dequantize(acc[0], kg), _dequantize(acc[1], kh)]
                        ).reshape(2, n_nodes, F, n_bins)
 
 
 def descend_plain(bins_t: torch.Tensor, node_id: torch.Tensor,
                   feat: torch.Tensor, thr: torch.Tensor,
-                  by_node: bool = True) -> torch.Tensor:
+                  by_node: bool = True,
+                  layout: Optional[bl.BinLayout] = None) -> torch.Tensor:
     """Route rows one level down: ``2·node + (bins[feat, r] > thr)`` as
     int32, rows with ``node < 0`` staying −1.  ``feat``/``thr`` are
-    per-node tables (``by_node``) or per-row arrays.  The one plain
+    per-node tables (``by_node``) or per-row arrays, in the ORIGINAL
+    feature and bin space (under a ``layout`` too).  The one plain
     descend of the package — the kernel's descend pass, training's final
     descend and prediction all route by it."""
     valid = node_id >= 0
     if by_node:
         key = torch.where(valid, node_id, 0).to(torch.int64)
         feat, thr = feat[key], thr[key]
-    go_right = (select_feature_bins(bins_t, feat) > thr).to(torch.int32)
+    go_right = (select_feature_bins(bins_t, feat, layout=layout) > thr
+                ).to(torch.int32)
     return torch.where(valid, 2 * node_id + go_right, -1).to(torch.int32)
 
 
@@ -156,17 +193,20 @@ def fused_round_plain(bins_t: torch.Tensor, node_id: torch.Tensor,
                       feat: torch.Tensor, thr: torch.Tensor,
                       grad: torch.Tensor, hess: torch.Tensor,
                       prev_hist: torch.Tensor, n_prev: int, n_bins: int,
-                      kg: int, kh: int, by_node: bool = False
+                      kg: int, kh: int, by_node: bool = False,
+                      layout: Optional[bl.BinLayout] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`fused_round_kernel`: ``(new_node [n],
-    hist [2, 2·n_prev, F, n_bins])``."""
-    F = bins_t.shape[0]
-    new_node = descend_plain(bins_t, node_id, feat, thr, by_node)
+    hist [2, 2·n_prev, F, n_bins])`` — ``[2, 2·n_prev, S, Bs]`` in
+    storage space under a ``layout``."""
+    new_node = descend_plain(bins_t, node_id, feat, thr, by_node, layout)
     left_ok = (new_node >= 0) & (new_node % 2 == 0)
     node_h = torch.where(left_ok, new_node >> 1, -1)
-    left = hist_plain(bins_t, node_h, grad, hess, n_prev, n_bins, kg, kh)
+    left = hist_plain(bins_t, node_h, grad, hess, n_prev, n_bins, kg, kh,
+                      layout)
     right = prev_hist - left
-    hist = torch.stack([left, right], dim=2).reshape(2, 2 * n_prev, F, n_bins)
+    hist = torch.stack([left, right], dim=2).reshape(
+        2, 2 * n_prev, *left.shape[2:])
     return new_node, hist
 
 
@@ -185,11 +225,15 @@ def _check_launch(rc: int, what: str) -> None:
         log_fatal(f"{what}: CUDA launch failed with cudaError {rc}")
 
 
-def _check_inputs(bins_t, node_id, grad, hess, n_bins):
+def _check_inputs(bins_t, node_id, grad, hess, n_bins, layout=None):
     CHECK(bins_t.is_cuda, "kernel inputs must be CUDA tensors")
     CHECK(bins_t.dtype == torch.uint8 and bins_t.dim() == 2
           and bins_t.is_contiguous(),
           "bins_t must be a contiguous feature-major [F, n] uint8 tensor")
+    if layout is not None:
+        CHECK_EQ(bins_t.shape[0], layout.phys_rows,
+                 "under a layout bins_t is the physical [phys_rows, n] "
+                 "matrix")
     n = bins_t.shape[1]
     for name, t, dt in (("node_id", node_id, torch.int32),
                         ("grad", grad, torch.float32),
@@ -202,14 +246,19 @@ def _check_inputs(bins_t, node_id, grad, hess, n_bins):
 
 
 def _accum_kernel(bins_t, node, grad, hess, n_nodes, n_bins, kg, kh,
-                  left_only):
-    F, n = bins_t.shape
-    acc = torch.zeros(2, n_nodes, F, n_bins, dtype=torch.int64,
+                  left_only, layout, slots):
+    """int64 ``[2, n_nodes, S, n_bins]`` fixed-point sums (S = F without a
+    layout); ``slots`` from :func:`~dmlc_core_tpu_torch.ops.binlayout.
+    kernel_tables`."""
+    P, n = bins_t.shape
+    S = P if layout is None else layout.storage_features
+    acc = torch.zeros(2, n_nodes, S, n_bins, dtype=torch.int64,
                       device=bins_t.device)
     rc = _lib().dmlc_hist_accum(
         bins_t.data_ptr(), node.data_ptr(), grad.data_ptr(), hess.data_ptr(),
-        n, F, n_nodes, n_bins, 2.0 ** kg, 2.0 ** kh, int(left_only),
-        acc.data_ptr(), torch.cuda.current_stream(bins_t.device).cuda_stream)
+        n, P, slots.data_ptr(), S, n_nodes, n_bins, 2.0 ** kg, 2.0 ** kh,
+        int(left_only), acc.data_ptr(),
+        torch.cuda.current_stream(bins_t.device).cuda_stream)
     _check_launch(rc, "dmlc_hist_accum")
     return acc
 
@@ -228,34 +277,51 @@ def _epilogue_kernel(acc, prev, n_nodes, kg, kh):
 
 def hist_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
                 grad: torch.Tensor, hess: torch.Tensor, n_nodes: int,
-                n_bins: int, kg: int, kh: int) -> torch.Tensor:
+                n_bins: int, kg: int, kh: int,
+                layout: Optional[bl.BinLayout] = None) -> torch.Tensor:
     """CUDA histogram ``[2, n_nodes, F, n_bins]`` f32 (two launches:
-    fixed-point accumulation, then the dequantising epilogue).  Counts
-    its calls in ``hist_kernel.launches``."""
-    _check_inputs(bins_t, node_id, grad, hess, n_bins)
+    fixed-point accumulation, then the dequantising epilogue).  Under a
+    ``layout``: the physical matrix in, ``[2, n_nodes, S, Bs]`` out (the
+    layout mode).  Counts its calls in ``hist_kernel.launches``, its
+    layout-mode calls in ``hist_kernel.layout_launches``."""
+    if layout is not None:
+        n_bins = layout.sync_bins
+    _check_inputs(bins_t, node_id, grad, hess, n_bins, layout)
+    slots, _ = bl.kernel_tables(layout, bins_t.shape[0], bins_t.device)
     acc = _accum_kernel(bins_t, node_id, grad, hess, n_nodes, n_bins, kg, kh,
-                        left_only=False)
+                        False, layout, slots)
     out = _epilogue_kernel(acc, None, n_nodes, kg, kh)
-    hist_kernel.launches += 1
+    if layout is None:
+        hist_kernel.launches += 1
+    else:
+        hist_kernel.layout_launches += 1
     return out
 
 
 hist_kernel.launches = 0
+hist_kernel.layout_launches = 0
 
 
 def fused_round_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
                        feat: torch.Tensor, thr: torch.Tensor,
                        grad: torch.Tensor, hess: torch.Tensor,
                        prev_hist: torch.Tensor, n_prev: int, n_bins: int,
-                       kg: int, kh: int, by_node: bool = False
+                       kg: int, kh: int, by_node: bool = False,
+                       layout: Optional[bl.BinLayout] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CUDA tree level: ``(new_node [n], hist [2, 2·n_prev, F, n_bins])``
     (three launches: descend, left-child accumulation, subtraction
     epilogue).  ``feat``/``thr`` are per-node tables ``[n_prev]``
-    (``by_node``) or per-row arrays ``[n]``.  Counts its calls in
-    ``fused_round_kernel.launches``."""
-    _check_inputs(bins_t, node_id, grad, hess, n_bins)
-    F, n = bins_t.shape
+    (``by_node``) or per-row arrays ``[n]``, in the original feature and
+    bin space.  Under a ``layout`` (the layout mode) the matrix is
+    physical and ``prev_hist``/``hist`` are in storage space
+    ``[.., S, Bs]``.  Counts its calls in ``fused_round_kernel.launches``,
+    its layout-mode calls in ``fused_round_kernel.layout_launches``."""
+    if layout is not None:
+        n_bins = layout.sync_bins
+    _check_inputs(bins_t, node_id, grad, hess, n_bins, layout)
+    n = bins_t.shape[1]
+    S = layout.storage_features if layout is not None else bins_t.shape[0]
     m = n_prev if by_node else n
     for name, t in (("feat", feat), ("thr", thr)):
         CHECK(t.device == bins_t.device and t.dtype == torch.int32
@@ -263,24 +329,30 @@ def fused_round_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
               f"{name} must be a contiguous [{m}] int32 tensor")
     CHECK(prev_hist.device == bins_t.device
           and prev_hist.dtype == torch.float32
-          and prev_hist.shape == (2, n_prev, F, n_bins)
+          and prev_hist.shape == (2, n_prev, S, n_bins)
           and prev_hist.is_contiguous(),
-          f"prev_hist must be a contiguous [2, {n_prev}, {F}, {n_bins}] "
+          f"prev_hist must be a contiguous [2, {n_prev}, {S}, {n_bins}] "
           "float32 tensor")
     new_node = torch.empty(n, dtype=torch.int32, device=bins_t.device)
+    F = bins_t.shape[0] if layout is None else layout.n_features
+    slots, dec = bl.kernel_tables(layout, F, bins_t.device)
     rc = _lib().dmlc_descend(
         bins_t.data_ptr(), node_id.data_ptr(), feat.data_ptr(),
-        thr.data_ptr(), int(by_node), n, new_node.data_ptr(),
+        thr.data_ptr(), int(by_node), n, dec.data_ptr(), new_node.data_ptr(),
         torch.cuda.current_stream(bins_t.device).cuda_stream)
     _check_launch(rc, "dmlc_descend")
     acc = _accum_kernel(bins_t, new_node, grad, hess, n_prev, n_bins, kg, kh,
-                        left_only=True)
+                        True, layout, slots)
     hist = _epilogue_kernel(acc, prev_hist, n_prev, kg, kh)
-    fused_round_kernel.launches += 1
+    if layout is None:
+        fused_round_kernel.launches += 1
+    else:
+        fused_round_kernel.layout_launches += 1
     return new_node, hist
 
 
 fused_round_kernel.launches = 0
+fused_round_kernel.layout_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -289,18 +361,23 @@ fused_round_kernel.launches = 0
 
 def build_histogram(bins_t: torch.Tensor, node_id: torch.Tensor,
                     grad: torch.Tensor, hess: torch.Tensor, n_nodes: int,
-                    n_bins: int, *, scales: Optional[Tuple[int, int]] = None
-                    ) -> torch.Tensor:
+                    n_bins: int, *, scales: Optional[Tuple[int, int]] = None,
+                    layout: Optional[bl.BinLayout] = None) -> torch.Tensor:
     """Return ``hist[2, n_nodes, F, n_bins]`` for the feature-major bin
     matrix ``bins_t [F, n]``.  ``scales`` are the fixed-point exponents of
     :func:`hist_scales` (computed from ``grad``/``hess`` when omitted).
-    CUDA tensors run :func:`hist_kernel`, CPU tensors :func:`hist_plain`."""
+    Under a ``layout`` ``bins_t`` is the physical ``[phys_rows, n]``
+    matrix and the result is the storage-space ``[2, n_nodes, S, Bs]``
+    (:func:`~dmlc_core_tpu_torch.ops.binlayout.unbundle_hist` maps it back
+    for split scoring).  CUDA tensors run :func:`hist_kernel`, CPU
+    tensors :func:`hist_plain`."""
     kg, kh = scales if scales is not None else hist_scales(grad, hess)
     if bins_t.is_cuda:
         return hist_kernel(bins_t, node_id, grad, hess, n_nodes, n_bins,
-                           kg, kh)
+                           kg, kh, layout)
     CHECK_EQ(bins_t.device.type, "cpu", "unsupported device")
-    return hist_plain(bins_t, node_id, grad, hess, n_nodes, n_bins, kg, kh)
+    return hist_plain(bins_t, node_id, grad, hess, n_nodes, n_bins, kg, kh,
+                      layout)
 
 
 def fused_round(bins_t: torch.Tensor, node_id: torch.Tensor,
@@ -308,36 +385,45 @@ def fused_round(bins_t: torch.Tensor, node_id: torch.Tensor,
                 grad: torch.Tensor, hess: torch.Tensor,
                 prev_hist: torch.Tensor, n_prev: int, n_bins: int, *,
                 score_fn: Optional[Callable] = None, by_node: bool = False,
-                scales: Optional[Tuple[int, int]] = None):
+                scales: Optional[Tuple[int, int]] = None,
+                layout: Optional[bl.BinLayout] = None):
     """Advance rows one level AND produce both children's histograms:
     ``(new_node [n], hist [2, 2·n_prev, F, n_bins], score_fn(hist))``
     with ``hist[:, c]`` the histogram of child ``c`` (``2p``/``2p+1``
-    interleaved) — the JAX ``fused_round`` with ``layout=None``.
+    interleaved) — the JAX ``fused_round``.
 
     ``feat_sel``/``thr_sel`` are per-row ``[n]`` as in JAX, or with
     ``by_node=True`` the per-node split tables ``[n_prev]`` (looked up
-    per row inside the kernel; the training loop's form).  ``prev_hist``
-    is the level above's ``[2, n_prev, F, n_bins]`` histogram, built at
-    the same ``scales``."""
+    per row inside the kernel; the training loop's form), in the
+    ORIGINAL feature and bin space.  ``prev_hist`` is the level above's
+    ``[2, n_prev, F, n_bins]`` histogram, built at the same ``scales``.
+    Under a ``layout`` the matrix is physical and ``prev_hist``/``hist``
+    are storage-space ``[.., S, Bs]``."""
     kg, kh = scales if scales is not None else hist_scales(grad, hess)
     feat = feat_sel.to(torch.int32).contiguous()
     thr = thr_sel.to(torch.int32).contiguous()
     if bins_t.is_cuda:
         new_node, hist = fused_round_kernel(
             bins_t, node_id, feat, thr, grad, hess,
-            prev_hist.contiguous(), n_prev, n_bins, kg, kh, by_node)
+            prev_hist.contiguous(), n_prev, n_bins, kg, kh, by_node, layout)
     else:
         CHECK_EQ(bins_t.device.type, "cpu", "unsupported device")
         new_node, hist = fused_round_plain(
             bins_t, node_id, feat, thr, grad, hess, prev_hist, n_prev,
-            n_bins, kg, kh, by_node)
+            n_bins, kg, kh, by_node, layout)
     scores = score_fn(hist) if score_fn is not None else None
     return new_node, hist, scores
 
 
-def select_feature_bins(bins_t: torch.Tensor,
-                        feat_sel: torch.Tensor) -> torch.Tensor:
-    """``bins_t[feat_sel[r], r]`` for every row r, as int32."""
+def select_feature_bins(bins_t: torch.Tensor, feat_sel: torch.Tensor,
+                        layout: Optional[bl.BinLayout] = None
+                        ) -> torch.Tensor:
+    """``bins_t[feat_sel[r], r]`` for every row r, as int32.  Under a
+    ``layout`` the matrix is physical and ``feat_sel`` names ORIGINAL
+    features: :func:`~dmlc_core_tpu_torch.ops.binlayout.select_bins`
+    decodes the original bin id."""
+    if layout is not None:
+        return bl.select_bins(bins_t, feat_sel, layout)
     n = bins_t.shape[1]
     return bins_t[feat_sel.to(torch.int64),
                   torch.arange(n, device=bins_t.device)].to(torch.int32)
