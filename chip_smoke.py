@@ -13,11 +13,13 @@ and the script exits non-zero without the final ``ok`` line:
    seeds: HIGGS-like 10M × 28 (bench.py's rule, seed 7) and covtype-schema
    581,012 × 54 (:func:`covtype_like`);
 2. kernels — each kernel at the flagship's shapes (10M rows, 28 features,
-   256 bins: ``hist`` at the root, ``fused_round`` at n_prev 1..16) against
-   its plain PyTorch version on the same inputs (bit-identical), twice on
-   the same inputs (identical bytes), timed with CUDA events (median of
-   ``REPS``) beside its bound and, where one PyTorch call computes the
-   same function, that call;
+   256 bins: ``hist`` at the root, ``fused_round`` and ``fused_descend``
+   at n_prev 1..16) against its plain PyTorch version on the same inputs
+   (bit-identical), twice on the same inputs (identical bytes), timed with
+   CUDA events (median of ``REPS``) beside its bound and, where one
+   PyTorch call computes the same function, that call (``fused_descend``
+   also beside the unfused chain it replaces: the torch descend, then
+   ``hist`` over left children);
 3. kernels_layout — the same for the LAYOUT MODES (``hist_layout``,
    ``fused_round_layout`` at n_prev 1, 4, 16) on the physical matrices of
    configurations 2a (12 rows: two bundles) and 2b (34 rows: 22 int4
@@ -38,13 +40,24 @@ and the script exits non-zero without the final ``ok`` line:
    file byte-identical, 2a's split structure identical;
 7. cross-device — depth-wise, 1, 2a and 2b on 100k-row slices, on the GPU
    and on the CPU (plain versions): every tree bit-identical;
-8. deep kernels — the checks of phases 2 and 3 for ``fused_round`` at
-   the levels of deeper trees (n_prev 32, 64 and 2048 on the flagship's
-   shapes, 64 and 2048 under each covtype layout, up to
-   ``max_depth=12``), where the histogram outgrows shared memory and the
-   kernel adds straight into the global one;
-9. the ``kernels`` line (launches summed over phases 4-6), then the card's
-   name and power limit, then the ``ok`` line.
+8. data_parallel — the data-parallel fit on the HIGGS-like rows: (a) a
+   NCCL group of one on this card, ``DMLC_HIST_BLOCKS=8`` and
+   ``DMLC_TPU_FUSED_DESCEND=1``: 5 ``fused_descend`` and no
+   ``fused_round`` per tree, the model file of phase 4; (b) two ranks
+   sharing this card under gloo (NCCL refuses two ranks on one GPU), 5M
+   rows each, depth-wise and configuration 1 with
+   ``DMLC_TPU_FUSED_DESCEND=1``: each rank's model file that of phase 4
+   / 5; (c) the int8 sync (``DMLC_HIST_QUANT=1``) on the two ranks: the
+   held-out accuracy floor of phase 4, its margins beside (b)'s exact
+   ones.  The ranks are child processes with a time limit;
+9. deep kernels — the checks of phases 2 and 3 for ``fused_round`` and
+   ``fused_descend`` at the levels of deeper trees (n_prev 32, 64 and
+   2048 on the flagship's shapes, 64 and 2048 under each covtype layout
+   for ``fused_round``, up to ``max_depth=12``), where the histogram
+   outgrows shared memory and the kernel adds straight into the global
+   one;
+10. the ``kernels`` line (launches summed over phases 4-6 and 8), then
+    the card's name and power limit, then the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -96,11 +109,21 @@ CROSS_ROWS = 100_000
 #: the bench's levers (bench.py's flagship) and the A/B variants
 MAX_LEAVES = 16
 LEVER_NAMES = ("DMLC_GROW_POLICY", "DMLC_MAX_LEAVES", "DMLC_BIN_PACK",
-               "DMLC_FEATURE_BUNDLE")
+               "DMLC_FEATURE_BUNDLE", "DMLC_HIST_BLOCKS",
+               "DMLC_TPU_FUSED_DESCEND", "DMLC_HIST_QUANT",
+               "DMLC_FUSED_ROUND")
 LEVERS_OFF = {"DMLC_GROW_POLICY": "lossguide",
               "DMLC_MAX_LEAVES": str(MAX_LEAVES)}
 PACK_ONLY = {**LEVERS_OFF, "DMLC_BIN_PACK": "1"}
 BENCH_LEVERS = {**PACK_ONLY, "DMLC_FEATURE_BUNDLE": "1"}
+#: the data-parallel phase's levers (the fused round is off on every
+#: synced path): the fused descend on, and the deterministic blocks
+FUSED_DESCEND = {"DMLC_TPU_FUSED_DESCEND": "1"}
+DP_BLOCKS = {**FUSED_DESCEND, "DMLC_HIST_BLOCKS": "8"}
+#: ranks of the data-parallel phase sharing the one card, and their time
+#: limit in seconds
+DP_RANKS = 2
+DP_TIMEOUT = 300
 
 
 def emit(obj) -> None:
@@ -139,6 +162,12 @@ def time_ms(torch, fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def steady_rounds_per_sec(tree_times) -> float:
+    """1 / the mean time of trees 2.. (the first also pays each torch
+    kernel's first launch on the card)."""
+    return (len(tree_times) - 1) / (tree_times[-1] - tree_times[0])
 
 
 def bound(nbytes: float, nops: float, rates):
@@ -235,6 +264,69 @@ def check_fused_round(torch, H, bins, g, h, masked, gen, n_prev, kg, kh,
         "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": max(max_abs_err(torch, a[1], c[1]),
                            max_abs_err(torch, a[0], c[0])),
+        "bytes": nbytes}
+
+
+def check_fused_descend(torch, H, bins, g, h, masked, gen, n_prev, kg, kh,
+                        rates):
+    """``fused_descend`` at one level (``n_prev`` parents) against its
+    plain version, twice over, in both split-table forms, and against the
+    unfused chain it replaces (the torch descend, then ``hist`` over left
+    children); then all three timed."""
+    F, n = bins.shape
+    dev = bins.device
+    nd = torch.randint(0, n_prev, (n,), dtype=torch.int32, device=dev,
+                       generator=gen)
+    nd = torch.where(masked, -1, nd).to(torch.int32)
+    feat = torch.randint(0, F, (n_prev,), dtype=torch.int32, device=dev,
+                         generator=gen)
+    thr = torch.randint(0, N_BINS - 1, (n_prev,), dtype=torch.int32,
+                        device=dev, generator=gen)
+
+    def run(f_, t_, by_node):
+        return H.fused_descend_kernel(bins, nd, f_, t_, g, h, n_prev, N_BINS,
+                                      kg, kh, by_node)
+
+    def chain():
+        return H.fused_descend_histogram(bins, nd, feat, thr, g, h, n_prev,
+                                         N_BINS, fuse=False, by_node=True,
+                                         scales=(kg, kh))
+
+    a = run(feat, thr, True)
+    b = run(feat, thr, True)
+    c = H.fused_descend_plain(bins, nd, feat, thr, g, h, n_prev, N_BINS, kg,
+                              kh, True)
+    u = chain()
+    torch.cuda.synchronize()
+    what = f"(n_prev={n_prev})"
+    require(torch.equal(a[1], c[1]), f"fused_descend new_node != plain {what}")
+    require(torch.equal(a[0], c[0]), f"fused_descend hist != plain {what}")
+    require(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+            f"fused_descend not reproducible {what}")
+    require(torch.equal(a[0], u[0]) and torch.equal(a[1], u[1]),
+            f"fused_descend differs from the unfused chain {what}")
+    safe = nd.clamp(min=0).long()
+    r = run(feat[safe], thr[safe], False)
+    require(torch.equal(r[0], a[0]) and torch.equal(r[1], a[1]),
+            f"fused_descend per-row form differs {what}")
+    routed = a[1] >= 0
+    right_share = float((a[1][routed] % 2).float().mean())
+    require(0.0 < right_share < 1.0,
+            f"fused_descend sent every row one way {what}")
+    # bins, node in, new_node out, g/h, the left histograms out, tables
+    nbytes = F * n + 4 * n + 4 * n + 8 * n + 2 * n_prev * F * N_BINS * 4 \
+        + 8 * n_prev
+    b_ms, b_by = bound(nbytes, 2 * F * n, rates)
+    return {
+        "n_prev": n_prev, "right_share": right_share,
+        "ms": time_ms(torch, lambda: run(feat, thr, True), REPS),
+        "plain_ms": time_ms(torch, lambda: H.fused_descend_plain(
+            bins, nd, feat, thr, g, h, n_prev, N_BINS, kg, kh, True),
+            max(3, REPS // 3)),
+        "unfused_chain_ms": time_ms(torch, chain, REPS),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": max(max_abs_err(torch, a[0], c[0]),
+                           max_abs_err(torch, a[1], c[1])),
         "bytes": nbytes}
 
 
@@ -340,9 +432,11 @@ def check_hist(torch, H, bins, g, h, masked, kg, kh, rates, layout=None):
 
 def summarize(cases, library_ms=None):
     """One ``kernels`` entry from several checked shapes: the mean time,
-    plain time and bound, the largest error."""
+    plain time and bound (and unfused chain time, where measured), the
+    largest error."""
     mean = {k: statistics.fmean(c[k] for c in cases)
-            for k in ("ms", "plain_ms", "bound_ms")}
+            for k in ("ms", "plain_ms", "bound_ms", "unfused_chain_ms")
+            if k in cases[0]}
     by = {c["bound_by"] for c in cases}
     return {**mean, "library_ms": library_ms,
             "bound_by": by.pop() if len(by) == 1 else "mixed",
@@ -366,6 +460,14 @@ def phase_kernels(torch, H, rates):
               "B": B, **case})
     # one entry per kernel: the mean over one depth-6 tree's five levels
     out["fused_round"] = summarize(cases)
+    cases = []
+    for level in range(1, MAX_DEPTH):
+        case = check_fused_descend(torch, H, bins, g, h, masked, gen,
+                                   1 << (level - 1), kg, kh, rates)
+        cases.append(case)
+        emit({"phase": "kernel", "name": "fused_descend", "n": n, "F": F,
+              "B": B, **case})
+    out["fused_descend"] = summarize(cases)
     return out
 
 
@@ -421,6 +523,10 @@ def phase_deep_kernels(torch, H, rates, mats):
         case = check_fused_round(torch, H, bins, g, h, masked, gen, n_prev,
                                  kg, kh, rates)
         emit({"phase": "kernel", "name": "fused_round", "n": ROWS,
+              "F": FEATURES, "B": N_BINS, "beyond_main_path": True, **case})
+        case = check_fused_descend(torch, H, bins, g, h, masked, gen, n_prev,
+                                   kg, kh, rates)
+        emit({"phase": "kernel", "name": "fused_descend", "n": ROWS,
               "F": FEATURES, "B": N_BINS, "beyond_main_path": True, **case})
     del bins, g, h, masked
     for cfg, (lay, phys) in mats.items():
@@ -514,13 +620,15 @@ def zero_counts(H):
     for fn in (H.hist_kernel, H.fused_round_kernel):
         fn.launches = 0
         fn.layout_launches = 0
+    H.fused_descend_kernel.launches = 0
 
 
 def read_counts(H):
     return {"hist": H.hist_kernel.launches,
             "fused_round": H.fused_round_kernel.launches,
             "hist_layout": H.hist_kernel.layout_launches,
-            "fused_round_layout": H.fused_round_kernel.layout_launches}
+            "fused_round_layout": H.fused_round_kernel.layout_launches,
+            "fused_descend": H.fused_descend_kernel.launches}
 
 
 def fit_path(torch, np, H, X, y, Xv, yv, env, min_acc):
@@ -571,15 +679,14 @@ def fit_path(torch, np, H, X, y, Xv, yv, env, min_acc):
                 "load_model predictions differ")
         with open(path, "rb") as f:
             model_bytes = f.read()
-    steady_s = (model.last_tree_times[-1] - model.last_tree_times[0]) / (
-        TREES - 1)
     stats = {"rows": n, "features": X.shape[1], "trees": TREES,
              "max_depth": MAX_DEPTH, "n_bins": N_BINS, "levers": env,
              "fit_seconds": model.last_fit_seconds,
              "rounds_per_sec": TREES / model.last_fit_seconds,
              # trees 2.. only: the first tree also pays each torch
              # kernel's first launch on the card
-             "steady_rounds_per_sec": 1.0 / steady_s,
+             "steady_rounds_per_sec": steady_rounds_per_sec(
+                 model.last_tree_times),
              "tree_times": model.last_tree_times,
              "bin_seconds": model.last_bin_seconds,
              "fit_wall_seconds": wall_s, "train_logloss": losses,
@@ -595,10 +702,11 @@ def require_launches(launches, want, what):
 
 def phase_main(torch, np, H, rates, X, y, Xv, yv):
     """The depth-wise fit at the flagship's shapes (default levers)."""
-    _, stats, _ = fit_path(torch, np, H, X, y, Xv, yv, {}, 0.6)
+    _, stats, model_bytes = fit_path(torch, np, H, X, y, Xv, yv, {}, 0.6)
     require_launches(stats["launches"], {
         "hist": TREES, "fused_round": (MAX_DEPTH - 1) * TREES,
-        "hist_layout": 0, "fused_round_layout": 0}, "main")
+        "hist_layout": 0, "fused_round_layout": 0, "fused_descend": 0},
+        "main")
     # a round streams the [F, n] bin matrix once per level (fused) at the
     # least: the floor of a round's time on this card's HBM
     round_bytes = H.bins_bytes_per_round(MAX_DEPTH, ROWS, FEATURES,
@@ -606,19 +714,21 @@ def phase_main(torch, np, H, rates, X, y, Xv, yv):
     emit({"phase": "main", **stats, "round_bin_bytes": round_bytes,
           "round_bound_ms": round_bytes / rates[0] * 1e3,
           "hist_builds_per_round": H.leaves_built_per_round(MAX_DEPTH)})
-    return stats["launches"]
+    return stats, model_bytes
 
 
 def phase_main_lossguide(torch, np, H, rates, X, y, Xv, yv):
     """Configuration 1: the bench's flagship levers (lossguide, 16
     leaves, int4 packing, feature bundling) on the HIGGS-like data, where
     neither bin lever fires."""
-    model, stats, _ = fit_path(torch, np, H, X, y, Xv, yv, BENCH_LEVERS, 0.6)
+    model, stats, model_bytes = fit_path(torch, np, H, X, y, Xv, yv,
+                                         BENCH_LEVERS, 0.6)
     require(model._bin_layout is None,
             "configuration 1: a bin layout fired on HIGGS-like data")
     require_launches(stats["launches"], {
         "hist": TREES, "fused_round": (MAX_LEAVES - 1) * TREES,
-        "hist_layout": 0, "fused_round_layout": 0}, "main_lossguide")
+        "hist_layout": 0, "fused_round_layout": 0, "fused_descend": 0},
+        "main_lossguide")
     kw = dict(grow_policy="lossguide", max_leaves=MAX_LEAVES, fused=True)
     round_bytes = H.bins_bytes_per_round(MAX_DEPTH, ROWS, FEATURES, **kw)
     emit({"phase": "main_lossguide", **stats, "bin_layout": None,
@@ -628,7 +738,7 @@ def phase_main_lossguide(torch, np, H, rates, X, y, Xv, yv):
           "round_bound_ms": round_bytes / rates[0] * 1e3,
           "hist_builds_per_round": H.leaves_built_per_round(
               MAX_DEPTH, "lossguide", MAX_LEAVES)})
-    return stats["launches"]
+    return stats, model_bytes
 
 
 def phase_levers(torch, np, H, rates, X, y, Xv, yv):
@@ -657,7 +767,8 @@ def phase_levers(torch, np, H, rates, X, y, Xv, yv):
                     "config 2b: model file differs from levers off")
         require_launches(stats["launches"], {
             "hist": 0, "fused_round": 0, "hist_layout": TREES,
-            "fused_round_layout": (MAX_LEAVES - 1) * TREES}, cfg)
+            "fused_round_layout": (MAX_LEAVES - 1) * TREES,
+            "fused_descend": 0}, cfg)
         for k, v in stats["launches"].items():
             total[k] += v
         kw = dict(grow_policy="lossguide", max_leaves=MAX_LEAVES, fused=True)
@@ -717,6 +828,124 @@ def phase_cross_device(np, slices):
               "max_abs_pred_diff": float(np.abs(pg - pc).max())})
 
 
+def phase_data_parallel(torch, np, H, rates, X, y, Xv, yv, main, lossguide):
+    """The data-parallel path on this card.  ``main`` / ``lossguide``:
+    ``(stats, model bytes)`` of phases 4 and 5.  Returns the launches of
+    every fit, summed."""
+    from dmlc_core_tpu_torch.base.metrics import default_registry
+    from dmlc_core_tpu_torch.parallel import collectives as coll
+    from dmlc_core_tpu_torch.parallel.launch import free_port, launch
+
+    def allreduces():
+        m = default_registry().snapshot()["metrics"].get(
+            "dmlc_collective_calls_total")
+        return sum(s["value"] for s in m["series"]
+                   if s["labels"]["op"] == "device_allreduce") if m else 0
+
+    # (a) a NCCL group of one: the synced path with the fused descend
+    torch.cuda.set_device(0)
+    coll.init({"DMLC_NUM_WORKER": "1", "DMLC_TRACKER_URI": "127.0.0.1",
+               "DMLC_TRACKER_PORT": str(free_port()), "DMLC_TASK_ID": "0"},
+              backend="nccl")
+    try:
+        require(coll.world_size() == 1, "NCCL group of one did not form")
+        calls0 = allreduces()
+        _, stats, model_bytes = fit_path(torch, np, H, X, y, Xv, yv,
+                                         DP_BLOCKS, 0.6)
+        n_allreduce = allreduces() - calls0
+    finally:
+        coll.finalize()
+    require_launches(stats["launches"], {
+        "hist": TREES, "fused_round": 0, "hist_layout": 0,
+        "fused_round_layout": 0,
+        "fused_descend": (MAX_DEPTH - 1) * TREES}, "data_parallel (a)")
+    require(model_bytes == main[1],
+            "data_parallel (a): model file differs from the main fit's")
+    require(n_allreduce == MAX_DEPTH * TREES,
+            f"data_parallel (a): {n_allreduce} all-reduces, want "
+            f"{MAX_DEPTH * TREES}")
+    total = dict(stats["launches"])
+    emit({"phase": "data_parallel", "part": "a", "backend": "nccl",
+          "world": 1, **stats, "device_allreduces": n_allreduce,
+          "same_model_file_as_main": True,
+          "main_steady_rounds_per_sec": main[0]["steady_rounds_per_sec"]})
+
+    # (b) two ranks sharing the card (gloo), and (c) the int8 sync
+    runs = {"depthwise": (FUSED_DESCEND, main),
+            "lossguide": ({**BENCH_LEVERS, **FUSED_DESCEND}, lossguide),
+            "quant": ({**FUSED_DESCEND, "DMLC_HIST_QUANT": "1"}, None)}
+    with tempfile.TemporaryDirectory() as d:
+        np.save(os.path.join(d, "X.npy"), X)
+        np.save(os.path.join(d, "y.npy"), y)
+        np.save(os.path.join(d, "Xv.npy"), Xv)
+        t0 = time.perf_counter()
+        launch({"X": os.path.join(d, "X.npy"),
+                "y": os.path.join(d, "y.npy"),
+                "Xv": os.path.join(d, "Xv.npy"), "backend": "gloo",
+                "device": "cuda:0", "threads": 1,
+                "params": {"n_trees": TREES, "max_depth": MAX_DEPTH,
+                           "n_bins": N_BINS},
+                "runs": [{"name": k, "env": env}
+                         for k, (env, _) in runs.items()],
+                "out": os.path.join(d, "out")}, DP_RANKS, DP_TIMEOUT)
+        group_s = time.perf_counter() - t0
+        out = os.path.join(d, "out")
+        margins = {k: np.load(os.path.join(out, f"{k}.margins.npy"))
+                   for k in runs}
+        preds = {k: np.load(os.path.join(out, f"{k}.pred.npy"))
+                 for k in runs}
+        for name, (env, ref) in runs.items():
+            ranks = []
+            for r in range(DP_RANKS):
+                with open(os.path.join(out, f"{name}.{r}.json")) as f:
+                    st = json.load(f)
+                with open(os.path.join(out, f"{name}.{r}.model"), "rb") as f:
+                    st["model_bytes"] = f.read()
+                ranks.append(st)
+                for k, v in st["launches"].items():
+                    total[k] += v
+            builds = (MAX_LEAVES - 1 if name == "lossguide"
+                      else MAX_DEPTH - 1) * TREES
+            for r, st in enumerate(ranks):
+                require_launches(st["launches"], {
+                    "hist": TREES, "fused_round": 0, "hist_layout": 0,
+                    "fused_round_layout": 0, "fused_descend": builds},
+                    f"data_parallel {name} rank {r}")
+                require(st["model_bytes"] == ranks[0]["model_bytes"],
+                        f"data_parallel {name}: rank {r}'s model differs")
+            acc = float(((preds[name] > 0) == (yv > 0.5)).mean())
+            require(np.isfinite(margins[name]).all()
+                    and margins[name].shape == (len(X),),
+                    f"data_parallel {name}: margins malformed")
+            require(acc > 0.6, f"data_parallel {name}: held-out accuracy "
+                    f"{acc} too low")
+            line = {"phase": "data_parallel", "backend": "gloo",
+                    "world": DP_RANKS, "config": name, "levers": env,
+                    "rows_per_rank": [len(X) // DP_RANKS,
+                                      len(X) - len(X) // DP_RANKS],
+                    "launches_per_rank": ranks[0]["launches"],
+                    "fit_seconds": [st["fit_seconds"] for st in ranks],
+                    "steady_rounds_per_sec": [
+                        steady_rounds_per_sec(st["tree_times"])
+                        for st in ranks],
+                    "device_allreduces": ranks[0]["device_allreduces"],
+                    "hist_sync_bytes": ranks[0]["hist_sync_bytes"],
+                    "holdout_accuracy": acc, "group_seconds": group_s}
+            if ref is not None:
+                require(ranks[0]["model_bytes"] == ref[1],
+                        f"data_parallel {name}: model file differs from "
+                        "the 1-process fit's")
+                line.update(part="b", same_model_file_as_one_process=True,
+                            one_process_steady_rounds_per_sec=ref[0][
+                                "steady_rounds_per_sec"])
+            else:
+                diff = np.abs(margins[name] - margins["depthwise"])
+                line.update(part="c", margin_max_abs_diff=float(diff.max()),
+                            margin_mean_abs_diff=float(diff.mean()))
+            emit(line)
+    return total
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -744,24 +973,30 @@ def main() -> int:
     layout_kernels, mats = phase_kernels_layout(torch, np, H, rates, C, cy)
     kernels.update(layout_kernels)
     launches = {k: 0 for k in kernels}
-    for counts in (phase_main(torch, np, H, rates, X, y, Xv, yv),
-                   phase_main_lossguide(torch, np, H, rates, X, y, Xv, yv),
+    main_fit = phase_main(torch, np, H, rates, X, y, Xv, yv)
+    lossguide_fit = phase_main_lossguide(torch, np, H, rates, X, y, Xv, yv)
+    for counts in (main_fit[0]["launches"], lossguide_fit[0]["launches"],
                    phase_levers(torch, np, H, rates, C, cy, Cv, cyv)):
         for k, v in counts.items():
             launches[k] += v
-    for k, v in launches.items():
-        require(v > 0, f"{k} was never launched on the main paths")
     s = slice(0, CROSS_ROWS)
     phase_cross_device(np, {
         "depthwise": (X[s], y[s], {}),
         "1": (X[s], y[s], BENCH_LEVERS),
         "2a": (C[s], cy[s], BENCH_LEVERS),
         "2b": (C[s], cy[s], PACK_ONLY)})
-    del X, y, C, cy
+    del C, cy
+    for k, v in phase_data_parallel(torch, np, H, rates, X, y, Xv, yv,
+                                    main_fit, lossguide_fit).items():
+        launches[k] += v
+    for k, v in launches.items():
+        require(v > 0, f"{k} was never launched on the main paths")
+    del X, y
     phase_deep_kernels(torch, H, rates, mats)
     src = "dmlc_core_tpu_torch/ops/csrc/histogram.cu"
     replaces = {"hist": "dmlc_core_tpu/ops/histogram.py:369",
                 "fused_round": "dmlc_core_tpu/ops/histogram.py:531",
+                "fused_descend": "dmlc_core_tpu/ops/histogram.py:485",
                 "hist_layout": "dmlc_core_tpu/ops/histogram.py:450",
                 "fused_round_layout": "dmlc_core_tpu/ops/histogram.py:587"}
     emit({"kernels": [
@@ -770,7 +1005,9 @@ def main() -> int:
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-         "held_against_plain": True}
+         "held_against_plain": True,
+         **({"unfused_chain_ms": k["unfused_chain_ms"]}
+            if "unfused_chain_ms" in k else {})}
         for name, k in kernels.items()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

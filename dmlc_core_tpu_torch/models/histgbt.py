@@ -29,15 +29,34 @@ the JAX program's level order —
 Trees are the JAX package's per-tree numpy arrays (``feat``, ``thr``,
 ``gain`` ``[depth, 2^(depth-1)]``, ``leaf`` ``[2^depth]``), in the original
 feature and bin space whatever the levers, so model files and their
-consumers are unchanged.  Not ported yet: NaN-as-missing, monotone
-constraints, multiclass and ranking objectives, row/column sampling, eval
-sets and early stopping, continued training, external memory, multi-GPU.
+consumers are unchanged.
+
+Data parallel (``mesh=``, a :class:`~dmlc_core_tpu_torch.parallel.mesh.
+Mesh` over a ``torch.distributed`` group, one process per GPU): every
+rank passes the same global ``X, y``, derives the same cuts from it and
+keeps its rows ``shard_row_ranges(n, world)[rank]``.  Histograms are
+accumulated per rank as int64 fixed point, summed over ranks by one
+``all_reduce`` (the ``sync=`` seam of ``ops.histogram``) and only then
+converted and subtracted (``prev − left``), so an N-rank fit writes the
+1-rank fit's bytes.  The fixed-point scales take the global ``max|g|``,
+``max|h|`` and row count, and layouts the global occupancy.  Without the
+fused round a level is ``fused_descend_histogram`` (``fuse`` from
+``DMLC_TPU_FUSED_DESCEND``), the sync, then the subtraction, as JAX's
+chain.  ``DMLC_HIST_BLOCKS`` keeps its checks and turns the fused round
+off, as in JAX; with integer sums JAX's per-block builds and
+``_tree_fold`` give the bytes of one build, so the port builds once per
+level (``_tree_fold`` is kept for its parity test).  ``DMLC_HIST_QUANT``
+(several ranks, no blocks) is JAX's approximate int8 code sync.
+
+Not ported yet: NaN-as-missing, monotone constraints, multiclass and
+ranking objectives, row/column sampling, eval sets and early stopping,
+continued training, external memory, sharded ingest, one process over
+several GPUs.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -45,15 +64,25 @@ import torch
 
 from dmlc_core_tpu_torch.base.logging import CHECK, CHECK_EQ, LOG, log_fatal
 from dmlc_core_tpu_torch.base.parameter import Parameter, field, get_env
+from dmlc_core_tpu_torch.base.timer import get_time
 from dmlc_core_tpu_torch.models.gbt_objectives import (
     EVAL_METRIC_NAMES, OBJECTIVE_NAMES, OBJECTIVES, fold_scale_pos_weight)
 from dmlc_core_tpu_torch.models.gbt_split import (_advance_node,
                                                   _make_best_split, _maybe_l1)
 from dmlc_core_tpu_torch.ops import binlayout as _bl
-from dmlc_core_tpu_torch.ops.histogram import (build_histogram, fused_round,
-                                               hist_scales)
+from dmlc_core_tpu_torch.ops.histogram import (build_histogram,
+                                               dequantize_hist_sum,
+                                               fused_descend_histogram,
+                                               fused_round,
+                                               hist_psum_bytes_per_round,
+                                               hist_scales,
+                                               quantize_hist_partial,
+                                               sibling_pairs)
 from dmlc_core_tpu_torch.ops.quantile import (apply_bins, compute_cuts,
                                               xla_cumsum)
+from dmlc_core_tpu_torch.parallel import collectives as coll
+from dmlc_core_tpu_torch.parallel.mesh import (Mesh, local_mesh,
+                                               shard_row_ranges)
 from dmlc_core_tpu_torch.utils.device import resolve_device
 
 __all__ = ["HistGBT", "HistGBTParam"]
@@ -90,8 +119,121 @@ def _feature_bundle_requested() -> bool:
     return os.environ.get("DMLC_FEATURE_BUNDLE", "0") == "1"
 
 
+def _hist_blocks(data_size: int) -> int:
+    """Resolved deterministic-histogram block count ``C`` (0 = off):
+    ``DMLC_HIST_BLOCKS=N`` rounded up to a power of two ≥ the data-axis
+    size, which must itself be a power of two — the JAX package's knob
+    and checks.  The port's integer sums are order-free, so the blocks
+    change no byte; the knob turns the fused round off, as in JAX."""
+    v = get_env("DMLC_HIST_BLOCKS", 0, int)
+    if v <= 0:
+        return 0
+    CHECK(data_size & (data_size - 1) == 0,
+          f"DMLC_HIST_BLOCKS needs a power-of-two data-axis size, "
+          f"got {data_size}")
+    c = 1
+    while c < max(v, data_size):
+        c <<= 1
+    return c
+
+
+def _tree_fold(parts):
+    """JAX's fixed-order pairwise fold of a power-of-two list of arrays,
+    ``((p0+p1)+(p2+p3))+...``.  The training loop does not need it (int64
+    sums fold alike in any order); kept, with its parity test, as the
+    reference's deterministic reduction."""
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
+def _fused_round_mode() -> str:
+    """``DMLC_FUSED_ROUND``: the fused round kernel (``ops.histogram.
+    fused_round``: descend, left children and the sibling subtraction in
+    one call).  ``auto`` (default) and ``1`` use it wherever it is
+    eligible — one rank, no ``DMLC_HIST_BLOCKS`` (its subtraction needs
+    the synced parent) — ``0`` pins the unfused chain."""
+    v = os.environ.get("DMLC_FUSED_ROUND", "auto")
+    CHECK(v in ("auto", "0", "1"),
+          f"DMLC_FUSED_ROUND must be 'auto', '0' or '1', got {v!r}")
+    return v
+
+
+def _hist_quant_requested() -> bool:
+    """``DMLC_HIST_QUANT=1``: int8-quantized histogram sync (per-rank
+    int8 codes summed as int32, plus exact f32 column totals).
+    Approximate; a no-op on one rank and under ``DMLC_HIST_BLOCKS``."""
+    return os.environ.get("DMLC_HIST_QUANT", "0") == "1"
+
+
+def _fused_descend_requested() -> bool:
+    """``DMLC_TPU_FUSED_DESCEND=1``: where the fused round is off, each
+    level's descend runs inside its histogram pass (the fused descend
+    kernel) instead of as a torch pass before it.  Default off, as in
+    the JAX package."""
+    return os.environ.get("DMLC_TPU_FUSED_DESCEND", "0") == "1"
+
+
 #: lossguide histogram pool limit (the JAX package's CHECK)
 _POOL_LIMIT_BYTES = 256 << 20
+
+
+class _HistSync:
+    """How one fit's histograms become global over its mesh: which
+    level engine runs (the fused round on one rank, else the fused
+    descend chain), and the syncs between accumulation and the
+    subtraction."""
+
+    def __init__(self, mesh: Mesh, n_global: int):
+        self.mesh = mesh
+        self.world = mesh.size
+        self.n_global = n_global
+        det_blocks = _hist_blocks(self.world)
+        self.fused_rounds = (self.world == 1 and not det_blocks
+                             and _fused_round_mode() != "0")
+        self.quant = (_hist_quant_requested() and self.world > 1
+                      and not det_blocks)
+        self.fuse = _fused_descend_requested()
+        synced = mesh.initialized and not self.fused_rounds
+        #: the int64 all-reduce (``sync=`` of the histogram ops), or None
+        self.acc_sync = self._sum if synced and not self.quant else None
+
+    def _sum(self, acc: torch.Tensor) -> torch.Tensor:
+        return coll.device_allreduce(acc, self.mesh)
+
+    def _max(self, x: torch.Tensor) -> torch.Tensor:
+        return coll.device_allreduce(x, self.mesh, op="max")
+
+    def scales(self, g: torch.Tensor, h: torch.Tensor) -> Tuple[int, int]:
+        """The tree's fixed-point scales from the global statistics."""
+        if self.world == 1:
+            return hist_scales(g, h)
+        return hist_scales(g, h, self.n_global, self._max)
+
+    def f32_sync(self, x: torch.Tensor) -> torch.Tensor:
+        """A converted histogram after its sync: the int8 code sync of
+        ``DMLC_HIST_QUANT`` (global column max, codes, exact totals), or
+        the histogram itself (the int64 sums were synced already)."""
+        if not self.quant:
+            return x
+        gmax = self._max(x.abs().amax(dim=-1, keepdim=True))
+        q, scale, tot = quantize_hist_partial(x, gmax)
+        qs = self._sum(q.to(torch.int32))
+        return dequantize_hist_sum(qs, scale, self._sum(tot))
+
+    def round_bytes(self, p: "HistGBTParam", n_features: int,
+                    layout: Optional[_bl.BinLayout], grow_policy: str,
+                    max_leaves: int) -> int:
+        """Bytes one rank's syncs move per boosting round: int64 sums
+        (twice the f32 model), or the int8 model under quant; 0 on one
+        rank."""
+        if self.world <= 1:
+            return 0
+        model = hist_psum_bytes_per_round(
+            p.max_depth, n_features, p.n_bins, layout=layout,
+            grow_policy=grow_policy, max_leaves=max_leaves,
+            quant=self.quant)
+        return model if self.quant else 2 * model
 
 
 class HistGBTParam(Parameter):
@@ -151,11 +293,13 @@ _TREE_KEYS = ("feat", "gain", "leaf", "thr")
 
 
 class HistGBT:
-    """Train/predict API on one device.
+    """Train/predict API on one device per process.
 
     ``device`` is ``"cuda"`` (the default) or ``"cpu"``; the CPU runs the
     plain PyTorch versions of the kernels.  With no GPU present the
-    default raises rather than running on the CPU."""
+    default raises rather than running on the CPU.  ``mesh`` is the data
+    axis (default: the process group's, size 1 without one); on several
+    ranks each process passes its own card as ``device``."""
 
     _MODEL_MAGIC = b"DCTGBT01"
     #: rows per device batch in predict (bounds the transient f32 X and
@@ -164,11 +308,14 @@ class HistGBT:
 
     def __init__(self, param: Optional[HistGBTParam] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 **kwargs: Any):
+                 mesh: Optional[Mesh] = None, **kwargs: Any):
         self.param = param or HistGBTParam()
         if kwargs:
             self.param.init(kwargs)
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else local_mesh()
+        #: the level engine and syncs of the fit in progress
+        self._sync: Optional[_HistSync] = None
         self._obj = self._objective()
         self.cuts: Optional[torch.Tensor] = None        # [F, n_bins-1] f32
         self.trees: List[Dict[str, np.ndarray]] = []
@@ -181,6 +328,8 @@ class HistGBT:
         self.last_tree_times: List[float] = []
         self.last_bin_seconds: Optional[float] = None
         self._train_preds: Optional[torch.Tensor] = None
+        #: global rows of the last fit (train_margins' gather)
+        self._train_rows = 0
         #: the storage layout of the last training matrix (None: plain)
         self._bin_layout: Optional[_bl.BinLayout] = None
 
@@ -222,9 +371,13 @@ class HistGBT:
         feature-major uint8 ``[F, n]`` bin matrix — re-laid out to the
         physical ``[phys_rows, n]`` matrix when ``DMLC_BIN_PACK`` /
         ``DMLC_FEATURE_BUNDLE`` find a non-trivial layout (``"layout"``) —
-        labels and weights on the device.  Sets ``self.cuts`` if unset."""
+        labels and weights on the device.  Sets ``self.cuts`` if unset.
+
+        On a data axis of several ranks ``X``/``y`` are the GLOBAL rows
+        (the same on every rank): cuts come from all of them, the bins,
+        labels and weights are this rank's ``mesh.row_range(n)``."""
         p = self.param
-        t0 = time.perf_counter()
+        t0 = get_time()
         X = np.ascontiguousarray(X, dtype=np.float32)
         y = np.ascontiguousarray(y, dtype=np.float32)
         n, F = X.shape
@@ -233,6 +386,7 @@ class HistGBT:
             log_fatal("X contains NaN: NaN-as-missing is not ported yet "
                       "(impute, or train with the JAX package)")
         weight = fold_scale_pos_weight(p, y, weight)
+        lo, hi = self.mesh.row_range(n)
         X_d = torch.from_numpy(X).to(self.device)
         w_d = (None if weight is None else
                torch.from_numpy(np.ascontiguousarray(weight, np.float32)
@@ -244,43 +398,51 @@ class HistGBT:
             self.cuts = compute_cuts(X_d, p.n_bins, weight=w_d)
         CHECK_EQ(int(self.cuts.shape[1]), p.n_bins - 1,
                  "cuts width must be n_bins-1")
-        bins_t = apply_bins(X_d, self.cuts)
-        del X_d
+        bins_t = apply_bins(X_d[lo:hi], self.cuts)
         layout = None
         if _bin_pack_requested() or _feature_bundle_requested():
-            layout = self._compute_bin_layout(bins_t, F)
+            layout = self._compute_bin_layout(bins_t, F, X_d)
             if layout is not None:
                 bins_t = _bl.pack_matrix(bins_t, layout)
+        del X_d
         self._bin_layout = layout
         dd = {
             "bins_t": bins_t,
-            "y_d": torch.from_numpy(y).to(self.device),
-            "w_d": (torch.ones(n, dtype=torch.float32, device=self.device)
-                    if w_d is None else w_d),
-            "n": n,
+            "y_d": torch.from_numpy(y[lo:hi]).to(self.device),
+            "w_d": (torch.ones(hi - lo, dtype=torch.float32,
+                               device=self.device)
+                    if w_d is None else w_d[lo:hi].contiguous()),
+            "n": hi - lo,
+            "n_global": n,
             "n_features": F,
             "layout": layout,
         }
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.last_bin_seconds = time.perf_counter() - t0
+        self.last_bin_seconds = get_time() - t0
         return dd
 
-    def _compute_bin_layout(self, bins_t: torch.Tensor, n_features: int
-                            ) -> Optional[_bl.BinLayout]:
+    def _compute_bin_layout(self, bins_t: torch.Tensor, n_features: int,
+                            X_d: torch.Tensor) -> Optional[_bl.BinLayout]:
         """The packed/bundled storage layout of a binned ``[F, n]``
         matrix (``DMLC_BIN_PACK`` / ``DMLC_FEATURE_BUNDLE``), or None.
 
         Occupancy counts come from the binned rows (the cuts cannot say
-        how many bins a feature really uses).  Bundles are proposed on the
-        first ``min(n, 65536)`` rows, as the JAX package samples, and each
-        is verified exactly on the full matrix before it is kept."""
+        how many bins a feature really uses), summed over the ranks.
+        Bundles are proposed on the first ``min(n, 65536)`` global rows
+        of ``X_d``, as the JAX package samples, and each is verified
+        exactly on every rank's matrix before it is kept — every rank
+        derives the 1-rank fit's layout."""
         p = self.param
         counts = _bl.bin_counts(bins_t, p.n_bins)
+        if self.mesh.size > 1:
+            counts = coll.device_allreduce(
+                torch.from_numpy(counts.astype(np.int64)).to(self.device),
+                self.mesh).cpu().numpy().astype(np.int32)
         bundles: tuple = ()
         if _feature_bundle_requested():
-            m = min(int(bins_t.shape[1]), 1 << 16)
-            sample = bins_t[:, :m].cpu().numpy()
+            m = min(int(X_d.shape[0]), 1 << 16)
+            sample = apply_bins(X_d[:m], self.cuts).cpu().numpy()
             proposed = _bl.detect_bundles(sample, counts, p.n_bins)
             dflt = _bl.default_bins(counts)
             bundles = tuple(b for b in proposed
@@ -300,15 +462,20 @@ class HistGBT:
                 layout.sync_bins, p.n_bins)
         return layout
 
-    @staticmethod
-    def _bundle_exclusive(bins_t: torch.Tensor, bundle, defaults) -> bool:
+    def _bundle_exclusive(self, bins_t: torch.Tensor, bundle,
+                          defaults) -> bool:
         """Exact mutual-exclusivity check of one proposed bundle over the
-        full matrix: no row may have two members off their DEFAULT bin."""
+        full matrix (every rank's rows): no row may have two members off
+        their DEFAULT bin."""
         nz = torch.zeros(bins_t.shape[1], dtype=torch.int32,
                          device=bins_t.device)
         for f in bundle:
             nz += (bins_t[int(f)] != int(defaults[int(f)])).to(torch.int32)
-        return int(nz.max()) <= 1
+        worst = nz.max(dim=0, keepdim=True).values if nz.numel() else (
+            torch.zeros(1, dtype=torch.int32, device=nz.device))
+        if self.mesh.size > 1:
+            worst = coll.device_allreduce(worst, self.mesh, op="max")
+        return int(worst) <= 1
 
     def _lossguide_leaves(self, n_features: int) -> int:
         """The leaf budget of a lossguide tree, with the JAX package's
@@ -337,7 +504,11 @@ class HistGBT:
         layout = dd.get("layout")
         self._bin_layout = layout
         CHECK(bins_t.dtype == torch.uint8, "n_bins > 256 is not supported")
-        if _grow_policy() == "lossguide":
+        self._sync = _HistSync(self.mesh, dd.get("n_global", dd["n"]))
+        policy = _grow_policy()
+        sync_bytes = self._sync.round_bytes(p, dd["n_features"], layout,
+                                            policy, _max_leaves())
+        if policy == "lossguide":
             leaves = self._lossguide_leaves(dd["n_features"])
             heap = _heap_tables(p.max_depth, self.device)
 
@@ -350,21 +521,23 @@ class HistGBT:
         preds = torch.full((dd["n"],), p.base_score, dtype=torch.float32,
                            device=self.device)
         self.last_tree_times = []
-        t0 = time.perf_counter()
+        t0 = get_time()
         for _ in range(p.n_trees):
             g, h = self._obj.grad_hess(preds, y_d)
             g = g * w_d
             h = h * w_d
             tree, delta = grow(g, h)
+            coll.record_hist_psum(sync_bytes)
             preds = preds + delta
             # the copy to the host waits for the tree, so the timestamp
             # marks when its device work finished
             self.trees.append({k: tree[k].cpu().numpy() for k in _TREE_KEYS})
-            self.last_tree_times.append(time.perf_counter() - t0)
+            self.last_tree_times.append(get_time() - t0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.last_fit_seconds = time.perf_counter() - t0
+        self.last_fit_seconds = get_time() - t0
         self._train_preds = preds
+        self._train_rows = dd.get("n_global", dd["n"])
         return self
 
     def _grow_tree(self, bins_t: torch.Tensor, g: torch.Tensor,
@@ -375,10 +548,13 @@ class HistGBT:
         Level 0 builds the root histogram over all rows; every deeper
         level is one fused round: rows descend by the level above's split
         tables, only LEFT children get a built histogram, the right child
-        is parent − left.  All levels share one fixed-point scale pair,
-        so every histogram's bytes are independent of summation order.
-        Under a ``layout`` histograms and the subtraction stay in storage
-        space; split scoring sees them unbundled."""
+        is parent − left.  Where the fused round is off (data parallel,
+        ``DMLC_HIST_BLOCKS``, ``DMLC_FUSED_ROUND=0``) a level is the fused
+        descend, the sync of the left children, then the subtraction.
+        All levels share one fixed-point scale pair, so every histogram's
+        bytes are independent of summation order.  Under a ``layout``
+        histograms and the subtraction stay in storage space; split
+        scoring sees them unbundled."""
         p = self.param
         depth, B = p.max_depth, p.n_bins
         lam, alpha = p.reg_lambda, p.reg_alpha
@@ -394,7 +570,8 @@ class HistGBT:
         def best_split_leaf(hs):
             return split_leaf(_bl.unbundle_hist(hs, layout, B))
 
-        scales = hist_scales(g, h)
+        sync = self._sync
+        scales = sync.scales(g, h)
         node = torch.zeros(bins_t.shape[1], dtype=torch.int32,
                            device=bins_t.device)
         feats, thrs, gains = [], [], []
@@ -403,14 +580,22 @@ class HistGBT:
             n_nodes = 1 << level
             score_fn = best_split_leaf if level == depth - 1 else best_split
             if level == 0:
-                hist = build_histogram(bins_t, node, g, h, 1, B,
-                                       scales=scales, layout=layout)
+                hist = sync.f32_sync(build_histogram(
+                    bins_t, node, g, h, 1, B, scales=scales, layout=layout,
+                    sync=sync.acc_sync))
                 scores = score_fn(hist)
-            else:
+            elif sync.fused_rounds:
                 node, hist, scores = fused_round(
                     bins_t, node, feat, thr, g, h, prev_hist, n_nodes >> 1,
                     B, score_fn=score_fn, by_node=True, scales=scales,
                     layout=layout)
+            else:
+                left, node = fused_descend_histogram(
+                    bins_t, node, feat, thr, g, h, n_nodes >> 1, B,
+                    fuse=sync.fuse, layout=layout, by_node=True,
+                    scales=scales, sync=sync.acc_sync)
+                hist = sibling_pairs(sync.f32_sync(left), prev_hist)
+                scores = score_fn(hist)
             prev_hist = hist
             if level == depth - 1:
                 feat, thr, gn, gsum, hsum = scores
@@ -442,8 +627,9 @@ class HistGBT:
         best candidate gain (first maximum), builds ONE histogram — the
         left child over that leaf's rows — and derives the right child
         from the parent's pooled histogram, both in one ``fused_round``
-        at ``n_prev=1``.  An expansion whose best gain is not above
-        ``gamma`` changes nothing (the ``ok`` gate).
+        at ``n_prev=1`` (where the fused round is off: the fused descend,
+        the sync, then the subtraction).  An expansion whose best gain is
+        not above ``gamma`` changes nothing (the ``ok`` gate).
 
         The queue lives on the device and every update is a masked
         tensor op (writes that the gate cancels go to spare entries past
@@ -463,7 +649,8 @@ class HistGBT:
         levels, poss = heap
         split = _make_best_split(B, lam, gamma, p.min_child_weight,
                                  alpha=alpha)
-        scales = hist_scales(g, h)
+        sync = self._sync
+        scales = sync.scales(g, h)
 
         def eval_nodes(hist_st):
             """(feat, thr, gain, tot_g, tot_h) per node of a storage-space
@@ -476,8 +663,9 @@ class HistGBT:
         i32, f32 = torch.int32, torch.float32
         # ---- root ----
         node = torch.ones(n, dtype=i32, device=dev)          # heap ids
-        root = build_histogram(bins_t, torch.zeros(n, dtype=i32, device=dev),
-                               g, h, 1, B, scales=scales, layout=layout)
+        root = sync.f32_sync(build_histogram(
+            bins_t, torch.zeros(n, dtype=i32, device=dev), g, h, 1, B,
+            scales=scales, layout=layout, sync=sync.acc_sync))
         f0, t0, g0, tg0, th0 = eval_nodes(root)
         # per heap id, plus two spare entries (NH, NH+1) for cancelled writes
         open_ = torch.zeros(NH + 2, dtype=torch.bool, device=dev)
@@ -519,11 +707,20 @@ class HistGBT:
             slot = torch.argmax((pool_id[:L] == hc).to(i32)).view(1)
             # one fused round: descend the leaf's rows, build the left
             # child, subtract it from the pooled parent
-            nn, pair, sc2 = fused_round(
-                bins_t, torch.where(take, 0, -1).to(i32), fsel, tsel, g, h,
-                pool.index_select(0, slot).transpose(0, 1), 1, B,
-                score_fn=eval_nodes, by_node=True, scales=scales,
-                layout=layout)
+            node_in = torch.where(take, 0, -1).to(i32)
+            parent = pool.index_select(0, slot).transpose(0, 1)
+            if sync.fused_rounds:
+                nn, pair, sc2 = fused_round(
+                    bins_t, node_in, fsel, tsel, g, h, parent, 1, B,
+                    score_fn=eval_nodes, by_node=True, scales=scales,
+                    layout=layout)
+            else:
+                left, nn = fused_descend_histogram(
+                    bins_t, node_in, fsel, tsel, g, h, 1, B, fuse=sync.fuse,
+                    layout=layout, by_node=True, scales=scales,
+                    sync=sync.acc_sync)
+                pair = sibling_pairs(sync.f32_sync(left), parent)
+                sc2 = eval_nodes(pair)
             node = torch.where(take, 2 * node + (nn == 1).to(i32), node)
             f2, t2, g2, tg2, th2 = sc2
             # children at the depth cap never expand
@@ -570,9 +767,19 @@ class HistGBT:
         return tree, delta
 
     def train_margins(self) -> np.ndarray:
-        """Raw training-set margins after :meth:`fit`."""
+        """Raw training-set margins after :meth:`fit`, of all global rows
+        in their order (on several ranks: gathered from every rank)."""
         CHECK(self._train_preds is not None, "call fit first")
-        return self._train_preds.cpu().numpy()
+        preds = self._train_preds
+        world = self.mesh.size
+        if world == 1:
+            return preds.cpu().numpy()
+        ranges = shard_row_ranges(self._train_rows, world)
+        width = max(hi - lo for lo, hi in ranges)
+        padded = torch.nn.functional.pad(preds, (0, width - preds.numel()))
+        gathered = coll.device_allgather(padded, self.mesh).cpu()
+        return torch.cat([gathered[r * width:r * width + hi - lo]
+                          for r, (lo, hi) in enumerate(ranges)]).numpy()
 
     # ------------------------------------------------------------------
     # inference

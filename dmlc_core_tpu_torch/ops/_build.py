@@ -48,6 +48,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "dmlc_hist_accum": (_P, _P, _P, _P, _LL, _I, _P, _I, _I, _I, _F, _F,
                             _I, _P, _P),
         "dmlc_descend": (_P, _P, _P, _P, _I, _LL, _P, _P, _P),
+        "dmlc_fused_descend": (_P, _P, _P, _P, _I, _P, _P, _LL, _I, _I, _I,
+                               _F, _F, _P, _P, _P),
         "dmlc_hist_epilogue": (_P, _P, _P, _I, _LL, _D, _D, _P),
     },
 }

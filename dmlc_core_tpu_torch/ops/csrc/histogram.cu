@@ -1,8 +1,8 @@
 // Gradient-histogram kernels for Hopper (sm_90a), bound through a plain C
 // interface (ops/_build.py loads this file's shared library with ctypes).
 //
-// Replaces two Pallas TPU kernels of dmlc_core_tpu/ops/histogram.py, in
-// both of their modes:
+// Replaces three Pallas TPU kernels of dmlc_core_tpu/ops/histogram.py
+// (the first two in both of their modes):
 //
 //   hist        <- _hist_pallas_kernel + _accum_hist (via _hist_pallas):
 //                  hist[2, N, S, Bs] = sum of grad (plane 0) and hess
@@ -15,6 +15,15 @@
 //                  right = prev - left, children interleaved 2p / 2p+1.
 //                  dmlc_descend, dmlc_hist_accum with left_only=1,
 //                  dmlc_hist_epilogue with prev.
+//   fused_descend <- _fused_kernel (via _fused_pallas /
+//                  fused_descend_histogram(fuse=True)): the same descend
+//                  and left-child histograms in ONE pass over the bins,
+//                  no subtraction — the data-parallel path, where the
+//                  left children are summed over ranks before the
+//                  parent's subtraction.  dmlc_fused_descend, then
+//                  dmlc_hist_epilogue without prev after the caller's
+//                  sync of the int64 sums.  The plain [F, n] matrix only
+//                  (the TPU kernel has no layout mode).
 //
 // The input is a physical uint8 matrix [P, n] described by two small
 // tables (ops/binlayout.py builds both):
@@ -71,6 +80,22 @@
 //  * The descend takes per-node split tables (feat[node], thr[node]) or
 //    per-row arrays; the decode rows are read through the read-only cache
 //    (a level touches at most a few of them), so any F works.
+//  * fused_descend: bound by bytes too — the bins (F*n), node in (4n),
+//    new_node out (4n) and g/h (8n): 44 bytes a row at F = 28, 0.131 ms
+//    at 10M rows on 3.35 TB/s.  The fused round's descend launch writes
+//    new_node and its accumulation reads it back; here a thread computes
+//    its rows' new node in registers (node -> the node's split through
+//    the read-only cache -> the selected byte) and the blocks of the
+//    first feature group store it.  That chain is three dependent loads
+//    a row, so it is paid once per block for a GROUP of features, not
+//    once per feature: a block holds the histograms of as many features
+//    as fit in shared memory (all 28 at n_prev 1) and reads node and g/h
+//    once for all of them.  (A first version, a mode of the accumulation
+//    kernel with its one feature per block, repeated the chain 28 times
+//    and was slower than the unfused descend + histogram at every level.)
+//    The chain's byte gather still repeats once per feature group: from
+//    n_prev 8 (7 features per block, 4 groups) the kernel is slower than
+//    the fused round (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -309,6 +334,114 @@ hist_accum_kernel(const uint8_t* __restrict__ bins,    // [P, n]
   }
 }
 
+// The fused descend: a block takes the rows [r0, r1) of its chunk and the
+// kf features [f0, f0 + nf) of the plain [F, n] matrix.  Per step each
+// thread descends kUnroll rows (all loads before any store, so the rows'
+// load chains overlap), the first feature group's blocks store new_node,
+// and then each feature's byte of those rows goes into the left-child
+// histogram [2, kf, N, B] (shared) or straight into the global one.
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_descend_kernel(const uint8_t* __restrict__ bins,   // [F, n]
+                     const int32_t* __restrict__ node,   // [n]
+                     const int32_t* __restrict__ feat,   // [N] or [n]
+                     const int32_t* __restrict__ thr,    // [N] or [n]
+                     int by_node, const float* __restrict__ grad,
+                     const float* __restrict__ hess, long long n,
+                     int n_features, int n_prev, int n_bins, float scale_g,
+                     float scale_h, int kf, long long rows_per_chunk,
+                     unsigned long long* __restrict__ out,  // [2, N, F, B]
+                     int32_t* __restrict__ new_node) {      // [n]
+  extern __shared__ unsigned long long smem[];   // [2, kf, N, B]
+  const int f0 = blockIdx.y * kf;
+  const int nf = min(kf, n_features - f0);
+  const int per_feat = n_prev * n_bins;
+  const int cells = nf * per_feat;                            // per plane
+  const long long plane = static_cast<long long>(n_prev) * n_features * n_bins;
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_chunk;
+  const long long r1 = min(n, r0 + rows_per_chunk);
+  if (kShared) {
+    for (int i = threadIdx.x; i < 2 * cells; i += blockDim.x) smem[i] = 0ull;
+    __syncthreads();
+  }
+  const bool store = blockIdx.y == 0;
+  const long long step = static_cast<long long>(kUnroll) * blockDim.x;
+  for (long long base = r0 + threadIdx.x; base < r1; base += step) {
+    int v[kUnroll];
+    float gv[kUnroll], hv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long r = base + static_cast<long long>(u) * blockDim.x;
+      const bool in = r < r1;
+      const int parent = in ? node[r] : -1;
+      int nn = -1;
+      if (parent >= 0) {
+        const long long k = by_node ? parent : r;
+        const int f = __ldg(feat + k);
+        const int t = __ldg(thr + k);
+        nn = 2 * parent +
+             (__ldg(bins + static_cast<long long>(f) * n + r) > t ? 1 : 0);
+      }
+      v[u] = nn;
+      gv[u] = in ? grad[r] : 0.f;
+      hv[u] = in ? hess[r] : 0.f;
+    }
+    if (store) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long r = base + static_cast<long long>(u) * blockDim.x;
+        if (r < r1) new_node[r] = v[u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {   // left children: parent index
+      v[u] = (v[u] >= 0 && !(v[u] & 1) && (v[u] >> 1) < n_prev) ? v[u] >> 1
+                                                               : -1;
+    }
+    for (int j = 0; j < nf; ++j) {
+      const uint8_t* row = bins + static_cast<long long>(f0 + j) * n;
+      int b[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long r = base + static_cast<long long>(u) * blockDim.x;
+        b[u] = r < r1 ? row[r] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (v[u] < 0 || b[u] >= n_bins) continue;
+        const unsigned long long qg = quantize(gv[u], scale_g);
+        const unsigned long long qh = quantize(hv[u], scale_h);
+        if (kShared) {
+          const int c = j * per_feat + v[u] * n_bins + b[u];
+          shared_add_u64(&smem[c], qg);
+          shared_add_u64(&smem[cells + c], qh);
+        } else {
+          const long long c =
+              (static_cast<long long>(v[u]) * n_features + f0 + j) * n_bins +
+              b[u];
+          atomicAdd(&out[c], qg);
+          atomicAdd(&out[plane + c], qh);
+        }
+      }
+    }
+  }
+  if (kShared) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * cells; i += blockDim.x) {
+      const unsigned long long val = smem[i];
+      if (val == 0ull) continue;
+      const int c = i % cells;
+      const int j = c / per_feat;
+      const int rem = c - j * per_feat;
+      const int nd = rem / n_bins;
+      const int bin = rem - nd * n_bins;
+      atomicAdd(&out[(i / cells) * plane +
+                     (static_cast<long long>(nd) * n_features + f0 + j) *
+                         n_bins + bin], val);
+    }
+  }
+}
+
 // Route rows one level down: the byte of the selected ORIGINAL feature's
 // physical row, then nibble, bundle segment and compact remap decoded back
 // to the original bin id (binlayout.select_bins), then the threshold
@@ -442,6 +575,73 @@ int dmlc_hist_accum(const void* bins, const void* node, const void* grad,
     hist_accum_kernel<false><<<grid, kThreads, 0, s>>>(
         b, nd, g, h, sl, n, n_storage, n_nodes, n_bins, scale_g, scale_h,
         left_only, rows_per_chunk, o);
+  }
+  return cudaGetLastError();
+}
+
+// The fused descend: new_node[r] = node[r] < 0 ? -1 : 2*node[r] +
+// (bins[feat[k], r] > thr[k]), k = node[r] (by_node) or r, and the
+// left-child sums of new_node into out, a zeroed [2, n_prev, F, n_bins]
+// int64; bins is the plain [F, n] matrix.
+int dmlc_fused_descend(const void* bins, const void* node, const void* feat,
+                       const void* thr, int by_node, const void* grad,
+                       const void* hess, long long n, int n_features,
+                       int n_prev, int n_bins, float scale_g, float scale_h,
+                       void* out, void* new_node, void* stream) {
+  if (n_features <= 0 || n_prev <= 0 || n_bins <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0, sms = 0, max_smem = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  // features per block: two blocks per SM (half the shared memory each)
+  // while that holds a quarter of the features, else one block holding
+  // as many histograms as fit; where that is fewer than two, the
+  // global-atomic instantiation over every feature, so each row descends
+  // once per block.  (On 10M x 28 x 256, H100: two blocks were faster at
+  // n_prev 2 and 4, one at 8 and 16; at 32 a block of one feature was
+  // slower than global atomics over all 28.)
+  const size_t per_feat = 2ull * n_prev * n_bins * sizeof(unsigned long long);
+  const size_t whole = static_cast<size_t>(max_smem);
+  const size_t half = whole / 2;
+  const size_t quarter = (static_cast<size_t>(n_features) + 3) / 4;
+  const bool shared = 2 * per_feat <= whole;
+  const size_t fit = !shared ? n_features
+                     : per_feat * quarter <= half ? half / per_feat
+                                                  : whole / per_feat;
+  const int kf = static_cast<int>(
+      fit < static_cast<size_t>(n_features) ? fit : n_features);
+  const int groups = (n_features + kf - 1) / kf;
+  // about two blocks per SM in all, split over the feature groups
+  long long chunks = (2LL * sms + groups - 1) / groups;
+  const long long max_chunks = (n + kThreads - 1) / kThreads;
+  if (chunks > max_chunks) chunks = max_chunks;
+  if (chunks < 1) chunks = 1;
+  const long long rows_per_chunk = (n + chunks - 1) / chunks;
+  const dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(groups));
+  const auto* b = static_cast<const uint8_t*>(bins);
+  const auto* nd = static_cast<const int32_t*>(node);
+  const auto* f = static_cast<const int32_t*>(feat);
+  const auto* t = static_cast<const int32_t*>(thr);
+  const auto* g = static_cast<const float*>(grad);
+  const auto* h = static_cast<const float*>(hess);
+  auto* o = static_cast<unsigned long long*>(out);
+  auto* nn = static_cast<int32_t*>(new_node);
+  if (shared) {
+    const size_t smem = kf * per_feat;
+    cudaError_t e = cudaFuncSetAttribute(
+        fused_descend_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    fused_descend_kernel<true><<<grid, kThreads, smem, s>>>(
+        b, nd, f, t, by_node, g, h, n, n_features, n_prev, n_bins, scale_g,
+        scale_h, kf, rows_per_chunk, o, nn);
+  } else {
+    fused_descend_kernel<false><<<grid, kThreads, 0, s>>>(
+        b, nd, f, t, by_node, g, h, n, n_features, n_prev, n_bins, scale_g,
+        scale_h, kf, rows_per_chunk, o, nn);
   }
   return cudaGetLastError();
 }

@@ -6,7 +6,7 @@ there: ``hist[2, n_nodes, F, n_bins]``, plane 0 grad, plane 1 hess, rows
 with ``node_id < 0`` adding nothing.  Bins are feature-major ``[F, n]``
 uint8 (the JAX main path's layout).
 
-Two kernels, each a hand-written CUDA kernel for Hopper
+Three kernels, each a hand-written CUDA kernel for Hopper
 (``csrc/histogram.cu``) beside a plain PyTorch version of the same
 function:
 
@@ -14,7 +14,11 @@ function:
   the Pallas ``_hist_pallas_kernel``);
 * :func:`fused_round_kernel` / :func:`fused_round_plain` — one tree level:
   descend, left-child histograms, sibling subtraction (replaces the Pallas
-  ``_fused_round_kernel``).
+  ``_fused_round_kernel``);
+* :func:`fused_descend_kernel` / :func:`fused_descend_plain` — one tree
+  level's descend and left-child histograms in one pass, without the
+  subtraction (replaces the Pallas ``_fused_kernel``; the data-parallel
+  path, where left children are summed over ranks first).
 
 Each has a LAYOUT MODE (``layout=`` a :class:`~dmlc_core_tpu_torch.ops.
 binlayout.BinLayout`): the input is then the physical ``[phys_rows, n]``
@@ -32,7 +36,11 @@ Both accumulate in int64 FIXED POINT: each row's g/h is rounded to
 (:func:`hist_scales`, chosen so that ``n · max|q| < 2^53``), summed as
 integers and converted to f32 once.  Integer sums do not depend on their
 order, so the kernel's concurrent atomics, the plain version's
-``index_add_`` and any device give the same bytes, run after run.  On
+``index_add_``, any device and any split of the rows over ranks give the
+same bytes, run after run.  The ``sync=`` hook of the histogram entry
+points is the seam for that last case: it receives the int64 sums
+between accumulation and the epilogue (the data-parallel all-reduce),
+so an N-rank sum is the 1-rank sum exactly.  On
 bf16-exact g/h every sum is exact — equal to the TPU kernel's.  On general
 g/h the sum carries at most one f32 rounding plus the ~2^-30·max|g|
 quantisation of each row, against ~n ulps for an f32 running sum.
@@ -53,10 +61,16 @@ import torch
 from dmlc_core_tpu_torch.base.logging import CHECK, CHECK_EQ, log_fatal
 from dmlc_core_tpu_torch.ops import binlayout as bl
 
-__all__ = ["build_histogram", "fused_round", "select_feature_bins",
-           "hist_scales", "hist_kernel", "hist_plain", "fused_round_kernel",
-           "fused_round_plain", "descend_plain", "reference_histogram",
-           "leaves_built_per_round", "bins_bytes_per_round"]
+__all__ = ["build_histogram", "fused_round", "fused_descend_histogram",
+           "select_feature_bins", "hist_scales", "hist_kernel", "hist_plain",
+           "fused_round_kernel", "fused_round_plain", "fused_descend_kernel",
+           "fused_descend_plain", "descend_plain", "reference_histogram",
+           "leaves_built_per_round", "bins_bytes_per_round",
+           "hist_psum_bytes_per_round", "quantize_hist_partial",
+           "dequantize_hist_sum", "sibling_pairs"]
+
+#: int64 sums in, the same shape out (an all-reduce over ranks)
+Sync = Callable[[torch.Tensor], torch.Tensor]
 
 #: 2^SCALE_BITS bounds n·max|q|: int64 sums never overflow and convert to
 #: double exactly
@@ -73,6 +87,62 @@ def leaves_built_per_round(depth: int, grow_policy: str = "depthwise",
     if grow_policy == "lossguide":
         return min(max_leaves, 1 << depth) if max_leaves else 1 << depth
     return 1 if depth <= 1 else 1 << (depth - 1)
+
+
+def hist_psum_bytes_per_round(depth: int, n_features: int,
+                              n_bins: int, *, layout=None,
+                              grow_policy: str = "depthwise",
+                              max_leaves: int = 0,
+                              quant: bool = False) -> int:
+    """Per-rank bytes of the histogram-sync allreduce in ONE boosting
+    round, as f32 cells (the JAX package's model, value for value).
+
+    Depth-wise syncs the root, then LEFT children only (``2^(ℓ−1)`` at
+    level ℓ); loss-guide syncs one node per expansion plus the root.  A
+    node is ``[2, S, Bs]`` f32 (``S``/``Bs`` the layout's storage shape).
+    ``quant=True`` models the ``DMLC_HIST_QUANT`` int8 sync:
+    ``2·S·(Bs + 8)`` bytes a node.  The port's exact sync moves int64
+    sums, twice the f32 model."""
+    if layout is not None:
+        n_features = layout.storage_features
+        n_bins = layout.sync_bins
+    if quant:
+        node_bytes = 2 * n_features * (n_bins + 8)
+    else:
+        node_bytes = 2 * n_features * n_bins * 4
+    if grow_policy == "lossguide":
+        return leaves_built_per_round(depth, "lossguide",
+                                      max_leaves) * node_bytes
+    total = 0
+    for level in range(depth):
+        n_build = 1 if level == 0 else 1 << (level - 1)
+        total += n_build * node_bytes
+    return total
+
+
+def quantize_hist_partial(hist: torch.Tensor, gmax: torch.Tensor):
+    """One rank's PARTIAL histogram ``[..., Bs]`` f32 as int8 codes for
+    the ``DMLC_HIST_QUANT`` sync, against ``gmax`` ``[..., 1]``, the
+    GLOBAL (max-reduced) per-column absolute maximum, so that every rank
+    quantises at the same scale.  Returns ``(q int8, scale f32, tot
+    f32)``, ``tot`` the exact column total that rides along the sync."""
+    scale = torch.clamp(gmax, min=1e-30) / 127.0
+    q = torch.clamp(torch.round(hist / scale), -127, 127).to(torch.int8)
+    tot = hist.sum(dim=-1, keepdim=True)
+    return q, scale, tot
+
+
+def dequantize_hist_sum(q_sum: torch.Tensor, scale: torch.Tensor,
+                        tot_sum: torch.Tensor) -> torch.Tensor:
+    """The synced histogram from the summed codes ``q_sum`` (int32),
+    the shared ``scale`` and the summed exact column totals: the
+    column's quantisation error spread evenly over its cells, so each
+    column sums to its exact total (cell error at most ``n_ranks ·
+    scale``)."""
+    approx = q_sum.to(torch.float32) * scale
+    n_cells = approx.shape[-1]
+    corr = (tot_sum - approx.sum(dim=-1, keepdim=True)) / n_cells
+    return approx + corr
 
 
 def bins_bytes_per_round(depth: int, rows: int, row_bytes: int, *,
@@ -108,14 +178,24 @@ def _scale_exp(vmax: float, n: int) -> int:
     return max(-_SCALE_CLAMP, min(_SCALE_CLAMP, k))
 
 
-def hist_scales(grad: torch.Tensor, hess: torch.Tensor) -> Tuple[int, int]:
+def hist_scales(grad: torch.Tensor, hess: torch.Tensor,
+                n: Optional[int] = None,
+                reduce_max: Optional[Sync] = None) -> Tuple[int, int]:
     """Fixed-point exponents ``(kg, kh)`` for one tree's histograms
     (one device sync).  Every level of the tree uses the same pair, so
-    the sibling subtraction ``prev − left`` runs on sums of one scale."""
-    n = grad.numel()
+    the sibling subtraction ``prev − left`` runs on sums of one scale.
+
+    On one rank of a data-parallel fit pass ``n``, the global row count,
+    and ``reduce_max``, the max all-reduce of the ``[2]`` local maxima:
+    the scales are then the 1-rank fit's, and so are the bytes."""
+    local = (torch.stack([grad.abs().max(), hess.abs().max()])
+             if grad.numel() else torch.zeros(2, device=grad.device))
+    if reduce_max is not None:
+        local = reduce_max(local)
+    n = grad.numel() if n is None else n
     if n == 0:
         return _scale_exp(0.0, 0), _scale_exp(0.0, 0)
-    gmax, hmax = torch.stack([grad.abs().max(), hess.abs().max()]).tolist()
+    gmax, hmax = local.tolist()
     return _scale_exp(gmax, n), _scale_exp(hmax, n)
 
 
@@ -150,14 +230,26 @@ def _accum_plain(bins_t, node_h, grad, hess, n_nodes, n_bins, kg, kh):
     return acc
 
 
+def _left_children(node_id: torch.Tensor) -> torch.Tensor:
+    """Even (left-child) ids → their parent's index, everything else −1."""
+    return torch.where((node_id >= 0) & (node_id % 2 == 0), node_id >> 1,
+                       -1).to(torch.int32)
+
+
 def hist_plain(bins_t: torch.Tensor, node_id: torch.Tensor,
                grad: torch.Tensor, hess: torch.Tensor, n_nodes: int,
                n_bins: int, kg: int, kh: int,
-               layout: Optional[bl.BinLayout] = None) -> torch.Tensor:
+               layout: Optional[bl.BinLayout] = None, *,
+               left_only: bool = False,
+               sync: Optional[Sync] = None) -> torch.Tensor:
     """Plain version of :func:`hist_kernel`: the same fixed-point sums,
     bit-identical to it on any device.  Under a ``layout`` the physical
     matrix unpacks to the storage matrix first and the result is
-    ``[2, n_nodes, S, layout.sync_bins]``."""
+    ``[2, n_nodes, S, layout.sync_bins]``.  ``left_only``: ``node_id``
+    holds the next level's ids and only even ones add, at their parent's
+    index.  ``sync`` maps the int64 sums before the conversion."""
+    if left_only:
+        node_id = _left_children(node_id)
     rows = torch.nonzero(node_id >= 0).squeeze(1)     # rows that add
     bins_v = bins_t[:, rows]
     if layout is not None:
@@ -166,6 +258,8 @@ def hist_plain(bins_t: torch.Tensor, node_id: torch.Tensor,
     F = bins_v.shape[0]
     acc = _accum_plain(bins_v, node_id[rows], grad[rows], hess[rows],
                        n_nodes, n_bins, kg, kh)
+    if sync is not None:
+        acc = sync(acc)
     return torch.stack([_dequantize(acc[0], kg), _dequantize(acc[1], kh)]
                        ).reshape(2, n_nodes, F, n_bins)
 
@@ -173,20 +267,29 @@ def hist_plain(bins_t: torch.Tensor, node_id: torch.Tensor,
 def descend_plain(bins_t: torch.Tensor, node_id: torch.Tensor,
                   feat: torch.Tensor, thr: torch.Tensor,
                   by_node: bool = True,
-                  layout: Optional[bl.BinLayout] = None) -> torch.Tensor:
+                  layout: Optional[bl.BinLayout] = None,
+                  dir_sel: Optional[torch.Tensor] = None,
+                  miss_bin: Optional[int] = None) -> torch.Tensor:
     """Route rows one level down: ``2·node + (bins[feat, r] > thr)`` as
-    int32, rows with ``node < 0`` staying −1.  ``feat``/``thr`` are
-    per-node tables (``by_node``) or per-row arrays, in the ORIGINAL
-    feature and bin space (under a ``layout`` too).  The one plain
-    descend of the package — the kernel's descend pass, training's final
+    int32, rows with ``node < 0`` staying −1.  ``feat``/``thr`` (and
+    ``dir_sel``) are per-node tables (``by_node``) or per-row arrays, in
+    the ORIGINAL feature and bin space (under a ``layout`` too).  With
+    ``dir_sel`` (learned missing direction, 1 = left) rows in
+    ``miss_bin`` follow it instead of the threshold.  The one plain
+    descend of the package — the kernels' descend, training's final
     descend and prediction all route by it."""
     valid = node_id >= 0
     if by_node:
         key = torch.where(valid, node_id, 0).to(torch.int64)
         feat, thr = feat[key], thr[key]
-    go_right = (select_feature_bins(bins_t, feat, layout=layout) > thr
-                ).to(torch.int32)
-    return torch.where(valid, 2 * node_id + go_right, -1).to(torch.int32)
+        if dir_sel is not None:
+            dir_sel = dir_sel[key]
+    row_bin = select_feature_bins(bins_t, feat, layout=layout)
+    go_right = row_bin > thr
+    if dir_sel is not None:
+        go_right = torch.where(row_bin == miss_bin, dir_sel == 0, go_right)
+    return torch.where(valid, 2 * node_id + go_right.to(torch.int32),
+                       -1).to(torch.int32)
 
 
 def fused_round_plain(bins_t: torch.Tensor, node_id: torch.Tensor,
@@ -200,14 +303,33 @@ def fused_round_plain(bins_t: torch.Tensor, node_id: torch.Tensor,
     hist [2, 2·n_prev, F, n_bins])`` — ``[2, 2·n_prev, S, Bs]`` in
     storage space under a ``layout``."""
     new_node = descend_plain(bins_t, node_id, feat, thr, by_node, layout)
-    left_ok = (new_node >= 0) & (new_node % 2 == 0)
-    node_h = torch.where(left_ok, new_node >> 1, -1)
-    left = hist_plain(bins_t, node_h, grad, hess, n_prev, n_bins, kg, kh,
-                      layout)
-    right = prev_hist - left
-    hist = torch.stack([left, right], dim=2).reshape(
-        2, 2 * n_prev, *left.shape[2:])
-    return new_node, hist
+    left = hist_plain(bins_t, new_node, grad, hess, n_prev, n_bins, kg, kh,
+                      layout, left_only=True)
+    return new_node, sibling_pairs(left, prev_hist)
+
+
+def sibling_pairs(left: torch.Tensor, prev_hist: torch.Tensor
+                  ) -> torch.Tensor:
+    """``[2, 2·n_prev, ...]`` children from the left ones and their
+    parents: ``2p`` = left, ``2p+1`` = ``prev − left`` in f32 (the
+    kernels' epilogue, as JAX's sibling subtraction)."""
+    return torch.stack([left, prev_hist - left], dim=2).reshape(
+        2, 2 * left.shape[1], *left.shape[2:])
+
+
+def fused_descend_plain(bins_t: torch.Tensor, node_id: torch.Tensor,
+                        feat: torch.Tensor, thr: torch.Tensor,
+                        grad: torch.Tensor, hess: torch.Tensor, n_prev: int,
+                        n_bins: int, kg: int, kh: int, by_node: bool = False,
+                        sync: Optional[Sync] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`fused_descend_kernel`: ``(left_hist
+    [2, n_prev, F, n_bins], new_node [n])`` — the descend, then the
+    left-child histograms of the new ids, no subtraction."""
+    new_node = descend_plain(bins_t, node_id, feat, thr, by_node)
+    left = hist_plain(bins_t, new_node, grad, hess, n_prev, n_bins, kg, kh,
+                      left_only=True, sync=sync)
+    return left, new_node
 
 
 # ---------------------------------------------------------------------------
@@ -278,18 +400,25 @@ def _epilogue_kernel(acc, prev, n_nodes, kg, kh):
 def hist_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
                 grad: torch.Tensor, hess: torch.Tensor, n_nodes: int,
                 n_bins: int, kg: int, kh: int,
-                layout: Optional[bl.BinLayout] = None) -> torch.Tensor:
+                layout: Optional[bl.BinLayout] = None, *,
+                left_only: bool = False,
+                sync: Optional[Sync] = None) -> torch.Tensor:
     """CUDA histogram ``[2, n_nodes, F, n_bins]`` f32 (two launches:
-    fixed-point accumulation, then the dequantising epilogue).  Under a
-    ``layout``: the physical matrix in, ``[2, n_nodes, S, Bs]`` out (the
-    layout mode).  Counts its calls in ``hist_kernel.launches``, its
-    layout-mode calls in ``hist_kernel.layout_launches``."""
+    fixed-point accumulation, then the dequantising epilogue; ``sync``
+    maps the int64 sums between them).  Under a ``layout``: the physical
+    matrix in, ``[2, n_nodes, S, Bs]`` out (the layout mode).
+    ``left_only``: ``node_id`` holds the next level's ids and only even
+    ones add, at their parent's index.  Counts its calls in
+    ``hist_kernel.launches``, its layout-mode calls in
+    ``hist_kernel.layout_launches``."""
     if layout is not None:
         n_bins = layout.sync_bins
     _check_inputs(bins_t, node_id, grad, hess, n_bins, layout)
     slots, _ = bl.kernel_tables(layout, bins_t.shape[0], bins_t.device)
     acc = _accum_kernel(bins_t, node_id, grad, hess, n_nodes, n_bins, kg, kh,
-                        False, layout, slots)
+                        left_only, layout, slots)
+    if sync is not None:
+        acc = sync(acc)
     out = _epilogue_kernel(acc, None, n_nodes, kg, kh)
     if layout is None:
         hist_kernel.launches += 1
@@ -322,11 +451,7 @@ def fused_round_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
     _check_inputs(bins_t, node_id, grad, hess, n_bins, layout)
     n = bins_t.shape[1]
     S = layout.storage_features if layout is not None else bins_t.shape[0]
-    m = n_prev if by_node else n
-    for name, t in (("feat", feat), ("thr", thr)):
-        CHECK(t.device == bins_t.device and t.dtype == torch.int32
-              and t.shape == (m,) and t.is_contiguous(),
-              f"{name} must be a contiguous [{m}] int32 tensor")
+    _check_split_tables(bins_t, feat, thr, n_prev if by_node else n)
     CHECK(prev_hist.device == bins_t.device
           and prev_hist.dtype == torch.float32
           and prev_hist.shape == (2, n_prev, S, n_bins)
@@ -355,6 +480,51 @@ fused_round_kernel.launches = 0
 fused_round_kernel.layout_launches = 0
 
 
+def _check_split_tables(bins_t, feat, thr, m):
+    for name, t in (("feat", feat), ("thr", thr)):
+        CHECK(t.device == bins_t.device and t.dtype == torch.int32
+              and t.shape == (m,) and t.is_contiguous(),
+              f"{name} must be a contiguous [{m}] int32 tensor")
+
+
+def fused_descend_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
+                         feat: torch.Tensor, thr: torch.Tensor,
+                         grad: torch.Tensor, hess: torch.Tensor,
+                         n_prev: int, n_bins: int, kg: int, kh: int,
+                         by_node: bool = False,
+                         sync: Optional[Sync] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CUDA fused descend: ``(left_hist [2, n_prev, F, n_bins] f32,
+    new_node [n])`` — one launch that descends every row in registers
+    and builds the left children of a group of features per block, then
+    the dequantising epilogue without ``prev`` (``sync`` maps the int64
+    sums between them).  ``feat``/``thr`` are per-node tables
+    ``[n_prev]`` (``by_node``) or per-row arrays ``[n]``.  The plain
+    ``[F, n]`` matrix only (no layout mode).  Counts its calls in
+    ``fused_descend_kernel.launches``."""
+    _check_inputs(bins_t, node_id, grad, hess, n_bins)
+    F, n = bins_t.shape
+    _check_split_tables(bins_t, feat, thr, n_prev if by_node else n)
+    acc = torch.zeros(2, n_prev, F, n_bins, dtype=torch.int64,
+                      device=bins_t.device)
+    new_node = torch.empty(n, dtype=torch.int32, device=bins_t.device)
+    rc = _lib().dmlc_fused_descend(
+        bins_t.data_ptr(), node_id.data_ptr(), feat.data_ptr(),
+        thr.data_ptr(), int(by_node), grad.data_ptr(), hess.data_ptr(), n, F,
+        n_prev, n_bins, 2.0 ** kg, 2.0 ** kh, acc.data_ptr(),
+        new_node.data_ptr(),
+        torch.cuda.current_stream(bins_t.device).cuda_stream)
+    _check_launch(rc, "dmlc_fused_descend")
+    if sync is not None:
+        acc = sync(acc)
+    left = _epilogue_kernel(acc, None, n_prev, kg, kh)
+    fused_descend_kernel.launches += 1
+    return left, new_node
+
+
+fused_descend_kernel.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # public entry points (device dispatch)
 # ---------------------------------------------------------------------------
@@ -362,22 +532,24 @@ fused_round_kernel.layout_launches = 0
 def build_histogram(bins_t: torch.Tensor, node_id: torch.Tensor,
                     grad: torch.Tensor, hess: torch.Tensor, n_nodes: int,
                     n_bins: int, *, scales: Optional[Tuple[int, int]] = None,
-                    layout: Optional[bl.BinLayout] = None) -> torch.Tensor:
+                    layout: Optional[bl.BinLayout] = None,
+                    sync: Optional[Sync] = None) -> torch.Tensor:
     """Return ``hist[2, n_nodes, F, n_bins]`` for the feature-major bin
     matrix ``bins_t [F, n]``.  ``scales`` are the fixed-point exponents of
     :func:`hist_scales` (computed from ``grad``/``hess`` when omitted).
     Under a ``layout`` ``bins_t`` is the physical ``[phys_rows, n]``
     matrix and the result is the storage-space ``[2, n_nodes, S, Bs]``
     (:func:`~dmlc_core_tpu_torch.ops.binlayout.unbundle_hist` maps it back
-    for split scoring).  CUDA tensors run :func:`hist_kernel`, CPU
-    tensors :func:`hist_plain`."""
+    for split scoring).  ``sync`` maps the int64 sums before their
+    conversion (the data-parallel all-reduce).  CUDA tensors run
+    :func:`hist_kernel`, CPU tensors :func:`hist_plain`."""
     kg, kh = scales if scales is not None else hist_scales(grad, hess)
     if bins_t.is_cuda:
         return hist_kernel(bins_t, node_id, grad, hess, n_nodes, n_bins,
-                           kg, kh, layout)
+                           kg, kh, layout, sync=sync)
     CHECK_EQ(bins_t.device.type, "cpu", "unsupported device")
     return hist_plain(bins_t, node_id, grad, hess, n_nodes, n_bins, kg, kh,
-                      layout)
+                      layout, sync=sync)
 
 
 def fused_round(bins_t: torch.Tensor, node_id: torch.Tensor,
@@ -413,6 +585,57 @@ def fused_round(bins_t: torch.Tensor, node_id: torch.Tensor,
             n_bins, kg, kh, by_node, layout)
     scores = score_fn(hist) if score_fn is not None else None
     return new_node, hist, scores
+
+
+def fused_descend_histogram(
+        bins_t: torch.Tensor, node_id: torch.Tensor,
+        feat_sel: torch.Tensor, thr_sel: torch.Tensor,
+        grad: torch.Tensor, hess: torch.Tensor, n_prev: int, n_bins: int,
+        method: str = "auto", fuse: bool = False,
+        dir_sel: Optional[torch.Tensor] = None,
+        miss_bin: Optional[int] = None,
+        layout: Optional[bl.BinLayout] = None, *, by_node: bool = False,
+        scales: Optional[Tuple[int, int]] = None,
+        sync: Optional[Sync] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Advance rows one level and build the new level's LEFT-child
+    histograms: ``(left_hist [2, n_prev, F, n_bins], new_node [n])`` with
+    ``left_hist[:, p]`` the histogram of parent p's left child (node
+    2p); the caller derives the right child by subtraction (after
+    ``sync``, the int64 all-reduce, on the data-parallel path) — JAX's
+    ``fused_descend_histogram``.
+
+    ``fuse=True`` (``DMLC_TPU_FUSED_DESCEND=1`` in training) runs the
+    descend inside the histogram pass: :func:`fused_descend_kernel` on
+    CUDA tensors, :func:`fused_descend_plain` on CPU tensors.  As in JAX
+    the missing direction (``dir_sel``/``miss_bin``) and a ``layout``
+    take the unfused chain: the torch descend, then the histogram
+    kernel over left children.  ``feat_sel``/``thr_sel`` (and
+    ``dir_sel``) are per-row ``[n]``, or per-node ``[n_prev]`` with
+    ``by_node``.  ``method`` is accepted for the JAX signature (this
+    package has one histogram engine)."""
+    del method
+    kg, kh = scales if scales is not None else hist_scales(grad, hess)
+    feat = feat_sel.to(torch.int32).contiguous()
+    thr = thr_sel.to(torch.int32).contiguous()
+    if bins_t.is_cuda:
+        if fuse and dir_sel is None and layout is None:
+            return fused_descend_kernel(bins_t, node_id, feat, thr, grad,
+                                        hess, n_prev, n_bins, kg, kh,
+                                        by_node, sync)
+        new_node = descend_plain(bins_t, node_id, feat, thr, by_node, layout,
+                                 dir_sel, miss_bin)
+        left = hist_kernel(bins_t, new_node, grad, hess, n_prev, n_bins, kg,
+                           kh, layout, left_only=True, sync=sync)
+        return left, new_node
+    CHECK_EQ(bins_t.device.type, "cpu", "unsupported device")
+    if fuse and dir_sel is None and layout is None:
+        return fused_descend_plain(bins_t, node_id, feat, thr, grad, hess,
+                                   n_prev, n_bins, kg, kh, by_node, sync)
+    new_node = descend_plain(bins_t, node_id, feat, thr, by_node, layout,
+                             dir_sel, miss_bin)
+    left = hist_plain(bins_t, new_node, grad, hess, n_prev, n_bins, kg, kh,
+                      layout, left_only=True, sync=sync)
+    return left, new_node
 
 
 def select_feature_bins(bins_t: torch.Tensor, feat_sel: torch.Tensor,

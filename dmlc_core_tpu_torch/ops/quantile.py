@@ -21,8 +21,9 @@ interpolated by hand.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from dmlc_core_tpu_torch.base.logging import CHECK
@@ -204,13 +205,21 @@ def merge_summaries(gathered: torch.Tensor, n_bins: int) -> torch.Tensor:
 
 def compute_cuts(x: torch.Tensor, n_bins: int = 256,
                  weight: Optional[torch.Tensor] = None,
-                 n_summary: Optional[int] = None) -> torch.Tensor:
-    """End-to-end single-worker cuts ``[F, n_bins-1]`` f32 on ``x``'s
-    device (the JAX ``compute_cuts`` without a gather)."""
+                 n_summary: Optional[int] = None,
+                 allgather_fn: Optional[Callable] = None) -> torch.Tensor:
+    """End-to-end cuts ``[F, n_bins-1]`` f32 on ``x``'s device.
+
+    ``allgather_fn(summary) -> [W, F, S]`` (numpy in, numpy out, e.g.
+    ``parallel.collectives.allgather``) merges the summaries of W
+    workers, each over its own rows, as the JAX package's merge does;
+    None means one worker."""
     CHECK(n_bins >= 2, "need at least 2 bins")
     n_summary = n_summary or max(8 * n_bins, 64)
     summary = local_summary(x, weight, n_summary)
-    return merge_summaries(summary[None], n_bins)
+    if allgather_fn is None:
+        return merge_summaries(summary[None], n_bins)
+    gathered = np.asarray(allgather_fn(summary.cpu().numpy()), np.float32)
+    return merge_summaries(torch.from_numpy(gathered).to(x.device), n_bins)
 
 
 def apply_bins(x: torch.Tensor, cuts: torch.Tensor) -> torch.Tensor:

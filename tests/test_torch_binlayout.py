@@ -21,6 +21,10 @@ from dmlc_core_tpu.ops import binlayout as jbl  # noqa: E402
 from dmlc_core_tpu.ops.histogram import build_histogram  # noqa: E402
 from dmlc_core_tpu_torch.ops import binlayout as tbl  # noqa: E402
 
+# a few intra-op threads per test process: the suite runs several
+# processes on the host's cores
+torch.set_num_threads(2)
+
 
 def _spread_bins(rng, n, F, B, narrow=()):
     """[F, n] bin matrix like the eps-bumped sketch's: narrow features

@@ -33,6 +33,10 @@ from dmlc_core_tpu_torch import HistGBT, HistGBTParam  # noqa: E402
 from dmlc_core_tpu_torch.models.gbt_split import (  # noqa: E402
     _advance_node, _make_best_split)
 
+# a few intra-op threads per test process: the suite runs several
+# processes on the host's cores
+torch.set_num_threads(2)
+
 KW = dict(n_trees=4, max_depth=4, n_bins=32)
 
 

@@ -23,6 +23,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from dmlc_core_tpu.ops import histogram as jh  # noqa: E402
 from dmlc_core_tpu_torch.ops import histogram as th  # noqa: E402
 
+# a few intra-op threads per test process: the suite runs several
+# processes on the host's cores
+torch.set_num_threads(2)
+
 # (n, F, n_nodes, n_bins, masked share): masked rows (node −1), n not a
 # multiple of anything, N ∈ {1, 2, 4}, F = 5 (not a multiple of 8)
 CASES = [

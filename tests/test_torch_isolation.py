@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+# a few intra-op threads per test process: the suite runs several
+# processes on the host's cores
+torch.set_num_threads(2)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "dmlc_core_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "dmlc_core_tpu")

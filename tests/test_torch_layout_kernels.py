@@ -28,6 +28,10 @@ from dmlc_core_tpu.ops import histogram as jh  # noqa: E402
 from dmlc_core_tpu_torch.ops import binlayout as tbl  # noqa: E402
 from dmlc_core_tpu_torch.ops import histogram as th  # noqa: E402
 
+# a few intra-op threads per test process: the suite runs several
+# processes on the host's cores
+torch.set_num_threads(2)
+
 B = 32
 
 

@@ -30,6 +30,10 @@ from dmlc_core_tpu_torch.base.logging import Error  # noqa: E402
 from dmlc_core_tpu_torch.models import histgbt as port_histgbt  # noqa: E402
 from dmlc_core_tpu_torch.ops import histogram as th  # noqa: E402
 
+# a few intra-op threads per test process: the suite runs several
+# processes on the host's cores
+torch.set_num_threads(2)
+
 KW = dict(n_trees=4, max_depth=4, n_bins=32, objective="binary:logistic",
           learning_rate=0.3)
 LEVERS = ("DMLC_GROW_POLICY", "DMLC_MAX_LEAVES", "DMLC_BIN_PACK",

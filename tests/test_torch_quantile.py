@@ -16,6 +16,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from dmlc_core_tpu.ops import quantile as jq  # noqa: E402
 from dmlc_core_tpu_torch.ops import quantile as tq  # noqa: E402
 
+# a few intra-op threads per test process: the suite runs several
+# processes on the host's cores
+torch.set_num_threads(2)
+
 
 def _bits(a):
     a = np.ascontiguousarray(np.asarray(a, np.float32))
