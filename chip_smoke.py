@@ -56,14 +56,36 @@ and the script exits non-zero without the final ``ok`` line:
    for ``fused_round``, up to ``max_depth=12``), where the histogram
    outgrows shared memory and the kernel adds straight into the global
    one;
-10. the ``kernels`` line (launches summed over phases 4-6 and 8), then
-    the card's name and power limit, then the ``ok`` line.
+10. attention_kernels — the three flash-attention kernels of
+    ``csrc/attention.cu`` (forward, dK/dV, dQ) at BERT-base's shape
+    (``[8, 512, 12, 64]`` bf16, q/k/v views of one QKV tensor as the model
+    makes them), causal at the same shape, and at sequences that are no
+    tile multiple and the other head dims: each against its plain version
+    on the same inputs (``o`` within 2^-7 and dq/dk/dv within 2^-6 of the
+    plain result's largest magnitude, ``lse`` within 1e-4), twice on the
+    same inputs (identical bytes); at BERT-base's shape timed (10 calls
+    back to back per CUDA-event pair) beside its bound and
+    ``F.scaled_dot_product_attention``'s time (the yardstick only: the
+    port never calls it);
+11. bert — ``BERT()`` at BERT-base width on the card, the bench's batch
+    (8 × 512, seed 0, labels = tokens, mask of ones): one step, then
+    ``fit_chunked`` (10 warmup + 20 timed steps) with the launch counts
+    set to 0 before and read after (12 of each kernel per step), a falling
+    loss, steps/s, tokens/s, matmul TFLOP/s and peak device memory, then
+    ``save_model`` → ``load_model`` giving the same weights, momentum and
+    next loss; and a two-layer BERT (head dim 64) trained three steps on
+    the card and on the CPU from one seed: losses within 2e-3, weights
+    within 1e-3;
+12. the ``kernels`` line (launches summed over phases 4-6 and 8, and
+    phase 11's for attention), then the card's name and power limit,
+    then the ``ok`` line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import sys
@@ -124,6 +146,41 @@ DP_BLOCKS = {**FUSED_DESCEND, "DMLC_HIST_BLOCKS": "8"}
 #: limit in seconds
 DP_RANKS = 2
 DP_TIMEOUT = 300
+#: the attention checks: (name, [B, S, H, D], causal).  BERT-base's shape
+#: (bench_transformer.py's batch 8 × seq 512, 12 heads of 64) is the main
+#: path's; the others cover causal masking, tail tiles and the head dims
+ATTN_SHAPES = (("bert", (8, 512, 12, 64), False),
+               ("bert_causal", (8, 512, 12, 64), True),
+               ("odd", (2, 200, 3, 64), False),
+               ("odd_causal", (2, 200, 3, 64), True),
+               ("d80", (1, 77, 2, 80), False),
+               ("d128_causal", (2, 130, 2, 128), True))
+#: shapes timed as well as checked
+ATTN_TIMED = ("bert", "bert_causal")
+#: agreement with the plain versions: o and dq/dk/dv within these shares
+#: of the plain result's largest magnitude (bf16 outputs; the kernels
+#: round P and dS to bf16 before their products), lse absolute (f32)
+O_TOL = 2.0 ** -7
+GRAD_TOL = 2.0 ** -6
+LSE_TOL = 1e-4
+#: back-to-back calls per CUDA-event timing of the attention kernels
+#: (~0.1-0.3 ms each) and of their yardstick
+ATTN_INNER = 10
+#: the bench's BERT batch, and the timed steps of ``fit_chunked`` in
+#: chunks (one more warmup chunk runs first)
+BERT_BATCH = 8
+BERT_SEQ = 512
+BERT_STEPS = 20
+BERT_CHUNK = 10
+#: the cross-device check: a two-layer BERT whose heads the kernels take
+#: (head dim 64), trained a few steps on the card and on the CPU (the
+#: dense oracle) from the same weights, held as the CPU tests hold the
+#: port to the JAX package
+CROSS_BERT = dict(n_layers=2, d_model=128, n_heads=2, d_ff=256,
+                  vocab_size=512, max_len=128)
+CROSS_BERT_STEPS = 3
+LOSS_RTOL = 2e-3
+PARAM_ATOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -148,8 +205,17 @@ def card_rates(name: str):
     return 3.35e12, 67e12
 
 
-def time_ms(torch, fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+def tensor_rate(name: str) -> float:
+    """Dense bf16 tensor-core operations/s of the card (NVIDIA's data
+    sheets: H100 SXM 989 TFLOP/s, H100 PCIe 756 TFLOP/s)."""
+    return 756e12 if "PCIe" in name else 989e12
+
+
+def time_ms(torch, fn, reps: int, inner: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up;
+    each timing spans ``inner`` calls back to back and is divided by
+    ``inner`` (for kernels short enough that one call's host-side wrapper
+    would show as idle device time)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -157,10 +223,11 @@ def time_ms(torch, fn, reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -946,6 +1013,274 @@ def phase_data_parallel(torch, np, H, rates, X, y, Xv, yv, main, lossguide):
     return total
 
 
+# ---------------------------------------------------------------------------
+# attention and BERT
+# ---------------------------------------------------------------------------
+
+def rel_err(a, b) -> float:
+    """max|a − b| over max|b|."""
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max())
+
+
+def attention_bounds(shape, causal, rates, tc_rate):
+    """``{kernel: (bound ms, bound_by)}``: the bytes each kernel must move
+    (bf16 [B, S, H, D] tensors and f32 [B, H, S] residuals, each read or
+    written once) at the HBM rate against its tensor-core products over
+    the (query, key) pairs it visits, at the bf16 rate."""
+    B, S, H, D = shape
+    t = B * S * H * D * 2
+    r = B * H * S * 4
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    rr = (rates[0], tc_rate)
+    return {"flash_fwd": bound(3 * t + t + r, 4 * pairs * D, rr),
+            "flash_bwd_dkv": bound(4 * t + 2 * r + 2 * t, 8 * pairs * D, rr),
+            "flash_bwd_dq": bound(4 * t + 2 * r + t, 6 * pairs * D, rr)}
+
+
+def check_attention(torch, A, name, shape, causal, rates, tc_rate):
+    """The three flash kernels at one shape against their plain versions
+    on the same card inputs, twice over; at the timed shapes, timed
+    beside their bounds and SDPA's time.  Returns ``{kernel: entry}``."""
+    import torch.nn.functional as F
+
+    B, S, H, D = shape
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    qkv = torch.randn((3, B, S, H, D), device=dev,
+                      generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.unbind(0)    # views of one tensor, as BERT's QKV gives
+    do = torch.randn((B, S, H, D), device=dev,
+                     generator=gen).to(torch.bfloat16)
+    scale = D ** -0.5
+    what = f"({name}, {list(shape)}, causal {causal})"
+
+    def fwd():
+        return A.flash_fwd_kernel(q, k, v, causal, scale)
+
+    o, lse = fwd()
+    o2, lse2 = fwd()
+    o_p, lse_p = A.flash_fwd_plain(q, k, v, causal, scale)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+    def dkv():
+        return A.flash_bwd_dkv_kernel(q, k, v, do, lse, di, causal, scale)
+
+    def dq_fn():
+        return A.flash_bwd_dq_kernel(q, k, v, do, lse, di, causal, scale)
+
+    dk, dv = dkv()
+    dk2, dv2 = dkv()
+    dk_p, dv_p = A.flash_bwd_dkv_plain(q, k, v, do, lse, di, causal, scale)
+    dq = dq_fn()
+    dq2 = dq_fn()
+    dq_p = A.flash_bwd_dq_plain(q, k, v, do, lse, di, causal, scale)
+    torch.cuda.synchronize()
+    for out in (o, lse, dk, dv, dq):
+        require(bool(torch.isfinite(out).all()), f"non-finite output {what}")
+    require(torch.equal(o, o2) and torch.equal(lse, lse2),
+            f"flash_fwd not reproducible {what}")
+    require(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+            f"flash_bwd_dkv not reproducible {what}")
+    require(torch.equal(dq, dq2), f"flash_bwd_dq not reproducible {what}")
+    errs = {"o": rel_err(o, o_p), "dk": rel_err(dk, dk_p),
+            "dv": rel_err(dv, dv_p), "dq": rel_err(dq, dq_p)}
+    lse_err = max_abs_err(torch, lse, lse_p)
+    require(errs["o"] <= O_TOL, f"flash_fwd o off its plain version by "
+            f"{errs['o']} of max|o| {what}")
+    require(lse_err <= LSE_TOL, f"flash_fwd lse off by {lse_err} {what}")
+    for key in ("dk", "dv", "dq"):
+        require(errs[key] <= GRAD_TOL, f"{key} off its plain version by "
+                f"{errs[key]} of its largest magnitude {what}")
+    out = {"flash_fwd": {"max_abs_err": max_abs_err(torch, o, o_p),
+                         "rel_err": errs["o"], "lse_max_abs_err": lse_err},
+           "flash_bwd_dkv": {"max_abs_err": max(max_abs_err(torch, dk, dk_p),
+                                                max_abs_err(torch, dv, dv_p)),
+                             "rel_err": max(errs["dk"], errs["dv"])},
+           "flash_bwd_dq": {"max_abs_err": max_abs_err(torch, dq, dq_p),
+                            "rel_err": errs["dq"]}}
+    if name not in ATTN_TIMED:
+        return out
+    # the yardstick: PyTorch's fused attention on the same inputs in its
+    # [B, H, S, D] layout (views), forward and forward + backward
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    leaves = [t.detach().clone().requires_grad_() for t in (qt, kt, vt)]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              scale=scale)
+
+    def sdpa_fwd_bwd():
+        res = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                             scale=scale)
+        return torch.autograd.grad(res, leaves, dot)
+
+    n = ATTN_INNER
+    with torch.no_grad():
+        lib_rel = rel_err(sdpa().transpose(1, 2), o_p)
+        lib_fwd = time_ms(torch, sdpa, REPS, n)
+    lib_bwd = time_ms(torch, sdpa_fwd_bwd, REPS, n) - lib_fwd
+    plain_reps = max(3, REPS // 3)
+    times = {
+        "flash_fwd": (time_ms(torch, fwd, REPS, n), time_ms(
+            torch, lambda: A.flash_fwd_plain(q, k, v, causal, scale),
+            plain_reps), lib_fwd),
+        "flash_bwd_dkv": (time_ms(torch, dkv, REPS, n), time_ms(
+            torch, lambda: A.flash_bwd_dkv_plain(q, k, v, do, lse, di,
+                                                 causal, scale),
+            plain_reps), lib_bwd),
+        "flash_bwd_dq": (time_ms(torch, dq_fn, REPS, n), time_ms(
+            torch, lambda: A.flash_bwd_dq_plain(q, k, v, do, lse, di,
+                                                causal, scale),
+            plain_reps), lib_bwd)}
+    for kname, (b_ms, b_by) in attention_bounds(shape, causal, rates,
+                                                tc_rate).items():
+        ms, plain_ms, lib_ms = times[kname]
+        out[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_ms,
+                          sdpa_rel_err=lib_rel)
+    return out
+
+
+def phase_attention_kernels(torch, A, rates, tc_rate):
+    """Every ``ATTN_SHAPES`` check; returns the ``kernels`` entries, from
+    BERT-base's non-causal shape (the main path's)."""
+    entries = None
+    for name, shape, causal in ATTN_SHAPES:
+        res = check_attention(torch, A, name, shape, causal, rates, tc_rate)
+        for kname, case in res.items():
+            emit({"phase": "attention_kernels", "name": kname,
+                  "shape": name, "B_S_H_D": list(shape), "causal": causal,
+                  **case})
+        if name == "bert":
+            entries = res
+    # SDPA's backward computes dq, dk and dv in one call: it stands beside
+    # each backward kernel as the time of the whole backward
+    for kname in ("flash_bwd_dkv", "flash_bwd_dq"):
+        entries[kname]["library_call"] = "sdpa backward (dq, dk, dv)"
+    entries["flash_fwd"]["library_call"] = "sdpa forward"
+    return entries
+
+
+def zero_attention_counts(A):
+    for fn in (A.flash_fwd_kernel, A.flash_bwd_dkv_kernel,
+               A.flash_bwd_dq_kernel):
+        fn.launches = 0
+
+
+def read_attention_counts(A):
+    return {"flash_fwd": A.flash_fwd_kernel.launches,
+            "flash_bwd_dkv": A.flash_bwd_dkv_kernel.launches,
+            "flash_bwd_dq": A.flash_bwd_dq_kernel.launches}
+
+
+def phase_bert(torch, np, A, rates):
+    """BERT-base masked-LM training on the card (the bench's batch): one
+    step, the chunked steps with launch counts read around them, then the
+    save / load round trip.  Returns the chunked steps' launches."""
+    from dmlc_core_tpu_torch.models import BERT
+
+    t0 = time.perf_counter()
+    model = BERT(device=DEVICE)
+    model.init_params(0)
+    p = model.param
+    n_params = sum(int(t.numel()) for t in model.params.values())
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, p.vocab_size, size=(BERT_BATCH, BERT_SEQ))
+    labels, mask = tokens.copy(), np.ones(tokens.shape, np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = model.train_step(tokens, labels, mask)
+    first_step_s = time.perf_counter() - t0
+    # random weights of scale 0.02: the loss starts near ln V
+    require(math.isfinite(first)
+            and abs(first - math.log(p.vocab_size)) < 1.0,
+            f"first BERT loss {first}, want about ln {p.vocab_size}")
+    zero_attention_counts(A)
+    final, secs, chunk_times = model.fit_chunked(
+        tokens, labels, mask, n_steps=BERT_STEPS, chunk=BERT_CHUNK)
+    launches = read_attention_counts(A)
+    steps_run = BERT_STEPS + BERT_CHUNK
+    for kname, n in launches.items():
+        require(n == p.n_layers * steps_run,
+                f"bert: {kname} launched {n} times in {steps_run} steps, "
+                f"want {p.n_layers} per step")
+    require(math.isfinite(final) and final < first,
+            f"BERT loss did not fall: {first} -> {final}")
+    peak = torch.cuda.max_memory_allocated()
+    flops = 6 * n_params * BERT_BATCH * BERT_SEQ
+    steps_per_sec = BERT_STEPS / secs
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "bert.bin")
+        t0 = time.perf_counter()
+        model.save_model(path)
+        again = BERT.load_model(path, device=DEVICE)
+        file_bytes = os.path.getsize(path)
+        save_load_s = time.perf_counter() - t0
+    for tree, other in ((model.params, again.params),
+                        (model.opt_state, again.opt_state)):
+        require(list(tree) == list(other)
+                and all(torch.equal(tree[k], other[k]) for k in tree),
+                "bert: load_model's weights or momentum differ")
+    nxt, nxt_again = (m.train_step(tokens, labels, mask)
+                      for m in (model, again))
+    require(nxt == nxt_again,
+            f"bert: the loaded model's next loss {nxt_again} != {nxt}")
+    cross = bert_cross_device(torch, np, A)
+    emit({"phase": "bert", "param": p.to_dict(), "params": n_params,
+          "batch": BERT_BATCH, "seq": BERT_SEQ, "init_seconds": init_s,
+          "first_step_seconds": first_step_s, "first_loss": first,
+          "steps": BERT_STEPS, "chunk": BERT_CHUNK, "seconds": secs,
+          "final_loss": final, "chunk_times": chunk_times,
+          "steps_per_sec": steps_per_sec,
+          "tokens_per_sec": steps_per_sec * BERT_BATCH * BERT_SEQ,
+          "matmul_flops_per_step": flops,
+          "achieved_tflops": flops * steps_per_sec / 1e12,
+          "f32_peak_share": flops * steps_per_sec / rates[1],
+          "launches": launches,
+          "launches_per_step": {k: v / steps_run
+                                for k, v in launches.items()},
+          "max_memory_allocated": peak, "model_file_bytes": file_bytes,
+          "save_load_seconds": save_load_s, "next_loss": nxt,
+          "round_trip_exact": True, "cross_device": cross})
+    return launches
+
+
+def bert_cross_device(torch, np, A):
+    """``CROSS_BERT`` from one seed on the card (flash kernels) and on the
+    CPU (dense oracle): losses within ``LOSS_RTOL``, weights within
+    ``PARAM_ATOL`` after ``CROSS_BERT_STEPS`` steps."""
+    from dmlc_core_tpu_torch.models import BERT
+
+    gpu, cpu = BERT(device=DEVICE, **CROSS_BERT), BERT(device="cpu",
+                                                       **CROSS_BERT)
+    for m in (gpu, cpu):
+        m.init_params(1)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, CROSS_BERT["vocab_size"],
+                          size=(2, CROSS_BERT["max_len"]))
+    mask = (rng.uniform(size=tokens.shape) < 0.3).astype(np.float32)
+    batch = (tokens, tokens.copy(), mask)
+    before = A.flash_fwd_kernel.launches
+    lg = [gpu.train_step(*batch) for _ in range(CROSS_BERT_STEPS)]
+    require(A.flash_fwd_kernel.launches - before
+            == CROSS_BERT["n_layers"] * CROSS_BERT_STEPS,
+            "bert cross-device: the card's model missed the kernels")
+    lc = [cpu.train_step(*batch) for _ in range(CROSS_BERT_STEPS)]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    param_err = max(max_abs_err(torch, gpu.params[k].detach().cpu(),
+                                cpu.params[k].detach())
+                    for k in cpu.params)
+    require(loss_rel <= LOSS_RTOL and param_err <= PARAM_ATOL,
+            f"bert cross-device: losses {lg} vs {lc}, weights off by "
+            f"{param_err}")
+    return {"config": CROSS_BERT, "steps": CROSS_BERT_STEPS,
+            "losses_cuda": lg, "losses_cpu": lc, "loss_max_rel_diff": loss_rel,
+            "param_max_abs_diff": param_err}
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -955,12 +1290,14 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
     from dmlc_core_tpu_torch.ops import _build
+    from dmlc_core_tpu_torch.ops import attention as A
     from dmlc_core_tpu_torch.ops import histogram as H
     from dmlc_core_tpu_torch.utils import device as device_mod
 
     t_start = time.perf_counter()
     smi = phase_device(torch, device_mod, _build)
     rates = card_rates(torch.cuda.get_device_name(0))
+    tc_rate = tensor_rate(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
     X, y = higgs_like(np, ROWS, FEATURES, 7)
     Xv, yv = higgs_like(np, 100_000, FEATURES, 8)
@@ -993,21 +1330,33 @@ def main() -> int:
         require(v > 0, f"{k} was never launched on the main paths")
     del X, y
     phase_deep_kernels(torch, H, rates, mats)
-    src = "dmlc_core_tpu_torch/ops/csrc/histogram.cu"
+    attention = phase_attention_kernels(torch, A, rates, tc_rate)
+    for k, v in phase_bert(torch, np, A, rates).items():
+        require(v > 0, f"{k} was never launched on the BERT path")
+        launches[k] = v
+    kernels.update(attention)
+    hist_src = "dmlc_core_tpu_torch/ops/csrc/histogram.cu"
+    attn_src = "dmlc_core_tpu_torch/ops/csrc/attention.cu"
+    # the library kernel the JAX package calls (installed jax 0.9.0)
+    lib = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     replaces = {"hist": "dmlc_core_tpu/ops/histogram.py:369",
                 "fused_round": "dmlc_core_tpu/ops/histogram.py:531",
                 "fused_descend": "dmlc_core_tpu/ops/histogram.py:485",
                 "hist_layout": "dmlc_core_tpu/ops/histogram.py:450",
-                "fused_round_layout": "dmlc_core_tpu/ops/histogram.py:587"}
+                "fused_round_layout": "dmlc_core_tpu/ops/histogram.py:587",
+                "flash_fwd": f"{lib}:331",
+                "flash_bwd_dkv": f"{lib}:796",
+                "flash_bwd_dq": f"{lib}:1146"}
+    extra = ("unfused_chain_ms", "library_call")
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src,
+        {"name": name, "route": "cuda",
+         "source": attn_src if name in attention else hist_src,
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": k["library_ms"],
          "held_against_plain": True,
-         **({"unfused_chain_ms": k["unfused_chain_ms"]}
-            if "unfused_chain_ms" in k else {})}
+         **{x: k[x] for x in extra if x in k}}
         for name, k in kernels.items()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -11,7 +11,9 @@ same function that the CPU runs.
 
 Ported so far: dense in-core ``HistGBT`` — depth-wise and loss-guide
 growth, int4 bin packing and feature bundling, fit, predict, save/load
-(model files interchangeable with the JAX package's).
+(model files interchangeable with the JAX package's), data parallel over
+a ``torch.distributed`` group; and ``models.BERT`` masked-LM training on
+one GPU with hand-written flash-attention kernels.
 """
 
 from dmlc_core_tpu_torch.models.histgbt import HistGBT, HistGBTParam

@@ -30,10 +30,16 @@ __all__ = ["load_library", "build_all", "BUILD_DIR", "CSRC_DIR"]
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
-#: -fmad=false: no multiply-add contraction, so every float operation
-#: rounds as its plain PyTorch version's does
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+#: each source's flags.  histogram: -fmad=false, no multiply-add
+#: contraction, so every float operation rounds as its plain PyTorch
+#: version's does (its kernels are held bit for bit).  attention: held
+#: by a tolerance, so contraction stays on.
+NVCC_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "histogram": ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                  "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"),
+    "attention": ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                  "-O3", "-shared", "-Xcompiler", "-fPIC"),
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +57,20 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "dmlc_fused_descend": (_P, _P, _P, _P, _I, _P, _P, _LL, _I, _I, _I,
                                _F, _F, _P, _P, _P),
         "dmlc_hist_epilogue": (_P, _P, _P, _I, _LL, _D, _D, _P),
+    },
+    "attention": {
+        # q, k, v, o, lse; B, S, H, D; (batch, seq, head) strides of q,
+        # k, v, o; scale, causal, stream
+        "dmlc_flash_fwd": (_P,) * 5 + (_I,) * 4 + (_LL,) * 12
+                          + (_F, _I, _P),
+        # q, k, v, dO, lse, di, dk, dv; B, S, H, D; strides of q, k, v,
+        # dO, dk, dv; scale, causal, stream
+        "dmlc_flash_bwd_dkv": (_P,) * 8 + (_I,) * 4 + (_LL,) * 18
+                              + (_F, _I, _P),
+        # q, k, v, dO, lse, di, dq; B, S, H, D; strides of q, k, v, dO,
+        # dq; scale, causal, stream
+        "dmlc_flash_bwd_dq": (_P,) * 7 + (_I,) * 4 + (_LL,) * 15
+                             + (_F, _I, _P),
     },
 }
 
@@ -73,7 +93,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(NVCC_FLAGS[name]).encode()
+    tag = hashlib.sha256(src + flags).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
@@ -85,7 +106,8 @@ def _start(name: str) -> Optional[Tuple[subprocess.Popen, Path, float]]:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS[name], "-o", str(tmp),
+           str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     return proc, tmp, time.perf_counter()

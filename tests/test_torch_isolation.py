@@ -61,6 +61,51 @@ def test_import_loads_no_jax_module():
     assert "LOADED []" in res.stdout, res.stdout
 
 
+@pytest.mark.parametrize("module", [
+    "dmlc_core_tpu_torch.models.bert", "dmlc_core_tpu_torch.ops.attention",
+    "dmlc_core_tpu_torch.models.checkpoint"])
+def test_bert_path_module_loads_no_jax(module):
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}\n"
+        "             or m.startswith('jax'))\n"
+        "print('LOADED', bad)\n")
+    res = _run_clean(code)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
+
+
+def test_no_finished_kernel_in_source():
+    # the port's kernels are its own: no fused attention operator, no
+    # torch.compile, no package of finished kernels anywhere in it
+    found = []
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Attribute) and (
+                        node.attr in ("scaled_dot_product_attention",
+                                      "cudnn")
+                        or node.attr == "compile"
+                        and isinstance(node.value, ast.Name)
+                        and node.value.id == "torch"):
+                    found.append(f"{path}:{node.lineno}: {node.attr}")
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    names = [node.module]
+                found += [f"{path}: import {n}" for n in names
+                          if n.split(".")[0] in ("flash_attn", "xformers",
+                                                 "apex", "transformer_engine")]
+    assert found == []
+
+
 def test_no_forbidden_import_in_source():
     found = []
     for dirpath, _, files in os.walk(PKG):
@@ -97,11 +142,13 @@ def test_kernel_modules_import_without_nvcc():
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="", CUDA_PATH="")
     res = _run_clean(
         "import dmlc_core_tpu_torch.ops.histogram as h, "
+        "dmlc_core_tpu_torch.ops.attention as a, "
         "dmlc_core_tpu_torch.ops._build as b\n"
-        "print('OK', h.hist_kernel.launches, h.fused_round_kernel.launches)",
+        "print('OK', h.hist_kernel.launches, h.fused_round_kernel.launches, "
+        "a.flash_fwd_kernel.launches)",
         env=env)
     assert res.returncode == 0, res.stderr
-    assert "OK 0 0" in res.stdout
+    assert "OK 0 0 0" in res.stdout
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
