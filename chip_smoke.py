@@ -66,7 +66,9 @@ and the script exits non-zero without the final ``ok`` line:
     same inputs (identical bytes); at BERT-base's shape timed (10 calls
     back to back per CUDA-event pair) beside its bound and
     ``F.scaled_dot_product_attention``'s time (the yardstick only: the
-    port never calls it);
+    port never calls it) — its forward, and its backward alone
+    (``autograd.grad`` on a retained graph, the forward outside the
+    timing), each also as device time from a ``torch.profiler`` trace;
 11. bert — ``BERT()`` at BERT-base width on the card, the bench's batch
     (8 × 512, seed 0, labels = tokens, mask of ones): one step, then
     ``fit_chunked`` (10 warmup + 20 timed steps) with the launch counts
@@ -76,9 +78,29 @@ and the script exits non-zero without the final ``ok`` line:
     next loss; and a two-layer BERT (head dim 64) trained three steps on
     the card and on the CPU from one seed: losses within 2e-3, weights
     within 1e-3;
-12. the ``kernels`` line (launches summed over phases 4-6 and 8, and
-    phase 11's for attention), then the card's name and power limit,
-    then the ``ok`` line.
+12. hist_floor — B5, the one-hot product histogram on the tensor cores
+    (``tools/spike_hist_floor.py``, ``csrc/hist_floor.cu``): every variant
+    at the spike's shapes (10M rows, the first 24 of 28 features, n_build
+    1 and 2, tiles of 16384 rows) against its plain version on order-exact
+    g/h (bit-identical; the product variants also equal the port's
+    histogram, B1's kernel, in the factored layout) and on the spike's
+    general g/h (within ``FLOOR_TOL``, ``nodot`` within ``NODOT_TOL``),
+    twice on the same inputs (identical bytes); then the spike's main
+    path: each variant and ``prod`` slope-timed (``_run_level``) with the
+    launch counts set to 0 before and read after, beside the bound,
+    the plain version's time and ``index_add_``'s (B1's yardstick);
+13. bench — ``python -m dmlc_core_tpu_torch.bench`` as a child process at
+    its defaults (10M × 28, 100 rounds after 10 warmup rounds, the
+    flagship's levers, host binning), with a time limit: its last line
+    must be the final ``histgbt_rounds_per_sec_per_chip`` record of 100
+    rounds, with kernel launches, and its headline fields are emitted;
+14. the ``kernels`` line (launches summed over phases 4-6 and 8, phase
+    11's for attention, phase 12's timing pass for the B5 variants), then
+    the card's name and power limit, then the ``ok`` line.
+
+The fit phases (4-8) run with ``DMLC_TPU_ROUNDS_PER_DISPATCH=1``: each
+tree is its own chunk, fetched on its own, so ``last_tree_times`` stay
+per tree and the steady rate can leave the first tree out.
 """
 
 from __future__ import annotations
@@ -88,6 +110,7 @@ import json
 import math
 import os
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -181,6 +204,18 @@ CROSS_BERT = dict(n_layers=2, d_model=128, n_heads=2, d_ff=256,
 CROSS_BERT_STEPS = 3
 LOSS_RTOL = 2e-3
 PARAM_ATOL = 1e-3
+#: B5 on general g/h: the product variants within this share of each
+#: plane's largest plain cell (both sum the same bf16 values in f32, in
+#: other orders: 2^10 adds a tile in the worst case of 2^-24 each, far
+#: above what occurs), and nodot within one bf16 rounding of its per-tile
+#: sums (its bf16 rounding can flip where the f32 sums differ in the last
+#: place)
+FLOOR_TOL = 2.0 ** -12
+NODOT_TOL = 2.0 ** -7
+#: the bench child's time limit (s) and its rounds (the bench's default)
+BENCH_TIMEOUT = 600
+BENCH_ROUNDS = 100
+BENCH_ROWS = 10_000_000
 
 
 def emit(obj) -> None:
@@ -229,6 +264,25 @@ def time_ms(torch, fn, reps: int, inner: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Device time of one call of ``fn``: the CUDA kernels of ``reps``
+    calls summed from a ``torch.profiler`` trace, over ``reps`` (no host
+    gap counts, unlike a CUDA-event window around a host-heavy call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        t = getattr(evt, "device_time_total", None)
+        total += evt.cuda_time_total if t is None else t
+    return total / reps / 1e3
 
 
 def steady_rounds_per_sec(tree_times) -> float:
@@ -1111,16 +1165,21 @@ def check_attention(torch, A, name, shape, causal, rates, tc_rate):
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               scale=scale)
 
-    def sdpa_fwd_bwd():
-        res = F.scaled_dot_product_attention(*leaves, is_causal=causal,
-                                             scale=scale)
-        return torch.autograd.grad(res, leaves, dot)
+    # the backward alone: the forward runs once, outside the timing, and
+    # each call walks its retained graph
+    res = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                         scale=scale)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(res, leaves, dot, retain_graph=True)
 
     n = ATTN_INNER
     with torch.no_grad():
         lib_rel = rel_err(sdpa().transpose(1, 2), o_p)
         lib_fwd = time_ms(torch, sdpa, REPS, n)
-    lib_bwd = time_ms(torch, sdpa_fwd_bwd, REPS, n) - lib_fwd
+        lib_fwd_dev = device_ms(torch, sdpa, REPS)
+    lib_bwd = time_ms(torch, sdpa_bwd, REPS, n)
+    lib_bwd_dev = device_ms(torch, sdpa_bwd, REPS)
     plain_reps = max(3, REPS // 3)
     times = {
         "flash_fwd": (time_ms(torch, fwd, REPS, n), time_ms(
@@ -1139,6 +1198,8 @@ def check_attention(torch, A, name, shape, causal, rates, tc_rate):
         ms, plain_ms, lib_ms = times[kname]
         out[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=lib_ms,
+                          library_device_ms=(lib_fwd_dev if kname ==
+                                             "flash_fwd" else lib_bwd_dev),
                           sdpa_rel_err=lib_rel)
     return out
 
@@ -1281,6 +1342,189 @@ def bert_cross_device(torch, np, A):
             "param_max_abs_diff": param_err}
 
 
+# ---------------------------------------------------------------------------
+# B5: the one-hot product histogram, and the port's bench
+# ---------------------------------------------------------------------------
+
+def floor_rel_err(torch, a, b, nh):
+    """max over the g and h planes of max|a − b| / max|b| (rows ``[0,
+    nh)`` are the g plane, ``[nh, 2·nh)`` the h plane)."""
+    errs = []
+    for rows in (slice(0, nh), slice(nh, 2 * nh)):
+        d = (a[:, rows].double() - b[:, rows].double()).abs().max()
+        errs.append(float(d / b[:, rows].double().abs().max()))
+    return max(errs)
+
+
+def phase_hist_floor(torch, np, H, rates, tc_rate):
+    """B5's variants at the spike's shapes against their plain versions,
+    then its main path (slope timing) with the launch counts read around
+    it.  Returns the ``kernels`` entries of the variants."""
+    from dmlc_core_tpu_torch.ops.histogram import _TILE_ROWS, _lo_factor
+    from dmlc_core_tpu_torch.tools import spike_hist_floor as S
+
+    cases = {v: [] for v in S.VARIANTS}
+    spike = {"rows": ROWS, "features": FEATURES, "tile": _TILE_ROWS}
+    for n_build in (1, 2):
+        bins, node, g, h = S._prep(n_build, ROWS, FEATURES, DEVICE)
+        fp = FEATURES - FEATURES % S.GROUP
+        bins_fp = bins[:fp]
+        lo = _lo_factor(n_build, N_BINS)
+        hi = -(-N_BINS // lo)
+        nh = n_build * hi
+        A = 2 * nh
+        rows = ROWS // _TILE_ROWS * _TILE_ROWS
+        # order-exact g/h: every sum exact, so every order gives its bytes
+        rng = np.random.default_rng([SEED, n_build])
+        ge = torch.from_numpy(rng.choice(np.array(
+            [-1.0, -0.5, 0.5, 1.0], np.float32), ROWS)).to(DEVICE)
+        he = torch.from_numpy(rng.choice(np.array(
+            [0.5, 1.0], np.float32), ROWS)).to(DEVICE)
+        ref = S.factored(H.build_histogram(
+            bins_fp[:, :rows].contiguous(), node[:rows], ge[:rows],
+            he[:rows], n_build, N_BINS), lo)
+        nbytes = fp * rows + 12 * rows + fp * A * lo * 4
+        # the function is a g/h histogram: two adds per row and feature,
+        # as B1's bound counts it; the one-hot product's own floor (its
+        # useful bf16 multiply-adds on the tensor cores) is kept apart
+        b_ms, b_by = bound(nbytes, 2 * fp * rows, rates)
+        product_flop_ms = 2 * A * lo * rows * fp / tc_rate * 1e3
+        valid = (node >= 0) & (node < n_build)
+        idx = ((node.long()[None, :] * fp
+                + torch.arange(fp, device=node.device)[:, None]) * N_BINS
+               + bins_fp.long())[:, valid].reshape(-1)
+        idx = torch.cat([idx, idx + n_build * fp * N_BINS])
+        vals = torch.cat([g[valid].expand(fp, -1).reshape(-1),
+                          h[valid].expand(fp, -1).reshape(-1)])
+        lib_out = torch.zeros(2 * n_build * fp * N_BINS, device=DEVICE)
+
+        def lib_call():
+            lib_out.zero_()
+            lib_out.index_add_(0, idx, vals)
+
+        t_lib = time_ms(torch, lib_call, REPS)
+        del idx, vals
+        for v in S.VARIANTS:
+            what = f"(hist_floor {v}, n_build {n_build})"
+            a = S.kernel_variant(bins_fp, node, ge, he, n_build, v)
+            b = S.kernel_variant(bins_fp, node, ge, he, n_build, v)
+            p = S.kernel_variant_plain(bins_fp, node, ge, he, n_build, v)
+            torch.cuda.synchronize()
+            require(torch.equal(a, p), f"kernel != plain on order-exact g/h "
+                    f"{what}")
+            require(torch.equal(a, b), f"not reproducible {what}")
+            exact_b1 = None
+            if v in ("shipped", "grpacc", "pack4", "pack8"):
+                exact_b1 = torch.equal(a, ref)
+                require(exact_b1, f"differs from build_histogram {what}")
+            a = S.kernel_variant(bins_fp, node, g, h, n_build, v)
+            b = S.kernel_variant(bins_fp, node, g, h, n_build, v)
+            p = S.kernel_variant_plain(bins_fp, node, g, h, n_build, v)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(a).all()), f"non-finite {what}")
+            require(torch.equal(a, b), f"not reproducible (general g/h) "
+                    f"{what}")
+            rel = floor_rel_err(torch, a, p, nh)
+            tol = NODOT_TOL if v == "nodot" else FLOOR_TOL
+            require(rel <= tol, f"off its plain version by {rel} (tolerance "
+                    f"{tol}) on general g/h {what}")
+            case = {"n_build": n_build, "lo": lo, "hi": hi, "A": A,
+                    "out_shape": list(a.shape), "max_abs_err":
+                    max_abs_err(torch, a, p), "rel_err": rel,
+                    "tolerance": tol, "exact_plain": True,
+                    "exact_build_histogram": exact_b1,
+                    "plain_ms": time_ms(torch, lambda: S.kernel_variant_plain(
+                        bins_fp, node, g, h, n_build, v), 3),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_lib,
+                    "product_flop_ms": product_flop_ms, "bytes": nbytes}
+            cases[v].append(case)
+        del ref, ge, he
+        # the spike's main path: every variant and prod slope-timed, the
+        # counts set to 0 just before and read just after
+        for v in S.VARIANTS:
+            S.kernel_variant.launches[v] = 0
+        hist0 = H.hist_kernel.launches
+        for v in ("prod",) + S.VARIANTS:
+            spike[f"nb{n_build}_{v}_ms"] = S._run_level(
+                bins, node, g, h, n_build, v) * 1e3
+        launches = dict(S.kernel_variant.launches)
+        require(H.hist_kernel.launches > hist0, "prod never launched B1")
+        for v in S.VARIANTS:
+            require(launches[v] > 0, f"hist_floor {v} was never launched "
+                    "on the spike's path")
+            case = cases[v][-1]
+            case.update(ms=spike[f"nb{n_build}_{v}_ms"],
+                        launches=launches[v],
+                        prod_ms=spike[f"nb{n_build}_prod_ms"])
+            emit({"phase": "hist_floor", "name": f"hist_floor_{v}",
+                  "n": ROWS, "F": fp, **case})
+        del bins, node, g, h
+    emit({"phase": "hist_floor_spike", **spike})
+    out = {}
+    for v, cs in cases.items():
+        out[f"hist_floor_{v}"] = {
+            **summarize(cs, statistics.fmean(c["library_ms"] for c in cs)),
+            "launches": sum(c["launches"] for c in cs),
+            "library_call": "index_add_ (B1's yardstick)",
+            "by_n_build": {str(c["n_build"]): {
+                k: c[k] for k in ("ms", "plain_ms", "bound_ms",
+                                  "product_flop_ms", "library_ms",
+                                  "launches", "rel_err")}
+                for c in cs}}
+    return out
+
+
+def phase_bench(np):
+    """``python -m dmlc_core_tpu_torch.bench`` at its defaults as a child
+    process; its last line must be the final record of ``BENCH_ROUNDS``
+    rounds that went through the kernels."""
+    drop = set(LEVER_NAMES) | {"DMLC_TPU_ROUNDS_PER_DISPATCH",
+                               "DMLC_TPU_BIN_BACKEND", "BENCH_FORCE_CPU"}
+    env = {k: v for k, v in os.environ.items()
+           if k not in drop and not k.startswith("BENCH_")}
+    # the flagship size or a failure: no quiet drop to fewer rows
+    env["BENCH_NO_FALLBACK"] = "1"
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.bench"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    require(res.returncode == 0 and lines,
+            f"bench exited {res.returncode}: {res.stderr[-2000:]}")
+    rec = json.loads(lines[-1])
+    require(rec.get("metric") == "histgbt_rounds_per_sec_per_chip",
+            f"bench: wrong metric {rec.get('metric')}")
+    require("error" not in rec and "terminated" not in rec,
+            f"bench failed: {rec.get('error') or rec.get('terminated')}")
+    require(rec.get("provisional") is False, "bench: last line provisional")
+    require(rec.get("value", 0) > 0, f"bench: value {rec.get('value')}")
+    require(rec.get("rounds_done") == BENCH_ROUNDS,
+            f"bench: rounds_done {rec.get('rounds_done')}")
+    require(rec.get("rows") == BENCH_ROWS and rec.get("features") == FEATURES
+            and "fallback_from" not in rec,
+            f"bench: ran {rec.get('rows')} x {rec.get('features')} "
+            f"(fallback_from {rec.get('fallback_from')}), not the flagship's "
+            f"{BENCH_ROWS} x {FEATURES}")
+    launches = rec["kernel"]["launches"]
+    require(launches["hist"] > 0 and launches["fused_round"] > 0,
+            f"bench: the fit missed the kernels ({launches})")
+    phases = {}
+    for ln in lines:
+        r = json.loads(ln)
+        phases.setdefault(r["phase"], r["elapsed_s"])
+    keys = ("value", "value_basis", "rounds_per_sec_median_chunk",
+            "rounds_per_sec_best_chunk", "chunk_seconds_per_round",
+            "seconds", "warmup_seconds", "warm_dispatch_seconds",
+            "warmup_breakdown", "compile_seconds", "compile_cache",
+            "bin_seconds", "time_to_first_tree", "kernel", "rows",
+            "features", "rounds", "levers", "device_kind", "nvidia_smi",
+            "hbm_gbps", "notes")
+    emit({"phase": "bench", **{k: rec.get(k) for k in keys},
+          "phase_elapsed_s": phases, "child_wall_seconds": wall})
+    return rec
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -1295,6 +1539,8 @@ def main() -> int:
     from dmlc_core_tpu_torch.utils import device as device_mod
 
     t_start = time.perf_counter()
+    # one tree per chunk in the fit phases: each tree's fetch times it
+    os.environ["DMLC_TPU_ROUNDS_PER_DISPATCH"] = "1"
     smi = phase_device(torch, device_mod, _build)
     rates = card_rates(torch.cuda.get_device_name(0))
     tc_rate = tensor_rate(torch.cuda.get_device_name(0))
@@ -1330,13 +1576,19 @@ def main() -> int:
         require(v > 0, f"{k} was never launched on the main paths")
     del X, y
     phase_deep_kernels(torch, H, rates, mats)
+    floor = phase_hist_floor(torch, np, H, rates, tc_rate)
     attention = phase_attention_kernels(torch, A, rates, tc_rate)
     for k, v in phase_bert(torch, np, A, rates).items():
         require(v > 0, f"{k} was never launched on the BERT path")
         launches[k] = v
     kernels.update(attention)
+    phase_bench(np)
+    for k, v in floor.items():
+        launches[k] = v.pop("launches")
+    kernels.update(floor)
     hist_src = "dmlc_core_tpu_torch/ops/csrc/histogram.cu"
     attn_src = "dmlc_core_tpu_torch/ops/csrc/attention.cu"
+    floor_src = "dmlc_core_tpu_torch/ops/csrc/hist_floor.cu"
     # the library kernel the JAX package calls (installed jax 0.9.0)
     lib = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     replaces = {"hist": "dmlc_core_tpu/ops/histogram.py:369",
@@ -1346,11 +1598,14 @@ def main() -> int:
                 "fused_round_layout": "dmlc_core_tpu/ops/histogram.py:587",
                 "flash_fwd": f"{lib}:331",
                 "flash_bwd_dkv": f"{lib}:796",
-                "flash_bwd_dq": f"{lib}:1146"}
-    extra = ("unfused_chain_ms", "library_call")
+                "flash_bwd_dq": f"{lib}:1146",
+                **{k: "scripts/spike_hist_floor.py:55" for k in floor}}
+    extra = ("unfused_chain_ms", "library_call", "library_device_ms",
+             "by_n_build")
     emit({"kernels": [
         {"name": name, "route": "cuda",
-         "source": attn_src if name in attention else hist_src,
+         "source": (attn_src if name in attention else
+                    floor_src if name in floor else hist_src),
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -12,8 +12,10 @@ same function that the CPU runs.
 Ported so far: dense in-core ``HistGBT`` — depth-wise and loss-guide
 growth, int4 bin packing and feature bundling, fit, predict, save/load
 (model files interchangeable with the JAX package's), data parallel over
-a ``torch.distributed`` group; and ``models.BERT`` masked-LM training on
-one GPU with hand-written flash-attention kernels.
+a ``torch.distributed`` group; ``models.BERT`` masked-LM training on
+one GPU with hand-written flash-attention kernels; the flagship bench
+(``python -m dmlc_core_tpu_torch.bench``); and the one-hot product
+histogram spike (``tools/spike_hist_floor.py``).
 """
 
 from dmlc_core_tpu_torch.models.histgbt import HistGBT, HistGBTParam

@@ -1,9 +1,9 @@
-"""Process-wide metrics: Counter / Gauge + exporters.
+"""Process-wide metrics: Counter / Gauge / Histogram + exporters.
 
 This package's own copy of the part of ``dmlc_core_tpu.base.metrics``
 the port records (the collectives' call, byte and histogram-sync
-counters), with the same data model and snapshot format, so one scraper
-reads both packages:
+counters; the boosting loop's rounds, trees and phase times), with the
+same data model and snapshot format, so one scraper reads both packages:
 
 * **Label-aware**: a metric is declared once with its label *names*;
   each distinct label-value combination is an independent series
@@ -20,12 +20,23 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
-__all__ = ["Counter", "Gauge", "MetricsRegistry", "default_registry",
-           "enabled", "set_enabled"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "default_registry", "enabled", "set_enabled",
+           "DEFAULT_TIME_BUCKETS"]
+
+#: log-spaced seconds buckets covering 10 µs .. 60 s (the JAX package's)
+DEFAULT_TIME_BUCKETS: Tuple[float, ...] = (
+    1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4,
+    1e-3, 2.5e-3, 5e-3, 1e-2, 2.5e-2, 5e-2,
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+)
+#: observations a histogram series keeps for its quantiles
+_RESERVOIR_SIZE = 1024
 
 _ENABLED = os.environ.get("DMLC_METRICS", "1").lower() not in (
     "0", "false", "off", "no")
@@ -91,8 +102,9 @@ class _MetricBase:
         with self._lock:
             return list(self._series.items())
 
-    def _render_labels(self, key: Tuple[str, ...]) -> str:
-        pairs = list(zip(self.label_names, key))
+    def _render_labels(self, key: Tuple[str, ...],
+                       extra: Tuple[Tuple[str, str], ...] = ()) -> str:
+        pairs = list(zip(self.label_names, key)) + list(extra)
         if not pairs:
             return ""
         inner = ",".join(f'{n}="{_escape_label(v)}"' for n, v in pairs)
@@ -178,6 +190,116 @@ class Gauge(_MetricBase):
                 for key, v in items]
 
 
+class _HistSeries:
+    """One label combination's state: fixed bucket counts, exact
+    sum/count/min/max and a bounded reservoir (algorithm R) for the
+    quantiles."""
+
+    __slots__ = ("counts", "sum", "count", "min", "max", "reservoir", "_rng")
+
+    def __init__(self, n_buckets: int, seed: int) -> None:
+        self.counts = [0] * (n_buckets + 1)          # +1: the +Inf bucket
+        self.sum = 0.0
+        self.count = 0
+        self.min = float("inf")
+        self.max = float("-inf")
+        self.reservoir: List[float] = []
+        self._rng = random.Random(seed)
+
+    def observe(self, v: float, bounds: Tuple[float, ...]) -> None:
+        i = 0
+        for b in bounds:
+            if v <= b:
+                break
+            i += 1
+        self.counts[i] += 1
+        self.sum += v
+        self.count += 1
+        self.min = min(self.min, v)
+        self.max = max(self.max, v)
+        if len(self.reservoir) < _RESERVOIR_SIZE:
+            self.reservoir.append(v)
+        else:
+            j = self._rng.randrange(self.count)
+            if j < _RESERVOIR_SIZE:
+                self.reservoir[j] = v
+
+    def quantile(self, q: float) -> Optional[float]:
+        if not self.reservoir:
+            return None
+        s = sorted(self.reservoir)
+        return s[min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))]
+
+
+class Histogram(_MetricBase):
+    """Distribution of observations: cumulative fixed buckets for
+    Prometheus, reservoir quantiles for the JSON snapshot."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, help: str = "",
+                 labels: Sequence[str] = (),
+                 buckets: Optional[Sequence[float]] = None) -> None:
+        super().__init__(name, help, labels)
+        bs = tuple(sorted(buckets)) if buckets else DEFAULT_TIME_BUCKETS
+        if not bs:
+            raise ValueError(f"histogram {self.name}: empty buckets")
+        self.buckets: Tuple[float, ...] = bs
+
+    def observe(self, value: float, **labels: Any) -> None:
+        if not _ENABLED:
+            return
+        key = _label_key(self.label_names, labels)
+        with self._lock:
+            series = self._series.get(key)
+            if series is None:
+                series = _HistSeries(len(self.buckets),
+                                     seed=hash((self.name, key)) & 0xFFFF)
+                self._series[key] = series
+            series.observe(float(value), self.buckets)
+
+    def count(self, **labels: Any) -> int:
+        key = _label_key(self.label_names, labels)
+        with self._lock:
+            s = self._series.get(key)
+            return s.count if s is not None else 0
+
+    def _export(self) -> Iterator[str]:
+        for key, s in sorted(self._series_items()):
+            cum = 0
+            for bound, c in zip(self.buckets, s.counts):
+                cum += c
+                yield (f"{self.name}_bucket"
+                       f"{self._render_labels(key, (('le', _fmt(bound)),))}"
+                       f" {cum}")
+            cum += s.counts[-1]
+            yield (f"{self.name}_bucket"
+                   f"{self._render_labels(key, (('le', '+Inf'),))} {cum}")
+            yield f"{self.name}_sum{self._render_labels(key)} {_fmt(s.sum)}"
+            yield f"{self.name}_count{self._render_labels(key)} {s.count}"
+
+    def _snap(self) -> List[Dict[str, Any]]:
+        out = []
+        for key, s in sorted(self._series_items()):
+            cum = 0
+            bkt = []
+            for bound, c in zip(self.buckets, s.counts):
+                cum += c
+                bkt.append([bound, cum])
+            bkt.append(["+Inf", cum + s.counts[-1]])
+            out.append({
+                "labels": dict(zip(self.label_names, key)),
+                "count": s.count, "sum": s.sum,
+                "min": s.min if s.count else None,
+                "max": s.max if s.count else None,
+                "buckets": bkt,
+                "quantiles": {f"p{int(q * 100)}": s.quantile(q)
+                              for q in (0.5, 0.9, 0.99)},
+                "reservoir": list(s.reservoir),
+            })
+        return out
+
+
 class MetricsRegistry:
     """Named collection of metrics with get-or-create declaration.
 
@@ -191,7 +313,7 @@ class MetricsRegistry:
         self._metrics: Dict[str, _MetricBase] = {}
 
     def _declare(self, cls, name: str, help: str,
-                 labels: Sequence[str]) -> Any:
+                 labels: Sequence[str], **kw: Any) -> Any:
         full = f"{self.namespace}_{name}" if self.namespace else name
         with self._lock:
             existing = self._metrics.get(full)
@@ -205,7 +327,7 @@ class MetricsRegistry:
                         f"metric {full!r} label mismatch: "
                         f"{existing.label_names} vs {tuple(labels)}")
                 return existing
-            m = cls(full, help, labels)
+            m = cls(full, help, labels, **kw)
             self._metrics[full] = m
             return m
 
@@ -216,6 +338,11 @@ class MetricsRegistry:
     def gauge(self, name: str, help: str = "",
               labels: Sequence[str] = ()) -> Gauge:
         return self._declare(Gauge, name, help, labels)
+
+    def histogram(self, name: str, help: str = "",
+                  labels: Sequence[str] = (),
+                  buckets: Optional[Sequence[float]] = None) -> Histogram:
+        return self._declare(Histogram, name, help, labels, buckets=buckets)
 
     def metrics(self) -> List[_MetricBase]:
         with self._lock:

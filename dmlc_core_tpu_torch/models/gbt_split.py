@@ -12,17 +12,77 @@ same sequence of f32 operations, and ``torch.argmax`` keeps
 elementwise IEEE operation or an exact reduction, so the CPU and the GPU
 agree too.  Monotone constraints and the learned missing direction are
 not ported yet.
+
+Also the host binning route (``DMLC_TPU_BIN_BACKEND=cpu``:
+:func:`_host_bin_t`) and the boosting loop's metrics (:func:`gbt_metrics`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from dmlc_core_tpu_torch.base import metrics as _metrics
+from dmlc_core_tpu_torch.base.logging import log_fatal
+from dmlc_core_tpu_torch.base.parameter import get_env
 from dmlc_core_tpu_torch.ops.histogram import descend_plain
 from dmlc_core_tpu_torch.ops.quantile import xla_cumsum
 
 __all__ = ["_make_best_split", "_advance_node", "_soft_threshold",
-           "_maybe_l1"]
+           "_maybe_l1", "_host_bin_requested", "_host_bin_t", "gbt_metrics"]
+
+
+def gbt_metrics():
+    """The boosting loop's instruments on the process registry, under the
+    JAX package's names: ``gbt_rounds_total`` and ``gbt_trees_total``
+    (counters) and ``gbt_phase_seconds`` (histogram), each labelled by
+    ``engine`` (``phase`` too for the last)."""
+    r = _metrics.default_registry()
+    return {
+        "rounds": r.counter("gbt_rounds_total", "boosting rounds completed",
+                            labels=("engine",)),
+        "trees": r.counter("gbt_trees_total", "trees fetched to host",
+                           labels=("engine",)),
+        "phase": r.histogram(
+            "gbt_phase_seconds",
+            "per-phase wall time: round (boost, per round from the chunk "
+            "fetches), warmup (kernel build join + discarded rounds)",
+            labels=("engine", "phase")),
+    }
+
+
+def _host_bin_requested() -> bool:
+    """True when ``DMLC_TPU_BIN_BACKEND=cpu`` asks for host-side numpy
+    binning (unset or empty: bin on the data's device).  Any other value
+    is fatal, as in the JAX package: routing a typo to the host loop
+    would invert the operator's intent.  The host route uploads the
+    uint8 bin matrix, a quarter of the f32 features' bytes."""
+    backend = get_env("DMLC_TPU_BIN_BACKEND", "", str)
+    if backend in ("", "cpu"):
+        return backend == "cpu"
+    log_fatal(f"DMLC_TPU_BIN_BACKEND={backend!r}: only 'cpu' (host numpy "
+              f"binning) or unset (bin on the data's device) are valid")
+
+
+def _host_bin_t(X: np.ndarray, cuts_np: np.ndarray,
+                missing: bool = False) -> np.ndarray:
+    """Bin ``X`` on the HOST and return the FEATURE-major bin matrix.
+
+    Numpy searchsorted, feature by feature — the semantics of
+    :func:`~dmlc_core_tpu_torch.ops.quantile.apply_bins` (bin = #cuts ≤
+    value, side='right'; uint8 when the bins fit; ``missing=True`` sends
+    NaN to the reserved top bin), without a second full-matrix copy."""
+    miss_bin = cuts_np.shape[1] + 1
+    n_max = miss_bin if missing else cuts_np.shape[1]
+    dtype = np.uint8 if n_max < 256 else np.int32
+    out = np.empty((X.shape[1], len(X)), dtype)
+    for j in range(X.shape[1]):
+        col = np.searchsorted(cuts_np[j], X[:, j],
+                              side="right").astype(dtype)
+        if missing:
+            col[np.isnan(X[:, j])] = miss_bin
+        out[j] = col
+    return out
 
 
 def _soft_threshold(G, alpha: float):

@@ -48,6 +48,17 @@ off, as in JAX; with integer sums JAX's per-block builds and
 level (``_tree_fold`` is kept for its parity test).  ``DMLC_HIST_QUANT``
 (several ranks, no blocks) is JAX's approximate int8 code sync.
 
+Rounds run in chunks of ``DMLC_TPU_ROUNDS_PER_DISPATCH`` (default 25):
+the trees of a chunk stay on the device and come to the host in one
+fetch, whose arrival time is the chunk's timestamp
+(``last_chunk_times``), as the JAX package's dispatch chunks.
+``fit_device(warmup_rounds=k)`` first runs ``k`` discarded rounds on a
+copy of the margins (the first use of every kernel and torch op), and
+:meth:`HistGBT.start_warmup` builds and loads the CUDA kernels on a
+thread while the caller makes its data — the port's "compile".  With
+``DMLC_TPU_BIN_BACKEND=cpu`` the bins are made on the host and only the
+uint8 matrix goes to the device.
+
 Not ported yet: NaN-as-missing, monotone constraints, multiclass and
 ranking objectives, row/column sampling, eval sets and early stopping,
 continued training, external memory, sharded ingest, one process over
@@ -57,18 +68,23 @@ several GPUs.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional, Tuple, Union
+import threading
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from dmlc_core_tpu_torch.base import metrics as _metrics
 from dmlc_core_tpu_torch.base.logging import CHECK, CHECK_EQ, LOG, log_fatal
 from dmlc_core_tpu_torch.base.parameter import Parameter, field, get_env
 from dmlc_core_tpu_torch.base.timer import get_time
 from dmlc_core_tpu_torch.models.gbt_objectives import (
     EVAL_METRIC_NAMES, OBJECTIVE_NAMES, OBJECTIVES, fold_scale_pos_weight)
 from dmlc_core_tpu_torch.models.gbt_split import (_advance_node,
-                                                  _make_best_split, _maybe_l1)
+                                                  _host_bin_requested,
+                                                  _host_bin_t,
+                                                  _make_best_split, _maybe_l1,
+                                                  gbt_metrics)
 from dmlc_core_tpu_torch.ops import binlayout as _bl
 from dmlc_core_tpu_torch.ops.histogram import (build_histogram,
                                                dequantize_hist_sum,
@@ -159,6 +175,94 @@ def _fused_round_mode() -> str:
     return v
 
 
+def _fused_round_engaged(world: int) -> bool:
+    """Whether a fit on a data axis of ``world`` ranks builds its levels
+    with the fused round: one rank, no ``DMLC_HIST_BLOCKS``, and
+    ``DMLC_FUSED_ROUND`` not ``0`` (the synced paths need the parent
+    after the sync for their subtraction)."""
+    return (world == 1 and not _hist_blocks(world)
+            and _fused_round_mode() != "0")
+
+
+def _rounds_schedule(n_trees: int) -> Tuple[int, int]:
+    """(rounds per chunk K, remainder): ``DMLC_TPU_ROUNDS_PER_DISPATCH``
+    (default 25) capped at ``n_trees`` — the JAX package's schedule
+    without an eval set."""
+    k_env = int(os.environ.get("DMLC_TPU_ROUNDS_PER_DISPATCH", 25))
+    CHECK(k_env >= 1,
+          f"DMLC_TPU_ROUNDS_PER_DISPATCH must be >= 1, got {k_env}")
+    K = min(n_trees, k_env)
+    return K, n_trees % K
+
+
+class _KernelWarmup:
+    """The port's compile step in the background: ``nvcc`` and the
+    ``ctypes`` load of the CUDA sources a fit launches (``ops/_build.py``)
+    on a thread, so that it overlaps the caller's datagen and binning.
+    ``cache`` is ``"hit"`` when every library was built already,
+    ``"miss"`` when this build makes one; ``seconds`` the thread's
+    duration once it has ended."""
+
+    #: the CUDA sources of the boosting loop's kernels
+    SOURCES = ("histogram",)
+
+    def __init__(self) -> None:
+        from dmlc_core_tpu_torch.ops import _build
+
+        self.cache = ("hit" if all(_build.is_built(n) for n in self.SOURCES)
+                      else "miss")
+        self.seconds: Optional[float] = None
+        self._error: Optional[Exception] = None
+        self._t0 = get_time()
+        self._thread = threading.Thread(target=self._run,
+                                        name="dmlc-kernel-warmup",
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        from dmlc_core_tpu_torch.ops._build import load_library
+
+        try:
+            for name in self.SOURCES:
+                load_library(name)
+        except Exception as e:  # noqa: BLE001 — re-raised by join()
+            self._error = e
+        finally:
+            self.seconds = get_time() - self._t0
+
+    def join(self) -> float:
+        """Wait for the build; returns the seconds waited.  Raises what
+        the build raised."""
+        t0 = get_time()
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        return get_time() - t0
+
+
+def _fetch_trees(trees: List[Dict[str, torch.Tensor]]
+                 ) -> List[Dict[str, np.ndarray]]:
+    """A chunk's device trees as numpy arrays, in ONE copy to the host
+    (int32 arrays travel as f32 bits)."""
+    parts, layout = [], []
+    for t in trees:
+        for k in _TREE_KEYS:
+            a = t[k].reshape(-1)
+            layout.append((k, a.dtype == torch.int32, tuple(t[k].shape),
+                           a.numel()))
+            parts.append(a.view(torch.float32) if a.dtype == torch.int32
+                         else a)
+    flat = torch.cat(parts).cpu().numpy()
+    out, off = [], 0
+    for i, (k, is_int, shape, size) in enumerate(layout):
+        if i % len(_TREE_KEYS) == 0:
+            out.append({})
+        a = flat[off:off + size]
+        out[-1][k] = (a.view(np.int32) if is_int else a).reshape(shape).copy()
+        off += size
+    return out
+
+
 def _hist_quant_requested() -> bool:
     """``DMLC_HIST_QUANT=1``: int8-quantized histogram sync (per-rank
     int8 codes summed as int32, plus exact f32 column totals).
@@ -189,8 +293,7 @@ class _HistSync:
         self.world = mesh.size
         self.n_global = n_global
         det_blocks = _hist_blocks(self.world)
-        self.fused_rounds = (self.world == 1 and not det_blocks
-                             and _fused_round_mode() != "0")
+        self.fused_rounds = _fused_round_engaged(self.world)
         self.quant = (_hist_quant_requested() and self.world > 1
                       and not det_blocks)
         self.fuse = _fused_descend_requested()
@@ -323,10 +426,28 @@ class HistGBT:
         self.best_score: Optional[float] = None
         self._early_stopped = False
         self.last_fit_seconds: Optional[float] = None
-        #: seconds from the start of the boosting loop to the end of each
-        #: tree (the first tree also pays the first use of every kernel)
+        #: (rounds fetched, seconds since the start of the boosting loop)
+        #: as each chunk's trees arrive on the host: per-chunk timing
+        #: evidence at no extra sync (the fetch is the chunk's one sync)
+        self.last_chunk_times: List[Tuple[int, float]] = []
+        #: per tree, its chunk's arrival time (per tree exactly with
+        #: ``DMLC_TPU_ROUNDS_PER_DISPATCH=1``)
         self.last_tree_times: List[float] = []
+        #: cold-start breakdown of the last fit: bin = cuts, binning and
+        #: upload (make_device_data); compile = the kernel build thread's
+        #: duration (start_warmup; None without it); warm_dispatch = the
+        #: discarded warmup rounds' wall; warmup = the wait for the build
+        #: thread + warm_dispatch; compile_cache = "hit" | "miss" | None
         self.last_bin_seconds: Optional[float] = None
+        self.last_compile_seconds: Optional[float] = None
+        self.last_warm_dispatch_seconds: Optional[float] = None
+        self.last_warmup_seconds: Optional[float] = None
+        #: {trace, dispatch, device} of warm_dispatch: trace = an inline
+        #: kernel build and load (no start_warmup), dispatch = issuing the
+        #: warmup rounds, device = waiting for them to finish
+        self.last_warmup_breakdown: Optional[Dict[str, float]] = None
+        self.last_compile_cache: Optional[str] = None
+        self._pending_warmup: Optional[_KernelWarmup] = None
         self._train_preds: Optional[torch.Tensor] = None
         #: global rows of the last fit (train_margins' gather)
         self._train_rows = 0
@@ -367,11 +488,16 @@ class HistGBT:
                          cuts: Optional[torch.Tensor] = None
                          ) -> Dict[str, Any]:
         """Quantise + upload a training set once, for repeated fits: cuts
-        (computed on the device, or ``cuts`` / the model's own), the
-        feature-major uint8 ``[F, n]`` bin matrix — re-laid out to the
-        physical ``[phys_rows, n]`` matrix when ``DMLC_BIN_PACK`` /
+        (computed where the data is binned, or ``cuts`` / the model's
+        own), the feature-major uint8 ``[F, n]`` bin matrix — re-laid out
+        to the physical ``[phys_rows, n]`` matrix when ``DMLC_BIN_PACK`` /
         ``DMLC_FEATURE_BUNDLE`` find a non-trivial layout (``"layout"``) —
         labels and weights on the device.  Sets ``self.cuts`` if unset.
+
+        ``DMLC_TPU_BIN_BACKEND=cpu`` bins on the host
+        (:func:`~dmlc_core_tpu_torch.models.gbt_split._host_bin_t`, the
+        same bins as ``apply_bins``) and uploads only the uint8 matrix:
+        no f32 ``X`` on the device.
 
         On a data axis of several ranks ``X``/``y`` are the GLOBAL rows
         (the same on every rank): cuts come from all of them, the bins,
@@ -386,22 +512,39 @@ class HistGBT:
             log_fatal("X contains NaN: NaN-as-missing is not ported yet "
                       "(impute, or train with the JAX package)")
         weight = fold_scale_pos_weight(p, y, weight)
+        host = _host_bin_requested()
         lo, hi = self.mesh.row_range(n)
-        X_d = torch.from_numpy(X).to(self.device)
-        w_d = (None if weight is None else
-               torch.from_numpy(np.ascontiguousarray(weight, np.float32)
-                                ).to(self.device))
+        w = (None if weight is None else
+             torch.from_numpy(np.ascontiguousarray(weight, np.float32)))
+        X_d = None if host else torch.from_numpy(X).to(self.device)
         if cuts is not None:
             self.cuts = torch.as_tensor(cuts, dtype=torch.float32,
                                         device=self.device)
         elif self.cuts is None:
-            self.cuts = compute_cuts(X_d, p.n_bins, weight=w_d)
+            if host:
+                self.cuts = compute_cuts(torch.from_numpy(X), p.n_bins,
+                                         weight=w).to(self.device)
+            else:
+                self.cuts = compute_cuts(
+                    X_d, p.n_bins,
+                    weight=None if w is None else w.to(self.device))
         CHECK_EQ(int(self.cuts.shape[1]), p.n_bins - 1,
                  "cuts width must be n_bins-1")
-        bins_t = apply_bins(X_d[lo:hi], self.cuts)
+        cuts_np = self.cuts.cpu().numpy() if host else None
+
+        def binned(a: int, b: int) -> torch.Tensor:
+            if host:
+                return torch.from_numpy(_host_bin_t(X[a:b], cuts_np))
+            return apply_bins(X_d[a:b], self.cuts)
+
+        bins_t = binned(lo, hi).to(self.device)
         layout = None
         if _bin_pack_requested() or _feature_bundle_requested():
-            layout = self._compute_bin_layout(bins_t, F, X_d)
+            # bundles are proposed on the first 65536 global rows, as the
+            # JAX package samples
+            sample = (binned(0, min(n, 1 << 16)).cpu().numpy()
+                      if _feature_bundle_requested() else None)
+            layout = self._compute_bin_layout(bins_t, F, sample)
             if layout is not None:
                 bins_t = _bl.pack_matrix(bins_t, layout)
         del X_d
@@ -411,7 +554,7 @@ class HistGBT:
             "y_d": torch.from_numpy(y[lo:hi]).to(self.device),
             "w_d": (torch.ones(hi - lo, dtype=torch.float32,
                                device=self.device)
-                    if w_d is None else w_d[lo:hi].contiguous()),
+                    if w is None else w[lo:hi].contiguous().to(self.device)),
             "n": hi - lo,
             "n_global": n,
             "n_features": F,
@@ -422,17 +565,34 @@ class HistGBT:
         self.last_bin_seconds = get_time() - t0
         return dd
 
+    def start_warmup(self, n_rows: int, n_features: int) -> bool:
+        """Start building and loading the boosting loop's CUDA kernels on
+        a thread, before the training data exists (the bench's cold-start
+        overlap: the build runs while datagen and binning do).  The next
+        :meth:`fit_device` joins it and reports it as
+        ``last_compile_seconds`` / ``last_compile_cache``; without it the
+        first round builds the kernels.  The build does not depend on the
+        data's shape: ``n_rows``/``n_features`` only mirror the JAX
+        signature.  Returns False on the CPU (nothing to build) or when a
+        warmup is already pending."""
+        del n_rows, n_features
+        if self.device.type != "cuda" or self._pending_warmup is not None:
+            return False
+        self._pending_warmup = _KernelWarmup()
+        return True
+
     def _compute_bin_layout(self, bins_t: torch.Tensor, n_features: int,
-                            X_d: torch.Tensor) -> Optional[_bl.BinLayout]:
+                            sample: Optional[np.ndarray]
+                            ) -> Optional[_bl.BinLayout]:
         """The packed/bundled storage layout of a binned ``[F, n]``
         matrix (``DMLC_BIN_PACK`` / ``DMLC_FEATURE_BUNDLE``), or None.
 
         Occupancy counts come from the binned rows (the cuts cannot say
         how many bins a feature really uses), summed over the ranks.
-        Bundles are proposed on the first ``min(n, 65536)`` global rows
-        of ``X_d``, as the JAX package samples, and each is verified
-        exactly on every rank's matrix before it is kept — every rank
-        derives the 1-rank fit's layout."""
+        Bundles are proposed on ``sample``, the ``[F, m]`` bins of the
+        first ``min(n, 65536)`` global rows, as the JAX package samples,
+        and each is verified exactly on every rank's matrix before it is
+        kept — every rank derives the 1-rank fit's layout."""
         p = self.param
         counts = _bl.bin_counts(bins_t, p.n_bins)
         if self.mesh.size > 1:
@@ -441,8 +601,6 @@ class HistGBT:
                 self.mesh).cpu().numpy().astype(np.int32)
         bundles: tuple = ()
         if _feature_bundle_requested():
-            m = min(int(X_d.shape[0]), 1 << 16)
-            sample = apply_bins(X_d[:m], self.cuts).cpu().numpy()
             proposed = _bl.detect_bundles(sample, counts, p.n_bins)
             dflt = _bl.default_bins(counts)
             bundles = tuple(b for b in proposed
@@ -494,11 +652,25 @@ class HistGBT:
               f"bins) — lower DMLC_MAX_LEAVES or max_depth")
         return leaves
 
-    def fit_device(self, dd: Dict[str, Any]) -> "HistGBT":
+    def fit_device(self, dd: Dict[str, Any], warmup_rounds: int = 0,
+                   chunk_callback: Optional[Callable[[int, float], Any]]
+                   = None) -> "HistGBT":
         """Boost ``n_trees`` rounds over a :meth:`make_device_data`
-        handle; appends to ``self.trees``, sets ``last_fit_seconds``.
-        The growth policy is read from ``DMLC_GROW_POLICY`` here."""
+        handle: a new fit (the trees of an earlier one are dropped) —
+        the repeated-fit path, no re-upload and no re-binning.  The
+        growth policy is read from ``DMLC_GROW_POLICY`` here.
+
+        Rounds run in chunks of ``DMLC_TPU_ROUNDS_PER_DISPATCH``: a
+        chunk's trees stay on the device and come to the host in one
+        fetch, at which ``last_chunk_times`` takes ``(rounds fetched,
+        seconds)`` and ``chunk_callback(rounds_fetched, elapsed_s)``
+        fires.  Any chunk size gives the same trees.  ``warmup_rounds``
+        discarded rounds run first on a copy of the margins (the first
+        use of every kernel and op), after joining a pending
+        :meth:`start_warmup`; the model is untouched by them and the
+        timed fit (``last_fit_seconds``) leaves them out."""
         self._check_fit_params()
+        CHECK(warmup_rounds >= 0, "warmup_rounds must be >= 0")
         p = self.param
         bins_t, y_d, w_d = dd["bins_t"], dd["y_d"], dd["w_d"]
         layout = dd.get("layout")
@@ -518,27 +690,82 @@ class HistGBT:
         else:
             def grow(g, h):
                 return self._grow_tree(bins_t, g, h, layout)
+
+        def boost(preds):
+            g, h = self._obj.grad_hess(preds, y_d)
+            tree, delta = grow(g * w_d, h * w_d)
+            return tree, preds + delta
+
+        self.trees = []
         preds = torch.full((dd["n"],), p.base_score, dtype=torch.float32,
                            device=self.device)
+        self._warmup(boost, preds, warmup_rounds)
+        K, rem = _rounds_schedule(p.n_trees)
+        report = _metrics.enabled()
+        m = gbt_metrics() if report else None
+        self.last_chunk_times = []
         self.last_tree_times = []
         t0 = get_time()
-        for _ in range(p.n_trees):
-            g, h = self._obj.grad_hess(preds, y_d)
-            g = g * w_d
-            h = h * w_d
-            tree, delta = grow(g, h)
-            coll.record_hist_psum(sync_bytes)
-            preds = preds + delta
-            # the copy to the host waits for the tree, so the timestamp
-            # marks when its device work finished
-            self.trees.append({k: tree[k].cpu().numpy() for k in _TREE_KEYS})
-            self.last_tree_times.append(get_time() - t0)
+        done = 0
+        while done < p.n_trees:
+            k = K if p.n_trees - done >= K else rem
+            chunk = []
+            for _ in range(k):
+                tree, preds = boost(preds)
+                chunk.append(tree)
+            self.trees.extend(_fetch_trees(chunk))    # the chunk's one sync
+            done += k
+            prev_t = self.last_chunk_times[-1][1] if done > k else 0.0
+            self.last_chunk_times.append((done, get_time() - t0))
+            self.last_tree_times.extend([self.last_chunk_times[-1][1]] * k)
+            coll.record_hist_psum(k * sync_bytes)
+            if report:
+                m["phase"].observe(
+                    (self.last_chunk_times[-1][1] - prev_t) / k,
+                    engine="incore", phase="round")
+                m["rounds"].inc(k, engine="incore")
+                m["trees"].inc(k, engine="incore")
+            if chunk_callback is not None:
+                chunk_callback(*self.last_chunk_times[-1])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_fit_seconds = get_time() - t0
         self._train_preds = preds
         self._train_rows = dd.get("n_global", dd["n"])
         return self
+
+    def _warmup(self, boost, preds: torch.Tensor, rounds: int) -> None:
+        """Join a pending :meth:`start_warmup`, then run ``rounds``
+        discarded rounds of ``boost`` on a copy of ``preds``; sets the
+        ``last_warmup_*`` / ``last_compile_*`` attributes."""
+        warm, self._pending_warmup = self._pending_warmup, None
+        join_wait = 0.0
+        self.last_compile_seconds = self.last_compile_cache = None
+        if warm is not None:
+            join_wait = warm.join()
+            self.last_compile_seconds = warm.seconds
+            self.last_compile_cache = warm.cache
+        t_w = get_time()
+        dispatch_s = device_s = 0.0
+        if rounds > 0:
+            t_d = get_time()
+            wp = preds.clone()
+            for _ in range(rounds):
+                _, wp = boost(wp)
+            dispatch_s = get_time() - t_d
+            t_v = get_time()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            device_s = get_time() - t_v
+        self.last_warm_dispatch_seconds = get_time() - t_w
+        self.last_warmup_seconds = join_wait + self.last_warm_dispatch_seconds
+        # "trace": the wait for the kernels' build, the port's compile
+        self.last_warmup_breakdown = {"trace": round(join_wait, 6),
+                                      "dispatch": round(dispatch_s, 6),
+                                      "device": round(device_s, 6)}
+        if _metrics.enabled() and rounds > 0:
+            gbt_metrics()["phase"].observe(self.last_warmup_seconds,
+                                           engine="incore", phase="warmup")
 
     def _grow_tree(self, bins_t: torch.Tensor, g: torch.Tensor,
                    h: torch.Tensor, layout: Optional[_bl.BinLayout] = None

@@ -25,18 +25,21 @@ from typing import Dict, Iterable, Optional, Tuple
 
 from dmlc_core_tpu_torch.base.logging import LOG, log_fatal
 
-__all__ = ["load_library", "build_all", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["load_library", "build_all", "is_built", "BUILD_DIR",
+           "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
-#: each source's flags.  histogram: -fmad=false, no multiply-add
-#: contraction, so every float operation rounds as its plain PyTorch
-#: version's does (its kernels are held bit for bit).  attention: held
-#: by a tolerance, so contraction stays on.
+#: each source's flags.  histogram and hist_floor: -fmad=false, no
+#: multiply-add contraction, so every float operation rounds as its plain
+#: PyTorch version's does (their kernels are held bit for bit).
+#: attention: held by a tolerance, so contraction stays on.
 NVCC_FLAGS: Dict[str, Tuple[str, ...]] = {
     "histogram": ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                   "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"),
+    "hist_floor": ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                   "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"),
     "attention": ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                   "-O3", "-shared", "-Xcompiler", "-fPIC"),
 }
@@ -57,6 +60,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "dmlc_fused_descend": (_P, _P, _P, _P, _I, _P, _P, _LL, _I, _I, _I,
                                _F, _F, _P, _P, _P),
         "dmlc_hist_epilogue": (_P, _P, _P, _I, _LL, _D, _D, _P),
+    },
+    "hist_floor": {
+        # bins, row stride, node, g, h; n_tiles, tile_rows, F, n_build,
+        # hi, variant; partial, out, stream
+        "dmlc_hist_floor": (_P, _LL, _P, _P, _P) + (_I,) * 6
+                           + (_P, _P, _P),
     },
     "attention": {
         # q, k, v, o, lse; B, S, H, D; (batch, seq, head) strides of q,
@@ -127,6 +136,12 @@ def _finish(name: str, job) -> Path:
     os.replace(tmp, out)       # atomic: concurrent builds agree
     LOG("INFO", "built %s in %.1f s", out.name, time.perf_counter() - t0)
     return out
+
+
+def is_built(name: str) -> bool:
+    """Whether ``csrc/<name>.cu``'s library is already built (a build
+    cache hit for this source and flags)."""
+    return _lib_path(name).exists()
 
 
 def build(name: str) -> Path:

@@ -77,6 +77,36 @@ Sync = Callable[[torch.Tensor], torch.Tensor]
 SCALE_BITS = 53
 _SCALE_CLAMP = 100
 
+#: the JAX package's Pallas row tile (its v5e sweeps chose 16384); the
+#: one-hot product measurements (``tools/spike_hist_floor.py``) tile rows
+#: the same way
+_TILE_ROWS = 16384
+
+#: the JAX package's measured-best ``lo`` per n_build at n_bins=256 (v5e,
+#: tile 16384, 10M rows), kept so the factored split ``bin = hi·lo +
+#: lo_part`` is the reference's at every level
+_LO_MEASURED_256 = {1: 32, 2: 32, 4: 64, 8: 128, 16: 128}
+
+
+def _lo_factor(n_nodes: int, n_bins: int) -> int:
+    """Bin-factor split ``bin = hi·lo + lo_part`` of the one-hot product
+    histogram (the JAX package's rule): the measured table at 256 bins,
+    else the op-count model ``5·A + 2·lo`` with ``A = 2·n_nodes·hi``.
+    The bench's cost model and the one-hot product spike use it; the
+    port's own histogram kernels do not factor bins."""
+    if n_bins == 256 and n_nodes in _LO_MEASURED_256:
+        return _LO_MEASURED_256[n_nodes]
+    best, best_cost = 128, None
+    for lo in (32, 64, 128):
+        if lo > max(n_bins, 8):
+            continue
+        hi = -(-n_bins // lo)
+        A = 2 * n_nodes * hi
+        cost = 5 * A + 2 * lo          # construction op counts per element
+        if best_cost is None or cost < best_cost:
+            best, best_cost = lo, cost
+    return best
+
 
 def leaves_built_per_round(depth: int, grow_policy: str = "depthwise",
                            max_leaves: int = 0) -> int:
@@ -215,8 +245,9 @@ def _dequantize(acc: torch.Tensor, k: int) -> torch.Tensor:
 
 def _accum_plain(bins_t, node_h, grad, hess, n_nodes, n_bins, kg, kh):
     """int64 [2, n_nodes·F·n_bins] fixed-point sums over the rows of
-    ``bins_t`` (every row adds: the caller drops rows with node < 0);
-    index_add_ per feature — integer, so order-free."""
+    ``bins_t`` (every row adds: the caller drops rows whose node is not
+    in ``[0, n_nodes)``); index_add_ per feature — integer, so
+    order-free."""
     F, n = bins_t.shape
     qg = _quantize(grad, kg)
     qh = _quantize(hess, kh)
@@ -247,10 +278,12 @@ def hist_plain(bins_t: torch.Tensor, node_id: torch.Tensor,
     matrix unpacks to the storage matrix first and the result is
     ``[2, n_nodes, S, layout.sync_bins]``.  ``left_only``: ``node_id``
     holds the next level's ids and only even ones add, at their parent's
-    index.  ``sync`` maps the int64 sums before the conversion."""
+    index.  Rows whose (parent) index is not in ``[0, n_nodes)`` add
+    nothing, as in the kernel and the JAX package.  ``sync`` maps the
+    int64 sums before the conversion."""
     if left_only:
         node_id = _left_children(node_id)
-    rows = torch.nonzero(node_id >= 0).squeeze(1)     # rows that add
+    rows = torch.nonzero((node_id >= 0) & (node_id < n_nodes)).squeeze(1)
     bins_v = bins_t[:, rows]
     if layout is not None:
         bins_v = bl.unpack_matrix(bins_v, layout)
@@ -654,12 +687,13 @@ def select_feature_bins(bins_t: torch.Tensor, feat_sel: torch.Tensor,
 
 def reference_histogram(bins, node_id, grad, hess, n_nodes, n_bins):
     """Numpy oracle for tests — row-major ``bins [n, F]``, same
-    ``[2, N, F, B]`` shape as :func:`build_histogram`."""
+    ``[2, N, F, B]`` shape as :func:`build_histogram`; rows whose node is
+    not in ``[0, n_nodes)`` add nothing."""
     bins = np.asarray(bins)
     node_id = np.asarray(node_id)
     out = np.zeros((2, n_nodes, bins.shape[1], n_bins), np.float64)
     for i in range(bins.shape[0]):
-        if node_id[i] < 0:
+        if not 0 <= node_id[i] < n_nodes:
             continue
         for f in range(bins.shape[1]):
             out[0, node_id[i], f, bins[i, f]] += grad[i]

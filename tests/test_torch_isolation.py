@@ -76,6 +76,23 @@ def test_bert_path_module_loads_no_jax(module):
     assert "LOADED []" in res.stdout, res.stdout
 
 
+@pytest.mark.parametrize("module", [
+    "dmlc_core_tpu_torch.bench",
+    "dmlc_core_tpu_torch.tools.spike_hist_floor"])
+def test_entry_module_loads_no_jax(module):
+    # the port's bench and the one-hot spike are entry points of their
+    # own: importing either loads no jax and nothing of the JAX package
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}\n"
+        "             or m.startswith('jax'))\n"
+        "print('LOADED', bad)\n")
+    res = _run_clean(code)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
+
+
 def test_no_finished_kernel_in_source():
     # the port's kernels are its own: no fused attention operator, no
     # torch.compile, no package of finished kernels anywhere in it
@@ -143,12 +160,13 @@ def test_kernel_modules_import_without_nvcc():
     res = _run_clean(
         "import dmlc_core_tpu_torch.ops.histogram as h, "
         "dmlc_core_tpu_torch.ops.attention as a, "
+        "dmlc_core_tpu_torch.tools.spike_hist_floor as s, "
         "dmlc_core_tpu_torch.ops._build as b\n"
         "print('OK', h.hist_kernel.launches, h.fused_round_kernel.launches, "
-        "a.flash_fwd_kernel.launches)",
+        "a.flash_fwd_kernel.launches, sum(s.kernel_variant.launches.values()))",
         env=env)
     assert res.returncode == 0, res.stderr
-    assert "OK 0 0 0" in res.stdout
+    assert "OK 0 0 0 0" in res.stdout
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
