@@ -11,7 +11,8 @@ and the script exits non-zero without the final ``ok`` line:
    build of every kernel from ``dmlc_core_tpu_torch/ops/csrc`` (one
    ``nvcc`` per source, all started together); then the data, made from
    seeds: HIGGS-like 10M × 28 (bench.py's rule, seed 7) and covtype-schema
-   581,012 × 54 (:func:`covtype_like`);
+   581,012 × 54 (:func:`covtype_like`); and the device route's binning
+   of ±inf columns, whose cuts hold NaN (:func:`check_inf_binning`);
 2. kernels — each kernel at the flagship's shapes (10M rows, 28 features,
    256 bins: ``hist`` at the root, ``fused_round`` and ``fused_descend``
    at n_prev 1..16) against its plain PyTorch version on the same inputs
@@ -64,7 +65,8 @@ and the script exits non-zero without the final ``ok`` line:
     on the same inputs (``o`` within 2^-7 and dq/dk/dv within 2^-6 of the
     plain result's largest magnitude, ``lse`` within 1e-4), twice on the
     same inputs (identical bytes); at BERT-base's shape timed (10 calls
-    back to back per CUDA-event pair) beside its bound and
+    back to back per CUDA-event pair, and as device time from a
+    ``torch.profiler`` trace) beside its bound and
     ``F.scaled_dot_product_attention``'s time (the yardstick only: the
     port never calls it) — its forward, and its backward alone
     (``autograd.grad`` on a retained graph, the forward outside the
@@ -195,6 +197,8 @@ BERT_BATCH = 8
 BERT_SEQ = 512
 BERT_STEPS = 20
 BERT_CHUNK = 10
+#: rows of the ±inf binning check
+INF_ROWS = 1_000_000
 #: the cross-device check: a two-layer BERT whose heads the kernels take
 #: (head dim 64), trained a few steps on the card and on the CPU (the
 #: dense oracle) from the same weights, held as the CPU tests hold the
@@ -266,23 +270,39 @@ def time_ms(torch, fn, reps: int, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int) -> float:
+def device_ms(torch, fn, reps: int, attempts: int = 3) -> float:
     """Device time of one call of ``fn``: the CUDA kernels of ``reps``
     calls summed from a ``torch.profiler`` trace, over ``reps`` (no host
-    gap counts, unlike a CUDA-event window around a host-heavy call)."""
+    gap counts, unlike a CUDA-event window around a host-heavy call).
+
+    The tracer can drop a window's kernels or deliver them late into the
+    next window, so a trace counts only when every kernel in it ran a
+    whole number of times per call (``fn`` launches the same kernels
+    each call); an empty window first takes any late records.  Up to
+    ``attempts`` traces, then the measurement fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for evt in prof.key_averages():
-        t = getattr(evt, "device_time_total", None)
-        total += evt.cuda_time_total if t is None else t
-    return total / reps / 1e3
+    counts = {}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, counts = 0.0, {}
+        for evt in prof.key_averages():
+            t = getattr(evt, "device_time_total", None)
+            t = evt.cuda_time_total if t is None else t
+            if t > 0:
+                total += t
+                counts[evt.key] = evt.count
+        if counts and all(n % reps == 0 for n in counts.values()):
+            return total / reps / 1e3
+    raise RuntimeError(f"chip_smoke: no clean profiler trace of {reps} "
+                       f"calls in {attempts} tries (kernel counts {counts})")
 
 
 def steady_rounds_per_sec(tree_times) -> float:
@@ -562,6 +582,34 @@ def summarize(cases, library_ms=None):
     return {**mean, "library_ms": library_ms,
             "bound_by": by.pop() if len(by) == 1 else "mixed",
             "max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+
+def check_inf_binning(torch, np):
+    """``compute_cuts`` + ``apply_bins`` on the card (the device route)
+    over a gaussian column, one with 1% +inf and one with 1% −inf: the
+    cuts hold NaN (the top ones, and every one) and the card's bins equal
+    the host route's (``_host_bin_t``) on the same cuts, bit for bit."""
+    from dmlc_core_tpu_torch.models.gbt_split import _host_bin_t
+    from dmlc_core_tpu_torch.ops.quantile import apply_bins, compute_cuts
+
+    rng = np.random.default_rng(SEED)
+    X = rng.normal(size=(INF_ROWS, 3)).astype(np.float32)
+    X[rng.random(INF_ROWS) < 0.01, 1] = np.inf
+    X[rng.random(INF_ROWS) < 0.01, 2] = -np.inf
+    Xd = torch.from_numpy(X).to(DEVICE)
+    cuts = compute_cuts(Xd, N_BINS)
+    bins = apply_bins(Xd, cuts).cpu().numpy()
+    cuts_np = cuts.cpu().numpy()
+    nan_cuts = np.isnan(cuts_np).sum(1).tolist()
+    require(nan_cuts[0] == 0 and nan_cuts[1] > 0
+            and nan_cuts[2] == N_BINS - 1,
+            f"±inf columns: NaN cuts per feature {nan_cuts}")
+    host = _host_bin_t(X, cuts_np)
+    differ = (bins != host).sum(1).tolist()
+    require(differ == [0, 0, 0],
+            f"device bins differ from _host_bin_t on {differ} rows")
+    emit({"phase": "binning_inf", "rows": INF_ROWS, "n_bins": N_BINS,
+          "nan_cuts": nan_cuts, "rows_differing": differ})
 
 
 def phase_kernels(torch, H, rates):
@@ -1181,6 +1229,9 @@ def check_attention(torch, A, name, shape, causal, rates, tc_rate):
     lib_bwd = time_ms(torch, sdpa_bwd, REPS, n)
     lib_bwd_dev = device_ms(torch, sdpa_bwd, REPS)
     plain_reps = max(3, REPS // 3)
+    dev = {"flash_fwd": device_ms(torch, fwd, REPS),
+           "flash_bwd_dkv": device_ms(torch, dkv, REPS),
+           "flash_bwd_dq": device_ms(torch, dq_fn, REPS)}
     times = {
         "flash_fwd": (time_ms(torch, fwd, REPS, n), time_ms(
             torch, lambda: A.flash_fwd_plain(q, k, v, causal, scale),
@@ -1196,8 +1247,8 @@ def check_attention(torch, A, name, shape, causal, rates, tc_rate):
     for kname, (b_ms, b_by) in attention_bounds(shape, causal, rates,
                                                 tc_rate).items():
         ms, plain_ms, lib_ms = times[kname]
-        out[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=lib_ms,
+        out[kname].update(ms=ms, device_ms=dev[kname], plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                           library_device_ms=(lib_fwd_dev if kname ==
                                              "flash_fwd" else lib_bwd_dev),
                           sdpa_rel_err=lib_rel)
@@ -1552,6 +1603,7 @@ def main() -> int:
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "higgs_like": list(X.shape), "covtype_like": list(C.shape),
           "covtype_positive_share": float(cy.mean())})
+    check_inf_binning(torch, np)
     kernels = phase_kernels(torch, H, rates)
     layout_kernels, mats = phase_kernels_layout(torch, np, H, rates, C, cy)
     kernels.update(layout_kernels)
@@ -1600,8 +1652,8 @@ def main() -> int:
                 "flash_bwd_dkv": f"{lib}:796",
                 "flash_bwd_dq": f"{lib}:1146",
                 **{k: "scripts/spike_hist_floor.py:55" for k in floor}}
-    extra = ("unfused_chain_ms", "library_call", "library_device_ms",
-             "by_n_build")
+    extra = ("unfused_chain_ms", "device_ms", "library_call",
+             "library_device_ms", "by_n_build")
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": (attn_src if name in attention else

@@ -442,9 +442,10 @@ class HistGBT:
         self.last_compile_seconds: Optional[float] = None
         self.last_warm_dispatch_seconds: Optional[float] = None
         self.last_warmup_seconds: Optional[float] = None
-        #: {trace, dispatch, device} of warm_dispatch: trace = an inline
-        #: kernel build and load (no start_warmup), dispatch = issuing the
-        #: warmup rounds, device = waiting for them to finish
+        #: {trace, dispatch, device} of warm_dispatch: trace = the wait for
+        #: a pending start_warmup's kernel build and load (0 without one),
+        #: dispatch = issuing the warmup rounds, device = waiting for them
+        #: to finish
         self.last_warmup_breakdown: Optional[Dict[str, float]] = None
         self.last_compile_cache: Optional[str] = None
         self._pending_warmup: Optional[_KernelWarmup] = None

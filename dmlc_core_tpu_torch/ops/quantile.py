@@ -227,13 +227,22 @@ def apply_bins(x: torch.Tensor, cuts: torch.Tensor) -> torch.Tensor:
     #cuts ≤ value.  Returns the FEATURE-major ``[F, n]`` matrix (the
     training layout; JAX's ``apply_bins`` returns ``[n, F]``, which its
     main path then transposes); uint8 when the bins fit (≤ 256), else
-    int32."""
+    int32.
+
+    NaN cuts (``compute_cuts`` emits them on a feature holding ±inf: the
+    top cuts for +inf, every cut for −inf) sort after every number, as in
+    ``jnp.searchsorted`` and ``np.searchsorted``: a value counts only the
+    non-NaN cuts ≤ it, and a NaN value counts every cut.
+    ``torch.searchsorted`` takes a NaN cut for ≤ any value, so each
+    feature is searched over its non-NaN cuts, which lie at the front."""
     n, F = x.shape
     CHECK(cuts.shape[0] == F, "cuts/feature count mismatch")
     dtype = torch.uint8 if cuts.shape[1] < 256 else torch.int32
     out = torch.empty(F, n, dtype=dtype, device=x.device)
+    n_valid = (~torch.isnan(cuts)).sum(1).tolist()
     for f in range(F):
-        out[f] = torch.searchsorted(cuts[f].contiguous(),
-                                    x[:, f].contiguous(),
-                                    right=True).to(dtype)
+        col = x[:, f].contiguous()
+        b = torch.searchsorted(cuts[f, :n_valid[f]].contiguous(), col,
+                               right=True)
+        out[f] = torch.where(torch.isnan(col), cuts.shape[1], b).to(dtype)
     return out

@@ -14,7 +14,11 @@ checkout, BASE_DIR, each in its own process on the same card, then prints
 the time of each kernel in this checkout over its time in BASE_DIR (the
 two runs of each averaged).  ``--profile`` adds each CUDA kernel's mean
 device time inside ``hist`` and ``fused_round`` at n_prev 1, from a
-``torch.profiler`` trace.  Only the API both sides share is used.
+``torch.profiler`` trace.  ``--attention`` times the three flash-attention
+kernels instead (``flash_fwd_kernel``, ``flash_bwd_dkv_kernel``,
+``flash_bwd_dq_kernel``) at BERT-base's ``[8, 512, 12, 64]``, non-causal
+and causal, by device time from a profiler trace, and by CUDA events over
+``ATTN_INNER`` calls back to back.  Only the API both sides share is used.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 ROWS, FEATURES, N_BINS = 10_000_000, 28, 256
 N_PREV = (1, 2, 4, 8, 16, 64)
 SEED = 0
+ATTN_SHAPE = (8, 512, 12, 64)
+ATTN_INNER = 10
 
 
 def time_ms(torch, fn, reps):
@@ -67,6 +73,50 @@ def device_times(torch, fn, reps):
         if total > 0:
             times[evt.key[:60]] = total / reps
     return times
+
+
+def run_attention(root, reps):
+    """Device and CUDA-event ms of the three flash kernels of ``root``."""
+    sys.path.insert(0, root)
+    import torch
+
+    from dmlc_core_tpu_torch.ops import attention as A
+    from dmlc_core_tpu_torch.utils.device import gpu_name_and_power_limit
+
+    if not os.path.abspath(A.__file__).startswith(os.path.abspath(root)):
+        raise RuntimeError(f"imported {A.__file__}, not from {root}")
+    B, S, H, D = ATTN_SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    qkv = torch.randn((3, B, S, H, D), device=dev,
+                      generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.unbind(0)
+    do = torch.randn((B, S, H, D), device=dev,
+                     generator=gen).to(torch.bfloat16)
+    scale = D ** -0.5
+    out = {"root": root, "nvidia_smi": gpu_name_and_power_limit(),
+           "B_S_H_D": list(ATTN_SHAPE), "attention": {}}
+    for causal in (False, True):
+        o, lse = A.flash_fwd_kernel(q, k, v, causal, scale)
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        fns = {"flash_fwd": lambda: A.flash_fwd_kernel(q, k, v, causal,
+                                                       scale),
+               "flash_bwd_dkv": lambda: A.flash_bwd_dkv_kernel(
+                   q, k, v, do, lse, di, causal, scale),
+               "flash_bwd_dq": lambda: A.flash_bwd_dq_kernel(
+                   q, k, v, do, lse, di, causal, scale)}
+        for name, fn in fns.items():
+            def inner(fn=fn):
+                for _ in range(ATTN_INNER):
+                    fn()
+
+            key = name + ("_causal" if causal else "")
+            out["attention"][key] = {
+                "device_ms": sum(device_times(torch, fn, reps).values())
+                / 1e3,
+                "ms": time_ms(torch, inner, reps) / ATTN_INNER}
+    print(json.dumps(out), flush=True)
 
 
 def run_one(root, rows, reps, profile=False):
@@ -116,19 +166,23 @@ def run_one(root, rows, reps, profile=False):
     print(json.dumps(out), flush=True)
 
 
-def run_ab(base, rows, reps, profile=False):
+def run_ab(base, rows, reps, profile=False, attention=False):
     runs = []
     for root in (base, ROOT, ROOT, base):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--root", root,
              "--rows", str(rows), "--reps", str(reps)]
-            + (["--profile"] if profile else []),
+            + (["--profile"] if profile else [])
+            + (["--attention"] if attention else []),
             check=True, capture_output=True, text=True, timeout=600)
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs.append(json.loads(line))
 
     def flat(r):
+        if attention:
+            return {f"{k}_{m}": v[m] for k, v in r["attention"].items()
+                    for m in ("device_ms", "ms")}
         return {"hist": r["hist_ms"], **{f"fused_round_{k}": v for k, v in
                                          r["fused_round_ms"].items()}}
 
@@ -148,9 +202,14 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also each kernel's device time (torch.profiler) "
                          "in hist and in fused_round at n_prev 1")
+    ap.add_argument("--attention", action="store_true",
+                    help="time the flash-attention kernels instead")
     args = ap.parse_args()
     if args.ab:
-        run_ab(os.path.abspath(args.ab), args.rows, args.reps, args.profile)
+        run_ab(os.path.abspath(args.ab), args.rows, args.reps, args.profile,
+               args.attention)
+    elif args.attention:
+        run_attention(os.path.abspath(args.root), args.reps)
     else:
         run_one(os.path.abspath(args.root), args.rows, args.reps,
                 args.profile)

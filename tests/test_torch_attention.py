@@ -207,3 +207,115 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_mask_value_is_the_library_default():
     assert ta.MASK_VALUE == jax_flash.DEFAULT_MASK_VALUE
+
+
+# --- the tile arithmetic of the CUDA kernels, emulated -----------------
+#
+# flash_fwd and flash_bwd_dkv (csrc/attention.cu) cannot run on the CPU.
+# These torch emulations follow their per-tile recurrences at their tile
+# sizes and with their bf16 rounding points, in f32, and are held to the
+# plain versions within chip_smoke.py's own tolerances (O_TOL, GRAD_TOL,
+# LSE_TOL): a rounding point in the wrong place shows here before any
+# chip time is spent.  The kernels' f32 sums run in other orders, well
+# inside these bounds.
+
+LSE_TOL = 1e-4
+TILE = 64                      # the kernels' query and key tile rows
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+#: chip_smoke.py's small ATTN_SHAPES: tail tiles (S 200, 77, 130) and the
+#: head dims 64, 80, 128
+EMU_SHAPES = [(2, 200, 3, 64), (1, 77, 2, 80), (2, 130, 2, 128)]
+
+
+def _bhsd(t):
+    return t.float().transpose(1, 2)
+
+
+def _emulate_fwd(q, k, v, causal, scale):
+    """flash_fwd's loop: per 64-row query tile, the key tiles up to the
+    diagonal; scores in log2 units with masked keys at MASK_VALUE; the
+    running max m and sum l, O rescaled by exp2(m_old − m_new) before
+    O += bf16(P) V; then o = O / l in bf16 and lse = m·ln2 + log l."""
+    B, S, H, D = q.shape
+    qf, kf, vf = _bhsd(q), _bhsd(k), _bhsd(v)
+    o = torch.empty(B, H, S, D)
+    lse = torch.empty(B, H, S)
+    for q0 in range(0, S, TILE):
+        rows = torch.arange(q0, min(q0 + TILE, S))
+        m = torch.full((B, H, len(rows)), -float("inf"))
+        l = torch.zeros(B, H, len(rows))
+        acc = torch.zeros(B, H, len(rows), D)
+        n_kt = -(-S // TILE)
+        if causal:
+            n_kt = min(q0 // TILE + 1, n_kt)
+        for k0 in range(0, n_kt * TILE, TILE):
+            keys = torch.arange(k0, min(k0 + TILE, S))
+            s2 = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
+            s2 = s2 * (scale * LOG2E)
+            if causal:
+                s2 = s2.masked_fill(keys[None, :] > rows[:, None],
+                                    ta.MASK_VALUE)
+            m_new = torch.maximum(m, s2.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s2 - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + (p.to(torch.bfloat16).float()
+                                           @ vf[:, :, keys])
+            m = m_new
+        o[:, :, rows] = acc / l[..., None]
+        lse[:, :, rows] = m * LN2 + torch.log(l)
+    return o.transpose(1, 2).to(torch.bfloat16), lse
+
+
+def _emulate_dkv(q, k, v, do, lse, di, causal, scale):
+    """flash_bwd_dkv's loop: query tiles of 64 rows at D 64, 32 above;
+    per tile Pᵀ = exp2(scale·log2e·Sᵀ − log2e·lse) (masked to 0), dV +=
+    bf16(Pᵀ) dO, dSᵀ = Pᵀ ∘ (V dOᵀ − di), dK += bf16(dSᵀ) Q; dK·scale at
+    the store.  Every key row at once: the kernel's key tiles do not
+    change a rounding point, and the query tiles a key tile skips under
+    causal add only masked zeros."""
+    B, S, H, D = q.shape
+    bq = 64 if D <= 64 else 32
+    qf, kf, vf, dof = _bhsd(q), _bhsd(k), _bhsd(v), _bhsd(do)
+    keys = torch.arange(S)
+    dk = torch.zeros(B, H, S, D)
+    dv = torch.zeros(B, H, S, D)
+    for q0 in range(0, S, bq):
+        qs = torch.arange(q0, min(q0 + bq, S))
+        st = kf @ qf[:, :, qs].transpose(-1, -2)            # [B, H, S, bq]
+        pt = torch.exp2(st * (scale * LOG2E)
+                        - lse[:, :, None, qs] * LOG2E)
+        if causal:
+            pt = pt.masked_fill(keys[:, None] > qs[None, :], 0.0)
+        dv += pt.to(torch.bfloat16).float() @ dof[:, :, qs]
+        dpt = vf @ dof[:, :, qs].transpose(-1, -2)
+        dst = pt * (dpt - di[:, :, None, qs])
+        dk += dst.to(torch.bfloat16).float() @ qf[:, :, qs]
+    return ((dk * scale).transpose(1, 2).to(torch.bfloat16),
+            dv.transpose(1, 2).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", EMU_SHAPES)
+def test_forward_tile_arithmetic_matches_plain(shape, causal):
+    q, k, v, _ = _inputs(shape, seed=6)
+    scale = shape[-1] ** -0.5
+    o, lse = _emulate_fwd(q, k, v, causal, scale)
+    o_p, lse_p = ta.flash_fwd_plain(q, k, v, causal, scale)
+    _close(o, o_p.float().numpy(), O_TOL, "o")
+    err = float((lse - lse_p).abs().max())
+    assert err <= LSE_TOL, f"lse off by {err}"
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", EMU_SHAPES)
+def test_dkv_tile_arithmetic_matches_plain(shape, causal):
+    q, k, v, do = _inputs(shape, seed=7)
+    scale = shape[-1] ** -0.5
+    o, lse = ta.flash_fwd_plain(q, k, v, causal, scale)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = _emulate_dkv(q, k, v, do, lse, di, causal, scale)
+    dk_p, dv_p = ta.flash_bwd_dkv_plain(q, k, v, do, lse, di, causal, scale)
+    _close(dk, dk_p.float().numpy(), GRAD_TOL, "dk")
+    _close(dv, dv_p.float().numpy(), GRAD_TOL, "dv")

@@ -87,3 +87,39 @@ def test_summary_stages_bit_equal():
     m_j = np.asarray(jq.merge_summaries(jnp.asarray(s_j)[None], 64))
     m_t = tq.merge_summaries(torch.from_numpy(s_t)[None], 64).numpy()
     np.testing.assert_array_equal(_bits(m_t), _bits(m_j))
+
+
+def _inf_matrix(n, seed):
+    """Three gaussian columns: 1% +inf in column 1, 1% −inf in column 2
+    (``compute_cuts`` then emits NaN cuts: the top ones for +inf, every
+    one for −inf, at 256 bins)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 3)).astype(np.float32)
+    X[rng.random(n) < 0.01, 1] = np.inf
+    X[rng.random(n) < 0.01, 2] = -np.inf
+    return X
+
+
+@pytest.mark.parametrize("n_bins", [2, 16, 256])
+def test_bins_bit_equal_with_nan_cuts(n_bins):
+    """±inf columns: cuts bit-equal NaN for NaN, and ``apply_bins`` bins
+    as ``jnp.searchsorted`` does (NaN cuts sort after every number) and
+    as the host route ``_host_bin_t`` does; a NaN value counts every
+    cut in all three."""
+    from dmlc_core_tpu_torch.models.gbt_split import _host_bin_t
+
+    X = _inf_matrix(5000, seed=n_bins)
+    want = np.array(jq.compute_cuts(X, n_bins))
+    got = tq.compute_cuts(torch.from_numpy(X), n_bins).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    if n_bins == 256:
+        assert np.isnan(want[1]).any() and np.isnan(want[2]).all()
+    # a fourth column of NaN values and gaussians, binned by column 0's cuts
+    X4 = np.concatenate([X, X[:, :1]], axis=1)
+    X4[::7, 3] = np.nan
+    cuts4 = np.concatenate([want, want[:1]])
+    bins_j = np.asarray(jq.apply_bins(jnp.asarray(X4), jnp.asarray(cuts4)))
+    bins_t = tq.apply_bins(torch.from_numpy(X4), torch.from_numpy(cuts4))
+    assert bins_t.dtype == torch.uint8 and bins_t.shape == (4, 5000)
+    np.testing.assert_array_equal(bins_t.numpy(), bins_j.T)
+    np.testing.assert_array_equal(bins_t.numpy(), _host_bin_t(X4, cuts4))
