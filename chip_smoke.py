@@ -17,10 +17,11 @@ and the script exits non-zero without the final ``ok`` line:
    256 bins: ``hist`` at the root, ``fused_round`` and ``fused_descend``
    at n_prev 1..16) against its plain PyTorch version on the same inputs
    (bit-identical), twice on the same inputs (identical bytes), timed with
-   CUDA events (median of ``REPS``) beside its bound and, where one
-   PyTorch call computes the same function, that call (``fused_descend``
-   also beside the unfused chain it replaces: the torch descend, then
-   ``hist`` over left children);
+   CUDA events (median of ``REPS``) and, for ``hist`` and ``fused_round``,
+   as device time from a ``torch.profiler`` trace, beside its bound and,
+   where one PyTorch call computes the same function, that call
+   (``fused_descend`` also beside the unfused chain it replaces: the torch
+   descend, then ``hist`` over left children);
 3. kernels_layout — the same for the LAYOUT MODES (``hist_layout``,
    ``fused_round_layout`` at n_prev 1, 4, 16) on the physical matrices of
    configurations 2a (12 rows: two bundles) and 2b (34 rows: 22 int4
@@ -271,20 +272,21 @@ def time_ms(torch, fn, reps: int, inner: int = 1) -> float:
 
 
 def device_ms(torch, fn, reps: int, attempts: int = 3) -> float:
-    """Device time of one call of ``fn``: the CUDA kernels of ``reps``
-    calls summed from a ``torch.profiler`` trace, over ``reps`` (no host
-    gap counts, unlike a CUDA-event window around a host-heavy call).
+    """Device time of one call of ``fn``: each CUDA kernel's mean time in
+    a ``torch.profiler`` trace of ``reps`` calls, times its launches per
+    call, summed (no host gap counts, unlike a CUDA-event window around a
+    host-heavy call).
 
-    The tracer can drop a window's kernels or deliver them late into the
-    next window, so a trace counts only when every kernel in it ran a
-    whole number of times per call (``fn`` launches the same kernels
-    each call); an empty window first takes any late records.  Up to
-    ``attempts`` traces, then the measurement fails."""
+    The tracer can drop a window's first records or deliver them late
+    into the next window, so a kernel's launches per call are its count
+    over ``reps`` rounded, and a kernel with fewer than half a launch a
+    call is a stray of another window and left out; an empty window
+    first takes any late records.  Up to ``attempts`` traces, then the
+    measurement fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    counts = {}
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]):
             torch.cuda.synchronize()
@@ -292,17 +294,17 @@ def device_ms(torch, fn, reps: int, attempts: int = 3) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total, counts = 0.0, {}
+        total = 0.0
         for evt in prof.key_averages():
             t = getattr(evt, "device_time_total", None)
             t = evt.cuda_time_total if t is None else t
-            if t > 0:
-                total += t
-                counts[evt.key] = evt.count
-        if counts and all(n % reps == 0 for n in counts.values()):
-            return total / reps / 1e3
-    raise RuntimeError(f"chip_smoke: no clean profiler trace of {reps} "
-                       f"calls in {attempts} tries (kernel counts {counts})")
+            per_call = round(evt.count / reps)
+            if t > 0 and per_call > 0:
+                total += t / evt.count * per_call
+        if total > 0:
+            return total / 1e3
+    raise RuntimeError(f"chip_smoke: no profiler trace of {reps} calls in "
+                       f"{attempts} tries")
 
 
 def steady_rounds_per_sec(tree_times) -> float:
@@ -399,6 +401,7 @@ def check_fused_round(torch, H, bins, g, h, masked, gen, n_prev, kg, kh,
     return {
         "n_prev": n_prev, "right_share": right_share,
         "ms": time_ms(torch, lambda: run(feat, thr, True), REPS),
+        "device_ms": device_ms(torch, lambda: run(feat, thr, True), REPS),
         "plain_ms": time_ms(torch, lambda: H.fused_round_plain(
             bins, nd, feat, thr, g, h, prev, n_prev, B, kg, kh, True,
             layout), max(3, REPS // 3)),
@@ -561,9 +564,12 @@ def check_hist(torch, H, bins, g, h, masked, kg, kh, rates, layout=None):
     del idx, vals
     nbytes = P * n + 4 * n + 8 * n + 2 * S * B * 4
     b_ms, b_by = bound(nbytes, 2 * S * n, rates)
+    def kernel():
+        return H.hist_kernel(bins, node, g, h, 1, B, kg, kh, layout)
+
     return {
-        "ms": time_ms(torch, lambda: H.hist_kernel(bins, node, g, h, 1, B,
-                                                   kg, kh, layout), REPS),
+        "ms": time_ms(torch, kernel, REPS),
+        "device_ms": device_ms(torch, kernel, REPS),
         "plain_ms": time_ms(torch, lambda: H.hist_plain(
             bins, node, g, h, 1, B, kg, kh, layout), max(3, REPS // 3)),
         "library_ms": t_lib, "library_rel_err": lib_err, "bound_ms": b_ms,
@@ -573,10 +579,11 @@ def check_hist(torch, H, bins, g, h, masked, kg, kh, rates, layout=None):
 
 def summarize(cases, library_ms=None):
     """One ``kernels`` entry from several checked shapes: the mean time,
-    plain time and bound (and unfused chain time, where measured), the
-    largest error."""
+    device time, plain time and bound (and unfused chain time, where
+    measured), the largest error."""
     mean = {k: statistics.fmean(c[k] for c in cases)
-            for k in ("ms", "plain_ms", "bound_ms", "unfused_chain_ms")
+            for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                      "unfused_chain_ms")
             if k in cases[0]}
     by = {c["bound_by"] for c in cases}
     return {**mean, "library_ms": library_ms,

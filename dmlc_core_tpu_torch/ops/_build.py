@@ -54,8 +54,12 @@ _D = ctypes.c_double
 #: launch's cudaError_t as an int)
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "histogram": {
-        "dmlc_hist_accum": (_P, _P, _P, _P, _LL, _I, _P, _I, _I, _I, _F, _F,
-                            _I, _P, _P),
+        "dmlc_device_limits": (_P,),
+        # bins, node, g, h; n; group rows, groups, n_groups, shared,
+        # smem, chunks, rows_per_chunk, shift, qbits; S, N, n_bins;
+        # scales; left_only; out, stream
+        "dmlc_hist_accum": (_P, _P, _P, _P, _LL, _P, _P, _I, _I, _I, _I,
+                            _LL, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P),
         "dmlc_descend": (_P, _P, _P, _P, _I, _LL, _P, _P, _P),
         "dmlc_fused_descend": (_P, _P, _P, _P, _I, _P, _P, _LL, _I, _I, _I,
                                _F, _F, _P, _P, _P),

@@ -40,7 +40,7 @@ __all__ = ["BinLayout", "compute_layout", "used_bin_widths",
            "bin_counts", "compact_counts", "default_bins",
            "detect_bundles", "layout_tables", "pack_matrix",
            "unpack_matrix", "unbundle_hist", "select_bins", "kernel_tables",
-           "PACK_WIDTH", "DEC_WIDTH"]
+           "hist_groups", "PACK_WIDTH", "DEC_WIDTH", "CELL_BYTES"]
 
 #: max COMPACT bin count eligible for nibble packing (two features/byte)
 PACK_WIDTH = 16
@@ -426,6 +426,53 @@ def kernel_tables(layout: Optional[BinLayout], n_features: int,
         return _identity_tables(n_features, device)
     d = _device_tables(layout, device)
     return d["slots"], d["dec"]
+
+
+#: shared-memory bytes of one histogram cell of the accumulation kernel:
+#: the g and h sums, each as a 32-bit low-digit and a 32-bit high-digit
+#: word
+CELL_BYTES = 16
+
+
+def hist_groups(slots: np.ndarray, n_nodes: int, n_bins: int,
+                budget: int) -> Tuple[np.ndarray, np.ndarray, bool]:
+    """The feature groups of the histogram accumulation kernel, from the
+    slot table ``slots [P, 3]`` (:func:`kernel_tables`): ``(rows [P, 4]
+    int32, groups [G, 4] int32, shared)``.
+
+    A group is a run ``[p0, p1)`` of consecutive physical rows whose
+    cells fit ``budget`` bytes of shared memory (:data:`CELL_BYTES` a
+    cell); one block takes one group and reads each row's node and g/h
+    once for all of its physical rows.  A slot's cells are ``[N, width +
+    1]`` (a pad cell a node puts the nodes' same bin in different
+    shared-memory banks): a single has one slot of ``n_bins`` bins, a
+    packed row two of 16, a padding row none.  ``groups[g] = (p0, p1,
+    cells, 0)``; ``rows[p]`` is the row's slot entry and its first cell
+    in its group.  Rows fill groups greedily in order.  Where one
+    physical row alone exceeds the budget, ``shared`` is False and the
+    one group ``[0, P)`` adds straight into the global histogram (offsets
+    0)."""
+    slots = np.asarray(slots, np.int64)
+    P = slots.shape[0]
+    packed = slots[:, 1] >= 0
+    width = np.where(packed, PACK_WIDTH, n_bins)
+    slot_cells = n_nodes * (width + 1)
+    cells = np.where(slots[:, 0] < 0, 0, np.where(packed, 2, 1) * slot_cells)
+    rows = np.zeros((P, 4), np.int64)
+    rows[:, :3] = slots
+    limit = budget // CELL_BYTES
+    if P == 0 or cells.max() > limit:
+        return (rows.astype(np.int32), np.array([[0, P, 0, 0]], np.int32),
+                False)
+    groups, p0, used = [], 0, 0
+    for p in range(P):
+        if used + cells[p] > limit:
+            groups.append((p0, p, used, 0))
+            p0, used = p, 0
+        rows[p, 3] = used
+        used += cells[p]
+    groups.append((p0, P, used, 0))
+    return rows.astype(np.int32), np.array(groups, np.int32), True
 
 
 def unbundle_hist(hist: torch.Tensor, layout: Optional[BinLayout],

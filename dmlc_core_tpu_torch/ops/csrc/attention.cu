@@ -32,45 +32,47 @@
 // GFLOP, bound by the bf16 tensor-core rate, 0.0130 ms at 989 TFLOP/s;
 // dQ 9.7 GFLOP, 0.0098 ms.
 //
-// flash_fwd and flash_bwd_dkv keep every score tile and accumulator in
-// registers.  One block is one warpgroup of 4 warps over 64 rows; each
-// tile product is `wgmma.mma_async` (bf16 -> f32).  Its B operand, and its
-// A where that is a loaded tile (Q; K and V), are read from shared memory
-// by the tensor cores, once per warpgroup; its A is in registers where it
-// is computed (P, dS), in the layout of mma.sync's A fragments.  The score
-// tile never leaves the accumulator registers, whose layout is mma.sync's
-// m16n8 one: row max and row sum are taken across the four lanes that
-// share a row, and P (dS) rounded to bf16 is repacked in registers into
-// the A fragments of the next product (two adjacent n8 accumulator tiles
-// make one k16 fragment).  The forward's O and the backward's dK/dV
-// accumulators stay in registers across the whole loop.  The streamed
-// operand (K/V in the forward, Q/dO/lse/di in dK/dV) runs through a
-// two-stage ring filled by `cp.async`: tile t+1 loads while tile t
-// computes, behind one barrier per tile.  Tiles sit in the 128-byte
+// All three kernels are one design and keep every score tile and
+// accumulator in registers.  One block is one warpgroup of 4 warps over 64
+// rows; each tile product is `wgmma.mma_async` (bf16 -> f32).  Its B
+// operand, and its A where that is a loaded tile (Q; K and V; Q and dO),
+// are read from shared memory by the tensor cores, once per warpgroup; its
+// A is in registers where it is computed (P, dS), in the layout of
+// mma.sync's A fragments.  The score tile never leaves the accumulator
+// registers, whose layout is mma.sync's m16n8 one: row max and row sum are
+// taken across the four lanes that share a row, and P (dS) rounded to bf16
+// is repacked in registers into the A fragments of the next product (two
+// adjacent n8 accumulator tiles make one k16 fragment).  The forward's O,
+// dK/dV's and dQ's accumulators stay in registers across the whole loop,
+// and so do each lane's lse and di where its rows are fixed (dQ).  The
+// streamed operand (K/V in the forward and in dQ, Q/dO/lse/di in dK/dV)
+// runs through a two-stage ring filled by `cp.async`: tile t+1 loads while
+// tile t computes, behind one barrier per tile.  Tiles sit in the 128-byte
 // swizzled layout wgmma reads at full rate (D 64 and 128; other D in the
 // plain core-matrix layout); each thread's copy offsets are computed once
 // per kernel, and the exponentials are one `ex2.approx` each, with the
 // scale folded into one FMA.
 //
+// Per K/V tile, dQ does three products (S = Q K^T and dP = dO V^T from
+// shared memory, then dQ += bf16(dS) K with dS in registers and K read
+// MN-major) to dK/dV's four, behind the same ring.  At D 64 its shared
+// memory (Q, dO and two stages of K and V, 49 KB) lets four blocks share
+// an SM; registers are capped for three, as in dK/dV.
+//
 // Against the forward's bytes bound the design reads each K/V tile into
 // shared memory once per 64 query rows and writes o through 16-byte
-// stores; against dK/dV's operations bound it feeds the tensor cores from
-// shared memory without a per-warp register copy.  What holds both back
-// is the work around the products (exponentials, integer addressing, the
-// wait for each product), not bytes or tensor-core operations.
-//
-// flash_bwd_dq is the first, simpler route: nvcuda::wmma 16x16x16
-// fragments and an f32 score tile in shared memory, two lanes per row,
-// synchronous tile loads.
+// stores; against the backward's operations bound it feeds the tensor
+// cores from shared memory without a per-warp register copy.  What holds
+// them back is the work around the products (exponentials, integer
+// addressing, the wait for each product), not bytes or tensor-core
+// operations.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -78,114 +80,12 @@ namespace {
 constexpr int TILE = 64;              // rows of a query tile and of a key tile
 constexpr int WARPS = 4;              // 16 rows of a tile per warp
 constexpr int THREADS = WARPS * 32;
-constexpr int PAD = 8;                // bf16 pad of a shared row (16 bytes)
-constexpr int LDT = TILE + 4;         // f32 score tile row (floats)
-constexpr int LDP = TILE + PAD;       // bf16 probability tile row
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;
 
 // element strides of a [B, S, H, D] tensor whose last dim is contiguous
 struct Strides {
   long long b, s, h;
 };
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// rows [row0, row0 + TILE) of head h, batch b into a shared [TILE][D + PAD]
-// tile, 16 bytes a thread; rows past S are zeros
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          Strides st, int b, int h,
-                                          int row0, int S) {
-  constexpr int LD = D + PAD, VEC = D / 8;
-  const bf16* base = src + b * st.b + h * st.h;
-  for (int i = threadIdx.x; i < TILE * VEC; i += THREADS) {
-    const int r = i / VEC, c = (i % VEC) * 8, s = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S) val = *reinterpret_cast<const uint4*>(base + s * st.s + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// a warp's 16 rows of X (fragments `a`, D wide) times Y^T for a shared
-// [TILE][D + PAD] tile Y: a 16 x TILE f32 tile stored at `out` (row LDT)
-template <int D>
-__device__ __forceinline__ void rows_times_tile_t(const FragA (&a)[D / 16],
-                                                  const bf16* Y, float* out) {
-  constexpr int LD = D + PAD;
-#pragma unroll
-  for (int j = 0; j < TILE / 16; ++j) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragBCol bfr;
-      wmma::load_matrix_sync(bfr, Y + j * 16 * LD + kk * 16, LD);
-      wmma::mma_sync(acc, a[kk], bfr, acc);
-    }
-    wmma::store_matrix_sync(out + j * 16, acc, LDT, wmma::mem_row_major);
-  }
-}
-
-// acc (16 x D) += P (a warp's 16 x TILE bf16 rows, row LDP) times the
-// shared [TILE][D + PAD] tile Z
-template <int D>
-__device__ __forceinline__ void accumulate_rows(FragC (&acc)[D / 16],
-                                                const bf16* P, const bf16* Z) {
-  constexpr int LD = D + PAD;
-#pragma unroll
-  for (int kk = 0; kk < TILE / 16; ++kk) {
-    FragA a;
-    wmma::load_matrix_sync(a, P + kk * 16, LDP);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      FragBRow bfr;
-      wmma::load_matrix_sync(bfr, Z + kk * 16 * LD + j * 16, LD);
-      wmma::mma_sync(acc[j], a, bfr, acc[j]);
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_rows(FragA (&a)[D / 16], const bf16* X) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(a[kk], X + kk * 16, D + PAD);
-}
-
-// a warp's accumulators (16 x D, times `mul`) through the f32 staging rows
-// `stage` (row D + 4) into rows [row0, row0 + 16) of the bf16 output;
-// lane pairs write one row each, a half of it per lane
-template <int D>
-__device__ __forceinline__ void store_rows(FragC (&acc)[D / 16], float mul,
-                                           float* stage, bf16* out,
-                                           Strides st, int b, int h, int row0,
-                                           int S) {
-  constexpr int LDO = D + 4;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    for (int i = 0; i < acc[j].num_elements; ++i) acc[j].x[i] *= mul;
-    wmma::store_matrix_sync(stage + j * 16, acc[j], LDO, wmma::mem_row_major);
-  }
-  __syncwarp();
-  const int r = lane >> 1, half = lane & 1, s = row0 + r;
-  if (s < S) {
-    const float* src = stage + r * LDO + half * (D / 2);
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-        out + b * st.b + s * st.s + h * st.h + half * (D / 2));
-#pragma unroll
-    for (int c = 0; c < D / 2; c += 2)
-      dst[c / 2] = __floats2bfloat162_rn(src[c], src[c + 1]);
-  }
-  __syncwarp();
-}
-
-// ---------------------------------------------------------------------------
-// flash_fwd, flash_bwd_dkv: wgmma, score tiles in registers, cp.async rings
-// ---------------------------------------------------------------------------
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -750,70 +650,93 @@ flash_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      dk + b * sdk.b + h * sdk.h, sdk.s, k0 + warp * 16, S);
 }
 
+// One block, one warpgroup of 4 warps, per (64-row query tile, head,
+// batch); warp w owns query rows 16w..16w+15 and keeps their scores, lse
+// and di and their dQ accumulators in registers; Q and dO stay in shared
+// memory as the A operands of S = Q K^T and dP = dO V^T; K/V tiles stream
+// through a two-stage cp.async ring, and each K tile is also the B operand
+// (read MN-major) of dQ += dS K.  Registers are capped for three blocks an
+// SM (at most 168 a thread).
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 3)
 flash_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ di,
              bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv,
              Strides sdo, Strides sdq, int S, int H, float scale,
              int causal) {
-  constexpr int LD = D + PAD, LDO = D + 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + TILE * LD;
-  bf16* Ks = dOs + TILE * LD;
-  bf16* Vs = Ks + TILE * LD;
-  bf16* dSs = Vs + TILE * LD;
-  float* Ss = reinterpret_cast<float*>(dSs + TILE * LDP);
+  constexpr int NT = TILE / 8, DT = D / 8, T = Tile<TILE, D>::BYTES;
+  unsigned char* Qs = aligned_smem();
+  unsigned char* dOs = Qs + T;
+  unsigned char* Ks = dOs + T;     // two stages
+  unsigned char* Vs = Ks + 2 * T;  // two stages
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int q0 = qt * TILE;
-
-  load_tile<D>(Qs, q, sq, b, h, q0, S);
-  load_tile<D>(dOs, dout, sdo, b, h, q0, S);
-  __syncthreads();
-  FragA qa[D / 16], doa[D / 16];
-  load_rows<D>(qa, Qs + warp * 16 * LD);
-  load_rows<D>(doa, dOs + warp * 16 * LD);
-  FragC dq_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(dq_acc[j], 0.f);
-
-  const int r = warp * 16 + (lane >> 1), half = lane & 1, qi = q0 + r;
-  const long long bh = ((long long)b * H + h) * S;
-  const float lse_r = qi < S ? lse[bh + qi] : 0.f;
-  const float di_r = qi < S ? di[bh + qi] : 0.f;
-  float* srow = Ss + r * LDT + half * 32;
-  bf16* dsrow = dSs + r * LDP + half * 32;
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
   const int n_k = (S + TILE - 1) / TILE;
   const int n_kt = causal ? min(qt + 1, n_k) : n_k;
+  const float scale2 = scale * LOG2E;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
+
+  async_tile<D, TILE>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
+  async_tile<D, TILE>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S);
+  async_tile<D, TILE>(Ks, kb, sk.s, 0, S);
+  async_tile<D, TILE>(Vs, vb, sv.s, 0, S);
+  cp_async_commit();
+  // rows past S: lse 0 and di 0, and their dQ rows are never stored
+  const long long bh = ((long long)b * H + h) * S;
+  const float l2_0 = r0 < S ? lse[bh + r0] * LOG2E : 0.f;
+  const float l2_1 = r1 < S ? lse[bh + r1] * LOG2E : 0.f;
+  const float di0 = r0 < S ? di[bh + r0] : 0.f;
+  const float di1 = r1 < S ? di[bh + r1] : 0.f;
+
+  float acc[DT][4];
+  zero<DT>(acc);
   for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(Ks, k, sk, b, h, kt * TILE, S);
-    load_tile<D>(Vs, v, sv, b, h, kt * TILE, S);
-    __syncthreads();
-    rows_times_tile_t<D>(qa, Ks, Ss + warp * 16 * LDT);  // S = Q K^T
-    __syncwarp();
-    float p[32];
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int key = kt * TILE + half * 32 + c;
-      const bool masked = key >= S || qi >= S || (causal && key > qi);
-      p[c] = masked ? 0.f : expf(srow[c] * scale - lse_r);
+    cp_async_wait_all();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
+    if (kt + 1 < n_kt) {  // the next tile into the other stage
+      const int st = (kt + 1) & 1;
+      async_tile<D, TILE>(Ks + st * T, kb, sk.s, (kt + 1) * TILE, S);
+      async_tile<D, TILE>(Vs + st * T, vb, sv.s, (kt + 1) * TILE, S);
+      cp_async_commit();
     }
-    __syncwarp();
-    rows_times_tile_t<D>(doa, Vs, Ss + warp * 16 * LDT);  // dP = dO V^T
-    __syncwarp();
+    const unsigned char* Kt = Ks + (kt & 1) * T;
+    const unsigned char* Vt = Vs + (kt & 1) * T;
+
+    float p[NT][4], ds[NT][4];
+    zero<NT>(p);
+    zero<NT>(ds);
+    wgmma_fence();
+    gemm_rows_t<D, TILE>(p, Qs, Kt);    // S = Q K^T
+    gemm_rows_t<D, TILE>(ds, dOs, Vt);  // dP = dO V^T
+    wgmma_commit_wait();
+
+    const int key0 = kt * TILE;
+    const bool edge = key0 + TILE > S || (causal && key0 + TILE - 1 > q0);
 #pragma unroll
-    for (int c = 0; c < 32; ++c)
-      dsrow[c] = __float2bfloat16(p[c] * (srow[c] - di_r));
-    __syncwarp();
-    accumulate_rows<D>(dq_acc, dSs + warp * 16 * LDP, Ks);  // dQ += dS K
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p0 = exp2_fast(fmaf(p[nt][e], scale2, -l2_0));
+        float p1 = exp2_fast(fmaf(p[nt][2 + e], scale2, -l2_1));
+        if (edge) {  // keys past S, and under causal keys after the row
+          const int key = key0 + nt * 8 + 2 * t + e;
+          if (key >= S || (causal && key > r0)) p0 = 0.f;
+          if (key >= S || (causal && key > r1)) p1 = 0.f;
+        }
+        ds[nt][e] = p0 * (ds[nt][e] - di0);
+        ds[nt][2 + e] = p1 * (ds[nt][2 + e] - di1);
+      }
+    }
+    gemm_p_rows<D, TILE>(acc, ds, Kt);  // dQ += bf16(dS) K
   }
-  __syncthreads();  // the K/V tiles become the f32 staging rows
-  float* stage = reinterpret_cast<float*>(Ks) + warp * 16 * LDO;
-  store_rows<D>(dq_acc, scale, stage, dq, sdq, b, h, q0 + warp * 16, S);
+  // the warp's own Q rows, read only by it, stage its output
+  store_acc<D, TILE>(acc, scale, scale, Qs, warp * 16,
+                     dq + b * sdq.b + h * sdq.h, sdq.s, q0 + warp * 16, S);
 }
 
 // Q, then two stages of K and V
@@ -830,9 +753,10 @@ constexpr int dkv_smem() {
          4 * dkv_rows<D>() * 4;
 }
 
+// Q and dO, then two stages of K and V
 template <int D>
 constexpr int dq_smem() {
-  return 4 * TILE * (D + PAD) * 2 + TILE * LDP * 2 + TILE * LDT * 4;
+  return 1024 + 6 * Tile<TILE, D>::BYTES;
 }
 
 // the kernel's dynamic shared memory above the 48 KB default, then the

@@ -28,8 +28,13 @@ selected feature's byte back to its ORIGINAL bin id, so thresholds stay in
 the original bin space.  One CUDA kernel serves both modes: it reads a
 per-physical-row slot table and a per-feature decode table
 (:func:`~dmlc_core_tpu_torch.ops.binlayout.kernel_tables`), the identity
-without a layout.  The wrappers count layout-mode launches apart:
-``hist_kernel.layout_launches``, ``fused_round_kernel.layout_launches``.
+without a layout.  The accumulation takes one block per (row chunk,
+feature group): a group is a run of physical rows whose cells fit a
+block's shared memory (:func:`~dmlc_core_tpu_torch.ops.binlayout.
+hist_groups`), so each row's node and g/h are read once a group; the
+groups, chunks and digit split are :func:`_accum_plan`'s.  The wrappers
+count layout-mode launches apart: ``hist_kernel.layout_launches``,
+``fused_round_kernel.layout_launches``.
 
 Both accumulate in int64 FIXED POINT: each row's g/h is rounded to
 ``rint(v · 2^k)`` with one power-of-two scale per plane
@@ -52,8 +57,10 @@ the plain version.  Nothing falls back from one to the other.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -400,18 +407,125 @@ def _check_inputs(bins_t, node_id, grad, hess, n_bins, layout=None):
     CHECK(1 <= n_bins <= 256, f"n_bins must be in [1, 256], got {n_bins}")
 
 
+@functools.lru_cache(maxsize=8)
+def _device_limits(index: int) -> Tuple[int, int, int, int]:
+    """(SMs, shared bytes a block may opt in to, shared bytes of an SM,
+    bytes the system reserves a block) of CUDA device ``index``."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(index):
+        _check_launch(_lib().dmlc_device_limits(ctypes.addressof(out)),
+                      "dmlc_device_limits")
+    return tuple(out)
+
+
+#: the accumulation kernel's threads a block, and rows a thread takes a
+#: step (``kAccumThreads``, ``4 · kQuads`` in csrc/histogram.cu)
+ACCUM_THREADS = 512
+ACCUM_STEP_ROWS = 8
+#: shared bytes of one physical row's entry in a block's copy of the
+#: group table
+TABLE_ENTRY_BYTES = 16
+
+
+class AccumPlan(NamedTuple):
+    """How :func:`hist_kernel`'s accumulation cuts its work: the feature
+    groups (``rows``, ``groups`` of :func:`~dmlc_core_tpu_torch.ops.
+    binlayout.hist_groups`), ``shared`` (False: one group adding into the
+    global histogram), each block's shared bytes, the row chunks, and the
+    digit split: each row's fixed-point g/h ``q = lo + hi · 2^shift``; a
+    block sums at most ``2^(32 − shift)`` rows, each with ``|q| <
+    2^qbits``, so its 32-bit digit sums are exact."""
+    rows: np.ndarray
+    groups: np.ndarray
+    shared: bool
+    smem: int
+    chunks: int
+    rows_per_chunk: int
+    shift: int
+    qbits: int
+
+
+@functools.lru_cache(maxsize=64)
+def _accum_plan(layout: Optional[bl.BinLayout], n_features: int, n: int,
+                n_nodes: int, n_bins: int,
+                limits: Tuple[int, int, int, int]) -> AccumPlan:
+    """The accumulation's plan on a card of ``limits``
+    (:func:`_device_limits`) for ``n`` rows.
+
+    * Digits: :func:`hist_scales` keeps ``n · max|q| < 2^53``, so every
+      row has ``|q| ≤ 2^qbits`` with ``qbits = 53 − bitlen(n)``; a row
+      that reaches the bound (or any row under a larger scale) adds whole
+      into the global histogram.  A block of at most ``2^L`` rows, ``2L ≤
+      63 − qbits``, each ``|q| < 2^qbits``, split at ``shift = 32 − L``,
+      sums its low digits below 2^32 and its high digits within int32.
+    * Groups: physical rows fill a block's shared memory, all a block may
+      opt in to less its copy of the table (the fewest groups re-read node
+      and g/h the fewest times; PERF.md).
+    * Chunks: one block an SM; the fewest waves whose chunks × groups
+      fill 90% of their blocks, with at least ``n / 2^L`` chunks (shared)
+      and at most one a step's rows of every thread.  A chunk's groups are
+      the grid's fast dimension, so they run side by side and read its
+      node and g/h from device memory once."""
+    sms, optin, _, _ = limits
+    slots, _ = bl.kernel_tables(layout, n_features, torch.device("cpu"))
+    P = slots.shape[0]
+    table = TABLE_ENTRY_BYTES * P
+    rows, groups, shared = bl.hist_groups(slots.numpy(), n_nodes, n_bins,
+                                          optin - table)
+    qbits = max(1, 53 - max(n, 1).bit_length())
+    L = (63 - qbits) // 2
+    G = len(groups)
+    least = -(-n // (1 << L)) if shared else 1
+    most = max(1, -(-n // (ACCUM_THREADS * ACCUM_STEP_ROWS)))
+    chunks = least
+    for waves in range(1, 65):
+        c = waves * sms // G
+        if c >= least and 10 * c * G >= 9 * waves * sms:
+            chunks = c
+            break
+    chunks = max(least, min(chunks, most))
+    per_chunk = -(-n // chunks)
+    rows_per_chunk = max(4, -(-per_chunk // 4) * 4)   # whole quads
+    chunks = max(1, -(-n // rows_per_chunk))
+    if shared:
+        width = (groups[:, 1] - groups[:, 0]).max()
+        smem = TABLE_ENTRY_BYTES * int(width) + \
+            bl.CELL_BYTES * int(groups[:, 2].max())
+    else:
+        smem = table
+    return AccumPlan(rows, groups, shared, smem, chunks, rows_per_chunk,
+                     32 - L, qbits)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_on(layout, n_features, n, n_nodes, n_bins, device):
+    """:func:`_accum_plan` for ``device``, its tables there (cached per
+    level shape, so the training loop uploads nothing per call)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    plan = _accum_plan(layout, n_features, n, n_nodes, n_bins,
+                       _device_limits(index))
+    return (plan, torch.from_numpy(plan.rows).to(device),
+            torch.from_numpy(plan.groups).to(device))
+
+
 def _accum_kernel(bins_t, node, grad, hess, n_nodes, n_bins, kg, kh,
-                  left_only, layout, slots):
+                  left_only, layout):
     """int64 ``[2, n_nodes, S, n_bins]`` fixed-point sums (S = F without a
-    layout); ``slots`` from :func:`~dmlc_core_tpu_torch.ops.binlayout.
-    kernel_tables`."""
+    layout), one block per (feature group, row chunk) of the plan
+    :func:`_accum_plan`."""
     P, n = bins_t.shape
     S = P if layout is None else layout.storage_features
+    plan, rows, groups = _plan_on(
+        layout, P if layout is None else layout.n_features, n, n_nodes,
+        n_bins, bins_t.device)
     acc = torch.zeros(2, n_nodes, S, n_bins, dtype=torch.int64,
                       device=bins_t.device)
     rc = _lib().dmlc_hist_accum(
         bins_t.data_ptr(), node.data_ptr(), grad.data_ptr(), hess.data_ptr(),
-        n, P, slots.data_ptr(), S, n_nodes, n_bins, 2.0 ** kg, 2.0 ** kh,
+        n, rows.data_ptr(), groups.data_ptr(), len(plan.groups),
+        int(plan.shared), plan.smem, plan.chunks, plan.rows_per_chunk,
+        plan.shift, plan.qbits, S, n_nodes, n_bins, 2.0 ** kg, 2.0 ** kh,
         int(left_only), acc.data_ptr(),
         torch.cuda.current_stream(bins_t.device).cuda_stream)
     _check_launch(rc, "dmlc_hist_accum")
@@ -447,9 +561,8 @@ def hist_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
     if layout is not None:
         n_bins = layout.sync_bins
     _check_inputs(bins_t, node_id, grad, hess, n_bins, layout)
-    slots, _ = bl.kernel_tables(layout, bins_t.shape[0], bins_t.device)
     acc = _accum_kernel(bins_t, node_id, grad, hess, n_nodes, n_bins, kg, kh,
-                        left_only, layout, slots)
+                        left_only, layout)
     if sync is not None:
         acc = sync(acc)
     out = _epilogue_kernel(acc, None, n_nodes, kg, kh)
@@ -493,14 +606,14 @@ def fused_round_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
           "float32 tensor")
     new_node = torch.empty(n, dtype=torch.int32, device=bins_t.device)
     F = bins_t.shape[0] if layout is None else layout.n_features
-    slots, dec = bl.kernel_tables(layout, F, bins_t.device)
+    _, dec = bl.kernel_tables(layout, F, bins_t.device)
     rc = _lib().dmlc_descend(
         bins_t.data_ptr(), node_id.data_ptr(), feat.data_ptr(),
         thr.data_ptr(), int(by_node), n, dec.data_ptr(), new_node.data_ptr(),
         torch.cuda.current_stream(bins_t.device).cuda_stream)
     _check_launch(rc, "dmlc_descend")
     acc = _accum_kernel(bins_t, new_node, grad, hess, n_prev, n_bins, kg, kh,
-                        True, layout, slots)
+                        True, layout)
     hist = _epilogue_kernel(acc, prev_hist, n_prev, kg, kh)
     if layout is None:
         fused_round_kernel.launches += 1

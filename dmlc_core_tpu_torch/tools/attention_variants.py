@@ -4,17 +4,16 @@
     python3 dmlc_core_tpu_torch/tools/attention_variants.py A.cu B.cu ...
 
 Each argument is a whole ``attention.cu`` (the checkout's
-``ops/csrc/attention.cu``, or an edited copy of it) with the entry points
-and C signatures of ``ops/_build.py``.  Each is compiled with the
-checkout's ``nvcc`` flags plus ``-Xptxas -v`` (its registers per kernel
-are printed, and the kernels in which ptxas inserted ``wgmma`` waits),
-loaded with ``ctypes`` and swapped in under ``ops/attention.py``'s
-wrappers.  Then, in two rounds, the second in reverse order, each variant
-runs ``chip_smoke.py``'s ``ATTN_SHAPES`` against the plain versions with
-its tolerances and its run-to-run identity, and at BERT-base's shapes the
-device time of ``flash_fwd`` and ``flash_bwd_dkv`` (``chip_smoke``'s
-``device_ms``).  One JSON line per variant; the card's name and power
-limit first.  Needs a CUDA card and ``nvcc``.
+``ops/csrc/attention.cu``, or an edited copy of it) with the entry points and C
+signatures of ``ops/_build.py``.  Each is compiled with the checkout's ``nvcc``
+flags plus ``-Xptxas -v`` (its registers per kernel are printed, and the
+kernels in which ptxas inserted ``wgmma`` waits), loaded with ``ctypes`` and
+swapped in under ``ops/attention.py``'s wrappers.  Then, in two rounds, the
+second in reverse order, each variant runs ``chip_smoke.py``'s ``ATTN_SHAPES``
+against the plain versions with its tolerances and its run-to-run identity, and
+at BERT-base's shapes the device time of ``flash_fwd``, ``flash_bwd_dkv`` and
+``flash_bwd_dq`` (``chip_smoke``'s ``device_ms``).  One JSON line per variant;
+the card's name and power limit first.  Needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -72,13 +71,17 @@ def run(torch, c, A, name, lib, res):
                                           scale)
         dk_p, dv_p = A.flash_bwd_dkv_plain(q, k, v, do, lse, di, causal,
                                            scale)
+        dq = A.flash_bwd_dq_kernel(q, k, v, do, lse, di, causal, scale)
+        dq2 = A.flash_bwd_dq_kernel(q, k, v, do, lse, di, causal, scale)
+        dq_p = A.flash_bwd_dq_plain(q, k, v, do, lse, di, causal, scale)
         torch.cuda.synchronize()
-        errs = [c.rel_err(o, o_p), c.rel_err(dk, dk_p), c.rel_err(dv, dv_p)]
-        ok = (errs[0] <= c.O_TOL and errs[1] <= c.GRAD_TOL
-              and errs[2] <= c.GRAD_TOL
+        errs = [c.rel_err(o, o_p), c.rel_err(dk, dk_p), c.rel_err(dv, dv_p),
+                c.rel_err(dq, dq_p)]
+        ok = (errs[0] <= c.O_TOL
+              and all(e <= c.GRAD_TOL for e in errs[1:])
               and c.max_abs_err(torch, lse, lse_p) <= c.LSE_TOL
               and torch.equal(o, o2) and torch.equal(dk, dk2)
-              and torch.equal(dv, dv2))
+              and torch.equal(dv, dv2) and torch.equal(dq, dq2))
         entry = res[name].setdefault(shape_name, {"ok": True, "errs": errs})
         entry["ok"] = entry["ok"] and ok
         if shape_name in c.ATTN_TIMED:
@@ -87,7 +90,10 @@ def run(torch, c, A, name, lib, res):
                      lambda: A.flash_fwd_kernel(q, k, v, causal, scale)),
                     ("dkv_device_ms",
                      lambda: A.flash_bwd_dkv_kernel(q, k, v, do, lse, di,
-                                                    causal, scale))):
+                                                    causal, scale)),
+                    ("dq_device_ms",
+                     lambda: A.flash_bwd_dq_kernel(q, k, v, do, lse, di,
+                                                   causal, scale))):
                 entry.setdefault(kname, []).append(
                     c.device_ms(torch, fn, REPS))
 

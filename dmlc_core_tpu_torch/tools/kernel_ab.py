@@ -5,20 +5,24 @@
     python3 dmlc_core_tpu_torch/tools/kernel_ab.py --ab BASE_DIR
 
 One run times ``hist_kernel`` at the root and ``fused_round_kernel`` at
-``N_PREV`` parents on random ``[28, 10M]`` bins with 256 bins and no bin
-layout (the flagship's shapes), through the package found under ``--root``
-(default: the checkout holding this file), with CUDA events (median of
-``--reps`` after one warm-up), and prints one JSON line with the card's
-name and power limit.  ``--ab`` runs BASE_DIR, this checkout, this
-checkout, BASE_DIR, each in its own process on the same card, then prints
-the time of each kernel in this checkout over its time in BASE_DIR (the
-two runs of each averaged).  ``--profile`` adds each CUDA kernel's mean
-device time inside ``hist`` and ``fused_round`` at n_prev 1, from a
-``torch.profiler`` trace.  ``--attention`` times the three flash-attention
-kernels instead (``flash_fwd_kernel``, ``flash_bwd_dkv_kernel``,
-``flash_bwd_dq_kernel``) at BERT-base's ``[8, 512, 12, 64]``, non-causal
-and causal, by device time from a profiler trace, and by CUDA events over
-``ATTN_INNER`` calls back to back.  Only the API both sides share is used.
+``N_PREV`` parents on random ``[28, 10M]`` bins with 256 bins and no bin layout
+(the flagship's shapes), through the package found under ``--root`` (default:
+the checkout holding this file), with CUDA events (median of ``--reps`` after
+one warm-up) and by device time (every CUDA kernel of a call, summed from a
+``torch.profiler`` trace), and prints one JSON line with the card's name and
+power limit.  ``--layouts`` adds the layout modes by device time:
+``hist_kernel`` at the root and ``fused_round_kernel`` at ``LAYOUT_N_PREV`` on
+the physical matrices of configurations 2a and 2b (``chip_smoke.py``'s
+covtype-schema rows and levers).  ``--ab`` runs BASE_DIR, this checkout, this
+checkout, BASE_DIR, each in its own process on the same card, then prints the
+time of each kernel in this checkout over its time in BASE_DIR (the two runs of
+each averaged).  ``--profile`` adds each CUDA kernel's mean device time inside
+``hist`` and ``fused_round`` at n_prev 1, from a ``torch.profiler`` trace.
+``--attention`` times the three flash-attention kernels instead
+(``flash_fwd_kernel``, ``flash_bwd_dkv_kernel``, ``flash_bwd_dq_kernel``) at
+BERT-base's ``[8, 512, 12, 64]``, non-causal and causal, by device time from a
+profiler trace, and by CUDA events over ``ATTN_INNER`` calls back to back.
+Only the API both sides share is used.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
 ROWS, FEATURES, N_BINS = 10_000_000, 28, 256
 N_PREV = (1, 2, 4, 8, 16, 64)
+#: n_prev of the layout-mode levels (lossguide's, and depth-wise ones)
+LAYOUT_N_PREV = (1, 4, 16)
 SEED = 0
 ATTN_SHAPE = (8, 512, 12, 64)
 ATTN_INNER = 10
@@ -77,6 +83,7 @@ def device_times(torch, fn, reps):
 
 def run_attention(root, reps):
     """Device and CUDA-event ms of the three flash kernels of ``root``."""
+    c = this_chip_smoke()
     sys.path.insert(0, root)
     import torch
 
@@ -113,13 +120,23 @@ def run_attention(root, reps):
 
             key = name + ("_causal" if causal else "")
             out["attention"][key] = {
-                "device_ms": sum(device_times(torch, fn, reps).values())
-                / 1e3,
+                "device_ms": c.device_ms(torch, fn, reps),
                 "ms": time_ms(torch, inner, reps) / ATTN_INNER}
     print(json.dumps(out), flush=True)
 
 
-def run_one(root, rows, reps, profile=False):
+def this_chip_smoke():
+    """This checkout's ``chip_smoke.py`` (its data, levers and
+    ``device_ms``), imported before ``root`` goes on the path, so that
+    both sides of an A/B use the same inputs and the same measurement."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def run_one(root, rows, reps, profile=False, layouts=False):
+    c = this_chip_smoke()
     sys.path.insert(0, root)
     import torch
 
@@ -138,42 +155,103 @@ def run_one(root, rows, reps, profile=False):
     g, h = p - y, p * (1 - p)
     kg, kh = H.hist_scales(g, h)
     root_node = torch.zeros(rows, dtype=torch.int32, device=dev)
+
+    def hist():
+        return H.hist_kernel(bins, root_node, g, h, 1, N_BINS, kg, kh)
+
     out = {"root": root, "nvidia_smi": gpu_name_and_power_limit(),
            "rows": rows, "features": FEATURES, "n_bins": N_BINS,
-           "hist_ms": time_ms(torch, lambda: H.hist_kernel(
-               bins, root_node, g, h, 1, N_BINS, kg, kh), reps),
+           "hist_ms": time_ms(torch, hist, reps),
+           "device_ms": {"hist": c.device_ms(torch, hist, reps)},
            "fused_round_ms": {}}
     if profile:
-        out["hist_kernels_us"] = device_times(
-            torch, lambda: H.hist_kernel(bins, root_node, g, h, 1, N_BINS,
-                                         kg, kh), reps)
+        out["hist_kernels_us"] = device_times(torch, hist, reps)
     for n_prev in N_PREV:
-        nd = torch.randint(0, n_prev, (rows,), dtype=torch.int32,
-                           device=dev, generator=gen)
-        feat = torch.randint(0, FEATURES, (n_prev,), dtype=torch.int32,
-                             device=dev, generator=gen)
-        thr = torch.randint(0, N_BINS - 1, (n_prev,), dtype=torch.int32,
-                            device=dev, generator=gen)
-        prev = H.hist_kernel(bins, nd, g, h, n_prev, N_BINS, kg, kh)
-        def fused():
-            return H.fused_round_kernel(bins, nd, feat, thr, g, h, prev,
-                                        n_prev, N_BINS, kg, kh, True)
-
+        name = f"fused_round_{n_prev}"
+        fused = level(torch, H, bins, g, h, gen, n_prev, N_BINS, kg, kh)
         out["fused_round_ms"][str(n_prev)] = time_ms(torch, fused, reps)
+        out["device_ms"][name] = c.device_ms(torch, fused, reps)
         if profile and n_prev == 1:
             out["fused_round_1_kernels_us"] = device_times(torch, fused,
                                                            reps)
+    if layouts:
+        del bins
+        for cfg, lay, phys in layout_matrices(c):
+            lg = torch.Generator(device=dev)
+            lg.manual_seed(SEED)
+            n = phys.shape[1]
+            lp = torch.sigmoid(0.5 * torch.randn(n, device=dev,
+                                                 generator=lg))
+            ly = (torch.rand(n, device=dev, generator=lg) < lp).float()
+            gl, hl = lp - ly, lp * (1 - lp)
+            kgl, khl = H.hist_scales(gl, hl)
+            node0 = torch.zeros(n, dtype=torch.int32, device=dev)
+            Bs = lay.sync_bins
+            out["device_ms"][f"hist_layout_{cfg}"] = c.device_ms(
+                torch, lambda: H.hist_kernel(phys, node0, gl, hl, 1, Bs, kgl,
+                                             khl, lay), reps)
+            for n_prev in LAYOUT_N_PREV:
+                fused = level(torch, H, phys, gl, hl, lg, n_prev, Bs, kgl,
+                              khl, lay, c)
+                out["device_ms"][f"fused_round_layout_{cfg}_{n_prev}"] = \
+                    c.device_ms(torch, fused, reps)
     print(json.dumps(out), flush=True)
 
 
-def run_ab(base, rows, reps, profile=False, attention=False):
+def level(torch, H, bins, g, h, gen, n_prev, n_bins, kg, kh, layout=None,
+          c=None):
+    """A ``fused_round_kernel`` call at one level of ``n_prev`` random
+    parents (per-node split tables; under a layout the thresholds of
+    ``chip_smoke.py``'s (``c``) ``layout_thresholds``, which take both
+    sides of every decoded feature)."""
+    rows = bins.shape[1]
+    dev = bins.device
+    F = bins.shape[0] if layout is None else layout.n_features
+    nd = torch.randint(0, n_prev, (rows,), dtype=torch.int32, device=dev,
+                       generator=gen)
+    feat = torch.randint(0, F, (n_prev,), dtype=torch.int32, device=dev,
+                         generator=gen)
+    if layout is None:
+        thr = torch.randint(0, n_bins - 1, (n_prev,), dtype=torch.int32,
+                            device=dev, generator=gen)
+    else:
+        thr = torch.from_numpy(c.layout_thresholds(
+            layout, feat.cpu().numpy(), n_prev)).to(dev)
+    prev = H.hist_kernel(bins, nd, g, h, n_prev, n_bins, kg, kh, layout)
+
+    def fused():
+        return H.fused_round_kernel(bins, nd, feat, thr, g, h, prev, n_prev,
+                                    n_bins, kg, kh, True, layout)
+
+    return fused
+
+
+def layout_matrices(c):
+    """``(config, layout, physical matrix on the card)`` of configurations
+    2a (pack + bundle) and 2b (pack only) on ``chip_smoke.py``'s (``c``)
+    covtype-schema rows, as the model derives them."""
+    import numpy as np
+
+    from dmlc_core_tpu_torch import HistGBT
+
+    X, y = c.covtype_like(np, c.COVTYPE_ROWS, c.COVTYPE_SEED)
+    for cfg, env in (("2a", c.BENCH_LEVERS), ("2b", c.PACK_ONLY)):
+        with c.levers(env):
+            dd = HistGBT(max_depth=6, n_bins=N_BINS,
+                         device="cuda").make_device_data(X, y)
+        yield cfg, dd["layout"], dd["bins_t"]
+
+
+def run_ab(base, rows, reps, profile=False, attention=False,
+           layouts=False):
     runs = []
     for root in (base, ROOT, ROOT, base):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--root", root,
              "--rows", str(rows), "--reps", str(reps)]
             + (["--profile"] if profile else [])
-            + (["--attention"] if attention else []),
+            + (["--attention"] if attention else [])
+            + (["--layouts"] if layouts else []),
             check=True, capture_output=True, text=True, timeout=600)
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
@@ -184,7 +262,8 @@ def run_ab(base, rows, reps, profile=False, attention=False):
             return {f"{k}_{m}": v[m] for k, v in r["attention"].items()
                     for m in ("device_ms", "ms")}
         return {"hist": r["hist_ms"], **{f"fused_round_{k}": v for k, v in
-                                         r["fused_round_ms"].items()}}
+                                         r["fused_round_ms"].items()},
+                **{f"{k}_device": v for k, v in r["device_ms"].items()}}
 
     b = [flat(runs[0]), flat(runs[3])]
     c = [flat(runs[1]), flat(runs[2])]
@@ -204,15 +283,18 @@ def main():
                          "in hist and in fused_round at n_prev 1")
     ap.add_argument("--attention", action="store_true",
                     help="time the flash-attention kernels instead")
+    ap.add_argument("--layouts", action="store_true",
+                    help="also the layout modes on configurations 2a "
+                         "and 2b (covtype-schema rows), by device time")
     args = ap.parse_args()
     if args.ab:
         run_ab(os.path.abspath(args.ab), args.rows, args.reps, args.profile,
-               args.attention)
+               args.attention, args.layouts)
     elif args.attention:
         run_attention(os.path.abspath(args.root), args.reps)
     else:
         run_one(os.path.abspath(args.root), args.rows, args.reps,
-                args.profile)
+                args.profile, args.layouts)
 
 
 if __name__ == "__main__":

@@ -211,13 +211,13 @@ def test_mask_value_is_the_library_default():
 
 # --- the tile arithmetic of the CUDA kernels, emulated -----------------
 #
-# flash_fwd and flash_bwd_dkv (csrc/attention.cu) cannot run on the CPU.
-# These torch emulations follow their per-tile recurrences at their tile
-# sizes and with their bf16 rounding points, in f32, and are held to the
-# plain versions within chip_smoke.py's own tolerances (O_TOL, GRAD_TOL,
-# LSE_TOL): a rounding point in the wrong place shows here before any
-# chip time is spent.  The kernels' f32 sums run in other orders, well
-# inside these bounds.
+# flash_fwd, flash_bwd_dkv and flash_bwd_dq (csrc/attention.cu) cannot run
+# on the CPU.  These torch emulations follow their per-tile recurrences at
+# their tile sizes and with their bf16 rounding points, in f32, and are
+# held to the plain versions within chip_smoke.py's own tolerances (O_TOL,
+# GRAD_TOL, LSE_TOL): a rounding point in the wrong place shows here
+# before any chip time is spent.  The kernels' f32 sums run in other
+# orders, well inside these bounds.
 
 LSE_TOL = 1e-4
 TILE = 64                      # the kernels' query and key tile rows
@@ -296,6 +296,35 @@ def _emulate_dkv(q, k, v, do, lse, di, causal, scale):
             dv.transpose(1, 2).to(torch.bfloat16))
 
 
+def _emulate_dq(q, k, v, do, lse, di, causal, scale):
+    """flash_bwd_dq's loop: per 64-row query tile, the key tiles up to the
+    diagonal; per tile P = exp2(scale·log2e·S − log2e·lse) (masked keys
+    to 0), dS = P ∘ (dO Vᵀ − di) in f32, dQ += bf16(dS) K; dQ·scale at
+    the store."""
+    B, S, H, D = q.shape
+    qf, kf, vf, dof = _bhsd(q), _bhsd(k), _bhsd(v), _bhsd(do)
+    dq = torch.empty(B, H, S, D)
+    for q0 in range(0, S, TILE):
+        rows = torch.arange(q0, min(q0 + TILE, S))
+        l2 = lse[:, :, rows, None] * LOG2E
+        d = di[:, :, rows, None]
+        acc = torch.zeros(B, H, len(rows), D)
+        n_kt = -(-S // TILE)
+        if causal:
+            n_kt = min(q0 // TILE + 1, n_kt)
+        for k0 in range(0, n_kt * TILE, TILE):
+            keys = torch.arange(k0, min(k0 + TILE, S))
+            s = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
+            p = torch.exp2(s * (scale * LOG2E) - l2)
+            if causal:
+                p = p.masked_fill(keys[None, :] > rows[:, None], 0.0)
+            dp = dof[:, :, rows] @ vf[:, :, keys].transpose(-1, -2)
+            ds = p * (dp - d)
+            acc += ds.to(torch.bfloat16).float() @ kf[:, :, keys]
+        dq[:, :, rows] = acc * scale
+    return dq.transpose(1, 2).to(torch.bfloat16)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shape", EMU_SHAPES)
 def test_forward_tile_arithmetic_matches_plain(shape, causal):
@@ -319,3 +348,15 @@ def test_dkv_tile_arithmetic_matches_plain(shape, causal):
     dk_p, dv_p = ta.flash_bwd_dkv_plain(q, k, v, do, lse, di, causal, scale)
     _close(dk, dk_p.float().numpy(), GRAD_TOL, "dk")
     _close(dv, dv_p.float().numpy(), GRAD_TOL, "dv")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", EMU_SHAPES)
+def test_dq_tile_arithmetic_matches_plain(shape, causal):
+    q, k, v, do = _inputs(shape, seed=8)
+    scale = shape[-1] ** -0.5
+    o, lse = ta.flash_fwd_plain(q, k, v, causal, scale)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = _emulate_dq(q, k, v, do, lse, di, causal, scale)
+    dq_p = ta.flash_bwd_dq_plain(q, k, v, do, lse, di, causal, scale)
+    _close(dq, dq_p.float().numpy(), GRAD_TOL, "dq")
