@@ -17,11 +17,11 @@ and the script exits non-zero without the final ``ok`` line:
    256 bins: ``hist`` at the root, ``fused_round`` and ``fused_descend``
    at n_prev 1..16) against its plain PyTorch version on the same inputs
    (bit-identical), twice on the same inputs (identical bytes), timed with
-   CUDA events (median of ``REPS``) and, for ``hist`` and ``fused_round``,
-   as device time from a ``torch.profiler`` trace, beside its bound and,
-   where one PyTorch call computes the same function, that call
-   (``fused_descend`` also beside the unfused chain it replaces: the torch
-   descend, then ``hist`` over left children);
+   CUDA events (median of ``REPS``) and as device time from a
+   ``torch.profiler`` trace, beside its bound and, where one PyTorch call
+   computes the same function, that call (``fused_descend`` also beside
+   the unfused chain it replaces, ``descend_kernel`` then ``hist`` over
+   left children, by CUDA events and device time);
 3. kernels_layout — the same for the LAYOUT MODES (``hist_layout``,
    ``fused_round_layout`` at n_prev 1, 4, 16) on the physical matrices of
    configurations 2a (12 rows: two bundles) and 2b (34 rows: 22 int4
@@ -88,10 +88,11 @@ and the script exits non-zero without the final ``ok`` line:
     g/h (bit-identical; the product variants also equal the port's
     histogram, B1's kernel, in the factored layout) and on the spike's
     general g/h (within ``FLOOR_TOL``, ``nodot`` within ``NODOT_TOL``),
-    twice on the same inputs (identical bytes); then the spike's main
-    path: each variant and ``prod`` slope-timed (``_run_level``) with the
-    launch counts set to 0 before and read after, beside the bound,
-    the plain version's time and ``index_add_``'s (B1's yardstick);
+    twice on the same inputs (identical bytes), each timed as device time
+    from a ``torch.profiler`` trace; then the spike's main path: each
+    variant and ``prod`` slope-timed (``_run_level``) with the launch
+    counts set to 0 before and read after, beside the bound, the plain
+    version's time and ``index_add_``'s (B1's yardstick);
 13. bench — ``python -m dmlc_core_tpu_torch.bench`` as a child process at
     its defaults (10M × 28, 100 rounds after 10 warmup rounds, the
     flagship's levers, host binning), with a time limit: its last line
@@ -415,8 +416,9 @@ def check_fused_descend(torch, H, bins, g, h, masked, gen, n_prev, kg, kh,
                         rates):
     """``fused_descend`` at one level (``n_prev`` parents) against its
     plain version, twice over, in both split-table forms, and against the
-    unfused chain it replaces (the torch descend, then ``hist`` over left
-    children); then all three timed."""
+    unfused chain it replaces (``descend_kernel``, then ``hist`` over left
+    children: ``fused_descend_histogram(fuse=False)``); then all three
+    timed, the kernel and the chain also by device time."""
     F, n = bins.shape
     dev = bins.device
     nd = torch.randint(0, n_prev, (n,), dtype=torch.int32, device=dev,
@@ -467,7 +469,9 @@ def check_fused_descend(torch, H, bins, g, h, masked, gen, n_prev, kg, kh,
         "plain_ms": time_ms(torch, lambda: H.fused_descend_plain(
             bins, nd, feat, thr, g, h, n_prev, N_BINS, kg, kh, True),
             max(3, REPS // 3)),
+        "device_ms": device_ms(torch, lambda: run(feat, thr, True), REPS),
         "unfused_chain_ms": time_ms(torch, chain, REPS),
+        "chain_device_ms": device_ms(torch, chain, REPS),
         "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": max(max_abs_err(torch, a[0], c[0]),
                            max_abs_err(torch, a[1], c[1])),
@@ -583,7 +587,7 @@ def summarize(cases, library_ms=None):
     measured), the largest error."""
     mean = {k: statistics.fmean(c[k] for c in cases)
             for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                      "unfused_chain_ms")
+                      "unfused_chain_ms", "chain_device_ms")
             if k in cases[0]}
     by = {c["bound_by"] for c in cases}
     return {**mean, "library_ms": library_ms,
@@ -1491,6 +1495,8 @@ def phase_hist_floor(torch, np, H, rates, tc_rate):
                     max_abs_err(torch, a, p), "rel_err": rel,
                     "tolerance": tol, "exact_plain": True,
                     "exact_build_histogram": exact_b1,
+                    "device_ms": device_ms(torch, lambda: S.kernel_variant(
+                        bins_fp, node, g, h, n_build, v), REPS),
                     "plain_ms": time_ms(torch, lambda: S.kernel_variant_plain(
                         bins_fp, node, g, h, n_build, v), 3),
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_lib,
@@ -1525,7 +1531,7 @@ def phase_hist_floor(torch, np, H, rates, tc_rate):
             "launches": sum(c["launches"] for c in cs),
             "library_call": "index_add_ (B1's yardstick)",
             "by_n_build": {str(c["n_build"]): {
-                k: c[k] for k in ("ms", "plain_ms", "bound_ms",
+                k: c[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                   "product_flop_ms", "library_ms",
                                   "launches", "rel_err")}
                 for c in cs}}
@@ -1659,8 +1665,8 @@ def main() -> int:
                 "flash_bwd_dkv": f"{lib}:796",
                 "flash_bwd_dq": f"{lib}:1146",
                 **{k: "scripts/spike_hist_floor.py:55" for k in floor}}
-    extra = ("unfused_chain_ms", "device_ms", "library_call",
-             "library_device_ms", "by_n_build")
+    extra = ("unfused_chain_ms", "chain_device_ms", "device_ms",
+             "library_call", "library_device_ms", "by_n_build")
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": (attn_src if name in attention else

@@ -61,14 +61,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "dmlc_hist_accum": (_P, _P, _P, _P, _LL, _P, _P, _I, _I, _I, _I,
                             _LL, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P),
         "dmlc_descend": (_P, _P, _P, _P, _I, _LL, _P, _P, _P),
-        "dmlc_fused_descend": (_P, _P, _P, _P, _I, _P, _P, _LL, _I, _I, _I,
-                               _F, _F, _P, _P, _P),
+        # bins, node, feat, thr, by_node, g, h; n; group rows, groups,
+        # n_groups, shared, smem, chunks, rows_per_chunk, shift, qbits,
+        # cluster; F, n_prev, n_bins; scales; out, new_node, stream
+        "dmlc_fused_descend": (_P, _P, _P, _P, _I, _P, _P, _LL, _P, _P, _I,
+                               _I, _I, _I, _LL, _I, _I, _I, _I, _I, _I, _F,
+                               _F, _P, _P, _P),
         "dmlc_hist_epilogue": (_P, _P, _P, _I, _LL, _D, _D, _P),
     },
     "hist_floor": {
         # bins, row stride, node, g, h; n_tiles, tile_rows, F, n_build,
-        # hi, variant; partial, out, stream
-        "dmlc_hist_floor": (_P, _LL, _P, _P, _P) + (_I,) * 6
+        # hi, variant, tiles_per_run; partial, out, stream
+        "dmlc_hist_floor": (_P, _LL, _P, _P, _P) + (_I,) * 7
                            + (_P, _P, _P),
     },
     "attention": {

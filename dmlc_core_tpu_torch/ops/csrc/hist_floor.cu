@@ -2,8 +2,8 @@
 // matrix-product histogram on the tensor cores, in the variants that
 // attribute its cost to construction, product and accumulation.  Bound
 // through a plain C interface (ops/_build.py loads this file's shared
-// library with ctypes); the wrapper and the plain versions are in
-// dmlc_core_tpu_torch/tools/spike_hist_floor.py.
+// library with ctypes); the wrapper, the host plan of tile runs and the
+// plain versions are in dmlc_core_tpu_torch/tools/spike_hist_floor.py.
 //
 // Replaces the Pallas TPU kernel _kernel_variant of
 // scripts/spike_hist_floor.py (pallas_call in one_pass, driven by
@@ -16,56 +16,66 @@
 //   value (g or h, rounded to bf16) of the rows in that cell; rows whose
 //   node < 0 or node >= n_build add nothing.
 //
-// as the product [A, T] x [T, lo] of two one-hot matrices per tile and
-// feature (A = 2*nh: the g plane's rows, then the h plane's), summed in
-// f32.  The variants:
+// with lo = 32 (hi = 8), the TPU's [A, T] x [T, lo] one-hot product per
+// tile and feature (A = 2*nh).  The variants (each its plain version's
+// function):
 //
-//   shipped   a warp per (feature, 16 LHS rows) runs the tile's rows and
-//             stores its [16, lo] product for the tile.
-//   grpacc    a warp keeps the accumulators of a group of 8 features (the
-//             TPU variant carries the group's [8, A, lo] in VMEM values):
-//             node, g and h are loaded and converted once per k-step for
-//             the 8, and the group's block leaves through a shared-memory
-//             slab in ONE coalesced store.
-//   nodot     construction only: the one-hot fragments are built exactly
-//             as above, then summed instead of multiplied.  Per tile and
-//             feature, d[r, :] = bf16(bf16(rowsum(lhs)[r]) +
-//             bf16(rowsum(rhs)[r])), the TPU variant's function (its
-//             rowsums are f32 sums rounded once to bf16; needs A <= lo).
-//   noconstr  the product of one fixed pair per tile: the LHS holds the
-//             node-only one-hots (row plane*nh + node*hi) scaled by g/h,
-//             the RHS is lo_iota == 0, a constant fragment; no bin is
-//             read.  Every feature gets the same [A, lo] block, column 0
-//             filled.
-//   pack4/8   S features share ONE product [S*A, T] x [T, S*lo]: the
-//             warp computes all S*S blocks and keeps the S diagonal ones;
-//             the off-diagonal blocks are computed and thrown away (that
-//             waste is what the variant measures), into accumulators kept
-//             alive only by a store the caller never asks for.
+//   shipped   the histogram, one product per feature and k-step.
+//   grpacc    the same products; the group's 8 features leave through a
+//             shared-memory slab in one coalesced store.
+//   nodot     construction only: the operands are built exactly as for
+//             the products, which are not issued; per tile and feature
+//             d[r, :] = bf16(bf16(rowsum(lhs)[r]) + bf16(rowsum(rhs)[r]))
+//             over the TPU's factors (the lhs row sums in f32, rounded
+//             once; rowsum(rhs)[r] counts the tile's rows, all of them,
+//             whose bin % lo == r; needs A <= lo), kept by each thread in
+//             private shared-memory sums and reduced in a fixed order.
+//   noconstr  the products of one fixed pair a k-step: the one-hot side
+//             is the constant "bin 0", the row side is built once a
+//             k-step for all features and no bin is read.  Every feature
+//             gets the same [A, lo] block, column 0 filled.
+//   pack4/8   S features share ONE product: per k-step the S x S blocks
+//             of [S one-hots] x [S row sides], the diagonal ones into the
+//             features' sums and the off-diagonal ones computed and thrown
+//             away (that waste is what the variant measures), into an
+//             accumulator kept alive only by a store the caller never
+//             asks for.
 //
 // What bounds it on an H100: the useful tensor-core work, 2*A*lo*T*F
 // bf16 FLOP a tile (0.249 / 0.497 ms at 10M x 24 with n_build 1 / 2 at
 // 989 TFLOP/s), against 0.107 ms for the bytes (the bins once, node and
-// g/h once).  In practice the construction of the one-hots in registers
-// (~70 integer instructions per lane per 16-row k-step and feature) is
-// the larger cost; the variants exist to say how much larger.
+// g/h once).  A design whose warps each rebuild the row side (node,
+// plane, bf16 g/h) for every feature and k-step, chain synchronous
+// mma.sync products and write every tile's block for a second pass spends
+// most of its time building one-hots (3.64 ms, 3.07 of it without the
+// products; PERF.md).
 //
-// Design:
-//  * mma.sync.aligned.m16n8k16 (bf16 in, f32 accumulate), both one-hot
-//    fragments built in registers from the documented lane layout: lane
-//    (gid = lane/4, t = lane%4) holds LHS rows gid and gid+8 and RHS
-//    column gid, at k-slots 2t, 2t+1, 2t+8, 2t+9.  The product sums over
-//    k, so any bijection of data rows onto k-slots is the same product:
-//    the lane's four slots take the four consecutive data rows 4t..4t+3
-//    of the 16-row k-step, read as one int4 of node, one float4 each of
-//    g and h and one 32-bit word of bins.  lo = 32 is 4 n-tiles of 8.
-//  * A warp owns 16 LHS rows (one m-tile: the whole A = 16 at n_build 1;
-//    the g or the h plane at n_build 2) and runs all T rows of its tile,
-//    so its accumulators (16 registers a feature) need no reduction.
-//  * Cross-tile accumulation is a fixed-order reduce: every tile stores
-//    its [F, A, lo] block into a partial buffer, then one thread per
-//    output cell adds the tiles in order, 0 + d0 + d1 + ..., the TPU
-//    grid's order.  No atomics, so the bytes are the same run to run.
+// Design (one warpgroup a block, a group of 8 features, a run of
+// consecutive tiles from the host plan):
+//  * The product is wgmma.mma_async m64nNk16 with both operands in shared
+//    memory.  Its M of 64 is the one-hot side: internally bin = hi' * 64 +
+//    lo' (hi' < 4), M the lo' one-hot [64, 16 rows], N = 2 * n_build * 4
+//    the row side [16 rows, (plane, node, hi')] holding the row's bf16 g
+//    or h in its two cells: 64 x N is exactly a feature's 2 * n_build *
+//    256 cells, so nothing issued is padding (the product's issued FLOP
+//    is the useful 2*A*lo*T*F), and the cell (lo', (plane, node, hi'))
+//    is out[f, plane*nh + node*hi + (hi'*64 + lo')/lo, lo' % lo].
+//  * Construction is stores: a thread owns (feature, row) of each k-step;
+//    the one-hot tile stays zero but for 16 ones, so the thread clears the
+//    one it set in that stage two k-steps before and sets the new one (two
+//    16-bit stores), and writes its row-side row (N bf16, 16 or 32 bytes).
+//    Node, g and h are read and rounded once a k-step for the block (16
+//    threads, one k-step ahead) into a row-side buffer every feature reads.
+//  * Two stages: the products of k-step i run while k-step i + 1 is built;
+//    wgmma.wait_group 1 keeps a stage's readers ahead of its next writer.
+//  * The sums stay in registers over the block's run of tiles, added in
+//    tile order, and one partial a run leaves; a second small kernel adds
+//    the runs in order (no atomics: the bytes are the same run to run).
+//    On order-exact g/h every sum is exact, so every order agrees with the
+//    plain version's tile-by-tile sums bit for bit.
+//  * The one-hot tile is 2 KB a product: the tensor cores read it from
+//    shared memory at the SM's shared-memory rate, which, and not the
+//    construction, is this design's expected floor (~1.2 ms at 10M x 24).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -73,358 +83,465 @@
 
 namespace {
 
-constexpr int kLo = 32;            // lo_part width: 4 n-tiles of 8 columns
-constexpr int kNT = kLo / 8;
-constexpr int kGroup = 8;          // features per block
-constexpr uint32_t kOne = 0x3F80u;    // bf16 1.0
+constexpr int kLo = 32;            // the output's lo_part width (hi = 8)
+constexpr int kHi = 8;
+constexpr int kGroup = 8;          // features a block
+constexpr int kThreads = 128;      // one warpgroup
+constexpr int kRows = 16;          // rows a k-step
+constexpr int kAhead = 4;          // k-steps whose loads are in flight
+constexpr uint32_t kOne = 0x3F80u; // bf16 1.0
+// the one-hot tile: 64 (lo') x 16 (rows) bf16, K-major, 8 x 8 core
+// matrices (16-byte rows), the two K halves a column block apart
+constexpr int kACB = 64 * 16 + 16;
+constexpr int kABytes = 2 * kACB;
+// the row-side tile: 16 (rows, K) x N bf16, MN-major, core matrices of 8
+// rows x 8 columns, column blocks kBCB apart
+constexpr int kBCB = kRows * 16 + 16;
 
 enum Variant {
   kShipped = 0, kGrpacc = 1, kNodot = 2, kNoconstr = 3, kPack4 = 4,
   kPack8 = 5
 };
 
-// D = A * B + D, one m16n8k16 bf16 product with f32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <int N>
+struct Layout {
+  static constexpr int kBBytes = N / 8 * kBCB;
+  static constexpr int kFeat = kABytes + kBBytes;     // a feature's tiles
+  static constexpr int kStage = kGroup * kFeat;
+  static constexpr int kRowSide = 2 * kRows * 8;      // two k-steps, int2
+  // nodot: each thread's row sums (lhs [32][128] f32, thread-minor:
+  // conflict-free) and each feature's counts (rhs [8][32] int)
+  static constexpr int kPrivate = 32 * kThreads * 4 + kGroup * kLo * 4;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma's shared-memory matrix descriptor, no swizzle: start address,
+// leading and stride byte offsets (16-byte units)
+__device__ __forceinline__ uint64_t desc(const unsigned char* p, int lbo,
+                                         int sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// byte offset of element (lo' m, row k) of a one-hot tile (K-major) and
+// of (row k, column n) of a row-side tile (MN-major)
+__device__ __forceinline__ int a_off(int m, int k) {
+  return (k >> 3) * kACB + (m >> 3) * 128 + (m & 7) * 16 + (k & 7) * 2;
+}
+__device__ __forceinline__ int b_off(int k, int n) {
+  return (n >> 3) * kBCB + (k >> 3) * 128 + (k & 7) * 16 + (n & 7) * 2;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int K>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(K) : "memory");
+}
+// this thread's shared-memory stores, before the tensor cores (the async
+// proxy) read them; a barrier then publishes them to the warpgroup
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x N f32, mma.sync's m16n8 accumulator layout per warp) += A (64 x
+// 16 at da, K-major) times B (16 x N at db, MN-major), both from shared
+// memory
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
+                                      uint64_t db) {
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(1));
+  }
 }
 
 __device__ __forceinline__ uint32_t bf16_bits(float v) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v)));
 }
 
-__device__ __forceinline__ float bf16_value(uint32_t bits) {
-  return __uint_as_float(bits << 16);
-}
-
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// One lane's four data rows of a k-step: t0 base (node * hi, or far below
-// every LHS row for rows that add nothing) and, for each of the lane's two
-// LHS rows, the bf16 bits of the value that row takes (g or h: its plane).
-struct Rows {
-  int nb[4];
-  uint32_t val[2][4];
-};
-
-__device__ __forceinline__ void load_rows(const int32_t* __restrict__ node,
-                                          const float* __restrict__ g,
-                                          const float* __restrict__ h,
-                                          long long r, int n_build, int hi,
-                                          const int (&plane)[2], Rows& R) {
-  const int4 nd = *reinterpret_cast<const int4*>(node + r);
-  const float4 gv = *reinterpret_cast<const float4*>(g + r);
-  const float4 hv = *reinterpret_cast<const float4*>(h + r);
-  const int n4[4] = {nd.x, nd.y, nd.z, nd.w};
-  const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
-  const float h4[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    R.nb[i] = (n4[i] >= 0 && n4[i] < n_build) ? n4[i] * hi : -(1 << 20);
-    const uint32_t gb = bf16_bits(g4[i]);
-    const uint32_t hb = bf16_bits(h4[i]);
-    R.val[0][i] = plane[0] ? hb : gb;
-    R.val[1][i] = plane[1] ? hb : gb;
-  }
-}
-
-// LHS fragment: element (row tgt_j, data row i) = val if t0[i] == tgt_j.
-// a[0]: row gid, slots 2t, 2t+1 (data rows 0, 1); a[1]: row gid+8, same
-// slots; a[2]: row gid, slots 2t+8, 2t+9 (data rows 2, 3); a[3]: row gid+8.
-__device__ __forceinline__ void lhs_fragment(const Rows& R, const int (&t0)[4],
-                                             const int (&tgt)[2],
-                                             uint32_t (&a)[4]) {
-  uint32_t e[2][4];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) e[j][i] = t0[i] == tgt[j] ? R.val[j][i] : 0u;
-  a[0] = e[0][0] | (e[0][1] << 16);
-  a[1] = e[1][0] | (e[1][1] << 16);
-  a[2] = e[0][2] | (e[0][3] << 16);
-  a[3] = e[1][2] | (e[1][3] << 16);
-}
-
-// RHS fragment of one n-tile: element (data row i, column col) = 1 if the
-// row's lo_part == col.  b0: slots 2t, 2t+1 (data rows 0, 1); b1: slots
-// 2t+8, 2t+9 (data rows 2, 3).
-__device__ __forceinline__ void rhs_fragment(uint32_t word, int col,
-                                             uint32_t& b0, uint32_t& b1) {
-  const int l0 = word & (kLo - 1), l1 = (word >> 8) & (kLo - 1);
-  const int l2 = (word >> 16) & (kLo - 1), l3 = (word >> 24) & (kLo - 1);
-  b0 = (l0 == col ? kOne : 0u) | (l1 == col ? kOne << 16 : 0u);
-  b1 = (l2 == col ? kOne : 0u) | (l3 == col ? kOne << 16 : 0u);
-}
-
-__device__ __forceinline__ void t0_of(const Rows& R, uint32_t word,
-                                      int (&t0)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    t0[i] = R.nb[i] + static_cast<int>((word >> (8 * i)) & 0xffu) / kLo;
-}
-
-// A block: (tile, group of 8 features, m-tile).  8 / S warps, warp w
-// owning features group*8 + w*S .. + S-1 and the m-tile's 16 LHS rows
-// (S = 1: shipped, nodot, noconstr; 8: grpacc, pack8; 4: pack4).
-// partial: [n_tiles, F, A, lo] f32.
-template <int V, int S>
-__global__ void __launch_bounds__(32 * kGroup / S)
+// A block: (run of tiles, group of 8 features).  Thread t owns feature f =
+// t / 16 of the group and row k = t % 16 of every k-step.  partial:
+// [runs, F, A, lo] f32, one [F, A, lo] block a run.
+template <int V, int N>
+__global__ void __launch_bounds__(kThreads)
 hist_floor_kernel(const uint8_t* __restrict__ bins, long long ld,
                   const int32_t* __restrict__ node,
                   const float* __restrict__ g, const float* __restrict__ h,
-                  int tile_rows, int n_features, int n_build, int hi,
-                  int a_rows, int never, float* __restrict__ partial) {
-  __shared__ float slab[V == kGrpacc ? kGroup * 16 * kLo : 1];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int t = lane & 3, gid = lane >> 2;
-  const int tile = blockIdx.x, m = blockIdx.z;
-  const int f0 = blockIdx.y * kGroup + warp * S;
-  const int nh = a_rows / 2;
-  int tgt[2], plane[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int r = 16 * m + gid + 8 * j;
-    plane[j] = r / nh;
-    tgt[j] = r % nh;
+                  int tile_rows, int n_tiles, int tiles_per_run,
+                  int n_features, int never, float* __restrict__ partial) {
+  typedef Layout<N> L;
+  constexpr int n_build = N / 8;
+  constexpr int nh = n_build * kHi;
+  constexpr int A = 2 * nh;
+  constexpr bool kProduct = V != kNodot;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* stages = smem;
+  int2* rowside = reinterpret_cast<int2*>(smem + 2 * L::kStage);
+  float* lhs = reinterpret_cast<float*>(smem + 2 * L::kStage + L::kRowSide);
+  int* cnt = reinterpret_cast<int*>(lhs + 32 * kThreads);     // [8][lo]
+
+  const int tid = threadIdx.x;
+  const int f = tid >> 4, k = tid & 15;
+  const int run = blockIdx.x;
+  const int feat0 = blockIdx.y * kGroup;
+  const int t0 = run * tiles_per_run;
+  const int t1 = min(n_tiles, t0 + tiles_per_run);
+  const long long row0 = static_cast<long long>(t0) * tile_rows;
+  const int steps = (t1 - t0) * (tile_rows / kRows);
+  const int steps_a_tile = tile_rows / kRows;
+  const uint8_t* brow = bins + static_cast<long long>(feat0 + f) * ld;
+
+  // both stages zero; noconstr's one-hot is "bin 0" for every row, in
+  // feature 0's tile (all its products read that pair)
+  for (int i = tid; i < 2 * L::kStage / 16; i += kThreads)
+    reinterpret_cast<uint4*>(stages)[i] = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (V == kNodot) {
+    for (int i = 0; i < 32; ++i) lhs[i * kThreads + tid] = 0.f;
+    for (int i = tid; i < kGroup * kLo; i += kThreads) cnt[i] = 0;
   }
-  const long long row0 = static_cast<long long>(tile) * tile_rows;
-  float acc[S][kNT][4];
-  float waste[kNT][4];
-  float sa[2] = {0.f, 0.f}, sb[kNT];
-#pragma unroll
-  for (int q = 0; q < kNT; ++q) {
-    sb[q] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      waste[q][c] = 0.f;
-#pragma unroll
-      for (int k = 0; k < S; ++k) acc[k][q][c] = 0.f;
+  __syncthreads();
+  if constexpr (V == kNoconstr) {
+    if (tid < 2 * kRows) {
+      unsigned char* a = stages + (tid / kRows) * L::kStage;
+      *reinterpret_cast<uint16_t*>(a + a_off(0, tid % kRows)) = kOne;
     }
   }
-  for (int ks = 0; ks < tile_rows; ks += 16) {
-    const long long r = row0 + ks + 4 * t;
-    Rows R;
-    load_rows(node, g, h, r, n_build, hi, plane, R);
-    if (V == kNoconstr) {
-      uint32_t a[4];
-      lhs_fragment(R, R.nb, tgt, a);
-      const uint32_t b = gid == 0 ? (kOne | (kOne << 16)) : 0u;
+  // the row side of a k-step: (node * 4, or -1 where the row adds
+  // nothing; bf16 g | bf16 h << 16), built by 16 threads a k-step ahead
+  // from loads issued kAhead k-steps ahead (as is each thread's bin byte),
+  // so no k-step waits for device memory
+  auto row_side = [&](int nd, float gv, float hv) {
+    const bool in = nd >= 0 && nd < n_build;
+    return make_int2(in ? 4 * nd : -1,
+                     static_cast<int>(bf16_bits(gv) | (bf16_bits(hv) << 16)));
+  };
+  int bq[kAhead], nq[kAhead];
+  float gq[kAhead], hq[kAhead];
+  auto fetch = [&](int j, int i) {
+    const long long r = row0 + static_cast<long long>(i) * kRows;
+    const bool ok = i < steps;
+    bq[j] = (V != kNoconstr && ok) ? brow[r + k] : 0;
+    const bool side = ok && tid < kRows;
+    nq[j] = side ? node[r + tid] : -1;
+    gq[j] = side ? g[r + tid] : 0.f;
+    hq[j] = side ? h[r + tid] : 0.f;
+  };
 #pragma unroll
-      for (int q = 0; q < kNT; ++q)
-        mma(acc[0][q], a, q == 0 ? b : 0u, q == 0 ? b : 0u);
-      continue;
+  for (int j = 0; j < kAhead; ++j) fetch(j, j);
+  if (tid < kRows) rowside[tid] = row_side(nq[0], gq[0], hq[0]);
+
+  float acc[kGroup][N / 2];
+  float waste[N / 2];
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) {
+    waste[j] = 0.f;
+#pragma unroll
+    for (int q = 0; q < kGroup; ++q) acc[q][j] = 0.f;
+  }
+  float run_d[2] = {0.f, 0.f};   // nodot: this thread's two (f, r) sums
+  int set0 = -1, set1 = -1;       // the one-hot element set in each stage
+  __syncthreads();
+
+  // slot s of the ring holds the loads of k-step i0 + s: the loop is
+  // unrolled over the slots, so a slot is read where it is consumed and
+  // reloaded in place (a register copy would wait for the load)
+  static_assert(kAhead % 2 == 0, "the stage of slot s is s & 1");
+  for (int i0 = 0; i0 < steps; i0 += kAhead) {
+#pragma unroll
+   for (int slot = 0; slot < kAhead; ++slot) {
+    const int i = i0 + slot;
+    if (i >= steps) break;
+    const int st = slot & 1;
+    const int b = bq[slot];
+    const int nx = (slot + 1) % kAhead;
+    const int2 rs_next = row_side(nq[nx], gq[nx], hq[nx]);
+    fetch(slot, i + kAhead);
+    if (tid < kRows && i + 1 < steps)
+      rowside[(st ^ 1) * kRows + tid] = rs_next;
+    // the products that read this stage (k-step i - 2) are done
+    if constexpr (kProduct) wgmma_wait<1>();
+    unsigned char* stage = stages + st * L::kStage;
+    const int2 rs = rowside[st * kRows + k];
+    const int hv = b >> 6;
+    if constexpr (V != kNoconstr) {
+      unsigned char* a = stage + f * L::kFeat;
+      const int off = a_off(b & 63, k);
+      const int prev = st ? set1 : set0;
+      if (prev >= 0 && prev != off) *reinterpret_cast<uint16_t*>(a + prev) = 0;
+      *reinterpret_cast<uint16_t*>(a + off) = static_cast<uint16_t>(kOne);
+      if (st) set1 = off; else set0 = off;
     }
-    uint32_t word[S];
-    uint32_t a[S][4];
+    if (V != kNoconstr || f == 0) {
+      // the row side's row k: the row's g at column (g plane, node, hi'),
+      // its h at (h plane, node, hi') (noconstr: hi' 0)
+      const int c_g = rs.x < 0 ? -1 : rs.x + (V == kNoconstr ? 0 : hv);
+      const int c_h = rs.x < 0 ? -1 : N / 2 + c_g;
+      const uint32_t gb = static_cast<uint32_t>(rs.y) & 0xffffu;
+      const uint32_t hb = static_cast<uint32_t>(rs.y) >> 16;
+      uint32_t w[N / 2];
 #pragma unroll
-    for (int k = 0; k < S; ++k) {
-      word[k] = *reinterpret_cast<const uint32_t*>(
-          bins + static_cast<long long>(f0 + k) * ld + r);
-      int t0[4];
-      t0_of(R, word[k], t0);
-      lhs_fragment(R, t0, tgt, a[k]);
+      for (int j = 0; j < N / 2; ++j)
+        w[j] = ((c_g >> 1) == j ? gb << (16 * (c_g & 1)) : 0u) |
+               ((c_h >> 1) == j ? hb << (16 * (c_h & 1)) : 0u);
+      unsigned char* bt = stage + f * L::kFeat + kABytes;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+        *reinterpret_cast<uint4*>(bt + b_off(k, 8 * j)) =
+            make_uint4(w[4 * j], w[4 * j + 1], w[4 * j + 2], w[4 * j + 3]);
     }
-    if (V == kNodot) {
-      // the LHS row sums of the lane's two rows and the RHS column sums
-      // of its column in each n-tile, in f32 (exact while they stay
-      // below 2^24 in units of the smallest value)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const uint32_t lo_half = a[0][j], hi_half = a[0][2 + j];
-        sa[j] += bf16_value(lo_half & 0xffffu) + bf16_value(lo_half >> 16) +
-                 bf16_value(hi_half & 0xffffu) + bf16_value(hi_half >> 16);
+    if constexpr (V == kNodot) {
+      // the TPU factors' row sums (valid rows; this thread's own, in
+      // order) and bin % lo counts (all rows; integers, any order)
+      if (rs.x >= 0) {
+        float* pg = lhs + ((rs.x >> 2) * kHi + (b >> 5)) * kThreads + tid;
+        float* ph = pg + nh * kThreads;
+        const float a0 = *pg, a1 = *ph;
+        *pg = a0 + __uint_as_float((static_cast<uint32_t>(rs.y) & 0xffffu) << 16);
+        *ph = a1 + __uint_as_float(static_cast<uint32_t>(rs.y) & 0xffff0000u);
       }
-#pragma unroll
-      for (int q = 0; q < kNT; ++q) {
-        uint32_t b0, b1;
-        rhs_fragment(word[0], 8 * q + gid, b0, b1);
-        sb[q] += bf16_value(b0 & 0xffffu) + bf16_value(b0 >> 16) +
-                 bf16_value(b1 & 0xffffu) + bf16_value(b1 >> 16);
-      }
-      continue;
+      atomicAdd(cnt + f * kLo + (b & (kLo - 1)), 1);
     }
+    if constexpr (kProduct) fence_async_shared();
+    __syncthreads();
+    if constexpr (kProduct) {
+      wgmma_fence();
+      auto da = [&](int q) {
+        return desc(stage + q * L::kFeat, kACB, 128);
+      };
+      auto db = [&](int q) {
+        return desc(stage + q * L::kFeat + kABytes, 128, kBCB);
+      };
+      if constexpr (V == kNoconstr) {
 #pragma unroll
-    for (int k2 = 0; k2 < S; ++k2) {
+        for (int q = 0; q < kGroup; ++q) wgmma<N>(acc[q], da(0), db(0));
+      } else if constexpr (V == kPack4 || V == kPack8) {
+        constexpr int S = V == kPack4 ? 4 : 8;
 #pragma unroll
-      for (int q = 0; q < kNT; ++q) {
-        uint32_t b0, b1;
-        rhs_fragment(word[k2], 8 * q + gid, b0, b1);
-        if (V == kGrpacc) {      // each feature's own product only
-          mma(acc[k2][q], a[k2], b0, b1);
-          continue;
-        }
+        for (int q0 = 0; q0 < kGroup; q0 += S)
 #pragma unroll
-        for (int k1 = 0; k1 < S; ++k1) {
-          if (k1 == k2) {
-            mma(acc[k1][q], a[k1], b0, b1);
-          } else {
-            mma(waste[q], a[k1], b0, b1);
+          for (int k1 = 0; k1 < S; ++k1)
+#pragma unroll
+            for (int k2 = 0; k2 < S; ++k2) {
+              if (k1 == k2)
+                wgmma<N>(acc[q0 + k1], da(q0 + k1), db(q0 + k2));
+              else
+                wgmma<N>(waste, da(q0 + k1), db(q0 + k2));
+            }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kGroup; ++q) wgmma<N>(acc[q], da(q), db(q));
+      }
+      wgmma_commit();
+    }
+    if constexpr (V == kNodot) {
+      if ((i + 1) % steps_a_tile == 0) {
+        // the tile's d, reduced over the feature's 16 threads in order,
+        // added to the run's sums in tile order; then each thread's sums
+        // start again
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int rr = k + 16 * j;
+          if (rr < A) {
+            float s = 0.f;
+            for (int u = 0; u < kRows; ++u)
+              s += lhs[rr * kThreads + f * kRows + u];
+            const int c = cnt[f * kLo + rr];
+            run_d[j] += round_bf16(round_bf16(s) +
+                                   round_bf16(static_cast<float>(c)));
           }
         }
+        __syncthreads();
+        for (int c = 0; c < 32; ++c) lhs[c * kThreads + tid] = 0.f;
+        for (int c = tid; c < kGroup * kLo; c += kThreads) cnt[c] = 0;
+        __syncthreads();
       }
     }
+   }
   }
+  if constexpr (kProduct) wgmma_wait<0>();
 
-  // ---- the tile's [A, lo] blocks into the partial buffer ----
-  const long long fstride = static_cast<long long>(a_rows) * kLo;
-  float* tile_out = partial + static_cast<long long>(tile) * n_features * fstride;
-  if (V == kNodot) {
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) sa[j] += __shfl_xor_sync(0xffffffffu, sa[j], off);
-#pragma unroll
-      for (int q = 0; q < kNT; ++q) sb[q] += __shfl_xor_sync(0xffffffffu, sb[q], off);
-    }
+  // ---- the run's [8, A, lo] block into the partial buffer ----
+  const long long fstride = static_cast<long long>(A) * kLo;
+  float* run_out = partial + static_cast<long long>(run) * n_features * fstride;
+  if constexpr (V == kNodot) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      // rowsum(rhs)[r] for LHS row r = 16m + gid + 8j: column r, held by
-      // this lane (gid = r % 8) in n-tile r / 8 = 2m + j
-      const float rs = m == 0 ? sb[j] : sb[2 + j];
-      const float d = round_bf16(round_bf16(sa[j]) + round_bf16(rs));
+      const int rr = k + 16 * j;
+      if (rr >= A) continue;
       float4* dst = reinterpret_cast<float4*>(
-          tile_out + f0 * fstride + (16 * m + gid + 8 * j) * kLo + 8 * t);
-      dst[0] = make_float4(d, d, d, d);
-      dst[1] = make_float4(d, d, d, d);
+          run_out + (feat0 + f) * fstride + rr * kLo);
+      const float d = run_d[j];
+#pragma unroll
+      for (int c = 0; c < kLo / 4; ++c) dst[c] = make_float4(d, d, d, d);
     }
     return;
   }
-  if (V == kGrpacc) {
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-#pragma unroll
-      for (int q = 0; q < kNT; ++q) {
-        float* s = slab + k * 16 * kLo + gid * kLo + 8 * q + 2 * t;
-        s[0] = acc[k][q][0];
-        s[1] = acc[k][q][1];
-        s[8 * kLo] = acc[k][q][2];
-        s[8 * kLo + 1] = acc[k][q][3];
-      }
-    }
+  // lane (w, g8 = lane / 4, t = lane % 4) holds rows 16w + g8 (+8) at
+  // columns 8j + 2t (+1) of each feature's 64 x N sums
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t = lane & 3;
+  auto cell = [&](int m, int n) {
+    const int plane = n / (N / 2);
+    const int nd = (n >> 2) % n_build;
+    const int bin = (n & 3) * 64 + m;
+    return (plane * nh + nd * kHi + bin / kLo) * kLo + bin % kLo;
+  };
+  if constexpr (V == kGrpacc) {
+    // through a slab of the group's block, then one coalesced store
     __syncthreads();
-    const int per_feat = 16 * kLo;
-    for (int i = 4 * threadIdx.x; i < kGroup * per_feat; i += 4 * blockDim.x) {
-      const int k = i / per_feat, rem = i - k * per_feat;
-      *reinterpret_cast<float4*>(tile_out + (blockIdx.y * kGroup + k) * fstride +
-                                 16 * m * kLo + rem) =
-          *reinterpret_cast<const float4*>(slab + i);
-    }
+    float* slab = reinterpret_cast<float*>(stages);
+#pragma unroll
+    for (int q = 0; q < kGroup; ++q)
+#pragma unroll
+      for (int j = 0; j < N / 2; ++j) {
+        const int m = 16 * warp + g8 + 8 * ((j >> 1) & 1);
+        const int n = 8 * (j >> 2) + 2 * t + (j & 1);
+        slab[q * fstride + cell(m, n)] = acc[q][j];
+      }
+    __syncthreads();
+    float4* dst = reinterpret_cast<float4*>(run_out + feat0 * fstride);
+    const float4* src = reinterpret_cast<const float4*>(slab);
+    for (int i = tid; i < kGroup * fstride / 4; i += kThreads) dst[i] = src[i];
     return;
   }
 #pragma unroll
-  for (int k = 0; k < S; ++k) {
-    float* base = tile_out + (f0 + k) * fstride + (16 * m + gid) * kLo + 2 * t;
+  for (int q = 0; q < kGroup; ++q)
 #pragma unroll
-    for (int q = 0; q < kNT; ++q) {
-      *reinterpret_cast<float2*>(base + 8 * q) =
-          make_float2(acc[k][q][0], acc[k][q][1]);
-      *reinterpret_cast<float2*>(base + 8 * kLo + 8 * q) =
-          make_float2(acc[k][q][2], acc[k][q][3]);
+    for (int j = 0; j < N / 2; ++j) {
+      const int m = 16 * warp + g8 + 8 * ((j >> 1) & 1);
+      const int n = 8 * (j >> 2) + 2 * t + (j & 1);
+      run_out[(feat0 + q) * fstride + cell(m, n)] = acc[q][j];
     }
-  }
-  if (S > 1 && never) {
+  if ((V == kPack4 || V == kPack8) && never) {
     // keeps the discarded off-diagonal products alive; never taken
     float w = 0.f;
 #pragma unroll
-    for (int q = 0; q < kNT; ++q)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) w += waste[q][c];
+    for (int j = 0; j < N / 2; ++j) w += waste[j];
     partial[0] = w;
   }
 }
 
-// out[e] = 0 + partial[0][e] + partial[1][e] + ..., tiles in order
-__global__ void tile_sum_kernel(const float* __restrict__ partial,
-                                long long per_tile, int n_tiles,
-                                float* __restrict__ out) {
+// out[e] = 0 + partial[0][e] + partial[1][e] + ..., runs in order
+__global__ void run_sum_kernel(const float* __restrict__ partial,
+                               long long per_run, int runs,
+                               float* __restrict__ out) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
-  if (e >= per_tile) return;
+  if (e >= per_run) return;
   float s = 0.f;
 #pragma unroll 8
-  for (int i = 0; i < n_tiles; ++i) s = __fadd_rn(s, partial[i * per_tile + e]);
+  for (int i = 0; i < runs; ++i) s = __fadd_rn(s, partial[i * per_run + e]);
   out[e] = s;
 }
 
-template <int V, int S>
+template <int V, int N>
 cudaError_t launch(dim3 grid, cudaStream_t s, const uint8_t* bins,
                    long long ld, const int32_t* node, const float* g,
-                   const float* h, int tile_rows, int n_features, int n_build,
-                   int hi, int a_rows, float* partial) {
-  hist_floor_kernel<V, S><<<grid, 32 * kGroup / S, 0, s>>>(
-      bins, ld, node, g, h, tile_rows, n_features, n_build, hi, a_rows, 0,
-      partial);
+                   const float* h, int tile_rows, int n_tiles,
+                   int tiles_per_run, int n_features, float* partial) {
+  typedef Layout<N> L;
+  const int smem =
+      2 * L::kStage + L::kRowSide + (V == kNodot ? L::kPrivate : 0);
+  auto kernel = hist_floor_kernel<V, N>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem, s>>>(bins, ld, node, g, h, tile_rows,
+                                      n_tiles, tiles_per_run, n_features, 0,
+                                      partial);
   return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch_variant(int variant, dim3 grid, cudaStream_t s,
+                           const uint8_t* b, long long ld, const int32_t* nd,
+                           const float* gp, const float* hp, int tile_rows,
+                           int n_tiles, int tiles_per_run, int n_features,
+                           float* p) {
+#define DMLC_FLOOR_CASE(V)                                                  \
+  case V:                                                                   \
+    return launch<V, N>(grid, s, b, ld, nd, gp, hp, tile_rows, n_tiles,     \
+                        tiles_per_run, n_features, p);
+  switch (variant) {
+    DMLC_FLOOR_CASE(kShipped)
+    DMLC_FLOOR_CASE(kGrpacc)
+    DMLC_FLOOR_CASE(kNodot)
+    DMLC_FLOOR_CASE(kNoconstr)
+    DMLC_FLOOR_CASE(kPack4)
+    DMLC_FLOOR_CASE(kPack8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DMLC_FLOOR_CASE
 }
 
 }  // namespace
 
 extern "C" {
 
-// bins: [F, >= n_tiles * tile_rows] uint8, row stride ld (a multiple of 4);
-// node int32, g, h f32: [>= n_tiles * tile_rows], 16-byte aligned.
-// partial: [n_tiles, F, 2*n_build*hi, 32] f32 scratch; out: [F,
-// 2*n_build*hi, 32] f32.  lo is 32: 2*n_build*hi must be 16 or 32, F a
+// bins: [F, >= n_tiles * tile_rows] uint8, row stride ld; node int32, g,
+// h f32: [>= n_tiles * tile_rows].  A block per (run of tiles_per_run
+// consecutive tiles, group of 8 features); partial: [runs, F,
+// 2*n_build*hi, 32] f32 scratch, runs = ceil(n_tiles / tiles_per_run);
+// out: [F, 2*n_build*hi, 32] f32.  lo is 32 (hi 8), n_build 1 or 2, F a
 // multiple of 8, tile_rows a multiple of 16.
 int dmlc_hist_floor(const void* bins, long long ld, const void* node,
                     const void* g, const void* h, int n_tiles, int tile_rows,
                     int n_features, int n_build, int hi, int variant,
-                    void* partial, void* out, void* stream) {
-  const int a_rows = 2 * n_build * hi;
-  if (n_tiles <= 0 || tile_rows <= 0 || tile_rows % 16 != 0 ||
-      n_features <= 0 || n_features % kGroup != 0 ||
-      (a_rows != 16 && a_rows != 32) || ld % 4 != 0)
+                    int tiles_per_run, void* partial, void* out,
+                    void* stream) {
+  if (n_tiles <= 0 || tile_rows <= 0 || tile_rows % kRows != 0 ||
+      n_features <= 0 || n_features % kGroup != 0 || hi != kHi ||
+      (n_build != 1 && n_build != 2) || tiles_per_run <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(n_tiles),
-                  static_cast<unsigned>(n_features / kGroup),
-                  static_cast<unsigned>(a_rows / 16));
+  const int runs = (n_tiles + tiles_per_run - 1) / tiles_per_run;
+  const dim3 grid(static_cast<unsigned>(runs),
+                  static_cast<unsigned>(n_features / kGroup));
   const auto* b = static_cast<const uint8_t*>(bins);
   const auto* nd = static_cast<const int32_t*>(node);
   const auto* gp = static_cast<const float*>(g);
   const auto* hp = static_cast<const float*>(h);
   auto* p = static_cast<float*>(partial);
-  cudaError_t e;
-  switch (variant) {
-    case kShipped:
-      e = launch<kShipped, 1>(grid, s, b, ld, nd, gp, hp, tile_rows,
-                              n_features, n_build, hi, a_rows, p);
-      break;
-    case kGrpacc:
-      e = launch<kGrpacc, kGroup>(grid, s, b, ld, nd, gp, hp, tile_rows,
-                                  n_features, n_build, hi, a_rows, p);
-      break;
-    case kNodot:
-      if (a_rows > kLo) return cudaErrorInvalidValue;
-      e = launch<kNodot, 1>(grid, s, b, ld, nd, gp, hp, tile_rows,
-                            n_features, n_build, hi, a_rows, p);
-      break;
-    case kNoconstr:
-      e = launch<kNoconstr, 1>(grid, s, b, ld, nd, gp, hp, tile_rows,
-                               n_features, n_build, hi, a_rows, p);
-      break;
-    case kPack4:
-      e = launch<kPack4, 4>(grid, s, b, ld, nd, gp, hp, tile_rows,
-                            n_features, n_build, hi, a_rows, p);
-      break;
-    case kPack8:
-      e = launch<kPack8, 8>(grid, s, b, ld, nd, gp, hp, tile_rows,
-                            n_features, n_build, hi, a_rows, p);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
+  cudaError_t e =
+      n_build == 1
+          ? launch_variant<8>(variant, grid, s, b, ld, nd, gp, hp, tile_rows,
+                              n_tiles, tiles_per_run, n_features, p)
+          : launch_variant<16>(variant, grid, s, b, ld, nd, gp, hp,
+                               tile_rows, n_tiles, tiles_per_run, n_features,
+                               p);
   if (e != cudaSuccess) return e;
-  const long long per_tile = static_cast<long long>(n_features) * a_rows * kLo;
+  const long long per_run =
+      static_cast<long long>(n_features) * 2 * n_build * hi * kLo;
   const int threads = 256;
-  tile_sum_kernel<<<static_cast<unsigned>((per_tile + threads - 1) / threads),
-                    threads, 0, s>>>(p, per_tile, n_tiles,
-                                     static_cast<float*>(out));
+  run_sum_kernel<<<static_cast<unsigned>((per_run + threads - 1) / threads),
+                   threads, 0, s>>>(p, per_run, runs,
+                                    static_cast<float*>(out));
   return cudaGetLastError();
 }
 

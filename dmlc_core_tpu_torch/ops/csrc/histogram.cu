@@ -125,34 +125,49 @@
 //    (a level touches at most a few of them), so any F works.
 //  * fused_descend: bound by bytes too — the bins (F*n), node in (4n),
 //    new_node out (4n) and g/h (8n): 44 bytes a row at F = 28, 0.131 ms
-//    at 10M rows on 3.35 TB/s.  The fused round's descend launch writes
-//    new_node and its accumulation reads it back; here a thread computes
-//    its rows' new node in registers (node -> the node's split through
-//    the read-only cache -> the selected byte) and the blocks of the
-//    first feature group store it.  That chain is three dependent loads
-//    a row, so it is paid once per block for a GROUP of features, not
-//    once per feature: a block holds the histograms of as many features
-//    as fit in shared memory (all 28 at n_prev 1) and reads node and g/h
-//    once for all of them.  (A first version, a mode of the accumulation
-//    kernel with its one feature per block, repeated the chain 28 times
-//    and was slower than the unfused descend + histogram at every level.)
-//    The chain's byte gather still repeats once per feature group: from
-//    n_prev 8 (7 features per block, 4 groups) the kernel is slower than
-//    the fused round (PERF.md).
+//    at 10M rows on 3.35 TB/s.  The unfused chain (descend_kernel, then
+//    the accumulation over left children) writes new_node and reads it
+//    back; the fused descend is the accumulation kernel with a descend
+//    prologue (Prologue below): a step's rows are descended in registers
+//    (parent -> its split, from a per-node table in shared memory or the
+//    per-row arrays -> the selected byte, one 32-bit word for four rows
+//    that select the same feature) and their left-child parent ids feed
+//    the same grouped digit adds (a kernel of its own, with carry adds,
+//    g/h quantised per feature and byte loads, took 0.76-2.58 ms at
+//    n_prev 1..16 and lost to the chain from 16; PERF.md).  Two ways to
+//    descend a row once per
+//    group or less: every feature group's block descends its rows again
+//    (the gather's bytes come from L2, as a chunk's groups run side by
+//    side; group 0 stores new_node), or a thread-block cluster of a
+//    chunk's groups shares each step's descend: each block descends a
+//    contiguous 1/c of the step's quads into its shared memory and every
+//    block reads the step's ids from its peers (distributed shared
+//    memory), so each row's byte is gathered once a cluster.  Measured
+//    (PERF.md): the g/h and bin-word loads must not wait for the descend
+//    (issued first, for every quad: 0.64 -> 0.57 ms at n_prev 1); a
+//    cluster barrier a step kept the 16 warps in lock-step (split into
+//    arrive / wait a step apart instead); clusters of 3 to 7 blocks left
+//    SMs of a GPC idle and lost to every block descending, pairs gain
+//    where the groups are many (n_prev 16: 1.12 -> 1.05 ms).  The host
+//    plan (histogram.py, _descend_plan) balances the groups and pairs
+//    them where their number is even.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kUnroll = 8;
 // hist_accum_kernel: threads a block (one block an SM, up to 128
 // registers a thread), quads of 4 consecutive rows a thread takes a step,
 // physical rows whose bin words are in flight
 constexpr int kAccumThreads = 512;
 constexpr int kQuads = 2;
 constexpr int kDepth = 2;
+// quads of one step of a block
+constexpr int kStepQuads = kQuads * kAccumThreads;
 // widest storage feature a packed nibble carries (binlayout.PACK_WIDTH)
 constexpr int kPackWidth = 16;
 // int32 per original feature in the descend's decode table: physical row,
@@ -164,20 +179,6 @@ constexpr int kDec = 6 + kPackWidth + 2;
 __device__ __forceinline__ unsigned long long quantize(float v, float scale) {
   // v * 2^k is exact in f32; round half to even like torch.round
   return static_cast<unsigned long long>(__float2ll_rn(v * scale));
-}
-
-// 64-bit add as two 32-bit shared-memory atomics (the carry of the low
-// word goes into the high word): shared-memory 64-bit atomics are slow
-// on NVIDIA parts, 32-bit ones are native.  Still exact integer
-// arithmetic mod 2^64, so the order of the adds does not matter.
-__device__ __forceinline__ void shared_add_u64(unsigned long long* dst,
-                                               unsigned long long v) {
-  unsigned int* w = reinterpret_cast<unsigned int*>(dst);
-  const unsigned int lo = static_cast<unsigned int>(v);
-  const unsigned int hi = static_cast<unsigned int>(v >> 32);
-  const unsigned int old = atomicAdd(w, lo);
-  const unsigned int carry = old > 0xffffffffu - lo ? 1u : 0u;
-  atomicAdd(w + 1, hi + carry);
 }
 
 // ---------------------------------------------------------------------------
@@ -382,6 +383,115 @@ __device__ __forceinline__ void add_row(
   if (gr.runs) flush_run<kShared>(run, sink);
 }
 
+// What the accumulation kernel does before its adds.  kNodeIds: node
+// holds the ids of the rows' nodes (with left_only the next level's, of
+// which the even ones add at their parent's index).  The fused descend
+// (node holds the parents; the rows descend first and their left children
+// add at the parent's index): kDescendEach, every block descends the rows
+// of its step; kDescendCluster, the blocks of a cluster (a run of a
+// chunk's feature groups) share the step's quads, each descending 1/c of
+// them into its shared memory, and read the others' from their peers.
+enum Prologue { kNodeIds = 0, kDescendEach = 1, kDescendCluster = 2 };
+
+// The fused descend's split tables, per node [N] (by_node) or per row [n],
+// in the original feature and bin space of the plain [F, n] matrix, and
+// its new_node output [n].
+struct Descend {
+  const int32_t* feat;
+  const int32_t* thr;
+  int32_t* new_node;
+  int by_node;
+};
+
+// new_node of rows r .. r + 3 (those below r1): 2 * parent + (the byte of
+// the parent's feature > its threshold), -1 where the parent is < 0 (or,
+// with per-node tables, not one of the level's n_prev).  Per-node tables
+// are read from shared memory (split), per-row ones as one int4 each where
+// aligned.  Where the quad's rows select one feature (every row at n_prev
+// 1) their bytes are one 32-bit word, else one byte each through the
+// read-only cache.
+__device__ __forceinline__ void descend_quad(
+    const uint8_t* __restrict__ bins, long long n,
+    const int32_t* __restrict__ node, const Descend& d,
+    const int2* __restrict__ split, int n_prev, long long r, long long r1,
+    bool whole, int (&nn)[4]) {
+  int nd[4] = {-1, -1, -1, -1};
+  if (whole) {
+    const int4 t = *reinterpret_cast<const int4*>(node + r);
+    nd[0] = t.x; nd[1] = t.y; nd[2] = t.z; nd[3] = t.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (r + i < r1) nd[i] = node[r + i];
+  }
+  int f[4] = {0, 0, 0, 0}, t[4] = {0, 0, 0, 0};
+  if (d.by_node) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (nd[i] >= n_prev) nd[i] = -1;
+      if (nd[i] >= 0) {
+        const int2 s = split[nd[i]];
+        f[i] = s.x;
+        t[i] = s.y;
+      }
+    }
+  } else if (whole) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(d.feat + r));
+    const int4 b = __ldg(reinterpret_cast<const int4*>(d.thr + r));
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    t[0] = b.x; t[1] = b.y; t[2] = b.z; t[3] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (nd[i] >= 0) {
+        f[i] = __ldg(d.feat + r + i);
+        t[i] = __ldg(d.thr + r + i);
+      }
+  }
+  int f0 = -1;
+  bool same = true;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (nd[i] >= 0) {
+      if (f0 < 0) f0 = f[i];
+      same &= f[i] == f0;
+    }
+  uint32_t w = 0u;
+  if (f0 >= 0 && same) {
+    w = load_quad(bins + static_cast<long long>(f0) * n, r, r1);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (nd[i] >= 0)
+        w |= static_cast<uint32_t>(
+                 __ldg(bins + static_cast<long long>(f[i]) * n + r + i))
+             << (8 * i);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    nn[i] = nd[i] >= 0
+                ? 2 * nd[i] + (static_cast<int>((w >> (8 * i)) & 255u) > t[i])
+                : -1;
+}
+
+__device__ __forceinline__ void store_quad(int32_t* __restrict__ out,
+                                           long long r, long long r1,
+                                           bool whole, const int (&v)[4]) {
+  if (whole) {
+    *reinterpret_cast<int4*>(out + r) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (r + i < r1) out[r + i] = v[i];
+  }
+}
+
+// a left child's parent index (its even id >> 1) where it is one of the
+// level's n_prev parents, else -1 (right children, rows out of the tree)
+__device__ __forceinline__ int left_parent(int id, int n_prev) {
+  return (id >= 0 && !(id & 1) && (id >> 1) < n_prev) ? id >> 1 : -1;
+}
+
 // A block takes the rows [r0, r1) of its chunk (r0 a multiple of 4, at
 // most 2^(32 - shift) rows) and the physical rows [p0, p1) of its group,
 // whose table entries it first copies to shared memory.  Per step each
@@ -393,7 +503,23 @@ __device__ __forceinline__ void add_row(
 // bins of a quad, loaded as one word kDepth physical rows ahead.  A row
 // whose |q| reaches 2^qbits (scales not from hist_scales) skips the
 // digits and adds its int64 straight into the global histogram.
-template <bool kShared>
+//
+// Under a descend prologue (kMode, the fused descend; node holds the
+// parents, n_nodes is n_prev) each quad is descended (descend_quad) and
+// its left children's parent ids take the place of the node ids; the
+// quads' g/h and first bin words load before it, for every quad.
+// kDescendEach: every block descends its own quads, group 0's blocks
+// store new_node.  kDescendCluster: block rank k of a cluster of c
+// descends the quads [k * share, (k + 1) * share) of each step into the
+// step's half of a two-step buffer of ids at the start of its shared
+// memory (and, in the first cluster, stores their new_node); each thread
+// reads its quads' ids from the rank that descended them.  The cluster
+// barrier is split: a thread waits for step s's ids, reads them,
+// descends its share of step s + 1 and arrives, so warps run up to a
+// step apart and a buffer half is rewritten only after every peer has
+// arrived past its reads.  Both read per-node split tables from shared
+// memory.
+template <bool kShared, int kMode>
 __global__ void __launch_bounds__(kAccumThreads, 1)
 hist_accum_kernel(const uint8_t* __restrict__ bins,    // [P, n]
                   const int32_t* __restrict__ node,    // [n]
@@ -404,20 +530,47 @@ hist_accum_kernel(const uint8_t* __restrict__ bins,    // [P, n]
                   long long n, int n_storage, int n_nodes, int n_bins,
                   float scale_g, float scale_h, int left_only,
                   long long rows_per_chunk, int shift, int qbits,
+                  Descend dsc,
                   unsigned long long* __restrict__ out) {  // [2, N, S, Bs]
-  // the group's table entries, then four planes of C words
+  // in a cluster the two steps' ids first (at the same offset in every
+  // block, where its peers read them); the group's table entries; under a
+  // descend prologue the per-node split table (n_nodes int2, 16-byte
+  // aligned); then four planes of C words
   extern __shared__ __align__(16) uint32_t smem_words[];
+  uint32_t* next = smem_words;
+  short4* ids = nullptr;
+  int rank = 0, csize = 1;
+  bool store = false;
+  if constexpr (kMode == kDescendCluster) {
+    ids = reinterpret_cast<short4*>(next);
+    next += 2 * 2 * kStepQuads;   // two steps of short4
+    const cg::cluster_group cl = cg::this_cluster();
+    rank = static_cast<int>(cl.block_rank());
+    csize = static_cast<int>(cl.num_blocks());
+  }
+  // quads of a step each block of a cluster descends
+  const int share = (kStepQuads + csize - 1) / csize;
   const int4 grp = __ldg(reinterpret_cast<const int4*>(groups) + blockIdx.x);
   const int p0 = grp.x, p1 = grp.y, C = grp.z;
-  int4* table = reinterpret_cast<int4*>(smem_words);
+  int4* table = reinterpret_cast<int4*>(next);
   for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x)
     table[p - p0] = __ldg(reinterpret_cast<const int4*>(rows) + p);
+  next += 4 * (p1 - p0);
+  int2* split = reinterpret_cast<int2*>(next);
+  if constexpr (kMode != kNodeIds) {
+    if (dsc.by_node)
+      for (int i = threadIdx.x; i < n_nodes; i += blockDim.x)
+        split[i] = make_int2(__ldg(dsc.feat + i), __ldg(dsc.thr + i));
+    next += 2 * ((n_nodes + 1) & ~1);
+    // the blocks of group 0, or of the first cluster, store new_node
+    store = static_cast<int>(blockIdx.x) < csize;
+  }
   const long long r0 = static_cast<long long>(blockIdx.y) * rows_per_chunk;
   const long long r1 = min(n, r0 + rows_per_chunk);
   const long long plane = static_cast<long long>(n_nodes) * n_storage * n_bins;
   Sink<kShared> sink;
   if constexpr (kShared) {
-    sink.planes = smem_words + 4 * (p1 - p0);
+    sink.planes = next;
     sink.C = C;
     for (int i = threadIdx.x; i < 4 * C; i += blockDim.x) sink.planes[i] = 0u;
   } else {
@@ -425,57 +578,150 @@ hist_accum_kernel(const uint8_t* __restrict__ bins,    // [P, n]
   }
   __syncthreads();
   const uint32_t lo_mask = (1u << shift) - 1u;
-  const bool vec = ((reinterpret_cast<uintptr_t>(node) |
-                     reinterpret_cast<uintptr_t>(grad) |
-                     reinterpret_cast<uintptr_t>(hess)) & 15) == 0;
-  const long long step = 4LL * kQuads * blockDim.x;
-  for (long long base = r0 + 4LL * threadIdx.x; base < r1; base += step) {
+  uintptr_t addr = reinterpret_cast<uintptr_t>(node) |
+                   reinterpret_cast<uintptr_t>(grad) |
+                   reinterpret_cast<uintptr_t>(hess);
+  if constexpr (kMode != kNodeIds) {
+    addr |= reinterpret_cast<uintptr_t>(dsc.new_node);
+    if (!dsc.by_node)
+      addr |= reinterpret_cast<uintptr_t>(dsc.feat) |
+              reinterpret_cast<uintptr_t>(dsc.thr);
+  }
+  const bool vec = (addr & 15) == 0;
+  // every thread runs every step (a cluster's barrier needs them all)
+  const long long step = 4LL * kStepQuads;
+  // kDescendCluster: this block's share of a step's quads, descended into
+  // the ids buffer of the step's parity
+  auto descend_share = [&](long long s0, int parity) {
+    const int q = rank * share + static_cast<int>(threadIdx.x);
+    if (static_cast<int>(threadIdx.x) < share && q < kStepQuads) {
+      const long long r = s0 + 4LL * q;
+      const bool whole = vec && r + 3 < r1;
+      int nn[4];
+      descend_quad(bins, n, node, dsc, split, n_nodes, r, r1, whole, nn);
+      if (store) store_quad(dsc.new_node, r, r1, whole, nn);
+      ids[parity * kStepQuads + q] =
+          make_short4(static_cast<short>(left_parent(nn[0], n_nodes)),
+                      static_cast<short>(left_parent(nn[1], n_nodes)),
+                      static_cast<short>(left_parent(nn[2], n_nodes)),
+                      static_cast<short>(left_parent(nn[3], n_nodes)));
+    }
+  };
+  if constexpr (kMode == kDescendCluster) {
+    // step 0's ids, then the cluster barrier's first arrival: per step a
+    // thread waits for the step's ids, reads them, descends the next
+    // step's share and arrives, so its warps run up to a step apart
+    // instead of in lock-step, and a buffer is written again only after
+    // every peer has arrived past its reads
+    descend_share(r0, 0);
+    __cluster_barrier_arrive();
+  }
+  int parity = 0;
+  for (long long s0 = r0; s0 < r1; s0 += step, parity ^= 1) {
+    const long long base = s0 + 4LL * threadIdx.x;
     int v[kQuads][4], slow[kQuads][4];
     Digits dg[kQuads][4];
-    bool act[kQuads];
+    float gv[kQuads][4] = {}, hv[kQuads][4] = {};
+    // the quads whose g/h and bin words load: those with a row that adds
+    bool act[kQuads], on[kQuads];
     bool any = false, any_slow = false;
+    uint32_t w[kDepth][kQuads];
+    auto load_words = [&](int p, uint32_t (&wp)[kQuads]) {
+      const uint8_t* row = bins + static_cast<long long>(p) * n;
+#pragma unroll
+      for (int u = 0; u < kQuads; ++u)
+        wp[u] = on[u] ? load_quad(row, base + 4LL * u * blockDim.x, r1) : 0u;
+    };
+    // g/h of quad u's rows where keep >= 0
+    auto load_gh = [&](int u, const int (&keep)[4]) {
+      const long long r = base + 4LL * u * blockDim.x;
+      if (vec && r + 3 < r1) {
+        const float4 a = *reinterpret_cast<const float4*>(grad + r);
+        const float4 b = *reinterpret_cast<const float4*>(hess + r);
+        gv[u][0] = a.x; gv[u][1] = a.y; gv[u][2] = a.z; gv[u][3] = a.w;
+        hv[u][0] = b.x; hv[u][1] = b.y; hv[u][2] = b.z; hv[u][3] = b.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (keep[i] >= 0) {
+            gv[u][i] = grad[r + i];
+            hv[u][i] = hess[r + i];
+          }
+      }
+    };
+    if constexpr (kMode != kNodeIds) {
+      // under a descend prologue the loads that need no node id go first,
+      // for every quad in the chunk, so that they do not wait for the
+      // descend's gather (below the root a quad where no row adds is rare)
+#pragma unroll
+      for (int u = 0; u < kQuads; ++u) {
+        const long long r = base + 4LL * u * blockDim.x;
+        on[u] = r < r1;
+        const int in[4] = {r < r1 ? 0 : -1, r + 1 < r1 ? 0 : -1,
+                           r + 2 < r1 ? 0 : -1, r + 3 < r1 ? 0 : -1};
+        if (on[u]) load_gh(u, in);
+      }
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d)
+        if (p0 + d < p1) load_words(p0 + d, w[d]);
+    }
+    short4 peer[kQuads];
+    if constexpr (kMode == kDescendCluster) {
+      __cluster_barrier_wait();
+#pragma unroll
+      for (int u = 0; u < kQuads; ++u) {
+        const int q = static_cast<int>(threadIdx.x) + u * kAccumThreads;
+        peer[u] = *cg::this_cluster().map_shared_rank(
+            ids + parity * kStepQuads + q, q / share);
+      }
+      descend_share(s0 + step, parity ^ 1);
+      __cluster_barrier_arrive();
+    }
 #pragma unroll
     for (int u = 0; u < kQuads; ++u) {
       const long long r = base + 4LL * u * blockDim.x;
       const bool whole = vec && r + 3 < r1;
       int nd[4] = {-1, -1, -1, -1};
-      if (whole) {
-        const int4 t = *reinterpret_cast<const int4*>(node + r);
-        nd[0] = t.x; nd[1] = t.y; nd[2] = t.z; nd[3] = t.w;
-      } else {
+      if constexpr (kMode == kNodeIds) {
+        if (whole) {
+          const int4 t = *reinterpret_cast<const int4*>(node + r);
+          nd[0] = t.x; nd[1] = t.y; nd[2] = t.z; nd[3] = t.w;
+        } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (r + i < r1) nd[i] = node[r + i];
+          for (int i = 0; i < 4; ++i)
+            if (r + i < r1) nd[i] = node[r + i];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (left_only) nd[i] = (nd[i] >= 0 && !(nd[i] & 1)) ? nd[i] >> 1 : -1;
+          if (nd[i] >= n_nodes) nd[i] = -1;
+        }
+      } else if constexpr (kMode == kDescendEach) {
+        int nn[4];
+        descend_quad(bins, n, node, dsc, split, n_nodes, r, r1, whole, nn);
+        if (store) store_quad(dsc.new_node, r, r1, whole, nn);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) nd[i] = left_parent(nn[i], n_nodes);
+      } else {
+        nd[0] = peer[u].x; nd[1] = peer[u].y; nd[2] = peer[u].z;
+        nd[3] = peer[u].w;
       }
       act[u] = false;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        int x = nd[i];
-        if (left_only) x = (x >= 0 && !(x & 1)) ? x >> 1 : -1;
-        if (x >= n_nodes) x = -1;
-        v[u][i] = x;
-        act[u] |= x >= 0;
+        v[u][i] = nd[i];
+        act[u] |= nd[i] >= 0;
       }
-      float gv[4] = {0.f, 0.f, 0.f, 0.f}, hv[4] = {0.f, 0.f, 0.f, 0.f};
-      if (act[u]) {
-        if (whole) {
-          const float4 a = *reinterpret_cast<const float4*>(grad + r);
-          const float4 b = *reinterpret_cast<const float4*>(hess + r);
-          gv[0] = a.x; gv[1] = a.y; gv[2] = a.z; gv[3] = a.w;
-          hv[0] = b.x; hv[1] = b.y; hv[2] = b.z; hv[3] = b.w;
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (v[u][i] >= 0) {
-              gv[i] = grad[r + i];
-              hv[i] = hess[r + i];
-            }
-        }
+      if constexpr (kMode == kNodeIds) {
+        on[u] = act[u];
+        if (act[u]) load_gh(u, v[u]);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const long long qg = static_cast<long long>(quantize(gv[i], scale_g));
-        const long long qh = static_cast<long long>(quantize(hv[i], scale_h));
+        const long long qg =
+            static_cast<long long>(quantize(gv[u][i], scale_g));
+        const long long qh =
+            static_cast<long long>(quantize(hv[u][i], scale_h));
         // |q| < 2^qbits, as an unsigned compare of q + 2^qbits
         const unsigned long long lim = 1ull << qbits;
         slow[u][i] = v[u][i];
@@ -496,16 +742,11 @@ hist_accum_kernel(const uint8_t* __restrict__ bins,    // [P, n]
     if (!any) continue;
 
     // kDepth physical rows' bin words in flight
-    auto load_words = [&](int p, uint32_t (&w)[kQuads]) {
-      const uint8_t* row = bins + static_cast<long long>(p) * n;
+    if constexpr (kMode == kNodeIds) {
 #pragma unroll
-      for (int u = 0; u < kQuads; ++u)
-        w[u] = act[u] ? load_quad(row, base + 4LL * u * blockDim.x, r1) : 0u;
-    };
-    uint32_t w[kDepth][kQuads];
-#pragma unroll
-    for (int d = 0; d < kDepth; ++d)
-      if (p0 + d < p1) load_words(p0 + d, w[d]);
+      for (int d = 0; d < kDepth; ++d)
+        if (p0 + d < p1) load_words(p0 + d, w[d]);
+    }
     for (int p = p0; p < p1; p += kDepth) {
 #pragma unroll
       for (int d = 0; d < kDepth; ++d) {
@@ -545,6 +786,8 @@ hist_accum_kernel(const uint8_t* __restrict__ bins,    // [P, n]
       }
     }
   }
+  // a block's ids stay readable until its peers have read the last step's
+  if constexpr (kMode == kDescendCluster) __cluster_barrier_wait();
   if constexpr (kShared) {
     // one global int64 atomic per nonzero cell, row by row of the group
     __syncthreads();
@@ -572,114 +815,6 @@ hist_accum_kernel(const uint8_t* __restrict__ bins,    // [P, n]
         if (g) atomicAdd(out + idx, g);
         if (h) atomicAdd(out + plane + idx, h);
       }
-    }
-  }
-}
-
-// The fused descend: a block takes the rows [r0, r1) of its chunk and the
-// kf features [f0, f0 + nf) of the plain [F, n] matrix.  Per step each
-// thread descends kUnroll rows (all loads before any store, so the rows'
-// load chains overlap), the first feature group's blocks store new_node,
-// and then each feature's byte of those rows goes into the left-child
-// histogram [2, kf, N, B] (shared) or straight into the global one.
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads, 2)
-fused_descend_kernel(const uint8_t* __restrict__ bins,   // [F, n]
-                     const int32_t* __restrict__ node,   // [n]
-                     const int32_t* __restrict__ feat,   // [N] or [n]
-                     const int32_t* __restrict__ thr,    // [N] or [n]
-                     int by_node, const float* __restrict__ grad,
-                     const float* __restrict__ hess, long long n,
-                     int n_features, int n_prev, int n_bins, float scale_g,
-                     float scale_h, int kf, long long rows_per_chunk,
-                     unsigned long long* __restrict__ out,  // [2, N, F, B]
-                     int32_t* __restrict__ new_node) {      // [n]
-  extern __shared__ unsigned long long smem[];   // [2, kf, N, B]
-  const int f0 = blockIdx.y * kf;
-  const int nf = min(kf, n_features - f0);
-  const int per_feat = n_prev * n_bins;
-  const int cells = nf * per_feat;                            // per plane
-  const long long plane = static_cast<long long>(n_prev) * n_features * n_bins;
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_chunk;
-  const long long r1 = min(n, r0 + rows_per_chunk);
-  if (kShared) {
-    for (int i = threadIdx.x; i < 2 * cells; i += blockDim.x) smem[i] = 0ull;
-    __syncthreads();
-  }
-  const bool store = blockIdx.y == 0;
-  const long long step = static_cast<long long>(kUnroll) * blockDim.x;
-  for (long long base = r0 + threadIdx.x; base < r1; base += step) {
-    int v[kUnroll];
-    float gv[kUnroll], hv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long r = base + static_cast<long long>(u) * blockDim.x;
-      const bool in = r < r1;
-      const int parent = in ? node[r] : -1;
-      int nn = -1;
-      if (parent >= 0) {
-        const long long k = by_node ? parent : r;
-        const int f = __ldg(feat + k);
-        const int t = __ldg(thr + k);
-        nn = 2 * parent +
-             (__ldg(bins + static_cast<long long>(f) * n + r) > t ? 1 : 0);
-      }
-      v[u] = nn;
-      gv[u] = in ? grad[r] : 0.f;
-      hv[u] = in ? hess[r] : 0.f;
-    }
-    if (store) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const long long r = base + static_cast<long long>(u) * blockDim.x;
-        if (r < r1) new_node[r] = v[u];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {   // left children: parent index
-      v[u] = (v[u] >= 0 && !(v[u] & 1) && (v[u] >> 1) < n_prev) ? v[u] >> 1
-                                                               : -1;
-    }
-    for (int j = 0; j < nf; ++j) {
-      const uint8_t* row = bins + static_cast<long long>(f0 + j) * n;
-      int b[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const long long r = base + static_cast<long long>(u) * blockDim.x;
-        b[u] = r < r1 ? row[r] : 0;
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (v[u] < 0 || b[u] >= n_bins) continue;
-        const unsigned long long qg = quantize(gv[u], scale_g);
-        const unsigned long long qh = quantize(hv[u], scale_h);
-        if (kShared) {
-          const int c = j * per_feat + v[u] * n_bins + b[u];
-          shared_add_u64(&smem[c], qg);
-          shared_add_u64(&smem[cells + c], qh);
-        } else {
-          const long long c =
-              (static_cast<long long>(v[u]) * n_features + f0 + j) * n_bins +
-              b[u];
-          atomicAdd(&out[c], qg);
-          atomicAdd(&out[plane + c], qh);
-        }
-      }
-    }
-  }
-  if (kShared) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < 2 * cells; i += blockDim.x) {
-      const unsigned long long val = smem[i];
-      if (val == 0ull) continue;
-      const int c = i % cells;
-      const int j = c / per_feat;
-      const int rem = c - j * per_feat;
-      const int nd = rem / n_bins;
-      const int bin = rem - nd * n_bins;
-      atomicAdd(&out[(i / cells) * plane +
-                     (static_cast<long long>(nd) * n_features + f0 + j) *
-                         n_bins + bin], val);
     }
   }
 }
@@ -768,6 +903,56 @@ int grid_for(long long work, int threads) {
   return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
 }
 
+// The plan of one accumulation launch (histogram.py's _accum_plan /
+// _descend_plan): the feature groups, row chunks, digit split and each
+// block's shared bytes, and the cluster of a descend (blocks a cluster
+// along the groups, a divisor of n_groups).
+struct Plan {
+  const int32_t* rows;
+  const int32_t* groups;
+  int n_groups, shared, smem, chunks;
+  long long rows_per_chunk;
+  int shift, qbits, cluster;
+};
+
+template <bool kShared, int kMode>
+cudaError_t launch_accum(const Plan& pl, cudaStream_t s, const uint8_t* bins,
+                         const int32_t* node, const float* g, const float* h,
+                         long long n, int n_storage, int n_nodes, int n_bins,
+                         float scale_g, float scale_h, int left_only,
+                         const Descend& dsc, unsigned long long* out) {
+  auto kernel = hist_accum_kernel<kShared, kMode>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(pl.n_groups),
+                     static_cast<unsigned>(pl.chunks));
+  cfg.blockDim = dim3(kAccumThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(pl.smem);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(pl.cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kMode == kDescendCluster ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, bins, node, g, h, pl.rows, pl.groups,
+                         n, n_storage, n_nodes, n_bins, scale_g, scale_h,
+                         left_only, pl.rows_per_chunk, pl.shift, pl.qbits,
+                         dsc, out);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+bool plan_ok(const Plan& pl) {
+  return pl.n_groups > 0 && pl.chunks > 0 && pl.smem >= 0 && pl.shift >= 1 &&
+         pl.shift <= 31 && pl.qbits >= 1 && pl.qbits <= 62 &&
+         pl.rows_per_chunk % 4 == 0 && pl.cluster >= 1 &&
+         pl.n_groups % pl.cluster == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -804,95 +989,67 @@ int dmlc_hist_accum(const void* bins, const void* node, const void* grad,
                     int qbits, int n_storage, int n_nodes, int n_bins,
                     float scale_g, float scale_h, int left_only, void* out,
                     void* stream) {
-  if (n_groups <= 0 || chunks <= 0 || n_storage <= 0 || n_nodes <= 0 ||
-      n_bins <= 0 || smem < 0 || shift < 1 || shift > 31 || qbits < 1 ||
-      qbits > 62 || rows_per_chunk % 4 != 0)
+  const Plan pl = {static_cast<const int32_t*>(rows),
+                   static_cast<const int32_t*>(groups), n_groups, shared,
+                   smem, chunks, rows_per_chunk, shift, qbits, 1};
+  if (!plan_ok(pl) || n_storage <= 0 || n_nodes <= 0 || n_bins <= 0)
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(n_groups),
-                  static_cast<unsigned>(chunks));
-  auto* o = static_cast<unsigned long long*>(out);
   const auto* b = static_cast<const uint8_t*>(bins);
   const auto* nd = static_cast<const int32_t*>(node);
   const auto* g = static_cast<const float*>(grad);
   const auto* h = static_cast<const float*>(hess);
-  const auto* r = static_cast<const int32_t*>(rows);
-  const auto* gr = static_cast<const int32_t*>(groups);
-  auto kernel = shared ? hist_accum_kernel<true> : hist_accum_kernel<false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, kAccumThreads, smem, s>>>(
-      b, nd, g, h, r, gr, n, n_storage, n_nodes, n_bins, scale_g, scale_h,
-      left_only, rows_per_chunk, shift, qbits, o);
-  return cudaGetLastError();
+  auto* o = static_cast<unsigned long long*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Descend none = {nullptr, nullptr, nullptr, 0};
+  return shared ? launch_accum<true, kNodeIds>(
+                      pl, s, b, nd, g, h, n, n_storage, n_nodes, n_bins,
+                      scale_g, scale_h, left_only, none, o)
+                : launch_accum<false, kNodeIds>(
+                      pl, s, b, nd, g, h, n, n_storage, n_nodes, n_bins,
+                      scale_g, scale_h, left_only, none, o);
 }
 
 // The fused descend: new_node[r] = node[r] < 0 ? -1 : 2*node[r] +
-// (bins[feat[k], r] > thr[k]), k = node[r] (by_node) or r, and the
-// left-child sums of new_node into out, a zeroed [2, n_prev, F, n_bins]
-// int64; bins is the plain [F, n] matrix.
+// (bins[feat[k], r] > thr[k]), k = node[r] (by_node; a parent past the
+// n_prev tables stays -1) or r, and the left-child sums of new_node into
+// out, a zeroed [2, n_prev, F, n_bins] int64; bins is the plain [F, n]
+// matrix.  The plan is histogram.py's _descend_plan (that of
+// dmlc_hist_accum, with each block's shared bytes holding the per-node
+// split table and, with cluster > 1, the cluster's ids of two steps).
 int dmlc_fused_descend(const void* bins, const void* node, const void* feat,
                        const void* thr, int by_node, const void* grad,
-                       const void* hess, long long n, int n_features,
-                       int n_prev, int n_bins, float scale_g, float scale_h,
-                       void* out, void* new_node, void* stream) {
-  if (n_features <= 0 || n_prev <= 0 || n_bins <= 0)
+                       const void* hess, long long n, const void* rows,
+                       const void* groups, int n_groups, int shared, int smem,
+                       int chunks, long long rows_per_chunk, int shift,
+                       int qbits, int cluster, int n_features, int n_prev,
+                       int n_bins, float scale_g, float scale_h, void* out,
+                       void* new_node, void* stream) {
+  const Plan pl = {static_cast<const int32_t*>(rows),
+                   static_cast<const int32_t*>(groups), n_groups, shared,
+                   smem, chunks, rows_per_chunk, shift, qbits, cluster};
+  if (!plan_ok(pl) || n_features <= 0 || n_prev <= 0 || n_prev > 32767 ||
+      n_bins <= 0 || (cluster > 1 && !shared))
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  // features per block: two blocks per SM (half the shared memory each)
-  // while that holds a quarter of the features, else one block holding
-  // as many histograms as fit; where that is fewer than two, the
-  // global-atomic instantiation over every feature, so each row descends
-  // once per block.  (On 10M x 28 x 256, H100: two blocks were faster at
-  // n_prev 2 and 4, one at 8 and 16; at 32 a block of one feature was
-  // slower than global atomics over all 28.)
-  const size_t per_feat = 2ull * n_prev * n_bins * sizeof(unsigned long long);
-  const size_t whole = static_cast<size_t>(max_smem);
-  const size_t half = whole / 2;
-  const size_t quarter = (static_cast<size_t>(n_features) + 3) / 4;
-  const bool shared = 2 * per_feat <= whole;
-  const size_t fit = !shared ? n_features
-                     : per_feat * quarter <= half ? half / per_feat
-                                                  : whole / per_feat;
-  const int kf = static_cast<int>(
-      fit < static_cast<size_t>(n_features) ? fit : n_features);
-  const int groups = (n_features + kf - 1) / kf;
-  // about two blocks per SM in all, split over the feature groups
-  long long chunks = (2LL * sms + groups - 1) / groups;
-  const long long max_chunks = (n + kThreads - 1) / kThreads;
-  if (chunks > max_chunks) chunks = max_chunks;
-  if (chunks < 1) chunks = 1;
-  const long long rows_per_chunk = (n + chunks - 1) / chunks;
-  const dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(groups));
+  const Descend dsc = {static_cast<const int32_t*>(feat),
+                       static_cast<const int32_t*>(thr),
+                       static_cast<int32_t*>(new_node), by_node};
   const auto* b = static_cast<const uint8_t*>(bins);
   const auto* nd = static_cast<const int32_t*>(node);
-  const auto* f = static_cast<const int32_t*>(feat);
-  const auto* t = static_cast<const int32_t*>(thr);
   const auto* g = static_cast<const float*>(grad);
   const auto* h = static_cast<const float*>(hess);
   auto* o = static_cast<unsigned long long*>(out);
-  auto* nn = static_cast<int32_t*>(new_node);
-  if (shared) {
-    const size_t smem = kf * per_feat;
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_descend_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    fused_descend_kernel<true><<<grid, kThreads, smem, s>>>(
-        b, nd, f, t, by_node, g, h, n, n_features, n_prev, n_bins, scale_g,
-        scale_h, kf, rows_per_chunk, o, nn);
-  } else {
-    fused_descend_kernel<false><<<grid, kThreads, 0, s>>>(
-        b, nd, f, t, by_node, g, h, n, n_features, n_prev, n_bins, scale_g,
-        scale_h, kf, rows_per_chunk, o, nn);
-  }
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!shared)
+    return launch_accum<false, kDescendEach>(pl, s, b, nd, g, h, n,
+                                             n_features, n_prev, n_bins,
+                                             scale_g, scale_h, 1, dsc, o);
+  if (cluster > 1)
+    return launch_accum<true, kDescendCluster>(pl, s, b, nd, g, h, n,
+                                               n_features, n_prev, n_bins,
+                                               scale_g, scale_h, 1, dsc, o);
+  return launch_accum<true, kDescendEach>(pl, s, b, nd, g, h, n, n_features,
+                                          n_prev, n_bins, scale_g, scale_h, 1,
+                                          dsc, o);
 }
 
 // new_node[r] = node[r] < 0 ? -1 : 2*node[r] + (decoded bin > thr[k]),

@@ -443,14 +443,19 @@ class AccumPlan(NamedTuple):
     rows_per_chunk: int
     shift: int
     qbits: int
+    #: blocks of a thread-block cluster along the groups (the fused
+    #: descend, :func:`_descend_plan`; 1: none)
+    cluster: int = 1
 
 
 @functools.lru_cache(maxsize=64)
 def _accum_plan(layout: Optional[bl.BinLayout], n_features: int, n: int,
                 n_nodes: int, n_bins: int,
-                limits: Tuple[int, int, int, int]) -> AccumPlan:
+                limits: Tuple[int, int, int, int],
+                reserve: int = 0) -> AccumPlan:
     """The accumulation's plan on a card of ``limits``
-    (:func:`_device_limits`) for ``n`` rows.
+    (:func:`_device_limits`) for ``n`` rows; ``reserve`` shared bytes a
+    block are kept for the fused descend's tables (:func:`_descend_plan`).
 
     * Digits: :func:`hist_scales` keeps ``n · max|q| < 2^53``, so every
       row has ``|q| ≤ 2^qbits`` with ``qbits = 53 − bitlen(n)``; a row
@@ -471,7 +476,7 @@ def _accum_plan(layout: Optional[bl.BinLayout], n_features: int, n: int,
     P = slots.shape[0]
     table = TABLE_ENTRY_BYTES * P
     rows, groups, shared = bl.hist_groups(slots.numpy(), n_nodes, n_bins,
-                                          optin - table)
+                                          optin - table - reserve)
     qbits = max(1, 53 - max(n, 1).bit_length())
     L = (63 - qbits) // 2
     G = len(groups)
@@ -493,8 +498,70 @@ def _accum_plan(layout: Optional[bl.BinLayout], n_features: int, n: int,
             bl.CELL_BYTES * int(groups[:, 2].max())
     else:
         smem = table
-    return AccumPlan(rows, groups, shared, smem, chunks, rows_per_chunk,
-                     32 - L, qbits)
+    return AccumPlan(rows, groups, shared, smem + reserve, chunks,
+                     rows_per_chunk, 32 - L, qbits)
+
+
+#: quads of 4 rows a block of the accumulation takes a step
+#: (``kStepQuads`` in csrc/histogram.cu)
+STEP_QUADS = ACCUM_THREADS * ACCUM_STEP_ROWS // 4
+#: shared bytes of a cluster's ids: two steps of four int16 a quad
+CLUSTER_IDS_BYTES = 2 * STEP_QUADS * 8
+
+
+def _split_bytes(n_prev: int) -> int:
+    """Shared bytes of the fused descend's per-node split table: an int2
+    ``(feat, thr)`` a parent, 16-byte aligned."""
+    return 8 * (n_prev + (n_prev & 1))
+
+
+@functools.lru_cache(maxsize=64)
+def _descend_plan(n_features: int, n: int, n_prev: int, n_bins: int,
+                  limits: Tuple[int, int, int, int]) -> AccumPlan:
+    """The fused descend's plan: :func:`_accum_plan`'s over ``n_prev``
+    parents of the plain ``[F, n]`` matrix, its groups balanced
+    (:func:`_balanced`), with each block's shared memory also holding the
+    per-node split table.  Where the plan with the cluster's ids
+    (:data:`CLUSTER_IDS_BYTES`) has an even number of feature groups, pairs
+    of a chunk's groups are thread-block clusters whose two blocks share
+    the descend of each step's rows, so each row's byte is gathered once a
+    pair (10M × 28 × 256: n_prev 16 and 32; larger clusters leave SMs of a
+    GPC idle, PERF.md).  Otherwise (one group or an odd number, the
+    global-atomic path) every group's block descends its rows itself."""
+    reserve = _split_bytes(n_prev)
+    base = _balanced(_accum_plan(None, n_features, n, n_prev, n_bins,
+                                 limits, reserve), reserve)
+    if not base.shared or len(base.groups) < 2:
+        return base
+    reserve += CLUSTER_IDS_BYTES
+    plan = _balanced(_accum_plan(None, n_features, n, n_prev, n_bins,
+                                 limits, reserve), reserve)
+    if len(plan.groups) % 2:
+        return base
+    return plan._replace(cluster=2)
+
+
+def _balanced(plan: AccumPlan, reserve: int) -> AccumPlan:
+    """``plan`` (of the plain matrix, with ``reserve`` shared bytes a block
+    besides its table and cells; every physical row has the same cells)
+    with its rows spread evenly over as many groups, so that no group is a
+    small remainder (a block of it idles, in a cluster while its peer
+    runs)."""
+    if not plan.shared or len(plan.groups) < 2:
+        return plan
+    P, G = plan.rows.shape[0], len(plan.groups)
+    p0, p1, c0, _ = (int(x) for x in plan.groups[0])
+    cells = c0 // (p1 - p0)
+    rows = plan.rows.copy()
+    groups = np.zeros((G, 4), np.int32)
+    bounds = [P * g // G for g in range(G + 1)]
+    for g in range(G):
+        p0, p1 = bounds[g], bounds[g + 1]
+        rows[p0:p1, 3] = cells * np.arange(p1 - p0)
+        groups[g] = (p0, p1, cells * (p1 - p0), 0)
+    width = -(-P // G)
+    smem = (TABLE_ENTRY_BYTES + bl.CELL_BYTES * cells) * width + reserve
+    return plan._replace(rows=rows, groups=groups, smem=smem)
 
 
 @functools.lru_cache(maxsize=64)
@@ -505,6 +572,18 @@ def _plan_on(layout, n_features, n, n_nodes, n_bins, device):
         else torch.cuda.current_device()
     plan = _accum_plan(layout, n_features, n, n_nodes, n_bins,
                        _device_limits(index))
+    return (plan, torch.from_numpy(plan.rows).to(device),
+            torch.from_numpy(plan.groups).to(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _descend_plan_on(n_features, n, n_prev, n_bins, device):
+    """:func:`_descend_plan` for ``device``, its tables there (cached as
+    :func:`_plan_on`)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    plan = _descend_plan(n_features, n, n_prev, n_bins,
+                         _device_limits(index))
     return (plan, torch.from_numpy(plan.rows).to(device),
             torch.from_numpy(plan.groups).to(device))
 
@@ -604,14 +683,7 @@ def fused_round_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
           and prev_hist.is_contiguous(),
           f"prev_hist must be a contiguous [2, {n_prev}, {S}, {n_bins}] "
           "float32 tensor")
-    new_node = torch.empty(n, dtype=torch.int32, device=bins_t.device)
-    F = bins_t.shape[0] if layout is None else layout.n_features
-    _, dec = bl.kernel_tables(layout, F, bins_t.device)
-    rc = _lib().dmlc_descend(
-        bins_t.data_ptr(), node_id.data_ptr(), feat.data_ptr(),
-        thr.data_ptr(), int(by_node), n, dec.data_ptr(), new_node.data_ptr(),
-        torch.cuda.current_stream(bins_t.device).cuda_stream)
-    _check_launch(rc, "dmlc_descend")
+    new_node = _descend_kernel(bins_t, node_id, feat, thr, by_node, layout)
     acc = _accum_kernel(bins_t, new_node, grad, hess, n_prev, n_bins, kg, kh,
                         True, layout)
     hist = _epilogue_kernel(acc, prev_hist, n_prev, kg, kh)
@@ -624,6 +696,22 @@ def fused_round_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
 
 fused_round_kernel.launches = 0
 fused_round_kernel.layout_launches = 0
+
+
+def _descend_kernel(bins_t, node_id, feat, thr, by_node, layout):
+    """``new_node [n]`` by ``descend_kernel`` (one launch; the layout
+    mode's decode under a ``layout``): the descend of
+    :func:`descend_plain` without a missing direction."""
+    n = bins_t.shape[1]
+    new_node = torch.empty(n, dtype=torch.int32, device=bins_t.device)
+    F = bins_t.shape[0] if layout is None else layout.n_features
+    _, dec = bl.kernel_tables(layout, F, bins_t.device)
+    rc = _lib().dmlc_descend(
+        bins_t.data_ptr(), node_id.data_ptr(), feat.data_ptr(),
+        thr.data_ptr(), int(by_node), n, dec.data_ptr(), new_node.data_ptr(),
+        torch.cuda.current_stream(bins_t.device).cuda_stream)
+    _check_launch(rc, "dmlc_descend")
+    return new_node
 
 
 def _check_split_tables(bins_t, feat, thr, m):
@@ -641,25 +729,30 @@ def fused_descend_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
                          sync: Optional[Sync] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CUDA fused descend: ``(left_hist [2, n_prev, F, n_bins] f32,
-    new_node [n])`` — one launch that descends every row in registers
-    and builds the left children of a group of features per block, then
-    the dequantising epilogue without ``prev`` (``sync`` maps the int64
-    sums between them).  ``feat``/``thr`` are per-node tables
-    ``[n_prev]`` (``by_node``) or per-row arrays ``[n]``.  The plain
-    ``[F, n]`` matrix only (no layout mode).  Counts its calls in
-    ``fused_descend_kernel.launches``."""
+    new_node [n])`` — one launch, the accumulation kernel of
+    :func:`hist_kernel` with a descend prologue: each row is descended in
+    registers and its left child added into the feature groups' shared
+    histograms (:func:`_descend_plan`); then the dequantising epilogue
+    without ``prev`` (``sync`` maps the int64 sums between them).
+    ``feat``/``thr`` are per-node tables ``[n_prev]`` (``by_node``) or
+    per-row arrays ``[n]``.  The plain ``[F, n]`` matrix only (no layout
+    mode).  Counts its calls in ``fused_descend_kernel.launches``."""
     _check_inputs(bins_t, node_id, grad, hess, n_bins)
     F, n = bins_t.shape
     _check_split_tables(bins_t, feat, thr, n_prev if by_node else n)
-    acc = torch.zeros(2, n_prev, F, n_bins, dtype=torch.int64,
-                      device=bins_t.device)
-    new_node = torch.empty(n, dtype=torch.int32, device=bins_t.device)
+    CHECK(n_prev <= 32767, f"n_prev must be at most 32767, got {n_prev}")
+    device = bins_t.device
+    plan, rows, groups = _descend_plan_on(F, n, n_prev, n_bins, device)
+    acc = torch.zeros(2, n_prev, F, n_bins, dtype=torch.int64, device=device)
+    new_node = torch.empty(n, dtype=torch.int32, device=device)
     rc = _lib().dmlc_fused_descend(
         bins_t.data_ptr(), node_id.data_ptr(), feat.data_ptr(),
-        thr.data_ptr(), int(by_node), grad.data_ptr(), hess.data_ptr(), n, F,
-        n_prev, n_bins, 2.0 ** kg, 2.0 ** kh, acc.data_ptr(),
-        new_node.data_ptr(),
-        torch.cuda.current_stream(bins_t.device).cuda_stream)
+        thr.data_ptr(), int(by_node), grad.data_ptr(), hess.data_ptr(), n,
+        rows.data_ptr(), groups.data_ptr(), len(plan.groups),
+        int(plan.shared), plan.smem, plan.chunks, plan.rows_per_chunk,
+        plan.shift, plan.qbits, plan.cluster, F, n_prev, n_bins, 2.0 ** kg,
+        2.0 ** kh, acc.data_ptr(), new_node.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
     _check_launch(rc, "dmlc_fused_descend")
     if sync is not None:
         acc = sync(acc)
@@ -752,10 +845,12 @@ def fused_descend_histogram(
 
     ``fuse=True`` (``DMLC_TPU_FUSED_DESCEND=1`` in training) runs the
     descend inside the histogram pass: :func:`fused_descend_kernel` on
-    CUDA tensors, :func:`fused_descend_plain` on CPU tensors.  As in JAX
-    the missing direction (``dir_sel``/``miss_bin``) and a ``layout``
-    take the unfused chain: the torch descend, then the histogram
-    kernel over left children.  ``feat_sel``/``thr_sel`` (and
+    CUDA tensors, :func:`fused_descend_plain` on CPU tensors.  Otherwise,
+    and as in JAX for the missing direction (``dir_sel``/``miss_bin``)
+    and a ``layout``, the unfused chain: the descend (on CUDA tensors
+    ``descend_kernel``, B2's, which decodes layouts; the torch
+    :func:`descend_plain` where a missing direction routes), then the
+    histogram over left children.  ``feat_sel``/``thr_sel`` (and
     ``dir_sel``) are per-row ``[n]``, or per-node ``[n_prev]`` with
     ``by_node``.  ``method`` is accepted for the JAX signature (this
     package has one histogram engine)."""
@@ -768,8 +863,14 @@ def fused_descend_histogram(
             return fused_descend_kernel(bins_t, node_id, feat, thr, grad,
                                         hess, n_prev, n_bins, kg, kh,
                                         by_node, sync)
-        new_node = descend_plain(bins_t, node_id, feat, thr, by_node, layout,
-                                 dir_sel, miss_bin)
+        if dir_sel is None:
+            _check_split_tables(bins_t, feat, thr,
+                                n_prev if by_node else bins_t.shape[1])
+            new_node = _descend_kernel(bins_t, node_id, feat, thr, by_node,
+                                       layout)
+        else:
+            new_node = descend_plain(bins_t, node_id, feat, thr, by_node,
+                                     layout, dir_sel, miss_bin)
         left = hist_kernel(bins_t, new_node, grad, hess, n_prev, n_bins, kg,
                            kh, layout, left_only=True, sync=sync)
         return left, new_node

@@ -18,7 +18,14 @@ checkout, BASE_DIR, each in its own process on the same card, then prints the
 time of each kernel in this checkout over its time in BASE_DIR (the two runs of
 each averaged).  ``--profile`` adds each CUDA kernel's mean device time inside
 ``hist`` and ``fused_round`` at n_prev 1, from a ``torch.profiler`` trace.
-``--attention`` times the three flash-attention kernels instead
+``--descend`` adds B3, ``fused_descend_kernel`` at ``DESCEND_N_PREV`` parents
+(per-node tables), beside the two-kernel chain it replaces (``descend_kernel``,
+then ``hist_kernel`` over left children), both by device time and each checked
+equal to the other.  ``--floor`` adds B5, the six one-hot
+product variants of ``tools/spike_hist_floor.py`` at n_build 1 and 2 on the
+spike's inputs (10M rows, the first 24 features), by device time.
+``--no-rounds`` leaves out ``hist`` and ``fused_round``.  ``--attention``
+times the three flash-attention kernels instead
 (``flash_fwd_kernel``, ``flash_bwd_dkv_kernel``, ``flash_bwd_dq_kernel``) at
 BERT-base's ``[8, 512, 12, 64]``, non-causal and causal, by device time from a
 profiler trace, and by CUDA events over ``ATTN_INNER`` calls back to back.
@@ -38,6 +45,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
 ROWS, FEATURES, N_BINS = 10_000_000, 28, 256
 N_PREV = (1, 2, 4, 8, 16, 64)
+#: n_prev of B3's levels: a depth-6 tree's, and three deeper ones
+DESCEND_N_PREV = (1, 2, 4, 8, 16, 32, 64, 2048)
 #: n_prev of the layout-mode levels (lossguide's, and depth-wise ones)
 LAYOUT_N_PREV = (1, 4, 16)
 SEED = 0
@@ -135,7 +144,8 @@ def this_chip_smoke():
     return chip_smoke
 
 
-def run_one(root, rows, reps, profile=False, layouts=False):
+def run_one(root, rows, reps, profile=False, layouts=False, rounds=True,
+            descend=False, floor=False):
     c = this_chip_smoke()
     sys.path.insert(0, root)
     import torch
@@ -161,12 +171,13 @@ def run_one(root, rows, reps, profile=False, layouts=False):
 
     out = {"root": root, "nvidia_smi": gpu_name_and_power_limit(),
            "rows": rows, "features": FEATURES, "n_bins": N_BINS,
-           "hist_ms": time_ms(torch, hist, reps),
-           "device_ms": {"hist": c.device_ms(torch, hist, reps)},
-           "fused_round_ms": {}}
+           "hist_ms": None, "device_ms": {}, "fused_round_ms": {}}
+    if rounds:
+        out["hist_ms"] = time_ms(torch, hist, reps)
+        out["device_ms"]["hist"] = c.device_ms(torch, hist, reps)
     if profile:
         out["hist_kernels_us"] = device_times(torch, hist, reps)
-    for n_prev in N_PREV:
+    for n_prev in N_PREV if rounds else ():
         name = f"fused_round_{n_prev}"
         fused = level(torch, H, bins, g, h, gen, n_prev, N_BINS, kg, kh)
         out["fused_round_ms"][str(n_prev)] = time_ms(torch, fused, reps)
@@ -174,6 +185,15 @@ def run_one(root, rows, reps, profile=False, layouts=False):
         if profile and n_prev == 1:
             out["fused_round_1_kernels_us"] = device_times(torch, fused,
                                                            reps)
+    if descend:
+        out["descend_equal"] = {}
+        for n_prev in DESCEND_N_PREV:
+            fns, equal = descend_level(torch, H, bins, g, h, gen, n_prev, kg,
+                                       kh)
+            out["descend_equal"][str(n_prev)] = equal
+            for name, fn in fns.items():
+                out["device_ms"][f"{name}_{n_prev}"] = c.device_ms(torch, fn,
+                                                                   reps)
     if layouts:
         del bins
         for cfg, lay, phys in layout_matrices(c):
@@ -195,7 +215,56 @@ def run_one(root, rows, reps, profile=False, layouts=False):
                               khl, lay, c)
                 out["device_ms"][f"fused_round_layout_{cfg}_{n_prev}"] = \
                     c.device_ms(torch, fused, reps)
+    if floor:
+        bins = g = h = None
+        from dmlc_core_tpu_torch.tools import spike_hist_floor as S
+
+        for n_build in (1, 2):
+            fb, node, fg, fh = S._prep(n_build, rows, FEATURES, "cuda")
+            fb = fb[:FEATURES - FEATURES % S.GROUP]
+            for v in S.VARIANTS:
+                out["device_ms"][f"hist_floor_{v}_nb{n_build}"] = c.device_ms(
+                    torch, lambda: S.kernel_variant(fb, node, fg, fh, n_build,
+                                                    v), reps)
+            del fb, node, fg, fh
     print(json.dumps(out), flush=True)
+
+
+def descend_level(torch, H, bins, g, h, gen, n_prev, kg, kh):
+    """B3 at one level of ``n_prev`` random parents (per-node tables):
+    ``({name: fn}, equal)`` with ``fused_descend`` and ``descend_chain``
+    (``descend_kernel`` then ``hist_kernel`` over left children);
+    ``equal``: the two give the same bytes."""
+    F, rows = bins.shape
+    dev = bins.device
+    nd = torch.randint(0, n_prev, (rows,), dtype=torch.int32, device=dev,
+                       generator=gen)
+    feat = torch.randint(0, F, (n_prev,), dtype=torch.int32, device=dev,
+                         generator=gen)
+    thr = torch.randint(0, N_BINS - 1, (n_prev,), dtype=torch.int32,
+                        device=dev, generator=gen)
+    _, dec = H.bl.kernel_tables(None, F, dev)
+
+    def chain():
+        new = torch.empty(rows, dtype=torch.int32, device=dev)
+        rc = H._lib().dmlc_descend(
+            bins.data_ptr(), nd.data_ptr(), feat.data_ptr(), thr.data_ptr(),
+            1, rows, dec.data_ptr(), new.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        assert rc == 0, rc
+        return H.hist_kernel(bins, new, g, h, n_prev, N_BINS, kg, kh,
+                             left_only=True), new
+
+    def fused():
+        return H.fused_descend_kernel(bins, nd, feat, thr, g, h, n_prev,
+                                      N_BINS, kg, kh, True)
+
+    fns = {"fused_descend": fused, "descend_chain": chain}
+    want = chain()
+    equal = all(torch.equal(a, b) for name, fn in fns.items()
+                for a, b in zip(fn(), want))
+    torch.cuda.synchronize()
+    return fns, equal
 
 
 def level(torch, H, bins, g, h, gen, n_prev, n_bins, kg, kh, layout=None,
@@ -243,7 +312,7 @@ def layout_matrices(c):
 
 
 def run_ab(base, rows, reps, profile=False, attention=False,
-           layouts=False):
+           layouts=False, rounds=True, descend=False, floor=False):
     runs = []
     for root in (base, ROOT, ROOT, base):
         proc = subprocess.run(
@@ -251,8 +320,11 @@ def run_ab(base, rows, reps, profile=False, attention=False,
              "--rows", str(rows), "--reps", str(reps)]
             + (["--profile"] if profile else [])
             + (["--attention"] if attention else [])
-            + (["--layouts"] if layouts else []),
-            check=True, capture_output=True, text=True, timeout=600)
+            + (["--layouts"] if layouts else [])
+            + ([] if rounds else ["--no-rounds"])
+            + (["--descend"] if descend else [])
+            + (["--floor"] if floor else []),
+            check=True, capture_output=True, text=True, timeout=900)
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs.append(json.loads(line))
@@ -261,8 +333,9 @@ def run_ab(base, rows, reps, profile=False, attention=False,
         if attention:
             return {f"{k}_{m}": v[m] for k, v in r["attention"].items()
                     for m in ("device_ms", "ms")}
-        return {"hist": r["hist_ms"], **{f"fused_round_{k}": v for k, v in
-                                         r["fused_round_ms"].items()},
+        return {**({"hist": r["hist_ms"]} if r["hist_ms"] else {}),
+                **{f"fused_round_{k}": v for k, v in
+                   r["fused_round_ms"].items()},
                 **{f"{k}_device": v for k, v in r["device_ms"].items()}}
 
     b = [flat(runs[0]), flat(runs[3])]
@@ -286,15 +359,25 @@ def main():
     ap.add_argument("--layouts", action="store_true",
                     help="also the layout modes on configurations 2a "
                          "and 2b (covtype-schema rows), by device time")
+    ap.add_argument("--descend", action="store_true",
+                    help="also B3 (fused_descend) and its two-kernel "
+                         "chain, by device time")
+    ap.add_argument("--floor", action="store_true",
+                    help="also B5's six one-hot product variants at "
+                         "n_build 1 and 2, by device time")
+    ap.add_argument("--no-rounds", dest="rounds", action="store_false",
+                    help="leave out hist and fused_round")
     args = ap.parse_args()
     if args.ab:
         run_ab(os.path.abspath(args.ab), args.rows, args.reps, args.profile,
-               args.attention, args.layouts)
+               args.attention, args.layouts, args.rounds, args.descend,
+               args.floor)
     elif args.attention:
         run_attention(os.path.abspath(args.root), args.reps)
     else:
         run_one(os.path.abspath(args.root), args.rows, args.reps,
-                args.profile, args.layouts)
+                args.profile, args.layouts, args.rounds, args.descend,
+                args.floor)
 
 
 if __name__ == "__main__":

@@ -2,17 +2,21 @@
 """Where a boosting round's device time goes.
 
     python3 dmlc_core_tpu_torch/tools/profile_gbt.py [--rounds N]
-        [--depthwise] [--root DIR]
+        [--depthwise | --fused-descend] [--root DIR]
 
 Fits ``HistGBT(max_depth=6, n_bins=256)`` on the card over
 ``chip_smoke.py``'s HIGGS-like 10M × 28 rows (seed 7, binned on the card)
 as configuration 1 (the bench's levers: lossguide, 16 leaves, int4 packing
-and feature bundling requested; ``--depthwise``: no levers): one fit of
+and feature bundling requested; ``--depthwise``: no levers;
+``--fused-descend``: depth-wise with the data-parallel path's levers on
+one card, ``DMLC_HIST_BLOCKS=8`` and ``DMLC_TPU_FUSED_DESCEND=1``, so
+every level below the root is one fused descend, B3): one fit of
 ``--rounds`` trees after ``--warmup`` discarded rounds, then the same fit
 again under ``torch.profiler``.  Prints one JSON line with the card's name
 and power limit, the host-clock time per round, each CUDA kernel group's
 device time per round (the histogram accumulation, the descend, the
-epilogue, the rest) with its launches per round, the busiest other
+epilogue, the fused descend, the rest) with its launches per round, the
+busiest other
 kernels, and the device's idle share: one minus the summed kernel time
 over the fit's wall time (one stream, so kernels do not overlap).
 ``--root`` profiles the package of another checkout on the same rows.
@@ -23,15 +27,20 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-GROUPS = ("hist_accum_kernel", "descend_kernel", "hist_epilogue_kernel",
-          "fused_descend_kernel")
+# "fused_descend_kernel" before "descend_kernel", its substring
+GROUPS = ("hist_accum_kernel", "fused_descend_kernel", "descend_kernel",
+          "hist_epilogue_kernel")
 
 
 def group_of(name: str) -> str:
+    # the fused descend is the accumulation kernel with a descend prologue
+    if re.search(r"hist_accum_kernel<(true|false), [12]>", name):
+        return "fused_descend_kernel"
     for g in GROUPS:
         if g in name:
             return g
@@ -42,7 +51,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=3)
-    ap.add_argument("--depthwise", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--depthwise", action="store_true")
+    mode.add_argument("--fused-descend", action="store_true")
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
     # this checkout's rows and levers, whichever package is profiled
@@ -62,7 +73,8 @@ def main() -> int:
         print("profile_gbt: no CUDA GPU available", file=sys.stderr)
         return 1
     X, y = c.higgs_like(np, c.ROWS, c.FEATURES, 7)
-    env = {} if args.depthwise else c.BENCH_LEVERS
+    env = (c.DP_BLOCKS if args.fused_descend
+           else {} if args.depthwise else c.BENCH_LEVERS)
     with c.levers(env):
         model = HistGBT(n_trees=args.rounds, max_depth=c.MAX_DEPTH,
                         n_bins=c.N_BINS, device="cuda")
@@ -93,7 +105,8 @@ def main() -> int:
     print(json.dumps({
         "nvidia_smi": gpu_name_and_power_limit(),
         "package": os.path.dirname(dmlc_core_tpu_torch.__file__),
-        "config": "depthwise" if args.depthwise else "1",
+        "config": ("fused_descend" if args.fused_descend
+                   else "depthwise" if args.depthwise else "1"),
         "levers": env, "rows": c.ROWS, "features": c.FEATURES,
         "rounds": args.rounds,
         "wall_ms_per_round": wall / args.rounds * 1e3,

@@ -57,7 +57,8 @@ from dmlc_core_tpu_torch.ops.histogram import (_TILE_ROWS, _lo_factor,
 from dmlc_core_tpu_torch.utils.device import (gpu_name_and_power_limit,
                                               resolve_device)
 
-__all__ = ["VARIANTS", "kernel_variant", "kernel_variant_plain", "main"]
+__all__ = ["VARIANTS", "kernel_variant", "kernel_variant_plain",
+           "tile_runs", "main"]
 
 ROWS = int(os.environ.get("SPIKE_ROWS", 10_000_000))
 FEATS = int(os.environ.get("SPIKE_FEATURES", 28))
@@ -66,6 +67,11 @@ BINS = 256
 VARIANTS = ("shipped", "grpacc", "nodot", "noconstr", "pack4", "pack8")
 #: features per group of the kernel (and of the JAX kernel's loop)
 GROUP = 8
+#: blocks of the kernel the run plan aims at an SM: more than fit at once
+#: (one warpgroup and 38-60 KB of shared memory each: 3 to 6), as shorter
+#: runs even out the SMs' work (8 against 4: 0.94x / 0.88x the time of
+#: ``shipped`` at n_build 1 / 2 on an H100; PERF.md)
+BLOCKS_PER_SM = 8
 #: passes per timing of the slope, and its repeats
 SLOPE_N = (4, 24)
 SLOPE_REPEATS = 3
@@ -97,6 +103,18 @@ def _shape(bins_t, n_build, tile_rows, lo) -> Tuple[int, int, int, int]:
     CHECK(tile_rows > 0 and n >= tile_rows,
           f"need at least one whole tile of {tile_rows} rows, got {n}")
     return lo, hi, 2 * n_build * hi, n // tile_rows
+
+
+def tile_runs(n_tiles: int, n_groups: int, sms: int) -> int:
+    """Tiles a block of the kernel adds in order, its run: the block
+    keeps its sums in registers over the run and leaves one partial, and
+    a second launch adds the runs in order.  The shortest run whose
+    ``ceil(n_tiles / run)`` runs, times ``n_groups`` feature groups, are
+    at most :data:`BLOCKS_PER_SM` blocks for each of ``sms`` SMs."""
+    CHECK(n_tiles > 0 and n_groups > 0 and sms > 0,
+          f"bad run plan inputs ({n_tiles}, {n_groups}, {sms})")
+    runs = max(1, sms * BLOCKS_PER_SM // n_groups)
+    return -(-n_tiles // min(n_tiles, runs))
 
 
 def kernel_variant_plain(bins_t: torch.Tensor, node: torch.Tensor,
@@ -170,9 +188,10 @@ def kernel_variant(bins_t: torch.Tensor, node: torch.Tensor,
                    variant: str, *, tile_rows: int = _TILE_ROWS,
                    lo: Optional[int] = None) -> torch.Tensor:
     """The one-hot product histogram ``[F, A, lo]`` of :func:`kernel_variant_
-    plain` by the CUDA kernel of ``variant`` (two launches: the tiles'
-    products into a partial buffer, then their sum in tile order) on a
-    CUDA tensor; a CPU tensor runs the plain version.  ``bins_t`` is
+    plain` by the CUDA kernel of ``variant`` (two launches: a block per
+    run of consecutive tiles (:func:`tile_runs`) and group of 8 features
+    sums its tiles in order into one partial, then the runs are added in
+    order) on a CUDA tensor; a CPU tensor runs the plain version.  ``bins_t`` is
     ``[F, n]`` uint8 with unit row-element stride (a slice of the first
     features of a wider matrix is fine).  The kernel takes ``lo = 32``
     and n_build 1 or 2 (``A`` 16 or 32).  Counts its launches per variant
@@ -200,14 +219,16 @@ def kernel_variant(bins_t: torch.Tensor, node: torch.Tensor,
               f"tensor on {bins_t.device}")
     from dmlc_core_tpu_torch.ops._build import load_library
 
-    partial = torch.empty(n_tiles, F, A, lo, dtype=torch.float32,
-                          device=bins_t.device)
+    sms = torch.cuda.get_device_properties(bins_t.device).multi_processor_count
+    per_run = tile_runs(n_tiles, F // GROUP, sms)
+    partial = torch.empty(-(-n_tiles // per_run), F, A, lo,
+                          dtype=torch.float32, device=bins_t.device)
     out = torch.empty(F, A, lo, dtype=torch.float32, device=bins_t.device)
     rc = load_library("hist_floor").dmlc_hist_floor(
         bins_t.data_ptr(), bins_t.stride(0), node.data_ptr(), g.data_ptr(),
         h.data_ptr(), n_tiles, tile_rows, F, n_build, hi,
-        VARIANTS.index(variant), partial.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(bins_t.device).cuda_stream)
+        VARIANTS.index(variant), per_run, partial.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(bins_t.device).cuda_stream)
     if rc != 0:
         log_fatal(f"dmlc_hist_floor ({variant}): CUDA launch failed with "
                   f"cudaError {rc}")

@@ -163,6 +163,23 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
               else "shipped")
 
 
+@pytest.mark.parametrize("n_tiles,n_groups,sms", [
+    (610, 3, 132), (610, 1, 132), (1, 3, 132), (7, 3, 2), (1000, 4, 3),
+    (528, 1, 132), (529, 1, 132), (50, 40, 1)])
+def test_tile_runs_cover_every_tile_once_in_order(n_tiles, n_groups, sms):
+    """The kernel's blocks take runs of consecutive tiles: the runs cover
+    every whole tile once, in order, none is empty, and the blocks of all
+    feature groups are at most ``BLOCKS_PER_SM`` an SM (one a group where
+    a single run exceeds that)."""
+    per = S.tile_runs(n_tiles, n_groups, sms)
+    runs = -(-n_tiles // per)
+    tiles = [t for r in range(runs)
+             for t in range(r * per, min(n_tiles, (r + 1) * per))]
+    assert tiles == list(range(n_tiles))
+    assert (runs - 1) * per < n_tiles
+    assert runs * n_groups <= max(sms * S.BLOCKS_PER_SM, n_groups)
+
+
 def test_prep_draws_the_jax_spikes_inputs():
     rows, feats = 3000, 9
     old = SPIKE.ROWS, SPIKE.FEATS
