@@ -26,6 +26,17 @@ and the script exits non-zero without the final ``ok`` line:
    ``fused_round_layout`` at n_prev 1, 4, 16) on the physical matrices of
    configurations 2a (12 rows: two bundles) and 2b (34 rows: 22 int4
    pairs);
+3b. missing — NaN-as-missing mode on a NaN copy of the HIGGS-like rows
+   (:func:`nan_copy`: 10% of each of features 1.. from seed 9, and feature
+   0 wherever it exceeds 1.0, so that both directions are learned): the
+   device route's cuts and ``apply_bins_missing`` held bit-equal to the
+   host route's (``compute_cuts`` on the CPU, ``_host_bin_t``);
+   ``descend_kernel``'s direction mode against ``descend_plain`` at n_prev
+   1..16 on those bins (bit-equal, both table forms, timed beside its
+   9-bytes-a-row bound); then the depth-wise fit of phase 4 on them, with
+   the checks of phase 4: missing mode, both directions learned, ``hist``
+   (B1) at every level and the direction-aware descend at every level and
+   the final one, no fused round;
 4. main — the depth-wise ``HistGBT(n_trees=5, max_depth=6, n_bins=256)``
    fit on the HIGGS-like data: launch counts set to 0 before and read
    after the fit, train logloss falling every round, ``predict`` on
@@ -40,8 +51,14 @@ and the script exits non-zero without the final ``ok`` line:
    the covtype-schema data, the checks of phase 4 with the layout modes'
    launches, against the lossguide fit with both levers off: 2b's model
    file byte-identical, 2a's split structure identical;
-7. cross-device — depth-wise, 1, 2a and 2b on 100k-row slices, on the GPU
-   and on the CPU (plain versions): every tree bit-identical;
+6b. eval_set — ``fit(eval_set=, early_stopping_rounds=2)`` with
+   ``eval_metric="auc"``, a score a tree, on the NaN rows (100k NaN
+   held-out rows as the eval set): ``eval_history``, ``best_iteration``
+   and ``predict``'s use of it; then on a 100k-row slice on the GPU and on
+   the CPU, their ``eval_history`` within rtol 1e-6;
+7. cross-device — depth-wise, 1, 2a, 2b and missing on 100k-row slices, on
+   the GPU and on the CPU (plain versions): every tree bit-identical, and
+   the model files;
 8. data_parallel — the data-parallel fit on the HIGGS-like rows: (a) a
    NCCL group of one on this card, ``DMLC_HIST_BLOCKS=8`` and
    ``DMLC_TPU_FUSED_DESCEND=1``: 5 ``fused_descend`` and no
@@ -51,7 +68,9 @@ and the script exits non-zero without the final ``ok`` line:
    ``DMLC_TPU_FUSED_DESCEND=1``: each rank's model file that of phase 4
    / 5; (c) the int8 sync (``DMLC_HIST_QUANT=1``) on the two ranks: the
    held-out accuracy floor of phase 4, its margins beside (b)'s exact
-   ones.  The ranks are child processes with a time limit;
+   ones; and the missing slice of phase 7 on the two ranks: each rank's
+   model file that of the 1-process fit on the card.  The ranks are child
+   processes with a time limit;
 9. deep kernels — the checks of phases 2 and 3 for ``fused_round`` and
    ``fused_descend`` at the levels of deeper trees (n_prev 32, 64 and
    2048 on the flagship's shapes, 64 and 2048 under each covtype layout
@@ -98,11 +117,13 @@ and the script exits non-zero without the final ``ok`` line:
     flagship's levers, host binning), with a time limit: its last line
     must be the final ``histgbt_rounds_per_sec_per_chip`` record of 100
     rounds, with kernel launches, and its headline fields are emitted;
-14. the ``kernels`` line (launches summed over phases 4-6 and 8, phase
-    11's for attention, phase 12's timing pass for the B5 variants), then
+14. the ``kernels`` line (launches summed over phases 3b-6b and 8, phase
+    11's for attention, phase 12's timing pass for the B5 variants;
+    ``descend_dir`` is ``descend_kernel``'s direction mode, B2's descend
+    on the missing path), then
     the card's name and power limit, then the ``ok`` line.
 
-The fit phases (4-8) run with ``DMLC_TPU_ROUNDS_PER_DISPATCH=1``: each
+The fit phases (3b-8) run with ``DMLC_TPU_ROUNDS_PER_DISPATCH=1``: each
 tree is its own chunk, fetched on its own, so ``last_tree_times`` stay
 per tree and the steady rate can leave the first tree out.
 """
@@ -218,6 +239,27 @@ PARAM_ATOL = 1e-3
 #: place)
 FLOOR_TOL = 2.0 ** -12
 NODOT_TOL = 2.0 ** -7
+#: launches of torch's spin kernel (``torch.cuda._sleep``, a few µs each)
+#: that open and close each profiled window of ``device_ms``: they take
+#: the records the tracer loses at a window's start
+TRACE_PAD = 256
+TRACE_PAD_CYCLES = 1000
+TRACE_PAD_KERNEL = "spin_kernel"
+#: the missing phase: NaN set from this seed (the held-out rows' from the
+#: next) in this share of each of features 1.., and in feature 0 wherever
+#: it exceeds MISS_CUT, so that both directions are learned; n_prev of the
+#: descend checks; the held-out accuracy floor of its fit (a CPU fit of
+#: 200k rows scores 0.80, the same rows without NaN 0.85)
+MISS_SEED = 9
+MISS_SHARE = 0.1
+MISS_CUT = 1.0
+MISS_N_PREV = (1, 2, 4, 8, 16)
+MISS_MIN_ACC = 0.75
+#: the eval_set phase: rounds, early stopping, and the cuda-vs-cpu
+#: agreement of eval_history's scores
+EVAL_TREES = 10
+EVAL_EARLY_STOP = 2
+EVAL_RTOL = 1e-6
 #: the bench child's time limit (s) and its rounds (the bench's default)
 BENCH_TIMEOUT = 600
 BENCH_ROUNDS = 100
@@ -272,38 +314,51 @@ def time_ms(torch, fn, reps: int, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int, attempts: int = 3) -> float:
+def device_ms(torch, fn, reps: int, attempts: int = 5) -> float:
     """Device time of one call of ``fn``: each CUDA kernel's mean time in
     a ``torch.profiler`` trace of ``reps`` calls, times its launches per
     call, summed (no host gap counts, unlike a CUDA-event window around a
     host-heavy call).
 
-    The tracer can drop a window's first records or deliver them late
-    into the next window, so a kernel's launches per call are its count
-    over ``reps`` rounded, and a kernel with fewer than half a launch a
-    call is a stray of another window and left out; an empty window
-    first takes any late records.  Up to ``attempts`` traces, then the
-    measurement fails."""
+    The tracer loses a window's first records, a number that grows as
+    the process runs, and can deliver records late into the next window.
+    So ``TRACE_PAD`` launches of torch's spin kernel open and
+    close each window and are left out by name; a kernel's launches per
+    call are its count over ``reps`` rounded half up, and a kernel with
+    fewer than half a launch a call is a stray of another window and
+    left out; an empty window first takes any late records.  Up to
+    ``attempts`` traces, each empty one reported on stderr with the
+    window's records, then the measurement fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]):
             torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(TRACE_PAD_CYCLES)
             for _ in range(reps):
                 fn()
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(TRACE_PAD_CYCLES)
             torch.cuda.synchronize()
         total = 0.0
+        seen = []
         for evt in prof.key_averages():
+            if TRACE_PAD_KERNEL in evt.key:
+                continue
             t = getattr(evt, "device_time_total", None)
             t = evt.cuda_time_total if t is None else t
-            per_call = round(evt.count / reps)
+            per_call = int(evt.count / reps + 0.5)
+            seen.append((evt.key[:40], evt.count, t))
             if t > 0 and per_call > 0:
                 total += t / evt.count * per_call
         if total > 0:
             return total / 1e3
+        print(json.dumps({"device_ms_empty_trace": attempt, "reps": reps,
+                          "records": seen}), file=sys.stderr, flush=True)
     raise RuntimeError(f"chip_smoke: no profiler trace of {reps} calls in "
                        f"{attempts} tries")
 
@@ -801,6 +856,8 @@ def zero_counts(H):
         fn.launches = 0
         fn.layout_launches = 0
     H.fused_descend_kernel.launches = 0
+    H.descend_kernel.launches = 0
+    H.descend_kernel.dir_launches = 0
 
 
 def read_counts(H):
@@ -808,7 +865,8 @@ def read_counts(H):
             "fused_round": H.fused_round_kernel.launches,
             "hist_layout": H.hist_kernel.layout_launches,
             "fused_round_layout": H.fused_round_kernel.layout_launches,
-            "fused_descend": H.fused_descend_kernel.launches}
+            "fused_descend": H.fused_descend_kernel.launches,
+            "descend_dir": H.descend_kernel.dir_launches}
 
 
 def fit_path(torch, np, H, X, y, Xv, yv, env, min_acc):
@@ -818,7 +876,6 @@ def fit_path(torch, np, H, X, y, Xv, yv, env, min_acc):
     ``save_model`` → ``load_model`` giving the same predictions."""
     from dmlc_core_tpu_torch import HistGBT
     from dmlc_core_tpu_torch.models.histgbt import _predict_trees
-    from dmlc_core_tpu_torch.ops.quantile import apply_bins
 
     model = HistGBT(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS,
                     device=DEVICE)
@@ -829,15 +886,18 @@ def fit_path(torch, np, H, X, y, Xv, yv, env, min_acc):
         wall_s = time.perf_counter() - t0
         launches = read_counts(H)
     n = len(X)
-    bins_t = apply_bins(torch.from_numpy(X).to(DEVICE), model.cuts)
+    bins_t = model._bin_matrix(X)
     y_d = torch.from_numpy(y).to(DEVICE)
     stacked = model._stacked_trees(model.trees)
+    dirs = stacked.get("dir")
     margin = torch.zeros(n, device=DEVICE)
     losses = []
     for t in range(TREES):
         margin = _predict_trees(bins_t, stacked["feat"][t:t + 1],
                                 stacked["thr"][t:t + 1],
-                                stacked["leaf"][t:t + 1], MAX_DEPTH, margin)
+                                stacked["leaf"][t:t + 1], MAX_DEPTH, margin,
+                                None if dirs is None else dirs[t:t + 1],
+                                model._miss_bin())
         losses.append(float(model._obj.metric(margin, y_d)))
     del bins_t
     require(all(b < a for a, b in zip(losses, losses[1:])) and
@@ -870,7 +930,8 @@ def fit_path(torch, np, H, X, y, Xv, yv, env, min_acc):
              "tree_times": model.last_tree_times,
              "bin_seconds": model.last_bin_seconds,
              "fit_wall_seconds": wall_s, "train_logloss": losses,
-             "holdout_accuracy": acc, "launches": launches}
+             "holdout_accuracy": acc, "launches": launches,
+             "missing": model._missing}
     return model, stats, model_bytes
 
 
@@ -977,10 +1038,12 @@ def phase_levers(torch, np, H, rates, X, y, Xv, yv):
 
 def phase_cross_device(np, slices):
     """Each configuration on a ``CROSS_ROWS`` slice, fit on the card and
-    on the CPU (plain versions): every tree bit-identical."""
+    on the CPU (plain versions): every tree bit-identical, and the model
+    files.  Returns each configuration's file."""
     from dmlc_core_tpu_torch import HistGBT
 
     kw = dict(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS)
+    out = {}
     for name, (X, y, env) in slices.items():
         with levers(env):
             gpu = HistGBT(device=DEVICE, **kw).fit(X, y)
@@ -992,26 +1055,257 @@ def phase_cross_device(np, slices):
                 and (gpu._bin_layout is None
                      or tuple(gpu._bin_layout) == tuple(cpu._bin_layout)),
                 f"{name}: layouts differ between cuda and cpu")
+        require(gpu._missing == cpu._missing == np.isnan(X).any(),
+                f"{name}: missing mode differs between cuda and cpu")
         for i, (a, b) in enumerate(zip(gpu.trees, cpu.trees)):
-            for key in ("feat", "thr", "gain", "leaf"):
+            require(list(a) == list(b),
+                    f"{name}: tree {i}'s arrays differ between cuda and cpu")
+            for key in a:
                 require(a[key].tobytes() == b[key].tobytes(),
                         f"{name}: tree {i} {key} differs between cuda and "
                         "cpu")
+        files = []
+        for m in (gpu, cpu):
+            with tempfile.TemporaryDirectory() as d:
+                m.save_model(os.path.join(d, "model.bin"))
+                with open(os.path.join(d, "model.bin"), "rb") as f:
+                    files.append(f.read())
+        require(files[0] == files[1],
+                f"{name}: cuda and cpu model files differ")
         pg, pc = gpu.predict(X), cpu.predict(X)
         require(np.array_equal(pg, pc),
                 f"{name}: cuda and cpu predictions differ")
         emit({"phase": "cross_device", "config": name, "rows": len(X),
-              "trees": TREES, "levers": env,
+              "trees": TREES, "levers": env, "missing": gpu._missing,
               "layout_phys_rows": (None if gpu._bin_layout is None
                                    else gpu._bin_layout.phys_rows),
               "identical_trees": len(gpu.trees),
+              "identical_model_files": True,
               "max_abs_pred_diff": float(np.abs(pg - pc).max())})
+        out[name] = files[0]
+    return out
 
 
-def phase_data_parallel(torch, np, H, rates, X, y, Xv, yv, main, lossguide):
+def nan_copy(np, X, seed):
+    """``X`` with NaN (missing) as the missing phase sets it: ``MISS_SHARE``
+    of each of features 1.. at random, from ``seed``, and feature 0
+    wherever it exceeds ``MISS_CUT``."""
+    rng = np.random.default_rng(seed)
+    Xm = X.copy()
+    for f in range(1, X.shape[1]):
+        Xm[rng.random(len(X)) < MISS_SHARE, f] = np.nan
+    Xm[X[:, 0] > MISS_CUT, 0] = np.nan
+    return Xm
+
+
+def check_descend_dir(torch, H, bins, masked, gen, n_prev, miss_bin, rates):
+    """``descend_kernel``'s direction mode at one level (``n_prev``
+    parents, random learned directions) against ``descend_plain``, twice
+    over, in both table forms; every row of the NaN bin follows its node's
+    direction; then timed beside its bound (the bin byte, the node id in
+    and out: 9 bytes a row, plus the tables)."""
+    F, n = bins.shape
+    dev = bins.device
+    nd = torch.randint(0, n_prev, (n,), dtype=torch.int32, device=dev,
+                       generator=gen)
+    nd = torch.where(masked, -1, nd).to(torch.int32)
+    feat = torch.randint(0, F, (n_prev,), dtype=torch.int32, device=dev,
+                         generator=gen)
+    thr = torch.randint(0, miss_bin, (n_prev,), dtype=torch.int32,
+                        device=dev, generator=gen)
+    dirv = torch.randint(0, 2, (n_prev,), dtype=torch.int32, device=dev,
+                         generator=gen)
+
+    def run(f_, t_, d_, by_node):
+        return H.descend_kernel(bins, nd, f_, t_, by_node, None, d_,
+                                miss_bin)
+
+    a = run(feat, thr, dirv, True)
+    b = run(feat, thr, dirv, True)
+    c = H.descend_plain(bins, nd, feat, thr, True, None, dirv, miss_bin)
+    torch.cuda.synchronize()
+    what = f"(n_prev={n_prev})"
+    require(torch.equal(a, c), f"descend_kernel (direction) != plain {what}")
+    require(torch.equal(a, b), f"descend_kernel not reproducible {what}")
+    safe = nd.clamp(min=0).long()
+    r = run(feat[safe], thr[safe], dirv[safe], False)
+    require(torch.equal(r, a), f"descend_kernel per-row form differs {what}")
+    row_bin = bins[feat[safe], torch.arange(n, device=dev)]
+    miss = (nd >= 0) & (row_bin == miss_bin)
+    require(bool(miss.any()) and torch.equal(
+        (a[miss] % 2 == 1), dirv[safe][miss] == 0),
+        f"NaN rows do not follow their direction {what}")
+    nbytes = n + 4 * n + 4 * n + 12 * n_prev
+    b_ms, b_by = bound(nbytes, n, rates)
+    return {
+        "n_prev": n_prev, "missing_rows": int(miss.sum()),
+        "missing_right": int((a[miss] % 2).sum()),
+        "ms": time_ms(torch, lambda: run(feat, thr, dirv, True), REPS),
+        "plain_ms": time_ms(torch, lambda: H.descend_plain(
+            bins, nd, feat, thr, True, None, dirv, miss_bin),
+            max(3, REPS // 3)),
+        # a short kernel: a long window, past the tracer's dropped first
+        # records
+        "device_ms": device_ms(torch, lambda: run(feat, thr, dirv, True),
+                               10 * REPS),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": max_abs_err(torch, a, c), "bytes": nbytes}
+
+
+def live_dirs(np, trees):
+    """The learned directions of every split node of ``trees``."""
+    return np.concatenate([np.asarray(t["dir"])[lv, :1 << lv]
+                           for t in trees for lv in range(MAX_DEPTH)])
+
+
+def phase_missing(torch, np, H, rates, X, y, Xv, yv):
+    """NaN-as-missing mode at the flagship's shapes: the NaN copies of the
+    HIGGS-like rows; the device route's cuts and bins against the host
+    route's; ``descend_kernel``'s direction mode at ``MISS_N_PREV``
+    against its plain version on those bins; the depth-wise fit (B1 at
+    every level, the direction-aware descend, no fused round).  Returns
+    the NaN rows, the ``kernels`` entry of the direction mode and the
+    fit's launches."""
+    from dmlc_core_tpu_torch.models.gbt_split import _host_bin_t
+    from dmlc_core_tpu_torch.ops.quantile import (apply_bins_missing,
+                                                  compute_cuts)
+
+    t0 = time.perf_counter()
+    Xm = nan_copy(np, X, MISS_SEED)
+    Xmv = nan_copy(np, Xv, MISS_SEED + 1)
+    datagen_s = time.perf_counter() - t0
+    miss_bin = N_BINS - 1
+    Xd = torch.from_numpy(Xm).to(DEVICE)
+    t0 = time.perf_counter()
+    cuts = compute_cuts(Xd, N_BINS - 1, missing=True)
+    bins = apply_bins_missing(Xd, cuts, miss_bin)
+    torch.cuda.synchronize()
+    device_bin_s = time.perf_counter() - t0
+    del Xd
+    t0 = time.perf_counter()
+    cuts_h = compute_cuts(torch.from_numpy(Xm), N_BINS - 1,
+                          missing=True).numpy()
+    host = _host_bin_t(Xm, cuts_h, missing=True)
+    host_bin_s = time.perf_counter() - t0
+    require(cuts.shape == (FEATURES, N_BINS - 2) and np.array_equal(
+        cuts.cpu().numpy().view(np.uint32), cuts_h.view(np.uint32)),
+        "missing: device-route cuts differ from the host route's")
+    require(bool(torch.isfinite(cuts).all()), "missing: cuts not finite")
+    bins_np = bins.cpu().numpy()
+    differ = (bins_np != host).sum(1)
+    require(bins.dtype == torch.uint8 and not differ.any(),
+            f"missing: device bins differ from _host_bin_t on "
+            f"{differ.tolist()} rows")
+    nan_rows = (bins_np == miss_bin).sum(1)
+    require(np.array_equal(nan_rows, np.isnan(Xm).sum(0)),
+            "missing: NaN rows not in the reserved bin")
+    del host, bins_np
+    emit({"phase": "missing_binning", "rows": ROWS, "n_bins": N_BINS,
+          "miss_bin": miss_bin, "nan_rows_per_feature": nan_rows.tolist(),
+          "datagen_seconds": datagen_s, "device_bin_seconds": device_bin_s,
+          "host_bin_seconds": host_bin_s, "rows_differing": 0})
+    _, _, _, masked, gen, _, _ = kernel_inputs(torch, H, bins)
+    cases = []
+    for n_prev in MISS_N_PREV:
+        case = check_descend_dir(torch, H, bins, masked, gen, n_prev,
+                                 miss_bin, rates)
+        cases.append(case)
+        emit({"phase": "kernel", "name": "descend_dir", "n": ROWS,
+              "F": FEATURES, "B": N_BINS, **case})
+    right = sum(c["missing_right"] for c in cases)
+    require(0 < right < sum(c["missing_rows"] for c in cases),
+            "missing: the direction checks never took both directions")
+    entry = summarize(cases)
+    del bins, masked
+    model, stats, model_bytes = fit_path(torch, np, H, Xm, y, Xmv, yv, {},
+                                         MISS_MIN_ACC)
+    require(model._missing and "dir" in model.trees[0],
+            "missing: the fit is not in missing mode")
+    dirs = live_dirs(np, model.trees)
+    require(set(dirs.tolist()) == {0, 1},
+            f"missing: directions learned {sorted(set(dirs.tolist()))}")
+    require_launches(stats["launches"], {
+        "hist": MAX_DEPTH * TREES, "fused_round": 0, "hist_layout": 0,
+        "fused_round_layout": 0, "fused_descend": 0,
+        "descend_dir": MAX_DEPTH * TREES}, "missing")
+    emit({"phase": "missing", **stats,
+          "directions": {"left": int((dirs == 1).sum()),
+                         "right": int((dirs == 0).sum())},
+          "descend_dir_ms": entry["ms"],
+          "descend_dir_device_ms": entry["device_ms"],
+          "descend_dir_bound_ms": entry["bound_ms"]})
+    return Xm, Xmv, entry, stats
+
+
+def phase_eval_set(torch, np, H, X, y, Xv, yv):
+    """``fit(eval_set=, early_stopping_rounds=)`` with ``eval_metric=auc``
+    and chunks of one tree: on the NaN rows at full size on the card, then
+    on a ``CROSS_ROWS`` slice on the card and on the CPU, whose
+    ``eval_history`` must agree.  Returns the full fit's launches."""
+    from dmlc_core_tpu_torch import HistGBT
+
+    kw = dict(n_trees=EVAL_TREES, max_depth=MAX_DEPTH, n_bins=N_BINS,
+              eval_metric="auc")
+
+    def fit(device, Xt, yt):
+        m = HistGBT(device=device, **kw)
+        m.fit(Xt, yt, eval_set=(Xv, yv),
+              early_stopping_rounds=EVAL_EARLY_STOP)
+        rounds = [r for r, _ in m.eval_history]
+        require(m._missing and rounds == list(range(1, len(m.trees) + 1)),
+                f"eval_set: rounds {rounds} for {len(m.trees)} trees")
+        scores = [sc for _, sc in m.eval_history]
+        require(all(0.5 < sc <= 1.0 for sc in scores),
+                f"eval_set: auc {scores}")
+        best = max(range(len(scores)), key=lambda i: (scores[i], -i))
+        require(m.best_iteration == best and m.best_score == scores[best],
+                f"eval_set: best {m.best_iteration} of {scores}")
+        return m
+
+    zero_counts(H)
+    t0 = time.perf_counter()
+    full = fit(DEVICE, X, y)
+    wall_s = time.perf_counter() - t0
+    launches = read_counts(H)
+    require(launches["hist"] > 0 and launches["descend_dir"] > 0
+            and launches["fused_round"] == 0,
+            f"eval_set: the fit missed the missing path ({launches})")
+    pv = full.predict(Xv, output_margin=True)
+    require(np.array_equal(pv, full.predict(
+        Xv, output_margin=True, n_trees=full.best_iteration + 1)),
+        "eval_set: predict ignores best_iteration")
+    s = slice(0, CROSS_ROWS)
+    gpu = fit(DEVICE, X[s], y[s])
+    cpu = fit("cpu", X[s], y[s])
+    rg, rc = ([r for r, _ in m.eval_history] for m in (gpu, cpu))
+    sg, sc_ = (np.array([v for _, v in m.eval_history]) for m in (gpu, cpu))
+    require(rg == rc and np.allclose(sg, sc_, rtol=EVAL_RTOL, atol=0),
+            f"eval_set: cuda {gpu.eval_history} vs cpu {cpu.eval_history}")
+    require(gpu.best_iteration == cpu.best_iteration,
+            "eval_set: best_iteration differs between cuda and cpu")
+    emit({"phase": "eval_set", "rows": len(X), "eval_rows": len(Xv),
+          "metric": full.eval_metric_name, "trees": len(full.trees),
+          "eval_history": full.eval_history,
+          "best_iteration": full.best_iteration,
+          "best_score": full.best_score,
+          "early_stopped_at": (len(full.trees)
+                               if len(full.trees) < EVAL_TREES else None),
+          "fit_seconds": full.last_fit_seconds, "fit_wall_seconds": wall_s,
+          "launches": launches,
+          "slice_rows": CROSS_ROWS,
+          "slice_eval_history_cuda": gpu.eval_history,
+          "slice_eval_history_cpu": cpu.eval_history,
+          "slice_identical_scores": bool(np.array_equal(sg, sc_)),
+          "slice_max_rel_diff": float(np.max(np.abs(sg - sc_) / sc_))})
+    return launches
+
+
+def phase_data_parallel(torch, np, H, rates, X, y, Xv, yv, main, lossguide,
+                        missing):
     """The data-parallel path on this card.  ``main`` / ``lossguide``:
-    ``(stats, model bytes)`` of phases 4 and 5.  Returns the launches of
-    every fit, summed."""
+    ``(stats, model bytes)`` of phases 4 and 5; ``missing``: ``(X, y,
+    model bytes)`` of the cross-device phase's missing slice, which two
+    gloo ranks fit too.  Returns the launches of every fit, summed."""
     from dmlc_core_tpu_torch.base.metrics import default_registry
     from dmlc_core_tpu_torch.parallel import collectives as coll
     from dmlc_core_tpu_torch.parallel.launch import free_port, launch
@@ -1058,6 +1352,8 @@ def phase_data_parallel(torch, np, H, rates, X, y, Xv, yv, main, lossguide):
         np.save(os.path.join(d, "X.npy"), X)
         np.save(os.path.join(d, "y.npy"), y)
         np.save(os.path.join(d, "Xv.npy"), Xv)
+        np.save(os.path.join(d, "Xm.npy"), missing[0])
+        np.save(os.path.join(d, "ym.npy"), missing[1])
         t0 = time.perf_counter()
         launch({"X": os.path.join(d, "X.npy"),
                 "y": os.path.join(d, "y.npy"),
@@ -1066,10 +1362,35 @@ def phase_data_parallel(torch, np, H, rates, X, y, Xv, yv, main, lossguide):
                 "params": {"n_trees": TREES, "max_depth": MAX_DEPTH,
                            "n_bins": N_BINS},
                 "runs": [{"name": k, "env": env}
-                         for k, (env, _) in runs.items()],
+                         for k, (env, _) in runs.items()] + [
+                    {"name": "missing", "env": {},
+                     "X": os.path.join(d, "Xm.npy"),
+                     "y": os.path.join(d, "ym.npy"), "Xv": None}],
                 "out": os.path.join(d, "out")}, DP_RANKS, DP_TIMEOUT)
         group_s = time.perf_counter() - t0
         out = os.path.join(d, "out")
+        # NaN-as-missing on the two ranks: the 1-process card's file
+        for r in range(DP_RANKS):
+            with open(os.path.join(out, f"missing.{r}.json")) as f:
+                st = json.load(f)
+            with open(os.path.join(out, f"missing.{r}.model"), "rb") as f:
+                require(f.read() == missing[2], f"data_parallel missing: "
+                        f"rank {r}'s model file differs from the "
+                        "1-process fit's")
+            require(st["missing"], "data_parallel missing: not in "
+                    "missing mode")
+            require_launches(st["launches"], {
+                "hist": MAX_DEPTH * TREES, "fused_round": 0,
+                "hist_layout": 0, "fused_round_layout": 0,
+                "fused_descend": 0, "descend_dir": MAX_DEPTH * TREES},
+                f"data_parallel missing rank {r}")
+            for k, v in st["launches"].items():
+                total[k] += v
+        emit({"phase": "data_parallel", "part": "missing",
+              "backend": "gloo", "world": DP_RANKS,
+              "rows": len(missing[0]), "launches_per_rank": st["launches"],
+              "same_model_file_as_one_process": True,
+              "device_allreduces": st["device_allreduces"]})
         margins = {k: np.load(os.path.join(out, f"{k}.margins.npy"))
                    for k in runs}
         preds = {k: np.load(os.path.join(out, f"{k}.pred.npy"))
@@ -1620,23 +1941,30 @@ def main() -> int:
     kernels = phase_kernels(torch, H, rates)
     layout_kernels, mats = phase_kernels_layout(torch, np, H, rates, C, cy)
     kernels.update(layout_kernels)
+    Xm, Xmv, kernels["descend_dir"], miss_stats = phase_missing(
+        torch, np, H, rates, X, y, Xv, yv)
     launches = {k: 0 for k in kernels}
     main_fit = phase_main(torch, np, H, rates, X, y, Xv, yv)
     lossguide_fit = phase_main_lossguide(torch, np, H, rates, X, y, Xv, yv)
-    for counts in (main_fit[0]["launches"], lossguide_fit[0]["launches"],
-                   phase_levers(torch, np, H, rates, C, cy, Cv, cyv)):
+    for counts in (miss_stats["launches"], main_fit[0]["launches"],
+                   lossguide_fit[0]["launches"],
+                   phase_levers(torch, np, H, rates, C, cy, Cv, cyv),
+                   phase_eval_set(torch, np, H, Xm, y, Xmv, yv)):
         for k, v in counts.items():
             launches[k] += v
     s = slice(0, CROSS_ROWS)
-    phase_cross_device(np, {
+    files = phase_cross_device(np, {
         "depthwise": (X[s], y[s], {}),
         "1": (X[s], y[s], BENCH_LEVERS),
         "2a": (C[s], cy[s], BENCH_LEVERS),
-        "2b": (C[s], cy[s], PACK_ONLY)})
+        "2b": (C[s], cy[s], PACK_ONLY),
+        "missing": (Xm[s], y[s], {})})
     del C, cy
-    for k, v in phase_data_parallel(torch, np, H, rates, X, y, Xv, yv,
-                                    main_fit, lossguide_fit).items():
+    for k, v in phase_data_parallel(
+            torch, np, H, rates, X, y, Xv, yv, main_fit, lossguide_fit,
+            (Xm[s], y[s], files["missing"])).items():
         launches[k] += v
+    del Xm, Xmv
     for k, v in launches.items():
         require(v > 0, f"{k} was never launched on the main paths")
     del X, y
@@ -1661,6 +1989,9 @@ def main() -> int:
                 "fused_descend": "dmlc_core_tpu/ops/histogram.py:485",
                 "hist_layout": "dmlc_core_tpu/ops/histogram.py:450",
                 "fused_round_layout": "dmlc_core_tpu/ops/histogram.py:587",
+                # B2's descend, in the direction mode of the unfused
+                # chain's descend (fused_descend_histogram's dir_sel)
+                "descend_dir": "dmlc_core_tpu/ops/histogram.py:531",
                 "flash_fwd": f"{lib}:331",
                 "flash_bwd_dkv": f"{lib}:796",
                 "flash_bwd_dq": f"{lib}:1146",

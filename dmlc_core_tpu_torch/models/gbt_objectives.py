@@ -4,8 +4,11 @@ The counterpart of ``dmlc_core_tpu/models/gbt_objectives.py`` for the
 objectives this package trains so far: ``binary:logistic`` and
 ``reg:squarederror``.  Every objective provides ``grad_hess`` (the
 boosting step's inputs), ``transform`` (margin → prediction) and
-``row_loss``/``metric``.  The multiclass and ranking objectives and the
-eval-metric table are not ported yet; their names stay known so that
+``row_loss``/``metric``.  :data:`EVAL_METRICS` holds the validation
+metrics of these objectives (``logloss``, ``error``, ``auc``; ``rmse``,
+``mae``), each reduced in float64 and rounded to one f32 value, so that
+the CPU and the GPU score alike.  The multiclass and ranking objectives
+and their metrics are not ported yet; their names stay known so that
 :class:`~dmlc_core_tpu_torch.models.histgbt.HistGBTParam` validates the
 same values as the JAX package.
 """
@@ -19,7 +22,7 @@ from dmlc_core_tpu_torch.base.logging import CHECK
 from dmlc_core_tpu_torch.base.registry import Registry
 
 __all__ = ["OBJECTIVES", "OBJECTIVE_NAMES", "EVAL_METRIC_NAMES",
-           "fold_scale_pos_weight"]
+           "EVAL_METRICS", "fold_scale_pos_weight"]
 
 OBJECTIVES: Registry = Registry.get("gbt_objective")
 
@@ -44,6 +47,12 @@ class _ObjectiveBase:
     @classmethod
     def metric(cls, pred, y):
         return torch.mean(cls.row_loss(pred, y))
+
+    @classmethod
+    def eval_loss(cls, pred, y):
+        """:meth:`metric` as a validation score: the mean in float64,
+        rounded to f32 (one value on any device)."""
+        return cls.row_loss(pred, y).double().mean().float()
 
 
 @OBJECTIVES.register("binary:logistic")
@@ -83,6 +92,57 @@ class _SquaredError(_ObjectiveBase):
     @classmethod
     def metric(cls, pred, y):  # rmse = sqrt of the mean row loss
         return torch.sqrt(torch.mean(cls.row_loss(pred, y)))
+
+    @classmethod
+    def eval_loss(cls, pred, y):
+        return torch.sqrt(cls.row_loss(pred, y).double().mean()).float()
+
+
+def _metric_auc(margin, y):
+    """ROC-AUC by the rank-sum identity with MIDRANKS for ties (a tree's
+    margins tie heavily), 0.5 on a single-class set — the JAX package's
+    ``_metric_auc``, its sums taken in float64 (exact on half-integer
+    ranks), rounded to f32."""
+    s = torch.sort(margin).values
+    lo = torch.searchsorted(s, margin, right=False)
+    hi = torch.searchsorted(s, margin, right=True)
+    midrank = (lo + hi + 1).double() / 2.0          # 1-based midranks
+    yd = y.double()
+    npos = yd.sum()
+    nneg = y.shape[0] - npos
+    denom = npos * nneg
+    auc = ((midrank * yd).sum() - npos * (npos + 1) / 2) / torch.where(
+        denom > 0, denom, 1.0)
+    return torch.where(denom > 0, auc, 0.5).float()
+
+
+def _metric_error(margin, y):
+    return ((_sigmoid(margin) > 0.5) != (y > 0.5)).double().mean().float()
+
+
+def _metric_mae(margin, y):
+    return (margin - y).abs().double().mean().float()
+
+
+#: eval_metric name → (fn(margin, y) -> f32 scalar tensor, maximize?), for
+#: the ported objectives (``mlogloss``/``merror`` come with multi:softmax)
+EVAL_METRICS = {
+    "logloss": (_Logistic.eval_loss, False),
+    "error": (_metric_error, False),
+    "auc": (_metric_auc, True),
+    "rmse": (_SquaredError.eval_loss, False),
+    "mae": (_metric_mae, False),
+}
+
+#: which metrics fit which objective's margins (the JAX package's table)
+_METRICS_BY_OBJECTIVE = {
+    "binary:logistic": {"logloss", "error", "auc"},
+    "reg:squarederror": {"rmse", "mae"},
+    "multi:softmax": {"mlogloss", "merror"},
+    "rank:pairwise": set(),
+    "rank:ndcg": set(),
+    "rank:map": set(),
+}
 
 
 def fold_scale_pos_weight(param, y, weight):

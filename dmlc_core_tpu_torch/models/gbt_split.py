@@ -1,7 +1,7 @@
 """Split chooser and row routing for HistGBT (PyTorch port).
 
 The counterpart of ``dmlc_core_tpu/models/gbt_split.py`` for the
-unconstrained, NaN-free case: XGBoost hist's split evaluator over
+unconstrained case: XGBoost hist's split evaluator over
 ``hist [2, N, F, B]``, run as torch ops on the histogram's device.
 
 Given the same histogram it picks the same ``(feat, thr)`` as the JAX
@@ -10,8 +10,9 @@ package, bit for bit: the cumulative sums repeat XLA's CPU addition order
 same sequence of f32 operations, and ``torch.argmax`` keeps
 ``jnp.argmax``'s first-maximum rule on ties.  Every step is an
 elementwise IEEE operation or an exact reduction, so the CPU and the GPU
-agree too.  Monotone constraints and the learned missing direction are
-not ported yet.
+agree too.  With ``missing=True`` it also learns each node's default
+direction for NaN rows, as the JAX package does.  Monotone constraints
+are not ported yet.
 
 Also the host binning route (``DMLC_TPU_BIN_BACKEND=cpu``:
 :func:`_host_bin_t`) and the boosting loop's metrics (:func:`gbt_metrics`).
@@ -25,7 +26,7 @@ import torch
 from dmlc_core_tpu_torch.base import metrics as _metrics
 from dmlc_core_tpu_torch.base.logging import log_fatal
 from dmlc_core_tpu_torch.base.parameter import get_env
-from dmlc_core_tpu_torch.ops.histogram import descend_plain
+from dmlc_core_tpu_torch.ops.histogram import descend_kernel, descend_plain
 from dmlc_core_tpu_torch.ops.quantile import xla_cumsum
 
 __all__ = ["_make_best_split", "_advance_node", "_soft_threshold",
@@ -97,7 +98,8 @@ def _maybe_l1(G, alpha: float):
 
 
 def _make_best_split(B: int, lam: float, gamma: float, mcw: float,
-                     with_child_sums: bool = False, alpha: float = 0.0):
+                     with_child_sums: bool = False, alpha: float = 0.0,
+                     missing: bool = False):
     """Greedy per-node split chooser over a gradient histogram.
 
     hist [2,N,F,B] → (feat [N], thr [N], split_gain [N]); degenerate
@@ -105,7 +107,16 @@ def _make_best_split(B: int, lam: float, gamma: float, mcw: float,
     gamma``.  ``with_child_sums=True`` also returns the children's
     ``(g_sum, h_sum)`` as ``[2N]`` (left = 2i, right = 2i+1): the cumsum
     at the chosen threshold is the left child's sum, parent − left the
-    right's, so the deepest level's leaf sums come from the histogram."""
+    right's, so the deepest level's leaf sums come from the histogram.
+
+    ``missing=True`` (XGBoost's learned default direction): bin ``B-1``
+    holds the NaN rows, value bins are ``0..B-2``.  Every candidate is
+    scored with the node's missing mass on the right (the plain formula:
+    value cumsums leave bin B-1 out, totals hold it) and on the left,
+    ``min_child_weight`` checked per direction; the better direction is
+    each node's ``dir`` (1 = missing left), returned between thr and
+    gain, and the left child's sums take the missing mass where it goes
+    left.  A degenerate node keeps thr = B-1, dir = 1: every row left."""
 
     if alpha > 0.0:
         def _score(G, H):
@@ -115,6 +126,13 @@ def _make_best_split(B: int, lam: float, gamma: float, mcw: float,
         def _score(G, H):
             return G * G / (H + lam)
 
+    def side_gain(gl, hl, gt, ht):
+        gr = gt - gl
+        hr = ht - hl
+        gain = (_score(gl, hl) + _score(gr, hr)) - _score(gt, ht)
+        ok = (hl >= mcw) & (hr >= mcw)
+        return torch.where(ok, gain, float("-inf"))
+
     def best_split(hist):
         # both planes in one scan: [2,N,F,B] left-inclusive sums
         cg, ch = xla_cumsum(hist)
@@ -122,11 +140,16 @@ def _make_best_split(B: int, lam: float, gamma: float, mcw: float,
         hl = ch[..., :-1]
         gt = cg[..., -1:]                            # [N,F,1]
         ht = ch[..., -1:]
-        gr = gt - gl
-        hr = ht - hl
-        gain = (_score(gl, hl) + _score(gr, hr)) - _score(gt, ht)
-        ok = (hl >= mcw) & (hr >= mcw)
-        gain = torch.where(ok, gain, float("-inf"))
+        if missing:
+            miss_g = hist[0, ..., B - 1]             # [N,F] NaN-bin mass
+            miss_h = hist[1, ..., B - 1]
+            gain_r = side_gain(gl, hl, gt, ht)       # missing → right
+            gain_l = side_gain(gl + miss_g[..., None],
+                               hl + miss_h[..., None], gt, ht)
+            gain = torch.maximum(gain_r, gain_l)
+            dir_l = gain_l > gain_r                  # [N,F,B-1]
+        else:
+            gain = side_gain(gl, hl, gt, ht)
         flat = gain.reshape(gain.shape[0], -1)       # [N, F*(B-1)]
         best = torch.argmax(flat, dim=1)
         best_gain = torch.gather(flat, 1, best[:, None])[:, 0]
@@ -136,25 +159,48 @@ def _make_best_split(B: int, lam: float, gamma: float, mcw: float,
         feat = torch.where(split_ok, feat, 0)
         thr = torch.where(split_ok, thr, B - 1)      # bins ≤ B-1 → all left
         split_gain = torch.where(split_ok, 0.5 * best_gain, 0.0)
+        head = (feat, thr)
+        if missing:
+            dirv = torch.gather(dir_l.reshape(dir_l.shape[0], -1), 1,
+                                best[:, None])[:, 0].to(torch.int32)
+            dirv = torch.where(split_ok, dirv, 1)    # degenerate: all left
+            head = (feat, thr, dirv)
         if not with_child_sums:
-            return feat, thr, split_gain
+            return head + (split_gain,)
         N, F = hist.shape[1], hist.shape[2]
         n_idx = torch.arange(N, device=hist.device)
         flat_idx = (n_idx * F + feat) * B + thr
         lg = cg.reshape(-1)[flat_idx]                # left-child sums [N]
         lh = ch.reshape(-1)[flat_idx]
+        if missing:
+            # a degenerate thr = B-1 holds the missing bin in its cumsum
+            add_miss = (dirv == 1) & (thr < B - 1)
+            mg = miss_g.reshape(-1)[n_idx * F + feat]
+            mh = miss_h.reshape(-1)[n_idx * F + feat]
+            lg = lg + torch.where(add_miss, mg, 0.0)
+            lh = lh + torch.where(add_miss, mh, 0.0)
         tg = cg[:, 0, -1]                            # node totals
         th_ = ch[:, 0, -1]
         child_g = torch.stack([lg, tg - lg], dim=1).reshape(2 * N)
         child_h = torch.stack([lh, th_ - lh], dim=1).reshape(2 * N)
-        return feat, thr, split_gain, child_g, child_h
+        return head + (split_gain, child_g, child_h)
 
     return best_split
 
 
-def _advance_node(bins_t, node, feat, thr, layout=None):
+def _advance_node(bins_t, node, feat, thr, layout=None, dir_sel=None,
+                  miss_bin=None):
     """Route rows one level down the tree by the per-node tables
-    ``feat``/``thr``; padding rows (node<0) stay -1.  ``bins_t`` is
-    feature-major [F, n], or the physical matrix of ``layout``."""
+    ``feat``/``thr`` (and ``dir_sel``, the learned missing direction of
+    rows in ``miss_bin``); padding rows (node<0) stay -1.  ``bins_t`` is
+    feature-major [F, n], or the physical matrix of ``layout``.  CUDA
+    tensors launch :func:`~dmlc_core_tpu_torch.ops.histogram.
+    descend_kernel`, CPU tensors run its plain version."""
+    if bins_t.is_cuda:
+        return descend_kernel(bins_t, node, feat.to(torch.int32).contiguous(),
+                              thr.to(torch.int32).contiguous(), True, layout,
+                              None if dir_sel is None
+                              else dir_sel.to(torch.int32).contiguous(),
+                              miss_bin)
     return descend_plain(bins_t, node, feat, thr, by_node=True,
-                         layout=layout)
+                         layout=layout, dir_sel=dir_sel, miss_bin=miss_bin)

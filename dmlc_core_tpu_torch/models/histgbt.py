@@ -59,10 +59,18 @@ thread while the caller makes its data — the port's "compile".  With
 ``DMLC_TPU_BIN_BACKEND=cpu`` the bins are made on the host and only the
 uint8 matrix goes to the device.
 
-Not ported yet: NaN-as-missing, monotone constraints, multiclass and
-ranking objectives, row/column sampling, eval sets and early stopping,
-continued training, external memory, sharded ingest, one process over
-several GPUs.
+NaN-as-missing (XGBoost's learned default direction) switches on at the
+first NaN of the training data: bin ``n_bins-1`` holds NaN, each node
+learns a direction, the fused round is off (the unfused chain routes by
+the direction: ``descend_kernel``'s direction mode, then B1) and the bin
+levers are ignored, as in the JAX package.  ``fit(eval_set=,
+early_stopping_rounds=, eval_every=)`` scores a validation set at chunk
+ends and stops early.
+
+Not ported yet: monotone constraints, multiclass and ranking objectives,
+row/column sampling, continued training, lossguide with NaN (the JAX
+package refuses it too), external memory, sharded ingest, one process
+over several GPUs.
 """
 
 from __future__ import annotations
@@ -79,7 +87,8 @@ from dmlc_core_tpu_torch.base.logging import CHECK, CHECK_EQ, LOG, log_fatal
 from dmlc_core_tpu_torch.base.parameter import Parameter, field, get_env
 from dmlc_core_tpu_torch.base.timer import get_time
 from dmlc_core_tpu_torch.models.gbt_objectives import (
-    EVAL_METRIC_NAMES, OBJECTIVE_NAMES, OBJECTIVES, fold_scale_pos_weight)
+    _METRICS_BY_OBJECTIVE, EVAL_METRIC_NAMES, EVAL_METRICS, OBJECTIVE_NAMES,
+    OBJECTIVES, fold_scale_pos_weight)
 from dmlc_core_tpu_torch.models.gbt_split import (_advance_node,
                                                   _host_bin_requested,
                                                   _host_bin_t,
@@ -94,8 +103,8 @@ from dmlc_core_tpu_torch.ops.histogram import (build_histogram,
                                                hist_scales,
                                                quantize_hist_partial,
                                                sibling_pairs)
-from dmlc_core_tpu_torch.ops.quantile import (apply_bins, compute_cuts,
-                                              xla_cumsum)
+from dmlc_core_tpu_torch.ops.quantile import (apply_bins, apply_bins_missing,
+                                              compute_cuts, xla_cumsum)
 from dmlc_core_tpu_torch.parallel import collectives as coll
 from dmlc_core_tpu_torch.parallel.mesh import (Mesh, local_mesh,
                                                shard_row_ranges)
@@ -184,14 +193,17 @@ def _fused_round_engaged(world: int) -> bool:
             and _fused_round_mode() != "0")
 
 
-def _rounds_schedule(n_trees: int) -> Tuple[int, int]:
+def _rounds_schedule(n_trees: int, eval_every: int = 0) -> Tuple[int, int]:
     """(rounds per chunk K, remainder): ``DMLC_TPU_ROUNDS_PER_DISPATCH``
-    (default 25) capped at ``n_trees`` — the JAX package's schedule
-    without an eval set."""
+    (default 25) capped at ``n_trees`` and, with ``eval_every``, the
+    largest divisor of ``eval_every`` not above that, so that chunk ends
+    fall on eval rounds — the JAX package's schedule."""
     k_env = int(os.environ.get("DMLC_TPU_ROUNDS_PER_DISPATCH", 25))
     CHECK(k_env >= 1,
           f"DMLC_TPU_ROUNDS_PER_DISPATCH must be >= 1, got {k_env}")
     K = min(n_trees, k_env)
+    if eval_every:
+        K = max(d for d in range(1, K + 1) if eval_every % d == 0)
     return K, n_trees % K
 
 
@@ -243,10 +255,12 @@ class _KernelWarmup:
 def _fetch_trees(trees: List[Dict[str, torch.Tensor]]
                  ) -> List[Dict[str, np.ndarray]]:
     """A chunk's device trees as numpy arrays, in ONE copy to the host
-    (int32 arrays travel as f32 bits)."""
+    (int32 arrays travel as f32 bits), keys in sorted order as the JAX
+    package's fetch gives them."""
+    keys = tuple(sorted(trees[0]))
     parts, layout = [], []
     for t in trees:
-        for k in _TREE_KEYS:
+        for k in keys:
             a = t[k].reshape(-1)
             layout.append((k, a.dtype == torch.int32, tuple(t[k].shape),
                            a.numel()))
@@ -255,7 +269,7 @@ def _fetch_trees(trees: List[Dict[str, torch.Tensor]]
     flat = torch.cat(parts).cpu().numpy()
     out, off = [], 0
     for i, (k, is_int, shape, size) in enumerate(layout):
-        if i % len(_TREE_KEYS) == 0:
+        if i % len(keys) == 0:
             out.append({})
         a = flat[off:off + size]
         out[-1][k] = (a.view(np.int32) if is_int else a).reshape(shape).copy()
@@ -284,16 +298,19 @@ _POOL_LIMIT_BYTES = 256 << 20
 
 class _HistSync:
     """How one fit's histograms become global over its mesh: which
-    level engine runs (the fused round on one rank, else the fused
-    descend chain), and the syncs between accumulation and the
-    subtraction."""
+    level engine runs (the fused round on one rank without missing mode,
+    else the fused descend chain), and the syncs between accumulation
+    and the subtraction."""
 
-    def __init__(self, mesh: Mesh, n_global: int):
+    def __init__(self, mesh: Mesh, n_global: int, missing: bool = False):
         self.mesh = mesh
         self.world = mesh.size
         self.n_global = n_global
         det_blocks = _hist_blocks(self.world)
-        self.fused_rounds = _fused_round_engaged(self.world)
+        # missing mode's descend routes by the learned direction: the
+        # unfused chain, as in JAX
+        self.fused_rounds = (not missing
+                             and _fused_round_engaged(self.world))
         self.quant = (_hist_quant_requested() and self.world > 1
                       and not det_blocks)
         self.fuse = _fused_descend_requested()
@@ -419,12 +436,28 @@ class HistGBT:
         self.mesh = mesh if mesh is not None else local_mesh()
         #: the level engine and syncs of the fit in progress
         self._sync: Optional[_HistSync] = None
+        if self.param.eval_metric:
+            allowed = _METRICS_BY_OBJECTIVE[self.param.objective]
+            CHECK(self.param.eval_metric in allowed,
+                  f"eval_metric {self.param.eval_metric!r} incompatible "
+                  f"with objective {self.param.objective!r} "
+                  f"(allowed: {sorted(allowed)})")
         self._obj = self._objective()
         self.cuts: Optional[torch.Tensor] = None        # [F, n_bins-1] f32
+        #: NaN-as-missing mode (XGBoost's learned default direction),
+        #: entered at the first NaN of the training data: cuts
+        #: ``[F, n_bins-2]``, bin ``n_bins-1`` reserved for NaN, trees
+        #: with a per-node ``dir`` array (1 = missing rows go left).
+        #: Sticky for the model's lifetime, and saved.
+        self._missing = False
         self.trees: List[Dict[str, np.ndarray]] = []
         self.best_iteration: Optional[int] = None
         self.best_score: Optional[float] = None
         self._early_stopped = False
+        #: the validation curve of the last ``eval_set`` fit: (round,
+        #: score) at each chunk's end, and the metric's name
+        self.eval_history: List[Tuple[int, float]] = []
+        self.eval_metric_name: Optional[str] = None
         self.last_fit_seconds: Optional[float] = None
         #: (rounds fetched, seconds since the start of the boosting loop)
         #: as each chunk's trees arrive on the host: per-chunk timing
@@ -475,14 +508,117 @@ class HistGBT:
     # ------------------------------------------------------------------
     def fit(self, X: np.ndarray, y: np.ndarray,
             weight: Optional[np.ndarray] = None,
-            cuts: Optional[torch.Tensor] = None) -> "HistGBT":
+            cuts: Optional[torch.Tensor] = None, *,
+            eval_set: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+            early_stopping_rounds: int = 0,
+            eval_every: int = 0) -> "HistGBT":
         """Boost ``n_trees`` rounds on ``X`` [n, F] / ``y`` [n]; bin cuts
-        are computed from ``X`` unless ``cuts`` are given."""
+        are computed from ``X`` unless ``cuts`` are given.  NaN in ``X``
+        is missing (:attr:`_missing`).
+
+        ``eval_set=(Xv, yv)`` scores the model at every chunk's end (the
+        chunk size as :func:`_rounds_schedule` with ``eval_every``) by
+        ``eval_metric``, or the objective's loss, into
+        :attr:`eval_history`; ``best_iteration``/``best_score`` keep the
+        best round, and with ``early_stopping_rounds`` boosting stops at
+        the first chunk end that many rounds past it — then
+        :meth:`predict` uses the trees up to ``best_iteration + 1``.  On
+        several ranks every rank scores the whole eval set."""
         CHECK(len(self.trees) == 0,
               "continued training is not ported yet (fit a fresh model)")
+        if early_stopping_rounds:
+            CHECK(eval_set is not None,
+                  "early_stopping_rounds needs an eval_set")
         self.cuts = None
         dd = self.make_device_data(X, y, weight=weight, cuts=cuts)
-        return self.fit_device(dd)
+        after_chunk = None
+        if eval_set is not None:
+            after_chunk = self._eval_hook(eval_set, early_stopping_rounds)
+        return self.fit_device(dd, after_chunk=after_chunk,
+                               eval_every=eval_every)
+
+    def _eval_hook(self, eval_set: Tuple[np.ndarray, np.ndarray],
+                   early_stopping_rounds: int
+                   ) -> Callable[[int, List[Dict[str, torch.Tensor]]], bool]:
+        """The eval set binned once (honouring missing mode), its margins
+        on the device, and the ``after_chunk`` hook of :meth:`fit_device`
+        that adds a chunk's trees to them, scores them and says whether
+        to stop — the JAX package's validation state and logic."""
+        p = self.param
+        Xv = np.ascontiguousarray(eval_set[0], dtype=np.float32)
+        yv = np.ascontiguousarray(eval_set[1], dtype=np.float32)
+        CHECK_EQ(len(yv), len(Xv), "eval_set X/y row mismatch")
+        self._check_nan_allowed(Xv, "eval_set")
+        bins_v = self._bin_matrix(Xv)
+        yv_d = torch.from_numpy(yv).to(self.device)
+        if p.eval_metric:
+            metric_fn, maximize = EVAL_METRICS[p.eval_metric]
+            metric_name = p.eval_metric
+        else:
+            metric_fn, maximize = self._obj.eval_loss, False
+            metric_name = "loss"
+        self.best_iteration = None
+        self.best_score = None
+        self._early_stopped = bool(early_stopping_rounds)
+        self.eval_history = []
+        self.eval_metric_name = metric_name
+        state = {"best_at": 0,
+                 "margin": torch.full((len(yv),), p.base_score,
+                                      dtype=torch.float32,
+                                      device=self.device)}
+
+        def after_chunk(done: int, chunk) -> bool:
+            st = {k: torch.stack([t[k] for t in chunk]) for k in chunk[0]}
+            state["margin"] = _predict_trees(
+                bins_v, st["feat"], st["thr"], st["leaf"], p.max_depth,
+                state["margin"], st.get("dir"), self._miss_bin())
+            score = float(metric_fn(state["margin"], yv_d))
+            self.eval_history.append((done, score))
+            improved = (self.best_score is None
+                        or (score > self.best_score if maximize
+                            else score < self.best_score))
+            if improved:
+                self.best_score = score
+                self.best_iteration = done - 1
+                state["best_at"] = done
+            elif (early_stopping_rounds
+                  and done - state["best_at"] >= early_stopping_rounds):
+                LOG("INFO", "early stop at round %d (best %s=%.5f @ %d)",
+                    done, metric_name, self.best_score, state["best_at"])
+                return True
+            return False
+
+        return after_chunk
+
+    def _miss_bin(self) -> int:
+        """The reserved NaN bin (``n_bins-1``, = #cuts + 1 by the cut
+        width of missing mode), or -1 outside missing mode."""
+        return int(self.cuts.shape[1]) + 1 if self._missing else -1
+
+    def _bins_of(self, x: torch.Tensor) -> torch.Tensor:
+        """Feature-major ``[F, n]`` bins of ``x`` [n, F] against the
+        model's cuts, on ``x``'s device, honouring missing mode (NaN →
+        bin ``n_bins-1``)."""
+        if self._missing:
+            return apply_bins_missing(x, self.cuts, self._miss_bin())
+        return apply_bins(x, self.cuts)
+
+    def _bin_matrix(self, X: np.ndarray) -> torch.Tensor:
+        """:meth:`_bins_of` numpy ``X`` on the model's device, uploaded in
+        batches of :attr:`_PREDICT_BATCH` rows."""
+        parts = [self._bins_of(torch.from_numpy(
+                     X[lo:lo + self._PREDICT_BATCH]).to(self.device))
+                 for lo in range(0, max(len(X), 1), self._PREDICT_BATCH)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+    def _check_nan_allowed(self, X: np.ndarray, where: str) -> None:
+        """NaN given to a model not in missing mode fails loudly: plain
+        binning would put NaN in the top value bin."""
+        if not self._missing and np.isnan(X).any():
+            log_fatal(f"{where}: X contains NaN but this model was "
+                      f"trained without missing support (train with NaN "
+                      f"present to enable the learned default "
+                      f"direction, or impute)")
 
     def make_device_data(self, X: np.ndarray, y: np.ndarray,
                          weight: Optional[np.ndarray] = None,
@@ -495,52 +631,84 @@ class HistGBT:
         ``DMLC_FEATURE_BUNDLE`` find a non-trivial layout (``"layout"``) —
         labels and weights on the device.  Sets ``self.cuts`` if unset.
 
+        NaN is missing: the first NaN of a model without cuts enters
+        missing mode (``n_bins >= 3``, every feature finite somewhere;
+        cuts ``[F, n_bins-2]`` over the finite values, NaN in bin
+        ``n_bins-1``, the bin levers ignored), which stays on for the
+        model; NaN given to a model whose cuts were made without it
+        raises.
+
         ``DMLC_TPU_BIN_BACKEND=cpu`` bins on the host
         (:func:`~dmlc_core_tpu_torch.models.gbt_split._host_bin_t`, the
         same bins as ``apply_bins``) and uploads only the uint8 matrix:
         no f32 ``X`` on the device.
 
         On a data axis of several ranks ``X``/``y`` are the GLOBAL rows
-        (the same on every rank): cuts come from all of them, the bins,
-        labels and weights are this rank's ``mesh.row_range(n)``."""
+        (the same on every rank): cuts and the missing-mode decision come
+        from all of them, the bins, labels and weights are this rank's
+        ``mesh.row_range(n)``."""
         p = self.param
         t0 = get_time()
         X = np.ascontiguousarray(X, dtype=np.float32)
         y = np.ascontiguousarray(y, dtype=np.float32)
         n, F = X.shape
         CHECK_EQ(len(y), n, "X/y row mismatch")
-        if np.isnan(X).any():
-            log_fatal("X contains NaN: NaN-as-missing is not ported yet "
-                      "(impute, or train with the JAX package)")
+        # every rank holds the global X: the decision is global
+        has_nan = bool(np.isnan(X).any())
+        if has_nan and self.cuts is None and cuts is None:
+            CHECK(p.n_bins >= 3,
+                  "NaN features need n_bins >= 3 (one bin is reserved "
+                  "for missing)")
+            CHECK(bool(np.isfinite(X).any(axis=0).all()),
+                  "a feature is all-NaN: drop it or impute")
+            self._missing = True
+        else:
+            CHECK(not has_nan or self._missing,
+                  "X contains NaN but this model's bins were built "
+                  "without a missing bin — refit from scratch (NaN in "
+                  "the first fit enables missing support) or impute")
+        missing = self._missing
         weight = fold_scale_pos_weight(p, y, weight)
         host = _host_bin_requested()
         lo, hi = self.mesh.row_range(n)
         w = (None if weight is None else
              torch.from_numpy(np.ascontiguousarray(weight, np.float32)))
         X_d = None if host else torch.from_numpy(X).to(self.device)
+        # missing mode: n_bins-1 value bins, bin n_bins-1 for NaN
+        cut_bins = p.n_bins - 1 if missing else p.n_bins
         if cuts is not None:
             self.cuts = torch.as_tensor(cuts, dtype=torch.float32,
                                         device=self.device)
         elif self.cuts is None:
             if host:
-                self.cuts = compute_cuts(torch.from_numpy(X), p.n_bins,
-                                         weight=w).to(self.device)
+                self.cuts = compute_cuts(torch.from_numpy(X), cut_bins,
+                                         weight=w, missing=missing
+                                         ).to(self.device)
             else:
                 self.cuts = compute_cuts(
-                    X_d, p.n_bins,
-                    weight=None if w is None else w.to(self.device))
-        CHECK_EQ(int(self.cuts.shape[1]), p.n_bins - 1,
-                 "cuts width must be n_bins-1")
+                    X_d, cut_bins,
+                    weight=None if w is None else w.to(self.device),
+                    missing=missing)
+        # the mode's invariant: a wrong width would move the NaN bin
+        CHECK_EQ(int(self.cuts.shape[1]), cut_bins - 1,
+                 f"cuts width must be n_bins-{2 if missing else 1} for this "
+                 f"model ({'missing' if missing else 'standard'} mode)")
         cuts_np = self.cuts.cpu().numpy() if host else None
 
         def binned(a: int, b: int) -> torch.Tensor:
             if host:
-                return torch.from_numpy(_host_bin_t(X[a:b], cuts_np))
-            return apply_bins(X_d[a:b], self.cuts)
+                return torch.from_numpy(_host_bin_t(X[a:b], cuts_np,
+                                                    missing=missing))
+            return self._bins_of(X_d[a:b])
 
         bins_t = binned(lo, hi).to(self.device)
         layout = None
-        if _bin_pack_requested() or _feature_bundle_requested():
+        levers = _bin_pack_requested() or _feature_bundle_requested()
+        if levers and missing:
+            LOG("WARNING", "DMLC_BIN_PACK/DMLC_FEATURE_BUNDLE ignored: "
+                "missing mode (the reserved NaN bin pins every feature "
+                "at full width)")
+        elif levers:
             # bundles are proposed on the first 65536 global rows, as the
             # JAX package samples
             sample = (binned(0, min(n, 1 << 16)).cpu().numpy()
@@ -655,7 +823,9 @@ class HistGBT:
 
     def fit_device(self, dd: Dict[str, Any], warmup_rounds: int = 0,
                    chunk_callback: Optional[Callable[[int, float], Any]]
-                   = None) -> "HistGBT":
+                   = None,
+                   after_chunk: Optional[Callable[..., bool]] = None,
+                   eval_every: int = 0) -> "HistGBT":
         """Boost ``n_trees`` rounds over a :meth:`make_device_data`
         handle: a new fit (the trees of an earlier one are dropped) —
         the repeated-fit path, no re-upload and no re-binning.  The
@@ -669,7 +839,14 @@ class HistGBT:
         discarded rounds run first on a copy of the margins (the first
         use of every kernel and op), after joining a pending
         :meth:`start_warmup`; the model is untouched by them and the
-        timed fit (``last_fit_seconds``) leaves them out."""
+        timed fit (``last_fit_seconds``) leaves them out.
+
+        ``after_chunk(rounds_done, chunk_trees)`` — :meth:`fit`'s eval
+        set — runs after each chunk's fetch with the chunk's trees still
+        on the device, and ends boosting when it returns True; without it
+        the early-stopping state is reset.  ``eval_every`` makes chunk
+        ends fall on its multiples (:func:`_rounds_schedule`) and logs
+        this rank's training loss there."""
         self._check_fit_params()
         CHECK(warmup_rounds >= 0, "warmup_rounds must be >= 0")
         p = self.param
@@ -677,11 +854,20 @@ class HistGBT:
         layout = dd.get("layout")
         self._bin_layout = layout
         CHECK(bins_t.dtype == torch.uint8, "n_bins > 256 is not supported")
-        self._sync = _HistSync(self.mesh, dd.get("n_global", dd["n"]))
+        self._sync = _HistSync(self.mesh, dd.get("n_global", dd["n"]),
+                               self._missing)
         policy = _grow_policy()
         sync_bytes = self._sync.round_bytes(p, dd["n_features"], layout,
                                             policy, _max_leaves())
+        if after_chunk is None:
+            self.best_iteration = self.best_score = None
+            self._early_stopped = False
+            self.eval_history = []
+            self.eval_metric_name = None
         if policy == "lossguide":
+            CHECK(not self._missing,
+                  "DMLC_GROW_POLICY=lossguide with NaN/missing features "
+                  "is not supported yet — impute, or use depthwise")
             leaves = self._lossguide_leaves(dd["n_features"])
             heap = _heap_tables(p.max_depth, self.device)
 
@@ -701,7 +887,7 @@ class HistGBT:
         preds = torch.full((dd["n"],), p.base_score, dtype=torch.float32,
                            device=self.device)
         self._warmup(boost, preds, warmup_rounds)
-        K, rem = _rounds_schedule(p.n_trees)
+        K, rem = _rounds_schedule(p.n_trees, eval_every)
         report = _metrics.enabled()
         m = gbt_metrics() if report else None
         self.last_chunk_times = []
@@ -728,6 +914,11 @@ class HistGBT:
                 m["trees"].inc(k, engine="incore")
             if chunk_callback is not None:
                 chunk_callback(*self.last_chunk_times[-1])
+            if eval_every and done % eval_every == 0:
+                LOG("INFO", "round %d: loss=%.5f", done,
+                    float(self._obj.metric(preds, y_d)))
+            if after_chunk is not None and after_chunk(done, chunk):
+                break
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_fit_seconds = get_time() - t0
@@ -777,8 +968,11 @@ class HistGBT:
         level is one fused round: rows descend by the level above's split
         tables, only LEFT children get a built histogram, the right child
         is parent − left.  Where the fused round is off (data parallel,
-        ``DMLC_HIST_BLOCKS``, ``DMLC_FUSED_ROUND=0``) a level is the fused
-        descend, the sync of the left children, then the subtraction.
+        ``DMLC_HIST_BLOCKS``, ``DMLC_FUSED_ROUND=0``, missing mode) a level
+        is the fused descend, the sync of the left children, then the
+        subtraction.  In missing mode each level also learns ``dir``, and
+        the descends route NaN rows by it (``descend_kernel``'s direction
+        mode on the card).
         All levels share one fixed-point scale pair, so every histogram's
         bytes are independent of summation order.  Under a ``layout``
         histograms and the subtraction stay in storage space; split
@@ -787,10 +981,13 @@ class HistGBT:
         depth, B = p.max_depth, p.n_bins
         lam, alpha = p.reg_lambda, p.reg_alpha
         half = max((1 << depth) >> 1, 1)
+        missing = self._missing
+        miss_bin = B - 1 if missing else None
         split = _make_best_split(B, lam, p.gamma, p.min_child_weight,
-                                 alpha=alpha)
+                                 alpha=alpha, missing=missing)
         split_leaf = _make_best_split(B, lam, p.gamma, p.min_child_weight,
-                                      with_child_sums=True, alpha=alpha)
+                                      with_child_sums=True, alpha=alpha,
+                                      missing=missing)
 
         def best_split(hs):
             return split(_bl.unbundle_hist(hs, layout, B))
@@ -802,8 +999,8 @@ class HistGBT:
         scales = sync.scales(g, h)
         node = torch.zeros(bins_t.shape[1], dtype=torch.int32,
                            device=bins_t.device)
-        feats, thrs, gains = [], [], []
-        prev_hist = feat = thr = gsum = hsum = None
+        feats, thrs, gains, dirs = [], [], [], []
+        prev_hist = feat = thr = dirv = gsum = hsum = None
         for level in range(depth):
             n_nodes = 1 << level
             score_fn = best_split_leaf if level == depth - 1 else best_split
@@ -820,25 +1017,33 @@ class HistGBT:
             else:
                 left, node = fused_descend_histogram(
                     bins_t, node, feat, thr, g, h, n_nodes >> 1, B,
-                    fuse=sync.fuse, layout=layout, by_node=True,
-                    scales=scales, sync=sync.acc_sync)
+                    fuse=sync.fuse, dir_sel=dirv, miss_bin=miss_bin,
+                    layout=layout, by_node=True, scales=scales,
+                    sync=sync.acc_sync)
                 hist = sibling_pairs(sync.f32_sync(left), prev_hist)
                 scores = score_fn(hist)
             prev_hist = hist
-            if level == depth - 1:
-                feat, thr, gn, gsum, hsum = scores
+            if missing:
+                feat, thr, dirv, gn = scores[:4]
             else:
-                feat, thr, gn = scores
+                feat, thr, gn = scores[:3]
+            if level == depth - 1:
+                gsum, hsum = scores[-2:]
             pad = half - n_nodes
             feats.append(torch.nn.functional.pad(feat, (0, pad)))
             thrs.append(torch.nn.functional.pad(thr, (0, pad)))
             gains.append(torch.nn.functional.pad(gn, (0, pad)))
+            if missing:
+                dirs.append(torch.nn.functional.pad(dirv, (0, pad)))
         # final descend into the leaf layer
-        leaf_node = _advance_node(bins_t, node, feat, thr, layout)
+        leaf_node = _advance_node(bins_t, node, feat, thr, layout, dirv,
+                                  miss_bin)
         leaf_w = -_maybe_l1(gsum, alpha) / (hsum + lam)
         leaf = leaf_w * p.learning_rate
         tree = {"feat": torch.stack(feats), "thr": torch.stack(thrs),
                 "gain": torch.stack(gains), "leaf": leaf}
+        if missing:
+            tree["dir"] = torch.stack(dirs)
         return tree, leaf[leaf_node]
 
     def _grow_tree_lossguide(self, bins_t: torch.Tensor, g: torch.Tensor,
@@ -1024,30 +1229,32 @@ class HistGBT:
                        ) -> Dict[str, torch.Tensor]:
         """The forest as stacked device tensors ``[T, ...]`` (eager torch
         has no compiled program to keep at a fixed shape, so no
-        padding)."""
+        padding), with ``dir`` in missing mode."""
+        keys = ("feat", "thr", "leaf") + (("dir",) if "dir" in trees[0]
+                                          else ())
         return {k: torch.from_numpy(np.stack([t[k] for t in trees])
                                     ).to(self.device)
-                for k in ("feat", "thr", "leaf")}
+                for k in keys}
 
     def predict(self, X: np.ndarray, output_margin: bool = False,
                 n_trees: Optional[int] = None) -> np.ndarray:
-        """Margins (``output_margin``) or transformed predictions [n]."""
+        """Margins (``output_margin``) or transformed predictions [n]; in
+        missing mode NaN rows follow each node's learned direction."""
         CHECK(self.cuts is not None, "predict before fit")
         CHECK(len(self.trees) > 0, "no trees trained")
         X = np.ascontiguousarray(X, dtype=np.float32)
-        if np.isnan(X).any():
-            log_fatal("predict: X contains NaN and this model has no "
-                      "missing-value support")
+        self._check_nan_allowed(X, "predict")
         stacked = self._stacked_trees(self._resolve_trees(n_trees))
         outs = []
         for lo in range(0, len(X), self._PREDICT_BATCH):
-            xb = torch.from_numpy(X[lo:lo + self._PREDICT_BATCH]
-                                  ).to(self.device)
+            xb = X[lo:lo + self._PREDICT_BATCH]
             margin = _predict_trees(
-                apply_bins(xb, self.cuts), stacked["feat"], stacked["thr"],
+                self._bins_of(torch.from_numpy(xb).to(self.device)),
+                stacked["feat"], stacked["thr"],
                 stacked["leaf"], self.param.max_depth,
                 torch.full((len(xb),), self.param.base_score,
-                           dtype=torch.float32, device=self.device))
+                           dtype=torch.float32, device=self.device),
+                stacked.get("dir"), self._miss_bin())
             out = margin if output_margin else self._obj.transform(margin)
             outs.append(out.cpu().numpy())
         if not outs:
@@ -1069,7 +1276,9 @@ class HistGBT:
     # ------------------------------------------------------------------
     def to_state(self) -> Dict[str, Any]:
         """The model as the payload ``save_model`` writes: param dict,
-        cuts ``[F, n_bins-1]`` f32 and the per-tree numpy arrays."""
+        cuts ``[F, n_bins-1]`` (missing mode: ``[F, n_bins-2]``) f32, the
+        per-tree numpy arrays (with ``dir`` in missing mode), the
+        early-stopping state and the ``missing`` flag."""
         CHECK(self.cuts is not None and len(self.trees) > 0,
               "to_state before fit")
         return {
@@ -1079,7 +1288,7 @@ class HistGBT:
             "best_iteration": self.best_iteration,
             "best_score": self.best_score,
             "early_stopped": self._early_stopped,
-            "missing": False,
+            "missing": self._missing,
         }
 
     @classmethod
@@ -1089,14 +1298,14 @@ class HistGBT:
         """A model from a ``to_state`` / ``save_model`` payload (numpy
         arrays) — from this package or the JAX package — that predicts
         the same."""
-        CHECK(not state.get("missing", False),
-              "NaN-as-missing models are not ported yet")
         param = HistGBTParam()
         param.init(state["param"])
         model = cls(param, device=device)
         model.cuts = torch.as_tensor(np.array(state["cuts"], np.float32),
                                      device=model.device)
-        model.trees = [{k: np.asarray(t[k]) for k in _TREE_KEYS}
+        model._missing = bool(state.get("missing", False))
+        keys = (("dir",) if model._missing else ()) + _TREE_KEYS
+        model.trees = [{k: np.asarray(t[k]) for k in keys}
                        for t in state["trees"]]
         model.best_iteration = state.get("best_iteration")
         model.best_score = state.get("best_score")
@@ -1151,15 +1360,19 @@ def _heap_tables(depth: int, device: torch.device
             torch.from_numpy(pos).to(device))
 
 
-def _predict_trees(bins_t, feats, thrs, leaves, depth: int, init):
+def _predict_trees(bins_t, feats, thrs, leaves, depth: int, init,
+                   dirs=None, miss_bin: int = -1):
     """Sum leaf values over trees onto ``init`` [n], tree by tree in
-    order (the summation order of training's margin updates)."""
+    order (the summation order of training's margin updates).  ``dirs``
+    ``[T, depth, half]`` with ``miss_bin``: missing mode's routing."""
     total = init
     for t in range(feats.shape[0]):
         node = torch.zeros(bins_t.shape[1], dtype=torch.int32,
                            device=bins_t.device)
         for level in range(depth):
             node = _advance_node(bins_t, node, feats[t, level],
-                                 thrs[t, level])
+                                 thrs[t, level], None,
+                                 None if dirs is None else dirs[t, level],
+                                 miss_bin)
         total = total + leaves[t][node]
     return total

@@ -60,7 +60,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # scales; left_only; out, stream
         "dmlc_hist_accum": (_P, _P, _P, _P, _LL, _P, _P, _I, _I, _I, _I,
                             _LL, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P),
-        "dmlc_descend": (_P, _P, _P, _P, _I, _LL, _P, _P, _P),
+        # bins, node, feat, thr, dir (or null), miss_bin, by_node; n;
+        # dec, new_node, stream
+        "dmlc_descend": (_P, _P, _P, _P, _P, _I, _I, _LL, _P, _P, _P),
         # bins, node, feat, thr, by_node, g, h; n; group rows, groups,
         # n_groups, shared, smem, chunks, rows_per_chunk, shift, qbits,
         # cluster; F, n_prev, n_bins; scales; out, new_node, stream

@@ -14,7 +14,11 @@
 //                  left-child histograms over rows with even new_node,
 //                  right = prev - left, children interleaved 2p / 2p+1.
 //                  dmlc_descend, dmlc_hist_accum with left_only=1,
-//                  dmlc_hist_epilogue with prev.
+//                  dmlc_hist_epilogue with prev.  dmlc_descend alone, with
+//                  a table of learned missing directions, is the descend
+//                  of NaN-as-missing mode (fused_descend_histogram's
+//                  dir_sel branch, histogram.py:958-961): rows in the
+//                  reserved NaN bin follow their node's direction.
 //   fused_descend <- _fused_kernel (via _fused_pallas /
 //                  fused_descend_histogram(fuse=True)): the same descend
 //                  and left-child histograms in ONE pass over the bins,
@@ -822,14 +826,17 @@ hist_accum_kernel(const uint8_t* __restrict__ bins,    // [P, n]
 // Route rows one level down: the byte of the selected ORIGINAL feature's
 // physical row, then nibble, bundle segment and compact remap decoded back
 // to the original bin id (binlayout.select_bins), then the threshold
-// compare in the original bin space.  One row per thread: at full
-// occupancy the chain node -> split table -> decode row -> byte hides its
-// latency (the decode rows a level touches stay in L1).
+// compare in the original bin space.  With a direction table (the learned
+// missing direction, 1 = left; null: none) a row whose decoded bin is
+// miss_bin goes right iff its direction is 0.  One row per thread: at
+// full occupancy the chain node -> split table -> decode row -> byte
+// hides its latency (the decode rows a level touches stay in L1).
 __global__ void descend_kernel(const uint8_t* __restrict__ bins,   // [P, n]
                                const int32_t* __restrict__ node,   // [n]
                                const int32_t* __restrict__ feat,
                                const int32_t* __restrict__ thr,
-                               int by_node, long long n,
+                               const int32_t* __restrict__ dir,    // or null
+                               int miss_bin, int by_node, long long n,
                                const int32_t* __restrict__ dec,    // [F, kDec]
                                int32_t* __restrict__ new_node) {   // [n]
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -856,7 +863,9 @@ __global__ void descend_kernel(const uint8_t* __restrict__ bins,   // [P, n]
       }
       if (tl.y)                          // compact remap
         v = (v >= 0 && v < kPackWidth) ? __ldg(d + 6 + v) : 0;
-      out = 2 * nd + (v > thr[k] ? 1 : 0);
+      int right = v > thr[k] ? 1 : 0;
+      if (dir != nullptr && v == miss_bin) right = dir[k] == 0 ? 1 : 0;
+      out = 2 * nd + right;
     }
     new_node[r] = out;
   }
@@ -1053,16 +1062,18 @@ int dmlc_fused_descend(const void* bins, const void* node, const void* feat,
 }
 
 // new_node[r] = node[r] < 0 ? -1 : 2*node[r] + (decoded bin > thr[k]),
-// k = node[r] (by_node) or r; dec: [F, kDec] int32 decode table.
+// k = node[r] (by_node) or r; dec: [F, kDec] int32 decode table.  dir
+// (null: no direction) is indexed like feat/thr: a row whose decoded bin
+// is miss_bin goes right iff dir[k] == 0.
 int dmlc_descend(const void* bins, const void* node, const void* feat,
-                 const void* thr, int by_node, long long n, const void* dec,
-                 void* new_node, void* stream) {
+                 const void* thr, const void* dir, int miss_bin, int by_node,
+                 long long n, const void* dec, void* new_node, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   descend_kernel<<<grid_for(n, 256), 256, 0, s>>>(
       static_cast<const uint8_t*>(bins), static_cast<const int32_t*>(node),
       static_cast<const int32_t*>(feat), static_cast<const int32_t*>(thr),
-      by_node, n, static_cast<const int32_t*>(dec),
-      static_cast<int32_t*>(new_node));
+      static_cast<const int32_t*>(dir), miss_bin, by_node, n,
+      static_cast<const int32_t*>(dec), static_cast<int32_t*>(new_node));
   return cudaGetLastError();
 }
 

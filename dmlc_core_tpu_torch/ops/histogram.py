@@ -20,6 +20,11 @@ function:
   subtraction (replaces the Pallas ``_fused_kernel``; the data-parallel
   path, where left children are summed over ranks first).
 
+:func:`descend_kernel` / :func:`descend_plain` is B2's descend on its own:
+the first half of the unfused chain, training's final descend and
+prediction, and with a table of learned missing directions the descend of
+NaN-as-missing mode (JAX's ``fused_descend_histogram`` with ``dir_sel``).
+
 Each has a LAYOUT MODE (``layout=`` a :class:`~dmlc_core_tpu_torch.ops.
 binlayout.BinLayout`): the input is then the physical ``[phys_rows, n]``
 matrix (int4-packed and/or bundled), the histograms are in storage space
@@ -71,7 +76,8 @@ from dmlc_core_tpu_torch.ops import binlayout as bl
 __all__ = ["build_histogram", "fused_round", "fused_descend_histogram",
            "select_feature_bins", "hist_scales", "hist_kernel", "hist_plain",
            "fused_round_kernel", "fused_round_plain", "fused_descend_kernel",
-           "fused_descend_plain", "descend_plain", "reference_histogram",
+           "fused_descend_plain", "descend_kernel", "descend_plain",
+           "reference_histogram",
            "leaves_built_per_round", "bins_bytes_per_round",
            "hist_psum_bytes_per_round", "quantize_hist_partial",
            "dequantize_hist_sum", "sibling_pairs"]
@@ -315,9 +321,10 @@ def descend_plain(bins_t: torch.Tensor, node_id: torch.Tensor,
     ``dir_sel``) are per-node tables (``by_node``) or per-row arrays, in
     the ORIGINAL feature and bin space (under a ``layout`` too).  With
     ``dir_sel`` (learned missing direction, 1 = left) rows in
-    ``miss_bin`` follow it instead of the threshold.  The one plain
-    descend of the package — the kernels' descend, training's final
-    descend and prediction all route by it."""
+    ``miss_bin`` follow it instead of the threshold.  The plain version
+    of :func:`descend_kernel`, and the one plain descend of the package:
+    the plain kernels' descend, and on CPU tensors training's final
+    descend and prediction, route by it."""
     valid = node_id >= 0
     if by_node:
         key = torch.where(valid, node_id, 0).to(torch.int64)
@@ -676,7 +683,7 @@ def fused_round_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
     _check_inputs(bins_t, node_id, grad, hess, n_bins, layout)
     n = bins_t.shape[1]
     S = layout.storage_features if layout is not None else bins_t.shape[0]
-    _check_split_tables(bins_t, feat, thr, n_prev if by_node else n)
+    _check_split_tables(bins_t, n_prev if by_node else n, feat=feat, thr=thr)
     CHECK(prev_hist.device == bins_t.device
           and prev_hist.dtype == torch.float32
           and prev_hist.shape == (2, n_prev, S, n_bins)
@@ -698,24 +705,67 @@ fused_round_kernel.launches = 0
 fused_round_kernel.layout_launches = 0
 
 
-def _descend_kernel(bins_t, node_id, feat, thr, by_node, layout):
+def _descend_kernel(bins_t, node_id, feat, thr, by_node, layout,
+                    dir_sel=None, miss_bin=-1):
     """``new_node [n]`` by ``descend_kernel`` (one launch; the layout
-    mode's decode under a ``layout``): the descend of
-    :func:`descend_plain` without a missing direction."""
+    mode's decode under a ``layout``; with ``dir_sel`` the learned
+    missing direction of rows in ``miss_bin``): the descend of
+    :func:`descend_plain`."""
     n = bins_t.shape[1]
     new_node = torch.empty(n, dtype=torch.int32, device=bins_t.device)
     F = bins_t.shape[0] if layout is None else layout.n_features
     _, dec = bl.kernel_tables(layout, F, bins_t.device)
     rc = _lib().dmlc_descend(
         bins_t.data_ptr(), node_id.data_ptr(), feat.data_ptr(),
-        thr.data_ptr(), int(by_node), n, dec.data_ptr(), new_node.data_ptr(),
+        thr.data_ptr(), None if dir_sel is None else dir_sel.data_ptr(),
+        int(miss_bin), int(by_node), n, dec.data_ptr(), new_node.data_ptr(),
         torch.cuda.current_stream(bins_t.device).cuda_stream)
     _check_launch(rc, "dmlc_descend")
     return new_node
 
 
-def _check_split_tables(bins_t, feat, thr, m):
-    for name, t in (("feat", feat), ("thr", thr)):
+def descend_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
+                   feat: torch.Tensor, thr: torch.Tensor,
+                   by_node: bool = True,
+                   layout: Optional[bl.BinLayout] = None,
+                   dir_sel: Optional[torch.Tensor] = None,
+                   miss_bin: Optional[int] = None) -> torch.Tensor:
+    """CUDA descend: ``new_node [n]`` int32, the function of
+    :func:`descend_plain` in one launch — B2's descend on its own (the
+    unfused chain's first half, training's final descend and
+    prediction).  ``feat``/``thr`` (and ``dir_sel``, the learned missing
+    direction, 1 = left, for rows in ``miss_bin``) are per-node tables
+    (``by_node``) or per-row arrays, int32.  Counts its calls in
+    ``descend_kernel.launches``, those with a direction in
+    ``descend_kernel.dir_launches``."""
+    CHECK(bins_t.is_cuda, "kernel inputs must be CUDA tensors")
+    CHECK(bins_t.dtype == torch.uint8 and bins_t.dim() == 2
+          and bins_t.is_contiguous(),
+          "bins_t must be a contiguous [P, n] uint8 tensor")
+    n = bins_t.shape[1]
+    CHECK(node_id.device == bins_t.device and node_id.dtype == torch.int32
+          and node_id.shape == (n,) and node_id.is_contiguous(),
+          f"node_id must be a contiguous [{n}] int32 tensor")
+    m = feat.shape[0] if by_node else n
+    _check_split_tables(bins_t, m, feat=feat, thr=thr)
+    if dir_sel is not None:
+        CHECK(miss_bin is not None, "a direction needs its miss_bin")
+        _check_split_tables(bins_t, m, dir_sel=dir_sel)
+    new_node = _descend_kernel(bins_t, node_id, feat, thr, by_node, layout,
+                               dir_sel, -1 if miss_bin is None else miss_bin)
+    if dir_sel is None:
+        descend_kernel.launches += 1
+    else:
+        descend_kernel.dir_launches += 1
+    return new_node
+
+
+descend_kernel.launches = 0
+descend_kernel.dir_launches = 0
+
+
+def _check_split_tables(bins_t, m, **tables):
+    for name, t in tables.items():
         CHECK(t.device == bins_t.device and t.dtype == torch.int32
               and t.shape == (m,) and t.is_contiguous(),
               f"{name} must be a contiguous [{m}] int32 tensor")
@@ -739,7 +789,7 @@ def fused_descend_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
     mode).  Counts its calls in ``fused_descend_kernel.launches``."""
     _check_inputs(bins_t, node_id, grad, hess, n_bins)
     F, n = bins_t.shape
-    _check_split_tables(bins_t, feat, thr, n_prev if by_node else n)
+    _check_split_tables(bins_t, n_prev if by_node else n, feat=feat, thr=thr)
     CHECK(n_prev <= 32767, f"n_prev must be at most 32767, got {n_prev}")
     device = bins_t.device
     plan, rows, groups = _descend_plan_on(F, n, n_prev, n_bins, device)
@@ -848,12 +898,11 @@ def fused_descend_histogram(
     CUDA tensors, :func:`fused_descend_plain` on CPU tensors.  Otherwise,
     and as in JAX for the missing direction (``dir_sel``/``miss_bin``)
     and a ``layout``, the unfused chain: the descend (on CUDA tensors
-    ``descend_kernel``, B2's, which decodes layouts; the torch
-    :func:`descend_plain` where a missing direction routes), then the
-    histogram over left children.  ``feat_sel``/``thr_sel`` (and
-    ``dir_sel``) are per-row ``[n]``, or per-node ``[n_prev]`` with
-    ``by_node``.  ``method`` is accepted for the JAX signature (this
-    package has one histogram engine)."""
+    :func:`descend_kernel`, B2's, which decodes layouts and routes the
+    missing direction), then the histogram over left children.
+    ``feat_sel``/``thr_sel`` (and ``dir_sel``) are per-row ``[n]``, or
+    per-node ``[n_prev]`` with ``by_node``.  ``method`` is accepted for
+    the JAX signature (this package has one histogram engine)."""
     del method
     kg, kh = scales if scales is not None else hist_scales(grad, hess)
     feat = feat_sel.to(torch.int32).contiguous()
@@ -863,14 +912,12 @@ def fused_descend_histogram(
             return fused_descend_kernel(bins_t, node_id, feat, thr, grad,
                                         hess, n_prev, n_bins, kg, kh,
                                         by_node, sync)
-        if dir_sel is None:
-            _check_split_tables(bins_t, feat, thr,
-                                n_prev if by_node else bins_t.shape[1])
-            new_node = _descend_kernel(bins_t, node_id, feat, thr, by_node,
-                                       layout)
-        else:
-            new_node = descend_plain(bins_t, node_id, feat, thr, by_node,
-                                     layout, dir_sel, miss_bin)
+        if by_node:
+            CHECK_EQ(feat.shape[0], n_prev, "per-node tables are [n_prev]")
+        new_node = descend_kernel(
+            bins_t, node_id, feat, thr, by_node, layout,
+            None if dir_sel is None else dir_sel.to(torch.int32).contiguous(),
+            miss_bin)
         left = hist_kernel(bins_t, new_node, grad, hess, n_prev, n_bins, kg,
                            kh, layout, left_only=True, sync=sync)
         return left, new_node

@@ -29,7 +29,7 @@ import torch
 from dmlc_core_tpu_torch.base.logging import CHECK
 
 __all__ = ["local_summary", "merge_summaries", "compute_cuts", "apply_bins",
-           "xla_cumsum"]
+           "apply_bins_missing", "xla_cumsum"]
 
 #: XLA's CPU ReduceWindowRewriter block length for cumulative sums
 _SCAN_BASE = 16
@@ -156,19 +156,32 @@ def _interp(xq: torch.Tensor, xp: torch.Tensor,
 
 
 def local_summary(x: torch.Tensor, weight: Optional[torch.Tensor],
-                  n_summary: int) -> torch.Tensor:
+                  n_summary: int, missing: bool = False) -> torch.Tensor:
     """Fixed-size (weighted) quantile summary of local rows: ``x`` [n, F]
     f32, ``weight`` [n] or None → [F, n_summary].  Unweighted: the
     ``jnp.quantile`` grid.  Weighted: midpoint-rule probabilities
     ``(cumsum(w) − w/2) / Σw`` interpolated onto the grid.  One feature
-    is sorted at a time, so the transient is one column."""
+    is sorted at a time, so the transient is one column.
+
+    ``missing=True`` (NaN = missing): each NaN becomes the feature's
+    largest finite value with weight 0, a knot that moves no quantile,
+    and the midpoint rule runs with or without ``weight``; a feature with
+    no finite value here gives a NaN sentinel row, which
+    :func:`merge_summaries` leaves out."""
     n, F = x.shape
     qs = _linspace01(n_summary, x.device)
     out = torch.empty(F, n_summary, dtype=torch.float32, device=x.device)
     counts = torch.full((1,), float(n), dtype=torch.float32, device=x.device)
     for f in range(F):
         col = x[:, f].contiguous()
-        if weight is None:
+        w = weight
+        if missing:
+            nan = torch.isnan(col)
+            w = torch.ones_like(col) if weight is None else weight
+            w = torch.where(nan, 0.0, w)
+            fmax = torch.where(nan, float("-inf"), col).max()
+            col = torch.where(nan, fmax, col)
+        elif weight is None:
             xs = torch.sort(col).values
             if bool(torch.isnan(xs[-1:]).any()):
                 # a NaN anywhere makes jnp.quantile return NaN
@@ -176,10 +189,14 @@ def local_summary(x: torch.Tensor, weight: Optional[torch.Tensor],
             out[f] = _interp_sorted(xs[None, :], qs, counts, False)[:, 0]
             continue
         xs, order = torch.sort(col, stable=True)
-        ws = weight[order]
+        ws = w[order]
         cw = xla_cumsum(ws)
-        probs = (cw - 0.5 * ws) / cw[-1:]
+        total = cw[-1:]
+        probs = (cw - 0.5 * ws) / total
         out[f] = _interp(qs, probs[None, :], xs[None, :])[0]
+        if missing:
+            # all-NaN here: the 0/0 probabilities become the sentinel row
+            out[f] = torch.where(total <= 0.0, float("nan"), out[f])
     return out
 
 
@@ -206,20 +223,40 @@ def merge_summaries(gathered: torch.Tensor, n_bins: int) -> torch.Tensor:
 def compute_cuts(x: torch.Tensor, n_bins: int = 256,
                  weight: Optional[torch.Tensor] = None,
                  n_summary: Optional[int] = None,
-                 allgather_fn: Optional[Callable] = None) -> torch.Tensor:
+                 allgather_fn: Optional[Callable] = None,
+                 missing: bool = False) -> torch.Tensor:
     """End-to-end cuts ``[F, n_bins-1]`` f32 on ``x``'s device.
 
     ``allgather_fn(summary) -> [W, F, S]`` (numpy in, numpy out, e.g.
     ``parallel.collectives.allgather``) merges the summaries of W
     workers, each over its own rows, as the JAX package's merge does;
-    None means one worker."""
+    None means one worker.  ``missing=True``: cuts over the finite values
+    only (NaN = missing, :func:`local_summary`); the caller reserves a
+    bin for NaN (:func:`apply_bins_missing`)."""
     CHECK(n_bins >= 2, "need at least 2 bins")
     n_summary = n_summary or max(8 * n_bins, 64)
-    summary = local_summary(x, weight, n_summary)
+    summary = local_summary(x, weight, n_summary, missing)
     if allgather_fn is None:
         return merge_summaries(summary[None], n_bins)
     gathered = np.asarray(allgather_fn(summary.cpu().numpy()), np.float32)
     return merge_summaries(torch.from_numpy(gathered).to(x.device), n_bins)
+
+
+def _digitise(x: torch.Tensor, cuts: torch.Tensor, nan_bin: int,
+              dtype: torch.dtype) -> torch.Tensor:
+    """Feature-major ``[F, n]`` bins of ``x`` [n, F]: #cuts ≤ value, NaN
+    values in ``nan_bin``; each feature searched over its non-NaN cuts
+    (see :func:`apply_bins`)."""
+    n, F = x.shape
+    CHECK(cuts.shape[0] == F, "cuts/feature count mismatch")
+    out = torch.empty(F, n, dtype=dtype, device=x.device)
+    n_valid = (~torch.isnan(cuts)).sum(1).tolist()
+    for f in range(F):
+        col = x[:, f].contiguous()
+        b = torch.searchsorted(cuts[f, :n_valid[f]].contiguous(), col,
+                               right=True)
+        out[f] = torch.where(torch.isnan(col), nan_bin, b).to(dtype)
+    return out
 
 
 def apply_bins(x: torch.Tensor, cuts: torch.Tensor) -> torch.Tensor:
@@ -235,14 +272,17 @@ def apply_bins(x: torch.Tensor, cuts: torch.Tensor) -> torch.Tensor:
     non-NaN cuts ≤ it, and a NaN value counts every cut.
     ``torch.searchsorted`` takes a NaN cut for ≤ any value, so each
     feature is searched over its non-NaN cuts, which lie at the front."""
-    n, F = x.shape
-    CHECK(cuts.shape[0] == F, "cuts/feature count mismatch")
-    dtype = torch.uint8 if cuts.shape[1] < 256 else torch.int32
-    out = torch.empty(F, n, dtype=dtype, device=x.device)
-    n_valid = (~torch.isnan(cuts)).sum(1).tolist()
-    for f in range(F):
-        col = x[:, f].contiguous()
-        b = torch.searchsorted(cuts[f, :n_valid[f]].contiguous(), col,
-                               right=True)
-        out[f] = torch.where(torch.isnan(col), cuts.shape[1], b).to(dtype)
-    return out
+    width = cuts.shape[1]
+    return _digitise(x, cuts, width,
+                     torch.uint8 if width < 256 else torch.int32)
+
+
+def apply_bins_missing(x: torch.Tensor, cuts: torch.Tensor,
+                       miss_bin: int) -> torch.Tensor:
+    """:func:`apply_bins` with a reserved NaN bin: finite values bin into
+    ``[0, n_cuts]`` as usual and NaN goes to ``miss_bin`` (the caller
+    reserves its top bin).  Feature-major ``[F, n]``; uint8 while
+    ``miss_bin < 256``, else int32 — JAX's ``apply_bins_missing``,
+    transposed."""
+    return _digitise(x, cuts, miss_bin,
+                     torch.uint8 if miss_bin < 256 else torch.int32)

@@ -19,8 +19,11 @@ tensors and several ranks on one card), ``device`` (``cpu``, a card such
 as ``cuda:0`` for every rank, or ``cuda`` for ``cuda:<rank>``),
 ``threads`` (torch intra-op threads per rank), ``params`` (``HistGBT``
 keyword arguments), ``runs`` (``[{"name", "env"}]``: the ``DMLC_*``
-levers of each fit; a run may name its own ``X``/``y``/``cuts``/``Xv``)
-and ``out`` (a directory)::
+levers of each fit; a run may name its own ``X``/``y``/``cuts``/``Xv``,
+and an ``eval`` dict, ``{"X", "y", "early_stopping_rounds"}``, which
+fits with that ``eval_set`` and writes ``eval_history``,
+``best_iteration`` and ``best_score`` into the run's ``.json``) and
+``out`` (a directory)::
 
     launch(job, world=2, timeout=120)
 
@@ -171,7 +174,8 @@ def run_worker(job: Dict[str, Any]) -> None:
         torch.cuda.set_device(torch.device(device))
     coll.init(backend=job["backend"])
     out = Path(job["out"])
-    kernels = (H.hist_kernel, H.fused_round_kernel, H.fused_descend_kernel)
+    kernels = (H.hist_kernel, H.fused_round_kernel, H.fused_descend_kernel,
+               H.descend_kernel)
     for run in job["runs"]:
         name = run["name"]
         data = {**job, **run}             # a run may bring its own rows
@@ -182,18 +186,27 @@ def run_worker(job: Dict[str, Any]) -> None:
         with _levers(run.get("env", {})):
             for k in kernels:
                 k.launches = 0
-                if hasattr(k, "layout_launches"):
-                    k.layout_launches = 0
+                for extra in ("layout_launches", "dir_launches"):
+                    if hasattr(k, extra):
+                        setattr(k, extra, 0)
             calls0 = _metric("collective_calls_total", op="device_allreduce")
             bytes0 = _metric("histogram_psum_bytes_total", engine="incore")
             model = HistGBT(device=device, **job["params"])
-            model.fit(X, y, cuts=cuts)
+            ev = data.get("eval")
+            if ev:
+                model.fit(X, y, cuts=cuts,
+                          eval_set=(np.load(ev["X"]), np.load(ev["y"])),
+                          early_stopping_rounds=ev.get(
+                              "early_stopping_rounds", 0))
+            else:
+                model.fit(X, y, cuts=cuts)
             launches = {
                 "hist": H.hist_kernel.launches,
                 "hist_layout": H.hist_kernel.layout_launches,
                 "fused_round": H.fused_round_kernel.launches,
                 "fused_round_layout": H.fused_round_kernel.layout_launches,
-                "fused_descend": H.fused_descend_kernel.launches}
+                "fused_descend": H.fused_descend_kernel.launches,
+                "descend_dir": H.descend_kernel.dir_launches}
             stats = {
                 "rank": rank, "world": coll.world_size(),
                 "launches": launches,
@@ -205,7 +218,11 @@ def run_worker(job: Dict[str, Any]) -> None:
                     op="device_allreduce") - calls0,
                 "hist_sync_bytes": _metric(
                     "histogram_psum_bytes_total", engine="incore") - bytes0,
-                "layout": model._bin_layout is not None}
+                "layout": model._bin_layout is not None,
+                "missing": model._missing,
+                "eval_history": model.eval_history,
+                "best_iteration": model.best_iteration,
+                "best_score": model.best_score}
         margins = model.train_margins()
         model.save_model(str(out / f"{name}.{rank}.model"))
         if rank == 0:

@@ -243,17 +243,12 @@ def descend_level(torch, H, bins, g, h, gen, n_prev, kg, kh):
                          generator=gen)
     thr = torch.randint(0, N_BINS - 1, (n_prev,), dtype=torch.int32,
                         device=dev, generator=gen)
-    _, dec = H.bl.kernel_tables(None, F, dev)
 
     def chain():
-        new = torch.empty(rows, dtype=torch.int32, device=dev)
-        rc = H._lib().dmlc_descend(
-            bins.data_ptr(), nd.data_ptr(), feat.data_ptr(), thr.data_ptr(),
-            1, rows, dec.data_ptr(), new.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        assert rc == 0, rc
-        return H.hist_kernel(bins, new, g, h, n_prev, N_BINS, kg, kh,
-                             left_only=True), new
+        # the wrapper, so that either checkout's C signature is met
+        return H.fused_descend_histogram(bins, nd, feat, thr, g, h, n_prev,
+                                         N_BINS, fuse=False, by_node=True,
+                                         scales=(kg, kh))
 
     def fused():
         return H.fused_descend_kernel(bins, nd, feat, thr, g, h, n_prev,

@@ -14,6 +14,10 @@ Contracts held:
   the same split structure, tree 0 bit-identical (its g/h, 0.5 − y and
   0.25, are order-exact), later leaves allclose at atol 1e-5 — JAX sums
   real gradients in f32 (tests/test_torch_histgbt.py's tolerance);
+* the same for NaN-as-missing mode (the unfused chain with a learned
+  direction; with ``DMLC_HIST_BLOCKS=8`` and the fused descend requested
+  too), and with an eval set and early stopping, whose ``eval_history``
+  is the 1-process fit's on every rank;
 * ``DMLC_HIST_QUANT`` (int8 code sync) stays within the JAX package's
   bounds of the exact fit (tests/test_fused_round.py: max < 0.15, mean
   < 0.02 margin difference) and is exact on one rank;
@@ -55,9 +59,18 @@ CONFIGS = {
         "DMLC_TPU_FUSED_DESCEND": str(fuse)}
     for pol, env in POLICIES.items() for blocks in (0, 8) for fuse in (0, 1)}
 CONFIGS["quant"] = {"DMLC_HIST_QUANT": "1"}
+# NaN-as-missing mode (the unfused chain on every world size), and an
+# eval set with early stopping on NaN data, a score a round
+CONFIGS["missing"] = {}
+CONFIGS["missing_b8_f1"] = {"DMLC_HIST_BLOCKS": "8",
+                            "DMLC_TPU_FUSED_DESCEND": "1"}
+CONFIGS["missing_eval"] = {"DMLC_TPU_ROUNDS_PER_DISPATCH": "1"}
 LEVERS = ("DMLC_GROW_POLICY", "DMLC_MAX_LEAVES", "DMLC_BIN_PACK",
           "DMLC_HIST_BLOCKS", "DMLC_TPU_FUSED_DESCEND", "DMLC_HIST_QUANT",
-          "DMLC_FUSED_ROUND", "DMLC_FEATURE_BUNDLE")
+          "DMLC_FUSED_ROUND", "DMLC_FEATURE_BUNDLE",
+          "DMLC_TPU_ROUNDS_PER_DISPATCH")
+#: with n_trees 3 no stop comes before the last round
+EARLY_STOP = 2
 
 
 def _make_xy(n, F=6, seed=0):
@@ -78,7 +91,19 @@ def _narrow_xy(n=1003, seed=5):
     return X, y
 
 
+def _nan_xy(n=1003, seed=2):
+    """``_make_xy``'s rows with NaN: 10% of every feature but the first,
+    and feature 0 wherever it exceeds 1.0."""
+    X, y = _make_xy(n, F=7, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    X[:, 1:][rng.random((n, 6)) < 0.1] = np.nan
+    X[X[:, 0] > 1.0, 0] = np.nan
+    return X, y
+
+
 def _data_of(name):
+    if name.startswith("missing"):
+        return "nan"
     return "narrow" if name.startswith("pack") else "main"
 
 
@@ -88,7 +113,8 @@ def dp(tmp_path_factory):
     4 ranks; returns ``(refs, dir)`` with ``refs[name] = (model bytes,
     margins, predictions, bin layout or None)``."""
     d = tmp_path_factory.mktemp("dp")
-    data = {"main": _make_xy(1003, F=7, seed=1), "narrow": _narrow_xy()}
+    data = {"main": _make_xy(1003, F=7, seed=1), "narrow": _narrow_xy(),
+            "nan": _nan_xy(), "nan_eval": _nan_xy(401, seed=3)}
     for key, (X, y) in data.items():
         np.save(d / f"X_{key}.npy", X)
         np.save(d / f"y_{key}.npy", y)
@@ -97,13 +123,27 @@ def dp(tmp_path_factory):
              "y": str(d / f"y_{_data_of(name)}.npy"),
              "Xv": str(d / f"X_{_data_of(name)}.npy")}
             for name, env in CONFIGS.items()]
+    for run in runs:
+        if run["name"] == "missing_eval":
+            run["eval"] = {"X": str(d / "X_nan_eval.npy"),
+                           "y": str(d / "y_nan_eval.npy"),
+                           "early_stopping_rounds": EARLY_STOP}
     refs = {}
     saved = {k: os.environ.pop(k, None) for k in LEVERS}
     try:
         for run in runs:
             X, y = data[_data_of(run["name"])]
             os.environ.update(run["env"])
-            m = HistGBT(device="cpu", **KW).fit(X, y)
+            m = HistGBT(device="cpu", **KW)
+            if "eval" in run:
+                m.fit(X, y, eval_set=data["nan_eval"],
+                      early_stopping_rounds=EARLY_STOP)
+                (d / f"{run['name']}.ref.json").write_text(json.dumps({
+                    "eval_history": m.eval_history,
+                    "best_iteration": m.best_iteration,
+                    "best_score": m.best_score}))
+            else:
+                m.fit(X, y)
             for k in run["env"]:
                 del os.environ[k]
             path = d / f"{run['name']}.ref.model"
@@ -143,8 +183,21 @@ def test_world_sizes_write_the_one_process_model(dp, name):
                                       ref_pred)
         st = _stats(d, world, name)
         assert st["world"] == world and st["layout"] == fired
+        assert st["missing"] == name.startswith("missing")
         # kernels count launches on CUDA tensors only
         assert not any(st["launches"].values())
+
+
+def test_eval_history_is_the_one_process_history_on_every_rank(dp):
+    _, d = dp
+    ref = json.loads((d / "missing_eval.ref.json").read_text())
+    assert [r for r, _ in ref["eval_history"]] == [1, 2, 3]
+    for world in WORLDS:
+        for r in range(world):
+            st = _stats(d, world, "missing_eval", r)
+            assert st["eval_history"] == ref["eval_history"], (world, r)
+            assert st["best_iteration"] == ref["best_iteration"]
+            assert st["best_score"] == ref["best_score"]
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
