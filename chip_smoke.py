@@ -56,6 +56,30 @@ and the script exits non-zero without the final ``ok`` line:
    held-out rows as the eval set): ``eval_history``, ``best_iteration``
    and ``predict``'s use of it; then on a 100k-row slice on the GPU and on
    the CPU, their ``eval_history`` within rtol 1e-6;
+6c. softmax — ``multi:softmax`` with covtype's 7 cover types at UCI
+   Covertype's class counts on the covtype-schema rows (581,012 × 54),
+   depth 6, 256 bins, 5 rounds, depth-wise then lossguide 16: ``hist``
+   and ``fused_round`` launched 7× a round's counts (7 + 35 depth-wise),
+   trees stacked ``[7, depth, half]``, held-out merror below the majority
+   class's share, ``predict_proba`` rows summing to 1; the depth-wise
+   fit of a 100k-row slice on the card and on the CPU: equal files;
+6d. resume — configuration 1 on the HIGGS-like rows: 3 trees, then
+   ``fit_device(resume=True)`` for 2 more, writes phase 5's file; the
+   3-tree ensemble replayed on the handle (``descend_kernel``, 18
+   launches) equals the carried margins bit for bit; ``load_model`` of a
+   saved 3-tree file, then ``fit``, writes the same file;
+6e. sampling — ``subsample=0.8``, ``colsample_bytree=0.8``, seed 3, the
+   depth-wise fit on the HIGGS-like rows: each round's keep and feature
+   masks on the card equal the CPU's at 10M rows, the draw timed per
+   round, a sampled 3 + 2 resume writes the uninterrupted file, and the
+   cuda and cpu files of a 100k-row slice are equal;
+6f. monotone — +1 on feature 2 and −1 on feature 3 (the label rule's
+   signs), depth-wise on the HIGGS-like rows: the margin along a
+   256-point sweep of each constrained feature moves with its sign for
+   1000 held-out rows; equal cuda and cpu files of a 100k-row slice;
+6g. introspect — ``predict_leaf`` on the card equal to the CPU's, and
+   ``dump_model`` / ``feature_importances`` equal, for phase 4's model
+   and 6c's depth-wise softmax model;
 7. cross-device — depth-wise, 1, 2a, 2b and missing on 100k-row slices, on
    the GPU and on the CPU (plain versions): every tree bit-identical, and
    the model files;
@@ -69,8 +93,10 @@ and the script exits non-zero without the final ``ok`` line:
    / 5; (c) the int8 sync (``DMLC_HIST_QUANT=1``) on the two ranks: the
    held-out accuracy floor of phase 4, its margins beside (b)'s exact
    ones; and the missing slice of phase 7 on the two ranks: each rank's
-   model file that of the 1-process fit on the card.  The ranks are child
-   processes with a time limit;
+   model file that of the 1-process fit on the card; and 6c's depth-wise
+   softmax fit on the two ranks (7 ``hist`` and 35 ``fused_descend`` a
+   round each): each rank's file that of the 1-process fit.  The ranks
+   are child processes with a time limit;
 9. deep kernels — the checks of phases 2 and 3 for ``fused_round`` and
    ``fused_descend`` at the levels of deeper trees (n_prev 32, 64 and
    2048 on the flagship's shapes, 64 and 2048 under each covtype layout
@@ -117,7 +143,7 @@ and the script exits non-zero without the final ``ok`` line:
     flagship's levers, host binning), with a time limit: its last line
     must be the final ``histgbt_rounds_per_sec_per_chip`` record of 100
     rounds, with kernel launches, and its headline fields are emitted;
-14. the ``kernels`` line (launches summed over phases 3b-6b and 8, phase
+14. the ``kernels`` line (launches summed over phases 3b-6f and 8, phase
     11's for attention, phase 12's timing pass for the B5 variants;
     ``descend_dir`` is ``descend_kernel``'s direction mode, B2's descend
     on the missing path), then
@@ -131,6 +157,7 @@ per tree and the steady rate can leave the first tree out.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -260,6 +287,26 @@ MISS_MIN_ACC = 0.75
 EVAL_TREES = 10
 EVAL_EARLY_STOP = 2
 EVAL_RTOL = 1e-6
+#: the softmax phase: covtype's 7 cover types at UCI Covertype's class
+#: counts (XGBoost's demo/gpu_acceleration/cover_type.py trains
+#: multi:softmax on them)
+COVER_TYPE_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
+SOFTMAX = {"objective": "multi:softmax", "num_class": len(COVER_TYPE_COUNTS)}
+#: the class column whose g/h the softmax kernel checks take (cover type
+#: 4, the fewest rows)
+SOFTMAX_CHECK_CLASS = 3
+#: the resume phase: trees of the first leg of 3 + 2
+RESUME_FIRST = 3
+#: the sampling phase's rates and seed, and the CUDA-event timings of
+#: one round's draw
+SAMPLING = {"subsample": 0.8, "colsample_bytree": 0.8, "seed": 3}
+DRAW_REPS = 5
+#: the monotone phase: +1 on feature 2 and −1 on feature 3, the signs of
+#: the label rule's terms (+0.5·x2, −0.8·x3·(x4 > 0)); each constrained
+#: feature swept over this many points for this many probe rows
+MONOTONE = (0, 0, 1, -1) + (0,) * (FEATURES - 4)
+SWEEP_POINTS = 256
+SWEEP_PROBES = 1000
 #: the bench child's time limit (s) and its rounds (the bench's default)
 BENCH_TIMEOUT = 600
 BENCH_ROUNDS = 100
@@ -787,14 +834,16 @@ def higgs_like(np, n, F, seed):
     return X, (margin > 0).astype(np.float32)
 
 
-def covtype_like(np, n, seed):
+def covtype_like(np, n, seed, classes=2):
     """Seeded synthetic rows with the schema of UCI Covertype (LIBSVM
     ``covtype.binary``): 10 integer-valued columns in the documented
     ranges (elevation 1859–3858, aspect 0–360, slope 0–66, distances to
     hydrology (horizontal ≥ 0, vertical −173–601), roads and fire points
     ≥ 0, hillshades 0–254); 4 one-hot wilderness columns at covtype's
     counts (scaled to ``n``); 40 one-hot soil columns from a Zipf(1.3)
-    draw independent of wilderness; a nonlinear label, half positive."""
+    draw independent of wilderness; a nonlinear label, half positive —
+    or with ``classes=7`` the cover type, the score's buckets at
+    covtype's class counts (scaled to ``n``)."""
     rng = np.random.default_rng(seed)
 
     def ints(x, lo, hi):
@@ -826,7 +875,10 @@ def covtype_like(np, n, seed):
          - 0.7 * (wild == 3) + effect[soil]
          + 0.3 * np.sin(np.deg2rad(X[:, 1])) - 0.02 * X[:, 2]
          + 0.5 * rng.normal(size=n))
-    return X, (z < np.median(z)).astype(np.float32)
+    if classes == 2:
+        return X, (z < np.median(z)).astype(np.float32)
+    share = np.cumsum(COVER_TYPE_COUNTS)[:-1] / sum(COVER_TYPE_COUNTS)
+    return X, np.digitize(z, np.quantile(z, share)).astype(np.float32)
 
 
 @contextlib.contextmanager
@@ -943,7 +995,8 @@ def require_launches(launches, want, what):
 
 def phase_main(torch, np, H, rates, X, y, Xv, yv):
     """The depth-wise fit at the flagship's shapes (default levers)."""
-    _, stats, model_bytes = fit_path(torch, np, H, X, y, Xv, yv, {}, 0.6)
+    model, stats, model_bytes = fit_path(torch, np, H, X, y, Xv, yv, {},
+                                         0.6)
     require_launches(stats["launches"], {
         "hist": TREES, "fused_round": (MAX_DEPTH - 1) * TREES,
         "hist_layout": 0, "fused_round_layout": 0, "fused_descend": 0},
@@ -955,7 +1008,7 @@ def phase_main(torch, np, H, rates, X, y, Xv, yv):
     emit({"phase": "main", **stats, "round_bin_bytes": round_bytes,
           "round_bound_ms": round_bytes / rates[0] * 1e3,
           "hist_builds_per_round": H.leaves_built_per_round(MAX_DEPTH)})
-    return stats, model_bytes
+    return stats, model_bytes, model
 
 
 def phase_main_lossguide(torch, np, H, rates, X, y, Xv, yv):
@@ -1300,12 +1353,360 @@ def phase_eval_set(torch, np, H, X, y, Xv, yv):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the rest of HistGBT's surface: multi:softmax, continued training,
+# sampling, monotone constraints, introspection
+# ---------------------------------------------------------------------------
+
+def model_bytes_of(model, n_trees=None) -> bytes:
+    """``save_model``'s bytes (with ``n_trees`` set first, as a continued
+    model's param says the total)."""
+    if n_trees is not None:
+        model.param.n_trees = n_trees
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "model.bin")
+        model.save_model(path)
+        with open(path, "rb") as f:
+            return f.read()
+
+
+def softmax_kernels(torch, H, rates, C, cy):
+    """``hist`` and ``fused_round`` on the softmax fit's own matrix — the
+    plain covtype ``[54, 581012]`` it bins (no layout fires), so the same
+    accumulation plan — against their plain versions, on one class
+    column's softmax g/h of seeded ``[n, 7]`` margins: ``hist`` at the
+    root, ``fused_round`` at each depth-wise level's ``n_prev`` and at
+    lossguide's (``n_prev`` 1 over one leaf's rows, the rest node −1).
+    Returns the largest error of each kernel."""
+    from dmlc_core_tpu_torch import HistGBT
+    from dmlc_core_tpu_torch.models.gbt_objectives import OBJECTIVES
+
+    dd = HistGBT(max_depth=MAX_DEPTH, n_bins=N_BINS, device=DEVICE,
+                 **SOFTMAX).make_device_data(C, cy)
+    require(dd["layout"] is None, "softmax: a layout fired on its matrix")
+    bins = dd["bins_t"]
+    F, n = bins.shape
+    gen = torch.Generator(device=bins.device)
+    gen.manual_seed(SEED)
+    margins = 0.5 * torch.randn((n, SOFTMAX["num_class"]),
+                                device=bins.device, generator=gen)
+    g, h = OBJECTIVES[SOFTMAX["objective"]].grad_hess(margins, dd["y_d"])
+    del dd, margins
+    g = g[:, SOFTMAX_CHECK_CLASS].contiguous()
+    h = h[:, SOFTMAX_CHECK_CLASS].contiguous()
+    kg, kh = H.hist_scales(g, h)
+    none = torch.zeros(n, dtype=torch.bool, device=bins.device)
+    shape = {"phase": "softmax", "part": "kernels", "n": n, "F": F,
+             "B": N_BINS, "class": SOFTMAX_CHECK_CLASS}
+    case = check_hist(torch, H, bins, g, h, none, kg, kh, rates)
+    emit({**shape, "name": "hist", "n_nodes": 1, **case})
+    errs = {"hist": case["max_abs_err"], "fused_round": 0.0}
+    levels = [("depthwise", 1 << (lv - 1), none)
+              for lv in range(1, MAX_DEPTH)]
+    # one lossguide expansion: about half the rows outside the leaf
+    levels.append(("lossguide", 1, torch.rand(n, device=bins.device,
+                                              generator=gen) < 0.5))
+    for policy, n_prev, masked in levels:
+        case = check_fused_round(torch, H, bins, g, h, masked, gen, n_prev,
+                                 kg, kh, rates)
+        emit({**shape, "name": "fused_round", "policy": policy, **case})
+        errs["fused_round"] = max(errs["fused_round"], case["max_abs_err"])
+    return errs
+
+
+def phase_softmax(torch, np, H, rates, smi, C, cy, Cv, cyv):
+    """``multi:softmax`` with covtype's 7 classes on its schema and row
+    count, depth-wise then lossguide 16: ``hist`` and ``fused_round`` 7×
+    a round's counts, held-out merror below the majority class's share,
+    probabilities of each row summing to 1; the two kernels against
+    their plain versions on this fit's matrix (:func:`softmax_kernels`);
+    then the depth-wise fit on a ``CROSS_ROWS`` slice on the card and on
+    the CPU, whose files must be equal.  Returns the launches, the
+    depth-wise model, its file and the kernels' largest errors."""
+    from dmlc_core_tpu_torch import HistGBT
+
+    K = SOFTMAX["num_class"]
+    kw = dict(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS, **SOFTMAX)
+    majority = 1.0 - float(np.bincount(cyv.astype(np.int64)).max()
+                           / len(cyv))
+    total, out = None, {}
+    for policy, env, builds in (("depthwise", {}, MAX_DEPTH - 1),
+                                ("lossguide", LEVERS_OFF, MAX_LEAVES - 1)):
+        model = HistGBT(device=DEVICE, **kw)
+        with levers(env):
+            zero_counts(H)
+            t0 = time.perf_counter()
+            model.fit(C, cy)
+            wall_s = time.perf_counter() - t0
+            launches = read_counts(H)
+        require_launches(launches, {
+            "hist": K * TREES, "fused_round": K * builds * TREES,
+            "hist_layout": 0, "fused_round_layout": 0, "fused_descend": 0,
+            "descend_dir": 0}, f"softmax {policy}")
+        total = (dict(launches) if total is None else
+                 {k: total[k] + v for k, v in launches.items()})
+        require(len(model.trees) == TREES and model.trees[0]["feat"].shape
+                == (K, MAX_DEPTH, 1 << (MAX_DEPTH - 1)),
+                f"softmax {policy}: trees not stacked [K, depth, half]")
+        margins = model.train_margins()
+        require(margins.shape == (len(C), K) and np.isfinite(margins).all(),
+                f"softmax {policy}: training margins malformed")
+        pred = model.predict(Cv)
+        proba = model.predict_proba(Cv)
+        require(proba.shape == (len(Cv), K)
+                and np.allclose(proba.sum(1), 1.0, atol=1e-5)
+                and np.array_equal(pred, proba.argmax(1).astype(np.float32)),
+                f"softmax {policy}: predict_proba malformed")
+        merror = float((pred != cyv).mean())
+        require(merror < majority, f"softmax {policy}: held-out merror "
+                f"{merror} not below the majority share {majority}")
+        out[policy] = model
+        emit({"phase": "softmax", "policy": policy, "card": smi,
+              "rows": len(C), "features": C.shape[1], "classes": K,
+              "trees": TREES, "max_depth": MAX_DEPTH, "levers": env,
+              "launches": launches,
+              "launches_per_round": {k: v / TREES
+                                     for k, v in launches.items()},
+              "fit_seconds": model.last_fit_seconds,
+              "fit_wall_seconds": wall_s,
+              "rounds_per_sec": TREES / model.last_fit_seconds,
+              "steady_rounds_per_sec": steady_rounds_per_sec(
+                  model.last_tree_times),
+              "tree_times": model.last_tree_times,
+              "holdout_merror": merror, "majority_error": majority})
+    kernel_errs = softmax_kernels(torch, H, rates, C, cy)
+    s = slice(0, CROSS_ROWS)
+    gpu = HistGBT(device=DEVICE, **kw).fit(C[s], cy[s])
+    cpu = HistGBT(device="cpu", **kw).fit(C[s], cy[s])
+    files = [model_bytes_of(m) for m in (gpu, cpu)]
+    require(files[0] == files[1], "softmax: cuda and cpu model files differ")
+    emit({"phase": "softmax", "part": "cross_device", "card": smi,
+          "rows": CROSS_ROWS, "identical_model_files": True,
+          "identical_predictions": bool(np.array_equal(
+              gpu.predict(Cv), cpu.predict(Cv)))})
+    return (total, out["depthwise"], model_bytes_of(out["depthwise"]),
+            kernel_errs)
+
+
+def phase_resume(torch, np, H, smi, X, y, lossguide_bytes):
+    """Continued training on configuration 1 (the bench's levers on the
+    HIGGS-like rows): 3 trees then ``fit_device(resume=True)`` for 2 more
+    write phase 5's 5-tree file; the replay of the 3-tree ensemble on the
+    handle (``descend_kernel``, counted) equals the carried margins bit
+    for bit; a saved 3-tree model, loaded and ``fit`` on, writes the same
+    file.  Returns the launches."""
+    from dmlc_core_tpu_torch import HistGBT
+
+    kw = dict(max_depth=MAX_DEPTH, n_bins=N_BINS)
+    second = TREES - RESUME_FIRST
+    with levers(BENCH_LEVERS):
+        model = HistGBT(device=DEVICE, n_trees=RESUME_FIRST, **kw)
+        dd = model.make_device_data(X, y)
+        zero_counts(H)
+        model.fit_device(dd)
+        carried = model._train_preds.clone()
+        model._train_preds = None
+        H.descend_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replayed = model._resume_margin(dd)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        replay_launches = H.descend_kernel.launches
+        require(torch.equal(replayed, carried),
+                "resume: replayed margins differ from the carried ones")
+        require(replay_launches == RESUME_FIRST * MAX_DEPTH,
+                f"resume: the replay launched descend_kernel "
+                f"{replay_launches} times, want {RESUME_FIRST * MAX_DEPTH}")
+        model._train_preds = carried
+        model.param.n_trees = second
+        model.fit_device(dd, resume=True)
+        launches = read_counts(H)
+        del dd
+        resumed = model_bytes_of(model, TREES)
+        require(resumed == lossguide_bytes, "resume: 3 + 2 trees by "
+                "fit_device(resume=True) differ from the 5-tree file")
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "three.bin")
+            HistGBT(device=DEVICE, n_trees=RESUME_FIRST, **kw).fit(
+                X, y).save_model(path)
+            loaded = HistGBT.load_model(path, device=DEVICE)
+        loaded.param.n_trees = second
+        t0 = time.perf_counter()
+        loaded.fit(X, y)
+        continue_s = time.perf_counter() - t0
+        require(model_bytes_of(loaded, TREES) == lossguide_bytes,
+                "resume: load_model + fit differs from the 5-tree file")
+    require_launches(launches, {"hist": TREES,
+                                "fused_round": (MAX_LEAVES - 1) * TREES,
+                                "fused_descend": 0}, "resume")
+    emit({"phase": "resume", "card": smi, "rows": len(X),
+          "levers": BENCH_LEVERS, "legs": [RESUME_FIRST, second],
+          "launches": launches, "replay_seconds": replay_s,
+          "replay_descend_launches": replay_launches,
+          "replayed_equals_carried": True,
+          "resume_file_equals_uninterrupted": True,
+          "load_model_fit_equals_uninterrupted": True,
+          "continued_fit_seconds": continue_s})
+    return launches
+
+
+def phase_sampling(torch, np, H, smi, X, y, Xv, yv):
+    """Row and column sampling at the flagship's shapes (depth-wise,
+    ``SAMPLING``): each round's keep and feature masks on the card equal
+    the CPU's at 10M rows; the draw's time per round; a sampled 3 + 2
+    resume writes the uninterrupted sampled fit's file (chunks of one
+    round); the cuda and cpu files of a ``CROSS_ROWS`` slice are equal.
+    Returns the launches."""
+    from dmlc_core_tpu_torch import HistGBT
+    from dmlc_core_tpu_torch.utils import prng
+
+    kw = dict(max_depth=MAX_DEPTH, n_bins=N_BINS, **SAMPLING)
+    model = HistGBT(device=DEVICE, n_trees=TREES, **kw)
+    with levers({}):
+        dd = model.make_device_data(X, y)
+        zero_counts(H)
+        model.fit_device(dd)
+        launches = read_counts(H)
+        full = model_bytes_of(model)
+        acc = float(((model.predict(Xv) > 0.5) == (yv > 0.5)).mean())
+        require(acc > 0.6, f"sampling: held-out accuracy {acc} too low")
+        part = HistGBT(device=DEVICE, n_trees=RESUME_FIRST, **kw)
+        part.cuts = model.cuts                # the handle's cuts
+        part.fit_device(dd)
+        part.param.n_trees = TREES - RESUME_FIRST
+        part.fit_device(dd, resume=True)
+        require(model_bytes_of(part, TREES) == full,
+                "sampling: a sampled 3 + 2 resume differs from the "
+                "uninterrupted fit")
+        del dd
+    cpu = HistGBT(device="cpu", n_trees=TREES, **kw)
+    base = prng.key(SAMPLING["seed"])
+    kept, draw_ms = [], []
+    for r in range(TREES):
+        key = prng.split(prng.fold_in(base, r))[1]
+        keep, feat = model._sample_masks(key, len(X), X.shape[1])
+        keep_c, feat_c = cpu._sample_masks(key, len(X), X.shape[1])
+        require(torch.equal(keep.cpu(), keep_c)
+                and torch.equal(feat.cpu(), feat_c),
+                f"sampling: round {r}'s masks differ between cuda and cpu")
+        kept.append(float(keep_c.double().mean()))
+        draw_ms.append(time_ms(torch, lambda: model._sample_masks(
+            key, len(X), X.shape[1]), DRAW_REPS))
+    s = slice(0, CROSS_ROWS)
+    files = [model_bytes_of(HistGBT(device=dev, n_trees=TREES, **kw).fit(
+        X[s], y[s])) for dev in (DEVICE, "cpu")]
+    require(files[0] == files[1], "sampling: cuda and cpu model files differ")
+    require_launches(launches, {"hist": TREES,
+                                "fused_round": (MAX_DEPTH - 1) * TREES,
+                                "fused_descend": 0}, "sampling")
+    emit({"phase": "sampling", "card": smi, "rows": len(X), **SAMPLING,
+          "trees": TREES, "launches": launches,
+          "fit_seconds": model.last_fit_seconds,
+          "steady_rounds_per_sec": steady_rounds_per_sec(
+              model.last_tree_times),
+          "kept_share_by_round": kept, "draw_ms_by_round": draw_ms,
+          "draw_ms": statistics.median(draw_ms),
+          "masks_equal_cpu": True, "resume_file_equals_uninterrupted": True,
+          "cross_device_files_equal": True, "holdout_accuracy": acc})
+    return launches
+
+
+def phase_monotone(torch, np, H, smi, X, y, Xv, yv):
+    """Monotone constraints at the flagship's shapes (``MONOTONE``,
+    depth-wise): the margin along a ``SWEEP_POINTS``-point sweep of each
+    constrained feature moves with its sign for ``SWEEP_PROBES`` held-out
+    rows; the cuda and cpu files of a ``CROSS_ROWS`` slice are equal.
+    Returns the launches."""
+    from dmlc_core_tpu_torch import HistGBT
+
+    kw = dict(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS,
+              monotone_constraints=list(MONOTONE))
+    model = HistGBT(device=DEVICE, **kw)
+    with levers({}):
+        zero_counts(H)
+        model.fit(X, y)
+        launches = read_counts(H)
+    require_launches(launches, {"hist": TREES,
+                                "fused_round": (MAX_DEPTH - 1) * TREES,
+                                "fused_descend": 0}, "monotone")
+    grid = np.linspace(-4.0, 4.0, SWEEP_POINTS, dtype=np.float32)
+    worst = {}
+    for f, sign in enumerate(MONOTONE):
+        if not sign:
+            continue
+        probes = np.repeat(Xv[:SWEEP_PROBES], SWEEP_POINTS, axis=0)
+        probes[:, f] = np.tile(grid, SWEEP_PROBES)
+        m = model.predict(probes, output_margin=True).reshape(
+            SWEEP_PROBES, SWEEP_POINTS)
+        step = np.diff(m, axis=1) * sign
+        worst[f] = float(step.min())
+        require(worst[f] >= 0.0, f"monotone: feature {f} moves against "
+                f"its constraint {sign} (step {worst[f]})")
+    acc = float(((model.predict(Xv) > 0.5) == (yv > 0.5)).mean())
+    require(acc > 0.6, f"monotone: held-out accuracy {acc} too low")
+    s = slice(0, CROSS_ROWS)
+    files = [model_bytes_of(HistGBT(device=dev, **kw).fit(X[s], y[s]))
+             for dev in (DEVICE, "cpu")]
+    require(files[0] == files[1], "monotone: cuda and cpu model files differ")
+    emit({"phase": "monotone", "card": smi, "rows": len(X),
+          "constraints": {str(f): c for f, c in enumerate(MONOTONE) if c},
+          "launches": launches, "fit_seconds": model.last_fit_seconds,
+          "steady_rounds_per_sec": steady_rounds_per_sec(
+              model.last_tree_times),
+          "sweep_points": SWEEP_POINTS, "sweep_probes": SWEEP_PROBES,
+          "min_step_with_sign": worst, "holdout_accuracy": acc,
+          "cross_device_files_equal": True})
+    return launches
+
+
+def phase_introspect(np, H, smi, models):
+    """``predict_leaf`` on the card equals the CPU's (the model loaded on
+    the CPU from its file), and ``dump_model`` (with stats) and
+    ``feature_importances`` (both types) give equal strings, for each of
+    ``models`` (name → (model, held-out rows)).  Returns the launches of
+    the card's ``predict_leaf``."""
+    from dmlc_core_tpu_torch import HistGBT
+
+    total = 0
+    for name, (model, rows) in models.items():
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "model.bin")
+            model.save_model(path)
+            cpu = HistGBT.load_model(path, device="cpu")
+        H.descend_kernel.launches = 0
+        leaves = model.predict_leaf(rows)
+        total += H.descend_kernel.launches
+        want = cpu.predict_leaf(rows)
+        require(leaves.dtype == np.int32 and np.array_equal(leaves, want),
+                f"introspect {name}: predict_leaf differs between cuda and "
+                "cpu")
+        dump = model.dump_model(with_stats=True)
+        require(dump == cpu.dump_model(with_stats=True),
+                f"introspect {name}: dump_model differs")
+        imp = {t: model.feature_importances(t).tolist()
+               for t in ("weight", "gain")}
+        require(all(repr(imp[t]) == repr(cpu.feature_importances(t).tolist())
+                    for t in imp),
+                f"introspect {name}: feature_importances differ")
+        emit({"phase": "introspect", "model": name, "card": smi,
+              "rows": len(rows), "leaf_shape": list(leaves.shape),
+              "descend_launches": H.descend_kernel.launches,
+              "dump_lines": dump.count("\n"),
+              "dump_sha_prefix": hashlib.sha256(
+                  dump.encode()).hexdigest()[:16],
+              "importance_weight": imp["weight"]})
+    return total
+
+
 def phase_data_parallel(torch, np, H, rates, X, y, Xv, yv, main, lossguide,
-                        missing):
+                        missing, softmax):
     """The data-parallel path on this card.  ``main`` / ``lossguide``:
     ``(stats, model bytes)`` of phases 4 and 5; ``missing``: ``(X, y,
     model bytes)`` of the cross-device phase's missing slice, which two
-    gloo ranks fit too.  Returns the launches of every fit, summed."""
+    gloo ranks fit too; ``softmax``: ``(X, y, model bytes)`` of the
+    softmax phase's depth-wise fit, likewise.  Returns the launches of
+    every fit, summed."""
     from dmlc_core_tpu_torch.base.metrics import default_registry
     from dmlc_core_tpu_torch.parallel import collectives as coll
     from dmlc_core_tpu_torch.parallel.launch import free_port, launch
@@ -1354,6 +1755,8 @@ def phase_data_parallel(torch, np, H, rates, X, y, Xv, yv, main, lossguide,
         np.save(os.path.join(d, "Xv.npy"), Xv)
         np.save(os.path.join(d, "Xm.npy"), missing[0])
         np.save(os.path.join(d, "ym.npy"), missing[1])
+        np.save(os.path.join(d, "Xs.npy"), softmax[0])
+        np.save(os.path.join(d, "ys.npy"), softmax[1])
         t0 = time.perf_counter()
         launch({"X": os.path.join(d, "X.npy"),
                 "y": os.path.join(d, "y.npy"),
@@ -1365,7 +1768,11 @@ def phase_data_parallel(torch, np, H, rates, X, y, Xv, yv, main, lossguide,
                          for k, (env, _) in runs.items()] + [
                     {"name": "missing", "env": {},
                      "X": os.path.join(d, "Xm.npy"),
-                     "y": os.path.join(d, "ym.npy"), "Xv": None}],
+                     "y": os.path.join(d, "ym.npy"), "Xv": None},
+                    {"name": "softmax", "env": FUSED_DESCEND,
+                     "X": os.path.join(d, "Xs.npy"),
+                     "y": os.path.join(d, "ys.npy"), "Xv": None,
+                     "params": SOFTMAX}],
                 "out": os.path.join(d, "out")}, DP_RANKS, DP_TIMEOUT)
         group_s = time.perf_counter() - t0
         out = os.path.join(d, "out")
@@ -1391,6 +1798,31 @@ def phase_data_parallel(torch, np, H, rates, X, y, Xv, yv, main, lossguide,
               "rows": len(missing[0]), "launches_per_rank": st["launches"],
               "same_model_file_as_one_process": True,
               "device_allreduces": st["device_allreduces"]})
+        # multi:softmax on the two ranks: K class trees a round, each
+        # level's left children synced
+        K = SOFTMAX["num_class"]
+        for r in range(DP_RANKS):
+            with open(os.path.join(out, f"softmax.{r}.json")) as f:
+                st = json.load(f)
+            with open(os.path.join(out, f"softmax.{r}.model"), "rb") as f:
+                require(f.read() == softmax[2], f"data_parallel softmax: "
+                        f"rank {r}'s model file differs from the "
+                        "1-process fit's")
+            require_launches(st["launches"], {
+                "hist": K * TREES, "fused_round": 0, "hist_layout": 0,
+                "fused_round_layout": 0,
+                "fused_descend": K * (MAX_DEPTH - 1) * TREES,
+                "descend_dir": 0}, f"data_parallel softmax rank {r}")
+            for k, v in st["launches"].items():
+                total[k] += v
+        emit({"phase": "data_parallel", "part": "softmax",
+              "backend": "gloo", "world": DP_RANKS,
+              "rows": len(softmax[0]), "classes": K,
+              "launches_per_rank": st["launches"],
+              "same_model_file_as_one_process": True,
+              "fit_seconds": st["fit_seconds"],
+              "device_allreduces": st["device_allreduces"],
+              "hist_sync_bytes": st["hist_sync_bytes"]})
         margins = {k: np.load(os.path.join(out, f"{k}.margins.npy"))
                    for k in runs}
         preds = {k: np.load(os.path.join(out, f"{k}.pred.npy"))
@@ -1934,6 +2366,9 @@ def main() -> int:
     Xv, yv = higgs_like(np, 100_000, FEATURES, 8)
     C, cy = covtype_like(np, COVTYPE_ROWS, COVTYPE_SEED)
     Cv, cyv = covtype_like(np, 100_000, COVTYPE_SEED + 1)
+    # the same rows' cover types (7 classes)
+    c7 = covtype_like(np, COVTYPE_ROWS, COVTYPE_SEED, classes=7)[1]
+    c7v = covtype_like(np, 100_000, COVTYPE_SEED + 1, classes=7)[1]
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "higgs_like": list(X.shape), "covtype_like": list(C.shape),
           "covtype_positive_share": float(cy.mean())})
@@ -1952,6 +2387,18 @@ def main() -> int:
                    phase_eval_set(torch, np, H, Xm, y, Xmv, yv)):
         for k, v in counts.items():
             launches[k] += v
+    softmax_launches, softmax_model, softmax_bytes, softmax_errs = \
+        phase_softmax(torch, np, H, rates, smi, C, c7, Cv, c7v)
+    for k, err in softmax_errs.items():
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], err)
+    for counts in (softmax_launches,
+                   phase_resume(torch, np, H, smi, X, y, lossguide_fit[1]),
+                   phase_sampling(torch, np, H, smi, X, y, Xv, yv),
+                   phase_monotone(torch, np, H, smi, X, y, Xv, yv)):
+        for k, v in counts.items():
+            launches[k] += v
+    phase_introspect(np, H, smi, {"main": (main_fit[2], Xv),
+                                  "softmax": (softmax_model, Cv)})
     s = slice(0, CROSS_ROWS)
     files = phase_cross_device(np, {
         "depthwise": (X[s], y[s], {}),
@@ -1959,11 +2406,12 @@ def main() -> int:
         "2a": (C[s], cy[s], BENCH_LEVERS),
         "2b": (C[s], cy[s], PACK_ONLY),
         "missing": (Xm[s], y[s], {})})
-    del C, cy
     for k, v in phase_data_parallel(
             torch, np, H, rates, X, y, Xv, yv, main_fit, lossguide_fit,
-            (Xm[s], y[s], files["missing"])).items():
+            (Xm[s], y[s], files["missing"]),
+            (C, c7, softmax_bytes)).items():
         launches[k] += v
+    del C, cy, c7, softmax_model
     del Xm, Xmv
     for k, v in launches.items():
         require(v > 0, f"{k} was never launched on the main paths")

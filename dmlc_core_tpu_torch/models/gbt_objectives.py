@@ -1,14 +1,14 @@
 """GBT training objectives (PyTorch port).
 
 The counterpart of ``dmlc_core_tpu/models/gbt_objectives.py`` for the
-objectives this package trains so far: ``binary:logistic`` and
-``reg:squarederror``.  Every objective provides ``grad_hess`` (the
-boosting step's inputs), ``transform`` (margin → prediction) and
-``row_loss``/``metric``.  :data:`EVAL_METRICS` holds the validation
-metrics of these objectives (``logloss``, ``error``, ``auc``; ``rmse``,
-``mae``), each reduced in float64 and rounded to one f32 value, so that
-the CPU and the GPU score alike.  The multiclass and ranking objectives
-and their metrics are not ported yet; their names stay known so that
+objectives this package trains: ``binary:logistic``, ``multi:softmax``
+(margins ``[n, K]``) and ``reg:squarederror``.  Every objective provides
+``grad_hess`` (the boosting step's inputs), ``transform`` (margin →
+prediction) and ``row_loss``/``metric``.  :data:`EVAL_METRICS` holds the
+validation metrics of these objectives (``logloss``, ``error``, ``auc``;
+``mlogloss``, ``merror``; ``rmse``, ``mae``), each reduced in float64 and
+rounded to one f32 value, so that the CPU and the GPU score alike.  The
+ranking objectives are not ported; their names stay known so that
 :class:`~dmlc_core_tpu_torch.models.histgbt.HistGBTParam` validates the
 same values as the JAX package.
 """
@@ -75,6 +75,39 @@ class _Logistic(_ObjectiveBase):
         return -(y * torch.log(p + eps) + (1 - y) * torch.log(1 - p + eps))
 
 
+def _softmax(pred: torch.Tensor) -> torch.Tensor:
+    """Row softmax of ``[n, K]`` f32 margins computed in f64 and rounded
+    once, as :func:`_sigmoid`: the CPU and the GPU give the same bits."""
+    return torch.softmax(pred.double(), dim=1).float()
+
+
+@OBJECTIVES.register("multi:softmax")
+class _Softmax(_ObjectiveBase):
+    """K-class softmax (XGBoost ``multi:softmax``): margins ``[n, K]``,
+    grad/hess per class from the full softmax row; ``transform`` gives the
+    argmax class, :meth:`prob` the probability matrix."""
+
+    @staticmethod
+    def grad_hess(pred, y):                  # pred [n, K], y [n] labels
+        prob = _softmax(pred)
+        yoh = torch.nn.functional.one_hot(y.to(torch.int64),
+                                          pred.shape[1]).to(pred.dtype)
+        return prob - yoh, torch.clamp(2.0 * prob * (1.0 - prob), min=1e-6)
+
+    @staticmethod
+    def transform(pred):                     # class index
+        return torch.argmax(pred, dim=1).to(torch.float32)
+
+    @staticmethod
+    def prob(pred):
+        return _softmax(pred)
+
+    @staticmethod
+    def row_loss(pred, y):                   # mlogloss
+        logp = torch.log_softmax(pred.double(), dim=1)
+        return -torch.gather(logp, 1, y.to(torch.int64)[:, None])[:, 0].float()
+
+
 @OBJECTIVES.register("reg:squarederror")
 class _SquaredError(_ObjectiveBase):
     @staticmethod
@@ -124,14 +157,20 @@ def _metric_mae(margin, y):
     return (margin - y).abs().double().mean().float()
 
 
-#: eval_metric name → (fn(margin, y) -> f32 scalar tensor, maximize?), for
-#: the ported objectives (``mlogloss``/``merror`` come with multi:softmax)
+def _metric_merror(margin, y):
+    return (torch.argmax(margin, dim=1) != y.to(torch.int64)
+            ).double().mean().float()
+
+
+#: eval_metric name → (fn(margin, y) -> f32 scalar tensor, maximize?)
 EVAL_METRICS = {
     "logloss": (_Logistic.eval_loss, False),
     "error": (_metric_error, False),
     "auc": (_metric_auc, True),
     "rmse": (_SquaredError.eval_loss, False),
     "mae": (_metric_mae, False),
+    "mlogloss": (_Softmax.eval_loss, False),
+    "merror": (_metric_merror, False),
 }
 
 #: which metrics fit which objective's margins (the JAX package's table)

@@ -1,8 +1,8 @@
 """Split chooser and row routing for HistGBT (PyTorch port).
 
-The counterpart of ``dmlc_core_tpu/models/gbt_split.py`` for the
-unconstrained case: XGBoost hist's split evaluator over
-``hist [2, N, F, B]``, run as torch ops on the histogram's device.
+The counterpart of ``dmlc_core_tpu/models/gbt_split.py``: XGBoost hist's
+split evaluator over ``hist [2, N, F, B]``, run as torch ops on the
+histogram's device.
 
 Given the same histogram it picks the same ``(feat, thr)`` as the JAX
 package, bit for bit: the cumulative sums repeat XLA's CPU addition order
@@ -11,8 +11,9 @@ same sequence of f32 operations, and ``torch.argmax`` keeps
 ``jnp.argmax``'s first-maximum rule on ties.  Every step is an
 elementwise IEEE operation or an exact reduction, so the CPU and the GPU
 agree too.  With ``missing=True`` it also learns each node's default
-direction for NaN rows, as the JAX package does.  Monotone constraints
-are not ported yet.
+direction for NaN rows, with ``mono`` it scores monotone-constrained
+splits at their bound-clipped weights, and a ``feat_mask`` (column
+sampling) takes features out of the choice, as the JAX package does.
 
 Also the host binning route (``DMLC_TPU_BIN_BACKEND=cpu``:
 :func:`_host_bin_t`) and the boosting loop's metrics (:func:`gbt_metrics`).
@@ -20,11 +21,13 @@ Also the host binning route (``DMLC_TPU_BIN_BACKEND=cpu``:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from dmlc_core_tpu_torch.base import metrics as _metrics
-from dmlc_core_tpu_torch.base.logging import log_fatal
+from dmlc_core_tpu_torch.base.logging import CHECK, log_fatal
 from dmlc_core_tpu_torch.base.parameter import get_env
 from dmlc_core_tpu_torch.ops.histogram import descend_kernel, descend_plain
 from dmlc_core_tpu_torch.ops.quantile import xla_cumsum
@@ -99,7 +102,8 @@ def _maybe_l1(G, alpha: float):
 
 def _make_best_split(B: int, lam: float, gamma: float, mcw: float,
                      with_child_sums: bool = False, alpha: float = 0.0,
-                     missing: bool = False):
+                     missing: bool = False,
+                     mono: Optional[np.ndarray] = None):
     """Greedy per-node split chooser over a gradient histogram.
 
     hist [2,N,F,B] → (feat [N], thr [N], split_gain [N]); degenerate
@@ -116,7 +120,23 @@ def _make_best_split(B: int, lam: float, gamma: float, mcw: float,
     ``min_child_weight`` checked per direction; the better direction is
     each node's ``dir`` (1 = missing left), returned between thr and
     gain, and the left child's sums take the missing mass where it goes
-    left.  A degenerate node keeps thr = B-1, dir = 1: every row left."""
+    left.  A degenerate node keeps thr = B-1, dir = 1: every row left.
+
+    ``mono`` ([F] ints in {-1, 0, +1}; not with ``missing``) enables
+    monotone constraints: gains are XGBoost's constrained gains at the
+    child and parent weights clipped into each node's inherited
+    ``bounds`` [N, 2], and a candidate on a constrained feature whose
+    child weights break the ordering scores −inf.  The caller propagates
+    the bounds level to level and clips the leaves.
+
+    The chooser is ``best_split(hist, feat_mask=None, bounds=None)``;
+    ``feat_mask`` [F] bool (column sampling) scores the features it
+    leaves out −inf."""
+    CHECK(mono is None or not missing,
+          "monotone constraints are not supported with missing=True "
+          "(the constrained-gain branch has no missing-direction form)")
+    mono_t = None if mono is None else torch.as_tensor(
+        np.asarray(mono, np.int32))
 
     if alpha > 0.0:
         def _score(G, H):
@@ -133,7 +153,33 @@ def _make_best_split(B: int, lam: float, gamma: float, mcw: float,
         ok = (hl >= mcw) & (hr >= mcw)
         return torch.where(ok, gain, float("-inf"))
 
-    def best_split(hist):
+    def objv(G, H, w):
+        return G * w + 0.5 * (H + lam) * w * w
+
+    def mono_gain(gl, hl, gt, ht, bounds):
+        """The constrained gain at the clipped weights (the closed form
+        at bounds ±inf), −inf where the ordering breaks or a child is
+        under ``min_child_weight``."""
+        gr = gt - gl
+        hr = ht - hl
+        wl = -gl / (hl + lam)                        # candidate child weights
+        wr = -gr / (hr + lam)
+        wp = -gt / (ht + lam)
+        if bounds is not None:                       # inherited node bounds
+            lo = bounds[:, 0][:, None, None]
+            hi = bounds[:, 1][:, None, None]
+            wl = torch.minimum(torch.maximum(wl, lo), hi)
+            wr = torch.minimum(torch.maximum(wr, lo), hi)
+            wp = torch.minimum(torch.maximum(wp, lo), hi)
+        gain = 2.0 * (objv(gt, ht, wp) - objv(gl, hl, wl)
+                      - objv(gr, hr, wr))
+        m = mono_t.to(gl.device)[None, :, None]      # [1, F, 1]
+        viol = ((m > 0) & (wl > wr)) | ((m < 0) & (wl < wr))
+        gain = torch.where(viol, float("-inf"), gain)
+        ok = (hl >= mcw) & (hr >= mcw)
+        return torch.where(ok, gain, float("-inf"))
+
+    def best_split(hist, feat_mask=None, bounds=None):
         # both planes in one scan: [2,N,F,B] left-inclusive sums
         cg, ch = xla_cumsum(hist)
         gl = cg[..., :-1]                            # [N,F,B-1] left: bin ≤ b
@@ -148,8 +194,13 @@ def _make_best_split(B: int, lam: float, gamma: float, mcw: float,
                                hl + miss_h[..., None], gt, ht)
             gain = torch.maximum(gain_r, gain_l)
             dir_l = gain_l > gain_r                  # [N,F,B-1]
+        elif mono_t is not None:
+            gain = mono_gain(gl, hl, gt, ht, bounds)
         else:
             gain = side_gain(gl, hl, gt, ht)
+        if feat_mask is not None:                    # colsample: [F] bool
+            gain = torch.where(feat_mask[None, :, None], gain,
+                               float("-inf"))
         flat = gain.reshape(gain.shape[0], -1)       # [N, F*(B-1)]
         best = torch.argmax(flat, dim=1)
         best_gain = torch.gather(flat, 1, best[:, None])[:, 0]
@@ -204,3 +255,4 @@ def _advance_node(bins_t, node, feat, thr, layout=None, dir_sel=None,
                               miss_bin)
     return descend_plain(bins_t, node, feat, thr, by_node=True,
                          layout=layout, dir_sel=dir_sel, miss_bin=miss_bin)
+

@@ -1,10 +1,12 @@
 """Histogram gradient-boosted trees on one GPU (PyTorch port).
 
-The counterpart of ``dmlc_core_tpu/models/histgbt.py`` for its flagship
-path: dense, in-core ``HistGBT`` training (``binary:logistic`` /
+The counterpart of ``dmlc_core_tpu/models/histgbt.py``'s in-core engine:
+dense ``HistGBT`` training (``binary:logistic``, ``multi:softmax``,
 ``reg:squarederror``) with depth-wise or loss-guide growth, the bench's
-bin levers, prediction, and ``save_model`` / ``load_model`` in the same
-file format.
+bin levers, row and column sampling, monotone constraints, continued
+training, prediction and introspection (``predict_leaf``,
+``dump_model``, ``feature_importances``), and ``save_model`` /
+``load_model`` in the same file format.
 
 One device, eager: the round is a Python loop over trees and levels in
 the JAX program's level order —
@@ -29,7 +31,17 @@ the JAX program's level order —
 Trees are the JAX package's per-tree numpy arrays (``feat``, ``thr``,
 ``gain`` ``[depth, 2^(depth-1)]``, ``leaf`` ``[2^depth]``), in the original
 feature and bin space whatever the levers, so model files and their
-consumers are unchanged.
+consumers are unchanged.  ``multi:softmax`` grows K trees a round, one per
+class on that class's column of the softmax gradients, each through the
+same kernels, and stacks them ``[K, ...]`` (margins ``[n, K]``).
+
+Sampling (``subsample``, ``colsample_bytree``) draws JAX's masks bit for
+bit (``utils.prng``, threefry2x32): a chunk's key is ``fold_in(key(seed),
+global round)``, each round splits it, the row key folds in the rank.
+Continued training (``fit`` on a fitted model, ``fit_device(resume=True)``)
+keeps the cuts, replays the ensemble's margins tree by tree (or takes the
+carried ones) and threads the global round index, so that 3 + 2 rounds
+write the 5-round file.
 
 Data parallel (``mesh=``, a :class:`~dmlc_core_tpu_torch.parallel.mesh.
 Mesh` over a ``torch.distributed`` group, one process per GPU): every
@@ -67,14 +79,14 @@ levers are ignored, as in the JAX package.  ``fit(eval_set=,
 early_stopping_rounds=, eval_every=)`` scores a validation set at chunk
 ends and stops early.
 
-Not ported yet: monotone constraints, multiclass and ranking objectives,
-row/column sampling, continued training, lossguide with NaN (the JAX
-package refuses it too), external memory, sharded ingest, one process
-over several GPUs.
+Not ported: ranking objectives, ``predict_iter``, lossguide with NaN or
+with monotone constraints (the JAX package refuses both too), external
+memory, sharded ingest, one process over several GPUs.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
@@ -94,6 +106,7 @@ from dmlc_core_tpu_torch.models.gbt_split import (_advance_node,
                                                   _host_bin_t,
                                                   _make_best_split, _maybe_l1,
                                                   gbt_metrics)
+from dmlc_core_tpu_torch.utils import prng
 from dmlc_core_tpu_torch.ops import binlayout as _bl
 from dmlc_core_tpu_torch.ops.histogram import (build_histogram,
                                                dequantize_hist_sum,
@@ -345,14 +358,14 @@ class _HistSync:
                     layout: Optional[_bl.BinLayout], grow_policy: str,
                     max_leaves: int) -> int:
         """Bytes one rank's syncs move per boosting round: int64 sums
-        (twice the f32 model), or the int8 model under quant; 0 on one
-        rank."""
+        (twice the f32 model), or the int8 model under quant, for each of
+        the round's ``num_class`` trees; 0 on one rank."""
         if self.world <= 1:
             return 0
         model = hist_psum_bytes_per_round(
             p.max_depth, n_features, p.n_bins, layout=layout,
             grow_policy=grow_policy, max_leaves=max_leaves,
-            quant=self.quant)
+            quant=self.quant) * max(p.num_class, 1)
         return model if self.quant else 2 * model
 
 
@@ -436,6 +449,18 @@ class HistGBT:
         self.mesh = mesh if mesh is not None else local_mesh()
         #: the level engine and syncs of the fit in progress
         self._sync: Optional[_HistSync] = None
+        # the field's bounds are inclusive; 0.0 would train degenerate
+        # trees (XGBoost restricts both to (0, 1])
+        CHECK(self.param.subsample > 0.0, "subsample must be in (0, 1]")
+        CHECK(self.param.colsample_bytree > 0.0,
+              "colsample_bytree must be in (0, 1]")
+        if self.param.objective == "multi:softmax":
+            CHECK(self.param.num_class >= 2,
+                  "multi:softmax needs num_class >= 2")
+        else:
+            CHECK(self.param.num_class == 1,
+                  f"num_class > 1 requires multi:softmax, "
+                  f"got {self.param.objective!r}")
         if self.param.eval_metric:
             allowed = _METRICS_BY_OBJECTIVE[self.param.objective]
             CHECK(self.param.eval_metric in allowed,
@@ -493,15 +518,55 @@ class HistGBT:
         CHECK(p.objective in OBJECTIVES,
               f"objective {p.objective!r} is not ported to this package yet "
               f"(ported: {OBJECTIVES.list_all_names()})")
-        CHECK(p.num_class == 1, "multi:softmax is not ported yet")
         return OBJECTIVES[p.objective]
 
-    def _check_fit_params(self) -> None:
+    def _check_fit_data(self, n_features: int, y: np.ndarray) -> None:
+        """:meth:`fit`'s checks of the labels against ``num_class`` and of
+        ``monotone_constraints`` against the data's width (the JAX
+        package's, with its messages)."""
         p = self.param
-        CHECK(p.subsample == 1.0 and p.colsample_bytree == 1.0,
-              "row/column sampling is not ported yet")
-        CHECK(not any(int(v) for v in p.monotone_constraints),
-              "monotone_constraints are not ported yet")
+        if p.num_class > 1:
+            CHECK(y.min() >= 0 and y.max() < p.num_class,
+                  f"multi:softmax labels must be in [0, {p.num_class})")
+        if p.monotone_constraints:
+            CHECK_EQ(len(p.monotone_constraints), n_features,
+                     "monotone_constraints length must equal n_features")
+            # strict membership: 0.5 or "x" must be refused, not cast to
+            # "no constraint" by int()
+            CHECK(all(v in (-1, 0, 1) for v in p.monotone_constraints),
+                  "monotone_constraints values must be -1, 0 or +1")
+
+    def _mono_array(self, policy: str) -> Optional[np.ndarray]:
+        """The ``[F]`` int32 monotone constraints, or None when none is
+        set; refused with NaN, ``reg_alpha`` and lossguide, as the JAX
+        package's round program refuses them."""
+        p = self.param
+        mono = None
+        if p.monotone_constraints:
+            mc = np.asarray([int(v) for v in p.monotone_constraints],
+                            np.int32)
+            if np.any(mc):
+                mono = mc
+        if self._missing:
+            CHECK(mono is None,
+                  "monotone_constraints with NaN features is not "
+                  "supported (learned missing direction would need "
+                  "direction-aware bound propagation) — impute missing "
+                  "values or drop the constraints")
+        if p.reg_alpha > 0.0:
+            CHECK(mono is None,
+                  "monotone_constraints with reg_alpha is not supported "
+                  "(the constrained gain evaluation would need the L1 "
+                  "term at the clipped weights) — drop one of the two")
+        if policy == "lossguide":
+            CHECK(not self._missing,
+                  "DMLC_GROW_POLICY=lossguide with NaN/missing features "
+                  "is not supported yet — impute, or use depthwise")
+            CHECK(mono is None,
+                  "DMLC_GROW_POLICY=lossguide with monotone_constraints "
+                  "is not supported (bound propagation is level-order) "
+                  "— use depthwise")
+        return mono
 
     # ------------------------------------------------------------------
     # training
@@ -516,6 +581,13 @@ class HistGBT:
         are computed from ``X`` unless ``cuts`` are given.  NaN in ``X``
         is missing (:attr:`_missing`).
 
+        On a model that has trees (a fit, or :meth:`load_model`) this
+        CONTINUES training, XGBoost's ``xgb_model``: the saved cuts bin
+        ``X`` (the plain ``[F, n]`` matrix, no bin levers), the margins
+        start from the ensemble's, replayed tree by tree, and the new
+        trees are appended; round indices (sampling keys,
+        ``eval_history``, ``best_iteration``) count the earlier trees.
+
         ``eval_set=(Xv, yv)`` scores the model at every chunk's end (the
         chunk size as :func:`_rounds_schedule` with ``eval_every``) by
         ``eval_metric``, or the objective's loss, into
@@ -524,26 +596,42 @@ class HistGBT:
         the first chunk end that many rounds past it — then
         :meth:`predict` uses the trees up to ``best_iteration + 1``.  On
         several ranks every rank scores the whole eval set."""
-        CHECK(len(self.trees) == 0,
-              "continued training is not ported yet (fit a fresh model)")
+        X = np.ascontiguousarray(X, dtype=np.float32)
+        y = np.ascontiguousarray(y, dtype=np.float32)
+        CHECK_EQ(len(y), len(X), "X/y row mismatch")
         if early_stopping_rounds:
             CHECK(eval_set is not None,
                   "early_stopping_rounds needs an eval_set")
-        self.cuts = None
-        dd = self.make_device_data(X, y, weight=weight, cuts=cuts)
+        self._check_fit_data(X.shape[1], y)
+        # best_iteration indexes the FULL tree list
+        n_prior = len(self.trees)
+        if n_prior:
+            # the trees' thresholds are bins of the saved cuts
+            CHECK(self.cuts is not None, "continue-fit without cuts")
+            self._check_nan_allowed(X, "fit (continued)")
+            dd = self.make_device_data(X, y, weight=weight, levers=False)
+            preds = self._apply_trees(dd["bins_t"], self.trees,
+                                      self._base_margin(dd["n"]))
+        else:
+            self.cuts = None
+            dd = self.make_device_data(X, y, weight=weight, cuts=cuts)
+            preds = self._base_margin(dd["n"])
         after_chunk = None
         if eval_set is not None:
-            after_chunk = self._eval_hook(eval_set, early_stopping_rounds)
-        return self.fit_device(dd, after_chunk=after_chunk,
-                               eval_every=eval_every)
+            after_chunk = self._eval_hook(eval_set, early_stopping_rounds,
+                                          n_prior)
+        return self._boost(dd, preds, n_prior, after_chunk=after_chunk,
+                           eval_every=eval_every)
 
     def _eval_hook(self, eval_set: Tuple[np.ndarray, np.ndarray],
-                   early_stopping_rounds: int
+                   early_stopping_rounds: int, n_prior: int = 0
                    ) -> Callable[[int, List[Dict[str, torch.Tensor]]], bool]:
         """The eval set binned once (honouring missing mode), its margins
-        on the device, and the ``after_chunk`` hook of :meth:`fit_device`
-        that adds a chunk's trees to them, scores them and says whether
-        to stop — the JAX package's validation state and logic."""
+        on the device (the existing trees' first, on a continued fit), and
+        the ``after_chunk`` hook of :meth:`_boost` that adds a chunk's
+        trees to them, scores them and says whether to stop — the JAX
+        package's validation state and logic, rounds counted from
+        ``n_prior``."""
         p = self.param
         Xv = np.ascontiguousarray(eval_set[0], dtype=np.float32)
         yv = np.ascontiguousarray(eval_set[1], dtype=np.float32)
@@ -562,24 +650,23 @@ class HistGBT:
         self._early_stopped = bool(early_stopping_rounds)
         self.eval_history = []
         self.eval_metric_name = metric_name
-        state = {"best_at": 0,
-                 "margin": torch.full((len(yv),), p.base_score,
-                                      dtype=torch.float32,
-                                      device=self.device)}
+        margin = self._base_margin(len(yv))
+        if n_prior:
+            margin = self._apply_trees(bins_v, self.trees, margin)
+        state = {"best_at": 0, "margin": margin}
 
         def after_chunk(done: int, chunk) -> bool:
             st = {k: torch.stack([t[k] for t in chunk]) for k in chunk[0]}
-            state["margin"] = _predict_trees(
-                bins_v, st["feat"], st["thr"], st["leaf"], p.max_depth,
-                state["margin"], st.get("dir"), self._miss_bin())
+            state["margin"] = self._apply_stacked(bins_v, st,
+                                                  state["margin"])
             score = float(metric_fn(state["margin"], yv_d))
-            self.eval_history.append((done, score))
+            self.eval_history.append((n_prior + done, score))
             improved = (self.best_score is None
                         or (score > self.best_score if maximize
                             else score < self.best_score))
             if improved:
                 self.best_score = score
-                self.best_iteration = done - 1
+                self.best_iteration = n_prior + done - 1
                 state["best_at"] = done
             elif (early_stopping_rounds
                   and done - state["best_at"] >= early_stopping_rounds):
@@ -589,6 +676,16 @@ class HistGBT:
             return False
 
         return after_chunk
+
+    def _margin_shape(self, n: int) -> Tuple[int, ...]:
+        """Margins are ``[n]``, ``[n, K]`` for ``multi:softmax``."""
+        K = self.param.num_class
+        return (n, K) if K > 1 else (n,)
+
+    def _base_margin(self, n: int) -> torch.Tensor:
+        """``base_score`` margins of ``n`` rows on the model's device."""
+        return torch.full(self._margin_shape(n), self.param.base_score,
+                          dtype=torch.float32, device=self.device)
 
     def _miss_bin(self) -> int:
         """The reserved NaN bin (``n_bins-1``, = #cuts + 1 by the cut
@@ -622,8 +719,8 @@ class HistGBT:
 
     def make_device_data(self, X: np.ndarray, y: np.ndarray,
                          weight: Optional[np.ndarray] = None,
-                         cuts: Optional[torch.Tensor] = None
-                         ) -> Dict[str, Any]:
+                         cuts: Optional[torch.Tensor] = None, *,
+                         levers: bool = True) -> Dict[str, Any]:
         """Quantise + upload a training set once, for repeated fits: cuts
         (computed where the data is binned, or ``cuts`` / the model's
         own), the feature-major uint8 ``[F, n]`` bin matrix — re-laid out
@@ -646,7 +743,8 @@ class HistGBT:
         On a data axis of several ranks ``X``/``y`` are the GLOBAL rows
         (the same on every rank): cuts and the missing-mode decision come
         from all of them, the bins, labels and weights are this rank's
-        ``mesh.row_range(n)``."""
+        ``mesh.row_range(n)``.  ``levers=False`` keeps the plain
+        matrix whatever the bin levers say (a continued fit's)."""
         p = self.param
         t0 = get_time()
         X = np.ascontiguousarray(X, dtype=np.float32)
@@ -703,7 +801,8 @@ class HistGBT:
 
         bins_t = binned(lo, hi).to(self.device)
         layout = None
-        levers = _bin_pack_requested() or _feature_bundle_requested()
+        levers = levers and (_bin_pack_requested()
+                             or _feature_bundle_requested())
         if levers and missing:
             LOG("WARNING", "DMLC_BIN_PACK/DMLC_FEATURE_BUNDLE ignored: "
                 "missing mode (the reserved NaN bin pins every feature "
@@ -825,21 +924,28 @@ class HistGBT:
                    chunk_callback: Optional[Callable[[int, float], Any]]
                    = None,
                    after_chunk: Optional[Callable[..., bool]] = None,
-                   eval_every: int = 0) -> "HistGBT":
+                   eval_every: int = 0, resume: bool = False) -> "HistGBT":
         """Boost ``n_trees`` rounds over a :meth:`make_device_data`
-        handle: a new fit (the trees of an earlier one are dropped) —
-        the repeated-fit path, no re-upload and no re-binning.  The
-        growth policy is read from ``DMLC_GROW_POLICY`` here.
+        handle — the repeated-fit path, no re-upload and no re-binning.
+        A new fit (the trees of an earlier one are dropped) unless
+        ``resume=True``, which CONTINUES from the existing trees: the
+        margins are the carried training margins when they fit the handle
+        (bit-identical to a replay), else the ensemble replayed on the
+        handle's bins, and the global round index is threaded through so
+        that sampling draws what an uninterrupted fit draws.  The growth
+        policy is read from ``DMLC_GROW_POLICY`` here.
 
         Rounds run in chunks of ``DMLC_TPU_ROUNDS_PER_DISPATCH``: a
         chunk's trees stay on the device and come to the host in one
         fetch, at which ``last_chunk_times`` takes ``(rounds fetched,
         seconds)`` and ``chunk_callback(rounds_fetched, elapsed_s)``
-        fires.  Any chunk size gives the same trees.  ``warmup_rounds``
-        discarded rounds run first on a copy of the margins (the first
-        use of every kernel and op), after joining a pending
-        :meth:`start_warmup`; the model is untouched by them and the
-        timed fit (``last_fit_seconds``) leaves them out.
+        fires.  Any chunk size gives the same trees, save under sampling:
+        the draws follow the chunks (a chunk's key folds in the round it
+        starts at), as in the JAX package.  ``warmup_rounds`` discarded
+        rounds run first on a copy of the margins (the first use of every
+        kernel and op), after joining a pending :meth:`start_warmup`; the
+        model is untouched by them and the timed fit
+        (``last_fit_seconds``) leaves them out.
 
         ``after_chunk(rounds_done, chunk_trees)`` — :meth:`fit`'s eval
         set — runs after each chunk's fetch with the chunk's trees still
@@ -847,46 +953,121 @@ class HistGBT:
         the early-stopping state is reset.  ``eval_every`` makes chunk
         ends fall on its multiples (:func:`_rounds_schedule`) and logs
         this rank's training loss there."""
-        self._check_fit_params()
+        if resume and self.trees:
+            CHECK(self.cuts is not None, "resume-fit without cuts")
+            n_prior = len(self.trees)
+            preds = self._resume_margin(dd)
+        else:
+            self.trees = []
+            n_prior = 0
+            preds = self._base_margin(dd["n"])
+        return self._boost(dd, preds, n_prior, warmup_rounds=warmup_rounds,
+                           chunk_callback=chunk_callback,
+                           after_chunk=after_chunk, eval_every=eval_every)
+
+    def _resume_margin(self, dd: Dict[str, Any]) -> torch.Tensor:
+        """Margins of the existing ensemble over the handle's rows: the
+        carried training margins of the previous fit when their shape is
+        the handle's (no work), else the trees replayed on the handle's
+        bins — bit-identical, the replay adding the same leaf values in
+        the order the rounds added them.  A packed or bundled handle
+        cannot be replayed (the descend reads the plain matrix)."""
+        carried = self._train_preds
+        if (carried is not None
+                and tuple(carried.shape) == self._margin_shape(dd["n"])):
+            return carried
+        CHECK(dd.get("layout") is None,
+              "resume-fit margin replay on a packed/bundled handle needs "
+              "the carried training margins (a restored process has "
+              "none) — refit, or make the handle with DMLC_BIN_PACK=0 "
+              "and DMLC_FEATURE_BUNDLE=0")
+        return self._apply_trees(dd["bins_t"], self.trees,
+                                 self._base_margin(dd["n"]))
+
+    def _boost(self, dd: Dict[str, Any], preds: torch.Tensor, n_prior: int,
+               warmup_rounds: int = 0,
+               chunk_callback: Optional[Callable[[int, float], Any]] = None,
+               after_chunk: Optional[Callable[..., bool]] = None,
+               eval_every: int = 0) -> "HistGBT":
+        """The boosting loop of :meth:`fit` and :meth:`fit_device`: append
+        ``n_trees`` rounds' trees to :attr:`trees`, starting from the
+        margins ``preds``, ``n_prior`` rounds into the model."""
         CHECK(warmup_rounds >= 0, "warmup_rounds must be >= 0")
         p = self.param
         bins_t, y_d, w_d = dd["bins_t"], dd["y_d"], dd["w_d"]
         layout = dd.get("layout")
         self._bin_layout = layout
         CHECK(bins_t.dtype == torch.uint8, "n_bins > 256 is not supported")
+        F = dd["n_features"]
         self._sync = _HistSync(self.mesh, dd.get("n_global", dd["n"]),
                                self._missing)
         policy = _grow_policy()
-        sync_bytes = self._sync.round_bytes(p, dd["n_features"], layout,
-                                            policy, _max_leaves())
+        mono = self._mono_array(policy)
+        if mono is not None:
+            CHECK_EQ(len(mono), F,
+                     "monotone_constraints length must equal n_features")
+        sync_bytes = self._sync.round_bytes(p, F, layout, policy,
+                                            _max_leaves())
         if after_chunk is None:
             self.best_iteration = self.best_score = None
             self._early_stopped = False
             self.eval_history = []
             self.eval_metric_name = None
         if policy == "lossguide":
-            CHECK(not self._missing,
-                  "DMLC_GROW_POLICY=lossguide with NaN/missing features "
-                  "is not supported yet — impute, or use depthwise")
-            leaves = self._lossguide_leaves(dd["n_features"])
+            leaves = self._lossguide_leaves(F)
             heap = _heap_tables(p.max_depth, self.device)
 
-            def grow(g, h):
+            def grow(g, h, feat_mask):
                 return self._grow_tree_lossguide(bins_t, g, h, layout,
-                                                 leaves, heap)
+                                                 leaves, heap, feat_mask)
         else:
-            def grow(g, h):
-                return self._grow_tree(bins_t, g, h, layout)
+            def grow(g, h, feat_mask):
+                return self._grow_tree(bins_t, g, h, layout, feat_mask,
+                                       mono)
 
-        def boost(preds):
+        sampling = p.subsample < 1.0 or p.colsample_bytree < 1.0
+        base_key = prng.key(p.seed) if sampling else None
+        n_class = p.num_class
+
+        def boost(preds, key=None):
+            keep = feat_mask = None
+            if key is not None:
+                keep, feat_mask = self._sample_masks(key, dd["n"], F)
             g, h = self._obj.grad_hess(preds, y_d)
-            tree, delta = grow(g * w_d, h * w_d)
-            return tree, preds + delta
+            if n_class <= 1:
+                g, h = g * w_d, h * w_d
+                if keep is not None:
+                    g = torch.where(keep, g, 0.0)
+                    h = torch.where(keep, h, 0.0)
+                tree, delta = grow(g, h, feat_mask)
+                return tree, preds + delta
+            # K trees a round, one per class, on the full-softmax
+            # gradients' columns (XGBoost multi:softmax)
+            g, h = g * w_d[:, None], h * w_d[:, None]
+            if keep is not None:                      # same rows ∀ class
+                g = torch.where(keep[:, None], g, 0.0)
+                h = torch.where(keep[:, None], h, 0.0)
+            trees, deltas = [], []
+            for c in range(n_class):
+                tree_c, delta_c = grow(g[:, c].contiguous(),
+                                       h[:, c].contiguous(), feat_mask)
+                trees.append(tree_c)
+                deltas.append(delta_c)
+            tree = {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+            return tree, preds + torch.stack(deltas, dim=1)
 
-        self.trees = []
-        preds = torch.full((dd["n"],), p.base_score, dtype=torch.float32,
-                           device=self.device)
-        self._warmup(boost, preds, warmup_rounds)
+        def chunk_keys(start: int, k: int):
+            """The round keys of a chunk of ``k`` rounds from global
+            round ``start`` (the JAX package's scan of splits)."""
+            if not sampling:
+                return [None] * k
+            key_c, out = prng.fold_in(base_key, start), []
+            for _ in range(k):
+                key_c, key_r = prng.split(key_c)
+                out.append(key_r)
+            return out
+
+        self._warmup(boost, preds, chunk_keys(n_prior, warmup_rounds))
         K, rem = _rounds_schedule(p.n_trees, eval_every)
         report = _metrics.enabled()
         m = gbt_metrics() if report else None
@@ -897,8 +1078,8 @@ class HistGBT:
         while done < p.n_trees:
             k = K if p.n_trees - done >= K else rem
             chunk = []
-            for _ in range(k):
-                tree, preds = boost(preds)
+            for key in chunk_keys(n_prior + done, k):
+                tree, preds = boost(preds, key)
                 chunk.append(tree)
             self.trees.extend(_fetch_trees(chunk))    # the chunk's one sync
             done += k
@@ -926,10 +1107,36 @@ class HistGBT:
         self._train_rows = dd.get("n_global", dd["n"])
         return self
 
-    def _warmup(self, boost, preds: torch.Tensor, rounds: int) -> None:
-        """Join a pending :meth:`start_warmup`, then run ``rounds``
-        discarded rounds of ``boost`` on a copy of ``preds``; sets the
-        ``last_warmup_*`` / ``last_compile_*`` attributes."""
+    def _sample_masks(self, key: torch.Tensor, n: int, n_features: int
+                      ) -> Tuple[Optional[torch.Tensor],
+                                 Optional[torch.Tensor]]:
+        """One round's (row keep mask | None, feature mask | None) — the
+        JAX package's ``sample_masks``: rows draw ``uniform(fold_in(
+        key_rows, rank), [n]) < subsample`` (element i's draw depends on i
+        alone, so this rank's unpadded rows draw what JAX's padded shard
+        draws); features keep the ``ceil(c·F)`` smallest of ``uniform(
+        key_cols, [F])``, the same on every rank."""
+        p = self.param
+        keep = feat_mask = None
+        key_rows, key_cols = prng.split(key)
+        if p.subsample < 1.0:
+            key_rows = prng.fold_in(key_rows, self.mesh.rank)
+            u = prng.uniform(key_rows, (n,), self.device)
+            keep = u < torch.tensor(p.subsample, dtype=torch.float32,
+                                    device=self.device)
+        if p.colsample_bytree < 1.0:
+            n_keep = max(1, int(math.ceil(p.colsample_bytree * n_features)))
+            scores = prng.uniform(key_cols, (n_features,), self.device)
+            kth = torch.sort(scores).values[n_keep - 1]
+            feat_mask = scores <= kth
+        return keep, feat_mask
+
+    def _warmup(self, boost, preds: torch.Tensor, keys: List) -> None:
+        """Join a pending :meth:`start_warmup`, then run one discarded
+        round of ``boost`` per entry of ``keys`` (its sampling key, or
+        None) on a copy of ``preds``; sets the ``last_warmup_*`` /
+        ``last_compile_*`` attributes."""
+        rounds = len(keys)
         warm, self._pending_warmup = self._pending_warmup, None
         join_wait = 0.0
         self.last_compile_seconds = self.last_compile_cache = None
@@ -942,8 +1149,8 @@ class HistGBT:
         if rounds > 0:
             t_d = get_time()
             wp = preds.clone()
-            for _ in range(rounds):
-                _, wp = boost(wp)
+            for key in keys:
+                _, wp = boost(wp, key)
             dispatch_s = get_time() - t_d
             t_v = get_time()
             if self.device.type == "cuda":
@@ -960,7 +1167,9 @@ class HistGBT:
                                            engine="incore", phase="warmup")
 
     def _grow_tree(self, bins_t: torch.Tensor, g: torch.Tensor,
-                   h: torch.Tensor, layout: Optional[_bl.BinLayout] = None
+                   h: torch.Tensor, layout: Optional[_bl.BinLayout] = None,
+                   feat_mask: Optional[torch.Tensor] = None,
+                   mono: Optional[np.ndarray] = None
                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """One depth-wise tree on (g, h) → (tree arrays, margin delta).
 
@@ -976,7 +1185,15 @@ class HistGBT:
         All levels share one fixed-point scale pair, so every histogram's
         bytes are independent of summation order.  Under a ``layout``
         histograms and the subtraction stay in storage space; split
-        scoring sees them unbundled."""
+        scoring sees them unbundled.  ``feat_mask`` [F] bool (column
+        sampling) limits every node's choice to its features.
+
+        With ``mono`` ([F] in {-1, 0, +1}) every level scores with the
+        child sums and the nodes' weight bounds (``[-inf, inf]`` at the
+        root), then bounds its children: on a real split (``thr < B-1``)
+        of a constrained feature the midpoint of the two clipped child
+        weights caps one child and floors the other; leaves are clipped
+        into their bounds — the JAX package's propagation."""
         p = self.param
         depth, B = p.max_depth, p.n_bins
         lam, alpha = p.reg_lambda, p.reg_alpha
@@ -984,26 +1201,32 @@ class HistGBT:
         missing = self._missing
         miss_bin = B - 1 if missing else None
         split = _make_best_split(B, lam, p.gamma, p.min_child_weight,
-                                 alpha=alpha, missing=missing)
+                                 alpha=alpha, missing=missing, mono=mono)
         split_leaf = _make_best_split(B, lam, p.gamma, p.min_child_weight,
                                       with_child_sums=True, alpha=alpha,
-                                      missing=missing)
-
-        def best_split(hs):
-            return split(_bl.unbundle_hist(hs, layout, B))
-
-        def best_split_leaf(hs):
-            return split_leaf(_bl.unbundle_hist(hs, layout, B))
+                                      missing=missing, mono=mono)
+        dev = bins_t.device
+        bounds = None
+        if mono is not None:
+            mono_t = torch.from_numpy(mono).to(dev)
+            bounds = torch.tensor([[float("-inf"), float("inf")]],
+                                  dtype=torch.float32, device=dev)
 
         sync = self._sync
         scales = sync.scales(g, h)
-        node = torch.zeros(bins_t.shape[1], dtype=torch.int32,
-                           device=bins_t.device)
+        node = torch.zeros(bins_t.shape[1], dtype=torch.int32, device=dev)
         feats, thrs, gains, dirs = [], [], [], []
         prev_hist = feat = thr = dirv = gsum = hsum = None
         for level in range(depth):
             n_nodes = 1 << level
-            score_fn = best_split_leaf if level == depth - 1 else best_split
+            want_sums = mono is not None or level == depth - 1
+
+            def score_fn(hs, _w=want_sums, _b=bounds):
+                ev = _bl.unbundle_hist(hs, layout, B)
+                if _w:
+                    return split_leaf(ev, feat_mask, _b)
+                return split(ev, feat_mask)
+
             if level == 0:
                 hist = sync.f32_sync(build_histogram(
                     bins_t, node, g, h, 1, B, scales=scales, layout=layout,
@@ -1027,7 +1250,7 @@ class HistGBT:
                 feat, thr, dirv, gn = scores[:4]
             else:
                 feat, thr, gn = scores[:3]
-            if level == depth - 1:
+            if want_sums:
                 gsum, hsum = scores[-2:]
             pad = half - n_nodes
             feats.append(torch.nn.functional.pad(feat, (0, pad)))
@@ -1035,10 +1258,16 @@ class HistGBT:
             gains.append(torch.nn.functional.pad(gn, (0, pad)))
             if missing:
                 dirs.append(torch.nn.functional.pad(dirv, (0, pad)))
+            if mono is not None:
+                bounds = _child_bounds(bounds, gsum, hsum, lam, mono_t,
+                                       feat, thr, B)
         # final descend into the leaf layer
         leaf_node = _advance_node(bins_t, node, feat, thr, layout, dirv,
                                   miss_bin)
         leaf_w = -_maybe_l1(gsum, alpha) / (hsum + lam)
+        if mono is not None:
+            leaf_w = torch.minimum(torch.maximum(leaf_w, bounds[:, 0]),
+                                   bounds[:, 1])
         leaf = leaf_w * p.learning_rate
         tree = {"feat": torch.stack(feats), "thr": torch.stack(thrs),
                 "gain": torch.stack(gains), "leaf": leaf}
@@ -1049,7 +1278,8 @@ class HistGBT:
     def _grow_tree_lossguide(self, bins_t: torch.Tensor, g: torch.Tensor,
                              h: torch.Tensor,
                              layout: Optional[_bl.BinLayout], n_leaves: int,
-                             heap: Tuple[torch.Tensor, torch.Tensor]
+                             heap: Tuple[torch.Tensor, torch.Tensor],
+                             feat_mask: Optional[torch.Tensor] = None
                              ) -> Tuple[Dict[str, torch.Tensor],
                                         torch.Tensor]:
         """One LEAF-WISE tree on (g, h) → (tree arrays, margin delta).
@@ -1089,7 +1319,7 @@ class HistGBT:
             """(feat, thr, gain, tot_g, tot_h) per node of a storage-space
             histogram stack [2, N, S, Bs]."""
             ev = _bl.unbundle_hist(hist_st, layout, B)
-            f_, t_, gn_ = split(ev)
+            f_, t_, gn_ = split(ev, feat_mask)
             tot = xla_cumsum(ev[:, :, :1])[..., 0, -1]        # [2, N]
             return f_, t_, gn_, tot[0], tot[1]
 
@@ -1209,7 +1439,8 @@ class HistGBT:
             return preds.cpu().numpy()
         ranges = shard_row_ranges(self._train_rows, world)
         width = max(hi - lo for lo, hi in ranges)
-        padded = torch.nn.functional.pad(preds, (0, width - preds.numel()))
+        pad = (0, 0) * (preds.dim() - 1) + (0, width - preds.shape[0])
+        padded = torch.nn.functional.pad(preds, pad)
         gathered = coll.device_allgather(padded, self.mesh).cpu()
         return torch.cat([gathered[r * width:r * width + hi - lo]
                           for r, (lo, hi) in enumerate(ranges)]).numpy()
@@ -1227,49 +1458,209 @@ class HistGBT:
 
     def _stacked_trees(self, trees: List[Dict[str, np.ndarray]]
                        ) -> Dict[str, torch.Tensor]:
-        """The forest as stacked device tensors ``[T, ...]`` (eager torch
-        has no compiled program to keep at a fixed shape, so no
-        padding), with ``dir`` in missing mode."""
+        """The forest as stacked device tensors ``[T, ...]`` (``[T, K,
+        ...]`` for ``multi:softmax``), with ``dir`` in missing mode."""
         keys = ("feat", "thr", "leaf") + (("dir",) if "dir" in trees[0]
                                           else ())
         return {k: torch.from_numpy(np.stack([t[k] for t in trees])
                                     ).to(self.device)
                 for k in keys}
 
+    def _apply_stacked(self, bins_t: torch.Tensor,
+                       st: Dict[str, torch.Tensor],
+                       margin: torch.Tensor) -> torch.Tensor:
+        """Add a stacked forest's leaves onto ``margin`` ([n], or [n, K]
+        class by class), tree by tree in order."""
+        depth, miss = self.param.max_depth, self._miss_bin()
+        return _by_class(st, lambda s, c: _predict_trees(
+            bins_t, s["feat"], s["thr"], s["leaf"], depth,
+            margin if c is None else margin[:, c], s.get("dir"), miss), 1)
+
+    def _apply_trees(self, bins_t: torch.Tensor,
+                     trees: List[Dict[str, np.ndarray]],
+                     init: torch.Tensor) -> torch.Tensor:
+        """Add the forest's margins onto ``init`` in training's order —
+        the margin replay of a continued fit and :meth:`predict`.  The
+        JAX package stacks forests in chunks of ``_TREE_CHUNK`` trees,
+        the last padded with all-zero trees; a zero tree adds +0.0, so
+        one +0.0 after a short last chunk gives its bits (a margin of
+        −0.0 becomes +0.0) without descending the padding."""
+        margin = init
+        for lo in range(0, len(trees), _TREE_CHUNK):
+            part = trees[lo:lo + _TREE_CHUNK]
+            margin = self._apply_stacked(bins_t, self._stacked_trees(part),
+                                         margin)
+            if len(part) < _TREE_CHUNK:
+                margin = margin + 0.0
+        return margin
+
     def predict(self, X: np.ndarray, output_margin: bool = False,
                 n_trees: Optional[int] = None) -> np.ndarray:
-        """Margins (``output_margin``) or transformed predictions [n]; in
-        missing mode NaN rows follow each node's learned direction."""
+        """Margins (``output_margin``) or transformed predictions: ``[n]``,
+        or for ``multi:softmax`` margins ``[n, K]`` and argmax classes
+        ``[n]``; in missing mode NaN rows follow each node's learned
+        direction."""
         CHECK(self.cuts is not None, "predict before fit")
         CHECK(len(self.trees) > 0, "no trees trained")
         X = np.ascontiguousarray(X, dtype=np.float32)
         self._check_nan_allowed(X, "predict")
-        stacked = self._stacked_trees(self._resolve_trees(n_trees))
+        use = self._resolve_trees(n_trees)
         outs = []
         for lo in range(0, len(X), self._PREDICT_BATCH):
             xb = X[lo:lo + self._PREDICT_BATCH]
-            margin = _predict_trees(
-                self._bins_of(torch.from_numpy(xb).to(self.device)),
-                stacked["feat"], stacked["thr"],
-                stacked["leaf"], self.param.max_depth,
-                torch.full((len(xb),), self.param.base_score,
-                           dtype=torch.float32, device=self.device),
-                stacked.get("dir"), self._miss_bin())
+            margin = self._apply_trees(
+                self._bins_of(torch.from_numpy(xb).to(self.device)), use,
+                self._base_margin(len(xb)))
             out = margin if output_margin else self._obj.transform(margin)
             outs.append(out.cpu().numpy())
         if not outs:
-            return np.zeros(0, np.float32)
+            return np.zeros(self._margin_shape(0), np.float32)
         return np.concatenate(outs) if len(outs) > 1 else outs[0]
 
     def predict_proba(self, X: np.ndarray,
                       n_trees: Optional[int] = None) -> np.ndarray:
-        """``[n, 2]`` columns ``(1−p, p)`` for ``binary:logistic``."""
-        CHECK(self.param.objective == "binary:logistic",
-              f"predict_proba needs a classification objective, got "
-              f"{self.param.objective!r}")
-        margin = self.predict(X, output_margin=True, n_trees=n_trees)
-        prob1 = self._obj.transform(torch.from_numpy(margin)).numpy()
+        """Class probabilities ``[n, K]`` for ``multi:softmax`` (softmax of
+        the margins), ``[n, 2]`` columns ``(1−p, p)`` for
+        ``binary:logistic``."""
+        p = self.param
+        CHECK(p.objective in ("binary:logistic", "multi:softmax"),
+              f"predict_proba needs a classification objective, "
+              f"got {p.objective!r}")
+        margin = torch.from_numpy(self.predict(X, output_margin=True,
+                                               n_trees=n_trees))
+        if p.num_class > 1:
+            return self._obj.prob(margin).numpy()
+        prob1 = self._obj.transform(margin).numpy()
         return np.stack([1.0 - prob1, prob1], axis=1)
+
+    def predict_leaf(self, X: np.ndarray,
+                     n_trees: Optional[int] = None) -> np.ndarray:
+        """Each row's leaf in each tree — XGBoost's ``pred_leaf=True``:
+        int32 ``[n, T]`` (``multi:softmax``: ``[n, T, K]``) of positions in
+        ``[0, 2^max_depth)`` of the tree's leaf layer.  Rows descend by
+        ``descend_kernel`` on the card."""
+        CHECK(self.cuts is not None, "predict before fit")
+        CHECK(len(self.trees) > 0, "no trees trained")
+        use = self._resolve_trees(n_trees)
+        X = np.ascontiguousarray(X, dtype=np.float32)
+        self._check_nan_allowed(X, "predict_leaf")
+        K = self.param.num_class
+        if len(X) == 0:
+            return np.zeros((0, len(use), K) if K > 1 else (0, len(use)),
+                            np.int32)
+        st = self._stacked_trees(use)
+        depth, miss = self.param.max_depth, self._miss_bin()
+        outs = []
+        for lo in range(0, len(X), self._PREDICT_BATCH):
+            bins_t = self._bins_of(torch.from_numpy(
+                X[lo:lo + self._PREDICT_BATCH]).to(self.device))
+            out = _by_class(st, lambda s, c: torch.stack([
+                _tree_leaf(bins_t, s["feat"][t], s["thr"][t], depth,
+                           _at(s.get("dir"), t), miss)
+                for t in range(s["feat"].shape[0])], dim=1), 2)
+            outs.append(out.cpu().numpy())
+        return np.concatenate(outs) if len(outs) > 1 else outs[0]
+
+    def dump_model(self, with_stats: bool = False,
+                   feature_names: Optional[List[str]] = None) -> str:
+        """XGBoost-style text dump of the ensemble (``booster[i]:`` per
+        tree, ``booster[i] class[c]:`` per class tree, one node per line),
+        the JAX package's text: node ``n`` of level ``l`` is id
+        ``2^l-1+n`` with children ``2^(l+1)-1+2n`` / ``+2n+1``, the leaf
+        layer at level ``max_depth``; splits print the real threshold
+        ``cuts[f][thr]`` as ``[f<N><x]`` with yes = left (missing mode:
+        ``missing=`` the direction's child; the top value threshold, a
+        missingness-only split, as ``<inf``); degenerate nodes print as
+        ``passthrough``.  ``with_stats`` appends each real split's gain,
+        ``feature_names`` replaces ``f<N>``."""
+        CHECK(len(self.trees) > 0, "no trees trained")
+        cuts = self.cuts.cpu().numpy()
+        if feature_names is not None:
+            CHECK_EQ(len(feature_names), cuts.shape[0],
+                     "feature_names length must equal n_features")
+
+        def fname(f: int) -> str:
+            return feature_names[f] if feature_names is not None else f"f{f}"
+
+        B = self.param.n_bins
+        lines: List[str] = []
+
+        def dump_one(feat_t, thr_t, gain_t, leaf_t, dir_t=None):
+            n_levels = feat_t.shape[0]
+            for level in range(n_levels):
+                for nid in range(1 << level):
+                    gid = (1 << level) - 1 + nid
+                    f = int(feat_t[level][nid])
+                    t = int(thr_t[level][nid])
+                    kid = (1 << (level + 1)) - 1 + 2 * nid
+                    if t >= B - 1:
+                        lines.append(f"\t{gid}:passthrough "
+                                     f"yes={kid},no={kid + 1}")
+                        continue
+                    miss = ""
+                    if dir_t is not None:     # XGBoost's missing= target
+                        d = int(dir_t[level][nid])
+                        miss = f",missing={kid if d == 1 else kid + 1}"
+                    stat = ""
+                    if with_stats and gain_t is not None:
+                        stat = f",gain={float(gain_t[level][nid]):.6g}"
+                    cond = (f"{fname(f)}<{cuts[f][t]:.6g}"
+                            if t < cuts.shape[1] else f"{fname(f)}<inf")
+                    lines.append(f"\t{gid}:[{cond}] "
+                                 f"yes={kid},no={kid + 1}{miss}{stat}")
+            base = (1 << n_levels) - 1
+            for i, v in enumerate(np.asarray(leaf_t)):
+                lines.append(f"\t{base + i}:leaf={float(v):.6g}")
+
+        for ti, tree in enumerate(self.trees):
+            if np.asarray(tree["feat"]).ndim == 3:    # [K, depth, half]
+                for c in range(tree["feat"].shape[0]):
+                    lines.append(f"booster[{ti}] class[{c}]:")
+                    dump_one(tree["feat"][c], tree["thr"][c],
+                             tree["gain"][c] if "gain" in tree else None,
+                             tree["leaf"][c],
+                             tree["dir"][c] if "dir" in tree else None)
+            else:
+                lines.append(f"booster[{ti}]:")
+                dump_one(tree["feat"], tree["thr"], tree.get("gain"),
+                         tree["leaf"], tree.get("dir"))
+        return "\n".join(lines) + "\n"
+
+    def feature_importances(self, importance_type: str = "weight"
+                            ) -> np.ndarray:
+        """Per-feature importance over the ensemble: ``"weight"``, the
+        count of real splits on each feature (int64); ``"gain"``, their
+        summed split gains (float64).  Degenerate nodes (``thr ==
+        n_bins-1``) and each level's padding are not splits."""
+        CHECK(len(self.trees) > 0, "no trees trained")
+        if importance_type not in ("weight", "gain"):
+            log_fatal(f"unsupported importance_type {importance_type!r}")
+        if importance_type == "gain":
+            CHECK(all("gain" in t for t in self.trees),
+                  "importance_type='gain' needs trees with stored gains "
+                  "(models saved before gain tracking have none)")
+        out = np.zeros(int(self.cuts.shape[0]),
+                       np.float64 if importance_type == "gain" else np.int64)
+        B = self.param.n_bins
+        for tree in self.trees:
+            feat_t = np.asarray(tree["feat"])
+            thr_t = np.asarray(tree["thr"])
+            gain_t = (np.asarray(tree["gain"])
+                      if importance_type == "gain" else None)
+            if feat_t.ndim == 2:            # single-output: [depth, half]
+                feat_t, thr_t = feat_t[None], thr_t[None]
+                gain_t = None if gain_t is None else gain_t[None]
+            for c, (feat_c, thr_c) in enumerate(zip(feat_t, thr_t)):
+                for level in range(feat_c.shape[0]):
+                    n_nodes = 1 << level
+                    feat = feat_c[level][:n_nodes]
+                    real = thr_c[level][:n_nodes] < B - 1
+                    if gain_t is not None:
+                        np.add.at(out, feat[real],
+                                  gain_t[c][level][:n_nodes][real])
+                    else:
+                        np.add.at(out, feat[real], 1)
+        return out
 
     # ------------------------------------------------------------------
     # weights: (param, cuts, trees) in and out, and model files
@@ -1345,6 +1736,30 @@ class HistGBT:
         return cls.from_state(payload, device=device)
 
 
+def _child_bounds(bounds, cg, ch, lam: float, mono, feat, thr, B: int):
+    """The ``[2N, 2]`` weight bounds of a level's children from the
+    nodes' ``bounds`` [N, 2], their child sums ``cg``/``ch`` [2N] and
+    splits: on a real split (``thr < B-1``) of an increasing feature the
+    midpoint of the two clipped child weights caps the left child and
+    floors the right one, the reverse for a decreasing feature; otherwise
+    both children inherit the node's bounds (XGBoost's propagation)."""
+    n_nodes = bounds.shape[0]
+    lo, hi = bounds[:, 0], bounds[:, 1]
+    w_child = (-cg / (ch + lam)).reshape(n_nodes, 2)
+    w_child = torch.minimum(torch.maximum(w_child, lo[:, None]), hi[:, None])
+    mid = (w_child[:, 0] + w_child[:, 1]) / 2.0
+    c = mono[feat.to(torch.int64)]
+    real = thr < B - 1                  # degenerate splits are inert
+    inc, dec = (c > 0) & real, (c < 0) & real
+    up_l = torch.where(inc, torch.minimum(hi, mid), hi)
+    lo_r = torch.where(inc, torch.maximum(lo, mid), lo)
+    lo_l = torch.where(dec, torch.maximum(lo, mid), lo)
+    up_r = torch.where(dec, torch.minimum(hi, mid), hi)
+    return torch.stack([torch.stack([lo_l, up_l], 1),
+                        torch.stack([lo_r, up_r], 1)], dim=1
+                       ).reshape(2 * n_nodes, 2)
+
+
 def _heap_tables(depth: int, device: torch.device
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per heap id ``i`` in ``[0, 2^(depth+1))``: its level and its leaf
@@ -1360,19 +1775,44 @@ def _heap_tables(depth: int, device: torch.device
             torch.from_numpy(pos).to(device))
 
 
+#: trees per stacked chunk of the JAX package's predict and margin replay
+_TREE_CHUNK = 64
+
+
+def _at(a: Optional[torch.Tensor], i: int) -> Optional[torch.Tensor]:
+    return None if a is None else a[i]
+
+
+def _by_class(st: Dict[str, torch.Tensor], fn, dim: int) -> torch.Tensor:
+    """``fn(forest, c)`` over a stacked forest: once with ``c`` None for
+    a single-output forest ``[T, depth, half]``, else once per class on
+    its ``[:, c]`` slice of ``[T, K, ...]``, stacked along ``dim``."""
+    if st["feat"].dim() == 3:
+        return fn(st, None)
+    return torch.stack([fn({k: v[:, c] for k, v in st.items()}, c)
+                        for c in range(st["feat"].shape[1])], dim=dim)
+
+
+def _tree_leaf(bins_t, feat, thr, depth: int, dirs=None,
+               miss_bin: int = -1) -> torch.Tensor:
+    """Each row's leaf position in one tree ``[depth, half]``, int32
+    ``[n]``: the descend from the root, one ``_advance_node`` a level.
+    ``dirs`` with ``miss_bin``: missing mode's routing."""
+    node = torch.zeros(bins_t.shape[1], dtype=torch.int32,
+                       device=bins_t.device)
+    for level in range(depth):
+        node = _advance_node(bins_t, node, feat[level], thr[level], None,
+                             _at(dirs, level), miss_bin)
+    return node
+
+
 def _predict_trees(bins_t, feats, thrs, leaves, depth: int, init,
                    dirs=None, miss_bin: int = -1):
-    """Sum leaf values over trees onto ``init`` [n], tree by tree in
-    order (the summation order of training's margin updates).  ``dirs``
-    ``[T, depth, half]`` with ``miss_bin``: missing mode's routing."""
+    """Sum leaf values over trees ``[T, depth, half]`` onto ``init`` [n],
+    tree by tree in order (the summation order of training's margin
+    updates)."""
     total = init
     for t in range(feats.shape[0]):
-        node = torch.zeros(bins_t.shape[1], dtype=torch.int32,
-                           device=bins_t.device)
-        for level in range(depth):
-            node = _advance_node(bins_t, node, feats[t, level],
-                                 thrs[t, level], None,
-                                 None if dirs is None else dirs[t, level],
-                                 miss_bin)
-        total = total + leaves[t][node]
+        total = total + leaves[t][_tree_leaf(bins_t, feats[t], thrs[t],
+                                             depth, _at(dirs, t), miss_bin)]
     return total

@@ -20,7 +20,7 @@ as ``cuda:0`` for every rank, or ``cuda`` for ``cuda:<rank>``),
 ``threads`` (torch intra-op threads per rank), ``params`` (``HistGBT``
 keyword arguments), ``runs`` (``[{"name", "env"}]``: the ``DMLC_*``
 levers of each fit; a run may name its own ``X``/``y``/``cuts``/``Xv``,
-and an ``eval`` dict, ``{"X", "y", "early_stopping_rounds"}``, which
+``params`` (laid over the job's), and an ``eval`` dict, ``{"X", "y", "early_stopping_rounds"}``, which
 fits with that ``eval_set`` and writes ``eval_history``,
 ``best_iteration`` and ``best_score`` into the run's ``.json``) and
 ``out`` (a directory)::
@@ -191,7 +191,8 @@ def run_worker(job: Dict[str, Any]) -> None:
                         setattr(k, extra, 0)
             calls0 = _metric("collective_calls_total", op="device_allreduce")
             bytes0 = _metric("histogram_psum_bytes_total", engine="incore")
-            model = HistGBT(device=device, **job["params"])
+            model = HistGBT(device=device,
+                            **{**job["params"], **run.get("params", {})})
             ev = data.get("eval")
             if ev:
                 model.fit(X, y, cuts=cuts,

@@ -18,6 +18,10 @@ Contracts held:
   direction; with ``DMLC_HIST_BLOCKS=8`` and the fused descend requested
   too), and with an eval set and early stopping, whose ``eval_history``
   is the 1-process fit's on every rank;
+* the same for ``multi:softmax`` (3 trees a round; depth-wise, with
+  ``DMLC_HIST_BLOCKS=8`` and the fused descend, lossguide, missing mode),
+  column sampling and monotone constraints; the 2-rank softmax file has
+  the split structure of the JAX package's fit on a 2-device mesh;
 * ``DMLC_HIST_QUANT`` (int8 code sync) stays within the JAX package's
   bounds of the exact fit (tests/test_fused_round.py: max < 0.15, mean
   < 0.02 margin difference) and is exact on one rank;
@@ -65,6 +69,22 @@ CONFIGS["missing"] = {}
 CONFIGS["missing_b8_f1"] = {"DMLC_HIST_BLOCKS": "8",
                             "DMLC_TPU_FUSED_DESCEND": "1"}
 CONFIGS["missing_eval"] = {"DMLC_TPU_ROUNDS_PER_DISPATCH": "1"}
+# multi:softmax (K trees a round, each class tree's histograms synced),
+# column sampling (the same feature mask on every rank; row sampling
+# folds the rank into its key, so N ranks draw unlike one) and monotone
+# constraints, each over the run's own params
+CONFIGS["softmax"] = {}
+CONFIGS["softmax_b8_f1"] = {"DMLC_HIST_BLOCKS": "8",
+                            "DMLC_TPU_FUSED_DESCEND": "1"}
+CONFIGS["softmax_lossguide"] = dict(LG)
+CONFIGS["softmax_missing"] = {}
+CONFIGS["colsample"] = {}
+CONFIGS["monotone"] = {}
+SOFTMAX = {"objective": "multi:softmax", "num_class": 3}
+RUN_PARAMS = {"softmax": SOFTMAX, "softmax_b8_f1": SOFTMAX,
+              "softmax_lossguide": SOFTMAX, "softmax_missing": SOFTMAX,
+              "colsample": {"colsample_bytree": 0.6, "seed": 5},
+              "monotone": {"monotone_constraints": [1, 0, 1, 0, 0, 0, 0]}}
 LEVERS = ("DMLC_GROW_POLICY", "DMLC_MAX_LEAVES", "DMLC_BIN_PACK",
           "DMLC_HIST_BLOCKS", "DMLC_TPU_FUSED_DESCEND", "DMLC_HIST_QUANT",
           "DMLC_FUSED_ROUND", "DMLC_FEATURE_BUNDLE",
@@ -102,6 +122,10 @@ def _nan_xy(n=1003, seed=2):
 
 
 def _data_of(name):
+    if name == "softmax_missing":
+        return "nan_multi"
+    if name.startswith("softmax"):
+        return "multi"
     if name.startswith("missing"):
         return "nan"
     return "narrow" if name.startswith("pack") else "main"
@@ -115,13 +139,19 @@ def dp(tmp_path_factory):
     d = tmp_path_factory.mktemp("dp")
     data = {"main": _make_xy(1003, F=7, seed=1), "narrow": _narrow_xy(),
             "nan": _nan_xy(), "nan_eval": _nan_xy(401, seed=3)}
+    for key in ("main", "nan"):
+        X = data[key][0]
+        data[f"{key}_multi" if key == "nan" else "multi"] = (
+            X, np.digitize(np.nan_to_num(X[:, 0]) + 0.5 * np.nan_to_num(
+                X[:, 1]), [-0.5, 0.5]).astype(np.float32))
     for key, (X, y) in data.items():
         np.save(d / f"X_{key}.npy", X)
         np.save(d / f"y_{key}.npy", y)
     runs = [{"name": name, "env": env,
              "X": str(d / f"X_{_data_of(name)}.npy"),
              "y": str(d / f"y_{_data_of(name)}.npy"),
-             "Xv": str(d / f"X_{_data_of(name)}.npy")}
+             "Xv": str(d / f"X_{_data_of(name)}.npy"),
+             "params": RUN_PARAMS.get(name, {})}
             for name, env in CONFIGS.items()]
     for run in runs:
         if run["name"] == "missing_eval":
@@ -134,7 +164,7 @@ def dp(tmp_path_factory):
         for run in runs:
             X, y = data[_data_of(run["name"])]
             os.environ.update(run["env"])
-            m = HistGBT(device="cpu", **KW)
+            m = HistGBT(device="cpu", **KW, **run["params"])
             if "eval" in run:
                 m.fit(X, y, eval_set=data["nan_eval"],
                       early_stopping_rounds=EARLY_STOP)
@@ -183,7 +213,7 @@ def test_world_sizes_write_the_one_process_model(dp, name):
                                       ref_pred)
         st = _stats(d, world, name)
         assert st["world"] == world and st["layout"] == fired
-        assert st["missing"] == name.startswith("missing")
+        assert st["missing"] == ("missing" in name)
         # kernels count launches on CUDA tensors only
         assert not any(st["launches"].values())
 
@@ -210,7 +240,9 @@ def test_sync_counter_matches_its_model(dp, name):
     model = th.hist_psum_bytes_per_round(
         KW["max_depth"], 7, KW["n_bins"], layout=layout, grow_policy=policy,
         max_leaves=int(env.get("DMLC_MAX_LEAVES", 0)), quant=quant)
-    expect = KW["n_trees"] * (model if quant else 2 * model)
+    # multi:softmax syncs each of a round's K class trees
+    n_class = RUN_PARAMS.get(name, {}).get("num_class", 1)
+    expect = KW["n_trees"] * n_class * (model if quant else 2 * model)
     for world in WORLDS:
         for r in range(world):
             got = _stats(d, world, name, r)["hist_sync_bytes"]
@@ -276,6 +308,29 @@ def test_matches_jax_on_eight_virtual_devices(dp, monkeypatch):
             np.testing.assert_allclose(a["leaf"], b["leaf"], atol=1e-5)
     np.testing.assert_allclose(pm.predict(X, output_margin=True),
                                jm.predict(X, output_margin=True), atol=1e-5)
+
+
+def test_softmax_on_two_ranks_matches_jax_on_two_devices(dp):
+    import jax
+    from jax.sharding import Mesh
+
+    from dmlc_core_tpu.models import HistGBT as JaxHistGBT
+
+    _, d = dp
+    X, _ = _make_xy(1003, F=7, seed=1)
+    y = np.load(d / "y_multi.npy")
+    devs = np.array(jax.devices())
+    jm = JaxHistGBT(mesh=Mesh(devs[:2], ("data",)), **KW, **SOFTMAX)
+    jm.fit(X, y)
+    pm = HistGBT.load_model(str(d / "w2" / "softmax.1.model"), device="cpu")
+    assert len(pm.trees) == len(jm.trees) == KW["n_trees"]
+    for i, (a, b) in enumerate(zip(pm.trees, jm.trees)):
+        assert a["feat"].shape == (3, KW["max_depth"], 4)
+        np.testing.assert_array_equal(a["feat"], b["feat"], err_msg=str(i))
+        np.testing.assert_array_equal(a["thr"], b["thr"], err_msg=str(i))
+        np.testing.assert_allclose(a["leaf"], b["leaf"], atol=1e-5)
+    np.testing.assert_allclose(pm.predict_proba(X), jm.predict_proba(X),
+                               atol=1e-5)
 
 
 _COLLECTIVES = r"""

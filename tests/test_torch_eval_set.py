@@ -216,8 +216,10 @@ def test_auc_with_ties_equals_jax():
 @pytest.mark.parametrize("name", sorted(EVAL_METRICS))
 def test_each_metric_matches_jax(name):
     rng = np.random.default_rng(len(name))
-    m = rng.normal(size=3000).astype(np.float32)
+    multi = name in ("mlogloss", "merror")       # [n, K] margins, labels
+    m = rng.normal(size=(3000, 3) if multi else 3000).astype(np.float32)
     y = ((rng.random(3000) > 0.5) if name in ("auc", "error", "logloss")
+         else rng.integers(0, 3, 3000) if multi
          else rng.normal(size=3000)).astype(np.float32)
     fn, maximize = EVAL_METRICS[name]
     jfn, jmax = JAX_METRICS[name]
