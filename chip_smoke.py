@@ -77,7 +77,28 @@ and the script exits non-zero without the final ``ok`` line:
    signs), depth-wise on the HIGGS-like rows: the margin along a
    256-point sweep of each constrained feature moves with its sign for
    1000 held-out rows; equal cuda and cpu files of a 100k-row slice;
-6g. introspect — ``predict_leaf`` on the card equal to the CPU's, and
+6g. external — ``fit_external`` on the HIGGS-like rows as 153
+   ``ArrayRowIter`` pages of 65,536 rows: (a) the default route (cached
+   under the 6 GiB budget), (b) the chunked route with the budget set for
+   4 chunks (B1 and ``descend_kernel`` per chunk per level, 24 each a
+   tree; the bin bytes uploaded a tree), (c) (b) with ``subsample=0.8``,
+   ``colsample_bytree=0.8``: the card's sketch cuts equal the CPU's bit
+   for bit, (a), (b) and the in-core ``fit(X, y, cuts=)`` write one file,
+   (c) on a 200k-row slice (4 chunks) writes the CPU's file (the numpy
+   draws, uploads and feature masks on both), ``predict_iter`` over
+   the pages equals ``predict``, and a 200k-row slice written as libsvm
+   text and read back through ``RowBlockIter.create("…#cache")`` trains
+   the slice's ``ArrayRowIter`` file;
+6h. ranking — ``rank:pairwise``, ``rank:ndcg`` and ``rank:map`` with
+   ``fit(qid=)`` on MSLR-WEB10K-schema rows (:func:`mslr_like`: 136
+   features, 10,000 queries, 1,200,192 docs), 5 rounds each: 1 ``hist``
+   + 5 ``fused_round`` a tree, the objective's time a round, held-out
+   NDCG@10 on 1,000 further queries above a random order's, and equal
+   card and CPU files on a 200-query slice; ``hist`` at the root and
+   ``fused_round`` at n_prev 1..16 against their plain versions on the
+   rank fit's own padded matrix (``[136, 2,720,000]``, its accumulation
+   plan) with ``rank:ndcg`` g/h of seeded margins;
+6i. introspect — ``predict_leaf`` on the card equal to the CPU's, and
    ``dump_model`` / ``feature_importances`` equal, for phase 4's model
    and 6c's depth-wise softmax model;
 7. cross-device — depth-wise, 1, 2a, 2b and missing on 100k-row slices, on
@@ -143,7 +164,7 @@ and the script exits non-zero without the final ``ok`` line:
     flagship's levers, host binning), with a time limit: its last line
     must be the final ``histgbt_rounds_per_sec_per_chip`` record of 100
     rounds, with kernel launches, and its headline fields are emitted;
-14. the ``kernels`` line (launches summed over phases 3b-6f and 8, phase
+14. the ``kernels`` line (launches summed over phases 3b-6h and 8, phase
     11's for attention, phase 12's timing pass for the B5 variants;
     ``descend_dir`` is ``descend_kernel``'s direction mode, B2's descend
     on the missing path), then
@@ -308,6 +329,30 @@ MONOTONE = (0, 0, 1, -1) + (0,) * (FEATURES - 4)
 SWEEP_POINTS = 256
 SWEEP_PROBES = 1000
 #: the bench child's time limit (s) and its rounds (the bench's default)
+# ranking: MSLR-WEB10K's published schema (Microsoft Learning to Rank
+# datasets, Qin & Liu 2013: 136 features, 10,000 queries, 1,200,192 docs,
+# relevance 0-4 with most docs at 0); features, labels and query lengths
+# from a seed, lengths ~ N(120, RANK_LEN_SD) (at least 1) adjusted to the
+# published total
+RANK_QUERIES = 10_000
+RANK_DOCS = 1_200_192
+RANK_FEATURES = 136
+RANK_LEN_SD = 30.0
+RANK_LABEL_SHARES = (0.52, 0.32, 0.13, 0.02, 0.01)
+RANK_SEED = 31
+RANK_OBJECTIVES = ("rank:pairwise", "rank:ndcg", "rank:map")
+RANK_HELDOUT = 1_000
+RANK_CROSS_QUERIES = 200
+RANK_OBJ_REPS = 5
+#: the objective whose g/h hold the kernels on the rank fit's matrix
+RANK_CHECK_OBJECTIVE = "rank:ndcg"
+# external: the HIGGS-like rows as ArrayRowIter pages
+EXT_PAGE_ROWS = 65_536
+EXT_CHUNKS = 4
+EXT_SAMPLING = {"subsample": 0.8, "colsample_bytree": 0.8, "seed": 3}
+EXT_SLICE = 200_000
+EXT_BUDGET = "DMLC_TPU_EXTERNAL_DEVICE_BUDGET"
+
 BENCH_TIMEOUT = 600
 BENCH_ROUNDS = 100
 BENCH_ROWS = 10_000_000
@@ -1370,14 +1415,39 @@ def model_bytes_of(model, n_trees=None) -> bytes:
             return f.read()
 
 
+def path_kernels(torch, H, rates, shape, bins, g, h, gen, lossguide):
+    """``hist`` at the root and ``fused_round`` at each depth-wise level's
+    ``n_prev`` (and, with ``lossguide``, at a lossguide expansion:
+    ``n_prev`` 1 over about half the rows, the rest node −1) against
+    their plain versions on a fit's own matrix ``bins`` with its g/h, so
+    with that matrix's accumulation plan.  Returns the largest error of
+    each kernel."""
+    n = bins.shape[1]
+    kg, kh = H.hist_scales(g, h)
+    none = torch.zeros(n, dtype=torch.bool, device=bins.device)
+    shape = {**shape, "part": "kernels", "n": n, "F": bins.shape[0],
+             "B": N_BINS}
+    case = check_hist(torch, H, bins, g, h, none, kg, kh, rates)
+    emit({**shape, "name": "hist", "n_nodes": 1, **case})
+    errs = {"hist": case["max_abs_err"], "fused_round": 0.0}
+    levels = [("depthwise", 1 << (lv - 1), none)
+              for lv in range(1, MAX_DEPTH)]
+    if lossguide:
+        levels.append(("lossguide", 1, torch.rand(n, device=bins.device,
+                                                  generator=gen) < 0.5))
+    for policy, n_prev, masked in levels:
+        case = check_fused_round(torch, H, bins, g, h, masked, gen, n_prev,
+                                 kg, kh, rates)
+        emit({**shape, "name": "fused_round", "policy": policy, **case})
+        errs["fused_round"] = max(errs["fused_round"], case["max_abs_err"])
+    return errs
+
+
 def softmax_kernels(torch, H, rates, C, cy):
-    """``hist`` and ``fused_round`` on the softmax fit's own matrix — the
-    plain covtype ``[54, 581012]`` it bins (no layout fires), so the same
-    accumulation plan — against their plain versions, on one class
-    column's softmax g/h of seeded ``[n, 7]`` margins: ``hist`` at the
-    root, ``fused_round`` at each depth-wise level's ``n_prev`` and at
-    lossguide's (``n_prev`` 1 over one leaf's rows, the rest node −1).
-    Returns the largest error of each kernel."""
+    """:func:`path_kernels` on the softmax fit's own matrix — the plain
+    covtype ``[54, 581012]`` it bins (no layout fires) — with one class
+    column's softmax g/h of seeded ``[n, 7]`` margins, lossguide's
+    expansion included."""
     from dmlc_core_tpu_torch import HistGBT
     from dmlc_core_tpu_torch.models.gbt_objectives import OBJECTIVES
 
@@ -1385,33 +1455,43 @@ def softmax_kernels(torch, H, rates, C, cy):
                  **SOFTMAX).make_device_data(C, cy)
     require(dd["layout"] is None, "softmax: a layout fired on its matrix")
     bins = dd["bins_t"]
-    F, n = bins.shape
     gen = torch.Generator(device=bins.device)
     gen.manual_seed(SEED)
-    margins = 0.5 * torch.randn((n, SOFTMAX["num_class"]),
+    margins = 0.5 * torch.randn((bins.shape[1], SOFTMAX["num_class"]),
                                 device=bins.device, generator=gen)
     g, h = OBJECTIVES[SOFTMAX["objective"]].grad_hess(margins, dd["y_d"])
     del dd, margins
-    g = g[:, SOFTMAX_CHECK_CLASS].contiguous()
-    h = h[:, SOFTMAX_CHECK_CLASS].contiguous()
-    kg, kh = H.hist_scales(g, h)
-    none = torch.zeros(n, dtype=torch.bool, device=bins.device)
-    shape = {"phase": "softmax", "part": "kernels", "n": n, "F": F,
-             "B": N_BINS, "class": SOFTMAX_CHECK_CLASS}
-    case = check_hist(torch, H, bins, g, h, none, kg, kh, rates)
-    emit({**shape, "name": "hist", "n_nodes": 1, **case})
-    errs = {"hist": case["max_abs_err"], "fused_round": 0.0}
-    levels = [("depthwise", 1 << (lv - 1), none)
-              for lv in range(1, MAX_DEPTH)]
-    # one lossguide expansion: about half the rows outside the leaf
-    levels.append(("lossguide", 1, torch.rand(n, device=bins.device,
-                                              generator=gen) < 0.5))
-    for policy, n_prev, masked in levels:
-        case = check_fused_round(torch, H, bins, g, h, masked, gen, n_prev,
-                                 kg, kh, rates)
-        emit({**shape, "name": "fused_round", "policy": policy, **case})
-        errs["fused_round"] = max(errs["fused_round"], case["max_abs_err"])
-    return errs
+    return path_kernels(torch, H, rates, {"phase": "softmax",
+                                          "class": SOFTMAX_CHECK_CLASS},
+                        bins, g[:, SOFTMAX_CHECK_CLASS].contiguous(),
+                        h[:, SOFTMAX_CHECK_CLASS].contiguous(), gen, True)
+
+
+def ranking_kernels(torch, H, rates, X, y, qid):
+    """:func:`path_kernels` on the rank fit's own matrix — the regrouped
+    MSLR-like rows, pad docs included (zero features, weight 0) — with
+    ``RANK_CHECK_OBJECTIVE``'s g/h of seeded margins times the weights,
+    as the boosting loop gives them to the kernels."""
+    from dmlc_core_tpu_torch import HistGBT
+
+    model = HistGBT(max_depth=MAX_DEPTH, n_bins=N_BINS, device=DEVICE,
+                    objective=RANK_CHECK_OBJECTIVE)
+    Xp, yp, wp = model._regroup_ranking(X, y, qid, None)
+    dd = model.make_device_data(Xp, yp, weight=wp)
+    del Xp
+    require(dd["layout"] is None, "ranking: a layout fired on its matrix")
+    bins = dd["bins_t"]
+    gen = torch.Generator(device=bins.device)
+    gen.manual_seed(SEED)
+    margins = 0.5 * torch.randn(bins.shape[1], device=bins.device,
+                                generator=gen)
+    g, h = model._obj.grad_hess(margins, dd["y_d"])
+    g, h = g * dd["w_d"], h * dd["w_d"]
+    del dd, margins
+    return path_kernels(torch, H, rates, {
+        "phase": "ranking", "objective": RANK_CHECK_OBJECTIVE,
+        "G": model._obj.G, "pad_share": float(1.0 - wp.mean())},
+        bins, g, h, gen, False)
 
 
 def phase_softmax(torch, np, H, rates, smi, C, cy, Cv, cyv):
@@ -1658,6 +1738,278 @@ def phase_monotone(torch, np, H, smi, X, y, Xv, yv):
           "min_step_with_sign": worst, "holdout_accuracy": acc,
           "cross_device_files_equal": True})
     return launches
+
+
+def mslr_like(np, n_queries, seed, total=None):
+    """MSLR-WEB10K-schema rows: ``RANK_FEATURES`` standard normal f32
+    features, query lengths ~ N(120, ``RANK_LEN_SD``) rounded, at least 1
+    (with ``total``: moved by one doc at a time, on random queries, until
+    they sum to it), relevance 0-4 at ``RANK_LABEL_SHARES`` by the global
+    quantiles of a hidden score (eight informative features under one
+    rule for every seed, a query offset and noise).  Returns ``(X, y, qid, lengths)``."""
+    rng = np.random.default_rng(seed)
+    lens = np.maximum(1, np.rint(rng.normal(120.0, RANK_LEN_SD, n_queries))
+                      ).astype(np.int64)
+    if total is not None:
+        while lens.sum() != total:
+            diff = int(total - lens.sum())
+            pool = np.arange(n_queries) if diff > 0 else np.flatnonzero(
+                lens > 1)
+            pick = rng.choice(pool, min(abs(diff), len(pool)), replace=False)
+            lens[pick] += 1 if diff > 0 else -1
+    n = int(lens.sum())
+    qid = np.repeat(np.arange(n_queries, dtype=np.int64), lens)
+    X = rng.standard_normal((n, RANK_FEATURES), dtype=np.float32)
+    # one hidden rule for every seed's rows
+    w = np.random.default_rng(RANK_SEED).standard_normal(8).astype(np.float32)
+    score = (X[:, :8] @ w + 0.5 * rng.standard_normal(n_queries)[qid]
+             + rng.standard_normal(n))
+    edges = np.quantile(score, np.cumsum(RANK_LABEL_SHARES)[:-1])
+    y = np.digitize(score, edges).astype(np.float32)
+    return X, y, qid, lens
+
+
+def phase_ranking(torch, np, H, rates, smi):
+    """``rank:pairwise``, ``rank:ndcg`` and ``rank:map`` with
+    ``fit(qid=)`` on MSLR-WEB10K-schema rows (:func:`mslr_like`), depth 6,
+    256 bins, 5 rounds each: G and the padded rows, launches set to 0
+    before and read after each fit (1 ``hist`` + 5 ``fused_round`` a
+    tree), the steady rounds/s, the objective's milliseconds a round,
+    held-out NDCG@10 on ``RANK_HELDOUT`` further queries against a random
+    order's; on a ``RANK_CROSS_QUERIES``-query slice the card's and the
+    CPU's files are equal; then the two kernels against their plain
+    versions on this fit's matrix (:func:`ranking_kernels`).  Returns the
+    launches and the kernels' largest errors."""
+    from dmlc_core_tpu_torch import HistGBT
+    from dmlc_core_tpu_torch.models.ranking import ndcg
+
+    t0 = time.perf_counter()
+    X, y, qid, lens = mslr_like(np, RANK_QUERIES, RANK_SEED, RANK_DOCS)
+    Xh, yh, qh, _ = mslr_like(np, RANK_HELDOUT, RANK_SEED + 1)
+    data_s = time.perf_counter() - t0
+    random_nd = ndcg(yh, np.random.default_rng(0).random(len(yh)), qh, k=10)
+    cut = int(lens[:RANK_CROSS_QUERIES].sum())
+    kw = dict(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS)
+    total = {"hist": 0, "fused_round": 0}
+    out = {}
+    for obj in RANK_OBJECTIVES:
+        model = HistGBT(device=DEVICE, objective=obj, **kw)
+        with levers({}):
+            zero_counts(H)
+            model.fit(X, y, qid=qid)
+            launches = read_counts(H)
+        require_launches(launches, {"hist": TREES,
+                                    "fused_round": (MAX_DEPTH - 1) * TREES,
+                                    "fused_descend": 0}, f"ranking {obj}")
+        for k in total:
+            total[k] += launches[k]
+        G = model._obj.G
+        _, yp, _ = model._regroup_ranking(X, y, qid, None)
+        y_d = torch.from_numpy(yp).to(DEVICE)
+        preds = model._train_preds
+        obj_ms = time_ms(torch, lambda: model._obj.grad_hess(preds, y_d),
+                         RANK_OBJ_REPS)
+        nd = ndcg(yh, model.predict(Xh), qh, k=10)
+        require(nd > random_nd, f"ranking {obj}: held-out NDCG@10 {nd} "
+                f"not above a random order's {random_nd}")
+        files = [model_bytes_of(HistGBT(device=dev, objective=obj, **kw).fit(
+            X[:cut], y[:cut], qid=qid[:cut])) for dev in (DEVICE, "cpu")]
+        require(files[0] == files[1], f"ranking {obj}: cuda and cpu model "
+                f"files differ on {RANK_CROSS_QUERIES} queries")
+        out[obj] = {"G": G, "padded_rows": len(yp), "launches": launches,
+                    "launches_per_tree": {k: launches[k] / TREES
+                                          for k in ("hist", "fused_round")},
+                    "fit_seconds": model.last_fit_seconds,
+                    "steady_rounds_per_sec": steady_rounds_per_sec(
+                        model.last_tree_times),
+                    "objective_ms": obj_ms,
+                    "bin_seconds": model.last_bin_seconds,
+                    "heldout_ndcg10": nd, "cross_device_files_equal": True}
+        del model, preds, y_d, yp
+    kernel_errs = ranking_kernels(torch, H, rates, X, y, qid)
+    emit({"phase": "ranking", "card": smi, "queries": RANK_QUERIES,
+          "docs": len(y), "features": RANK_FEATURES,
+          "length_mean": float(lens.mean()), "length_sd": float(lens.std()),
+          "length_max": int(lens.max()),
+          "label_shares": np.bincount(y.astype(int), minlength=5).tolist(),
+          "data_seconds": data_s, "heldout_queries": RANK_HELDOUT,
+          "random_order_ndcg10": random_nd, "cross_queries":
+          RANK_CROSS_QUERIES, "by_objective": out})
+    return total, kernel_errs
+
+
+@contextlib.contextmanager
+def external_budget(budget):
+    """``DMLC_TPU_EXTERNAL_DEVICE_BUDGET`` for a block (None: unset)."""
+    saved = os.environ.pop(EXT_BUDGET, None)
+    if budget is not None:
+        os.environ[EXT_BUDGET] = str(budget)
+    try:
+        yield
+    finally:
+        os.environ.pop(EXT_BUDGET, None)
+        if saved is not None:
+            os.environ[EXT_BUDGET] = saved
+
+
+def write_libsvm(np, path, X, y):
+    """Rows as libsvm text whose f32 values read back bit for bit
+    (``%.9g``)."""
+    fmt = " ".join(f"{j}:%.9g" for j in range(X.shape[1]))
+    with open(path, "w") as f:
+        for lo in range(0, len(X), 65_536):
+            f.write("".join(f"{lab:.9g} " + (fmt % tuple(row)) + "\n"
+                            for lab, row in zip(y[lo:lo + 65_536].tolist(),
+                                                X[lo:lo + 65_536].tolist())))
+
+
+def phase_external(torch, np, H, smi, X, y):
+    """``fit_external`` / ``predict_iter`` on the HIGGS-like rows as
+    ``ArrayRowIter`` pages of ``EXT_PAGE_ROWS``, depth 6, 256 bins, 5
+    trees: (a) the default route (cached: under the 6 GiB budget); (b)
+    the chunked route, the budget set for ``EXT_CHUNKS`` chunks; (c) (b)
+    with ``EXT_SAMPLING``.  Checks: the card's sketch cuts equal the
+    CPU's bit for bit; (a), (b) and the in-core ``fit(X, y, cuts=)`` write
+    one file; (c) on an ``EXT_SLICE``-row slice (4 chunks) writes the
+    CPU's file;
+    ``predict_iter`` over the pages equals ``predict`` bit for bit; an
+    ``EXT_SLICE``-row slice written as libsvm text and read back through
+    ``RowBlockIter.create("…#cache")`` densifies to the same bits and
+    trains the slice's ``ArrayRowIter`` file (with its cuts).  Launches
+    (set to 0 before each route, read after): (a) 1 ``hist`` + 5
+    ``fused_round`` a tree; (b), (c) ``EXT_CHUNKS`` × 6 ``hist`` and
+    ``descend_kernel`` a tree.  Returns the launches."""
+    from dmlc_core_tpu_torch import HistGBT
+    from dmlc_core_tpu_torch.data.iter import ArrayRowIter, RowBlockIter
+    from dmlc_core_tpu_torch.ops.quantile import SketchAccumulator
+
+    kw = dict(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS)
+    n, F = X.shape
+    t0 = time.perf_counter()
+    pages = ArrayRowIter(X, y, page_rows=EXT_PAGE_ROWS)
+    page_rows = [b.size for b in pages]
+    pages_s = time.perf_counter() - t0
+    chunk_budget = n * 24 + F * -(-n // EXT_CHUNKS)
+    routes, models = {}, {}
+    for name, budget, extra in (("a", None, {}), ("b", chunk_budget, {}),
+                                ("c", chunk_budget, EXT_SAMPLING)):
+        model = HistGBT(device=DEVICE, **kw, **extra)
+        with levers({}), external_budget(budget):
+            zero_counts(H)
+            model.fit_external(pages)
+            launches = read_counts(H)
+            descends = H.descend_kernel.launches
+        want_route = "cached" if name == "a" else "chunked"
+        require(model.last_external_route == want_route,
+                f"external ({name}): took the {model.last_external_route} "
+                f"route, want {want_route}")
+        if name == "a":
+            require_launches(launches, {
+                "hist": TREES, "fused_round": (MAX_DEPTH - 1) * TREES,
+                "fused_descend": 0}, "external (a)")
+        else:
+            require(model.last_external_chunks == EXT_CHUNKS,
+                    f"external ({name}): {model.last_external_chunks} chunks")
+            require_launches(launches, {
+                "hist": EXT_CHUNKS * MAX_DEPTH * TREES, "fused_round": 0,
+                "fused_descend": 0}, f"external ({name})")
+            require(descends == EXT_CHUNKS * MAX_DEPTH * TREES,
+                    f"external ({name}): descend_kernel launched {descends}"
+                    f" times, want {EXT_CHUNKS * MAX_DEPTH * TREES}")
+            want_up = (MAX_DEPTH + 1) * n * F * TREES
+            require(model.last_upload_bytes == want_up,
+                    f"external ({name}): uploaded {model.last_upload_bytes}"
+                    f" bin bytes, want {want_up}")
+        models[name] = model
+        routes[name] = {
+            "route": model.last_external_route, "env": extra,
+            "budget": budget, "chunks": model.last_external_chunks,
+            "launches": launches, "descend_launches": descends,
+            "launches_per_tree": {"hist": launches["hist"] / TREES,
+                                  "fused_round": launches["fused_round"]
+                                  / TREES, "descend": descends / TREES},
+            "sketch_seconds": model.last_sketch_seconds,
+            "bin_seconds": model.last_bin_seconds,
+            "fit_seconds": model.last_fit_seconds,
+            "steady_rounds_per_sec": steady_rounds_per_sec(
+                model.last_tree_times),
+            "upload_bytes_per_tree": (None if name == "a" else
+                                      model.last_upload_bytes / TREES)}
+    # the sketch on the CPU, over the same pages
+    t0 = time.perf_counter()
+    sk = SketchAccumulator(F, n_summary=max(8 * N_BINS, 64), device="cpu")
+    for b in pages:
+        sk.add(b.to_dense(F))
+    cpu_cuts = sk.finalize(N_BINS)
+    cpu_sketch_s = time.perf_counter() - t0
+    require(cpu_cuts.numpy().tobytes() ==
+            models["a"].cuts.cpu().numpy().tobytes(),
+            "external: the card's sketch cuts differ from the CPU's")
+    with levers({}):
+        incore = HistGBT(device=DEVICE, **kw).fit(
+            X, y, cuts=models["a"].cuts.cpu().numpy())
+    ref = model_bytes_of(incore)
+    require(model_bytes_of(models["a"]) == ref, "external: the cached "
+            "route's file differs from the in-core fit's")
+    require(model_bytes_of(models["b"]) == ref, "external: the chunked "
+            "route's file differs from the in-core fit's")
+    # (c) on a slice, on the card and on the CPU: the same draws, upload
+    # per level and feature masks in the split scoring give one file
+    s = slice(0, EXT_SLICE)
+    slice_budget = EXT_SLICE * 24 + F * -(-EXT_SLICE // EXT_CHUNKS)
+    sampled = []
+    for dev in (DEVICE, "cpu"):
+        m = HistGBT(device=dev, **kw, **EXT_SAMPLING)
+        with levers({}), external_budget(slice_budget):
+            m.fit_external(ArrayRowIter(X[s], y[s], page_rows=EXT_PAGE_ROWS))
+        require(m.last_external_route == "chunked"
+                and m.last_external_chunks == EXT_CHUNKS,
+                f"external (c) slice on {dev}: {m.last_external_route} "
+                f"route, {m.last_external_chunks} chunks")
+        sampled.append(model_bytes_of(m))
+    require(sampled[0] == sampled[1], "external (c): the card's sampled "
+            f"chunked file differs from the CPU's on {EXT_SLICE} rows")
+    kept = [float(models["c"]._ext_sample_masks(r, page_rows, F)[0].mean())
+            for r in range(TREES)]
+    t0 = time.perf_counter()
+    got = models["a"].predict_iter(pages)
+    iter_s = time.perf_counter() - t0
+    require(got.tobytes() == models["a"].predict(X).tobytes(),
+            "external: predict_iter differs from predict")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "slice.libsvm")
+        t0 = time.perf_counter()
+        write_libsvm(np, path, X[s], y[s])
+        write_s = time.perf_counter() - t0
+        arr = HistGBT(device=DEVICE, **kw).fit_external(ArrayRowIter(
+            X[s], y[s], page_rows=EXT_PAGE_ROWS))
+        t0 = time.perf_counter()
+        it = RowBlockIter.create(f"{path}#{os.path.join(d, 'cache')}", 0, 1,
+                                 "libsvm")
+        dense = np.concatenate([b.to_dense(F) for b in it])
+        parse_s = time.perf_counter() - t0
+        require(dense.tobytes() == np.ascontiguousarray(X[s]).tobytes(),
+                "external: the libsvm slice does not read back bit for bit")
+        disk = HistGBT(device=DEVICE, **kw).fit_external(
+            it, num_col=F, cuts=arr.cuts.cpu().numpy())
+        it.close()
+    require(model_bytes_of(disk) == model_bytes_of(arr), "external: the "
+            "DiskRowIter slice's file differs from the ArrayRowIter's")
+    emit({"phase": "external", "card": smi, "rows": n, "features": F,
+          "pages": len(page_rows), "page_rows": EXT_PAGE_ROWS,
+          "pages_seconds": pages_s, "routes": routes,
+          "cpu_sketch_seconds": cpu_sketch_s, "cuts_equal_cpu": True,
+          "files_equal_incore": ["a", "b"],
+          "sampled_kept_share_by_round": kept,
+          "sampled_slice_file_equals_cpu": True,
+          "predict_iter_seconds": iter_s, "predict_iter_equals_predict": True,
+          "slice_rows": EXT_SLICE, "libsvm_write_seconds": write_s,
+          "libsvm_parse_seconds": parse_s, "disk_file_equals_array": True})
+    total = {"hist": 0, "fused_round": 0}
+    for r in routes.values():
+        for k in total:
+            total[k] += r["launches"][k]
+    return total
 
 
 def phase_introspect(np, H, smi, models):
@@ -2391,10 +2743,15 @@ def main() -> int:
         phase_softmax(torch, np, H, rates, smi, C, c7, Cv, c7v)
     for k, err in softmax_errs.items():
         kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], err)
+    ranking_launches, ranking_errs = phase_ranking(torch, np, H, rates, smi)
+    for k, err in ranking_errs.items():
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], err)
     for counts in (softmax_launches,
                    phase_resume(torch, np, H, smi, X, y, lossguide_fit[1]),
                    phase_sampling(torch, np, H, smi, X, y, Xv, yv),
-                   phase_monotone(torch, np, H, smi, X, y, Xv, yv)):
+                   phase_monotone(torch, np, H, smi, X, y, Xv, yv),
+                   phase_external(torch, np, H, smi, X, y),
+                   ranking_launches):
         for k, v in counts.items():
             launches[k] += v
     phase_introspect(np, H, smi, {"main": (main_fit[2], Xv),

@@ -27,7 +27,8 @@ import sys
 import traceback
 from typing import Any, NoReturn, Optional
 
-__all__ = ["Error", "LOG", "CHECK", "CHECK_EQ", "log_fatal"]
+__all__ = ["Error", "LOG", "CHECK", "CHECK_EQ", "CHECK_LT", "CHECK_LE",
+           "CHECK_GE", "log_fatal"]
 
 
 class Error(RuntimeError):
@@ -102,3 +103,21 @@ def CHECK_EQ(lhs: Any, rhs: Any, msg: str = "") -> None:
     message prints both operands."""
     if not (lhs == rhs):
         _fail("==", lhs, rhs, msg)
+
+
+def CHECK_LT(lhs: Any, rhs: Any, msg: str = "") -> None:
+    """Fatal unless ``lhs < rhs`` (reference ``CHECK_LT``)."""
+    if not (lhs < rhs):
+        _fail("<", lhs, rhs, msg)
+
+
+def CHECK_LE(lhs: Any, rhs: Any, msg: str = "") -> None:
+    """Fatal unless ``lhs <= rhs`` (reference ``CHECK_LE``)."""
+    if not (lhs <= rhs):
+        _fail("<=", lhs, rhs, msg)
+
+
+def CHECK_GE(lhs: Any, rhs: Any, msg: str = "") -> None:
+    """Fatal unless ``lhs >= rhs`` (reference ``CHECK_GE``)."""
+    if not (lhs >= rhs):
+        _fail(">=", lhs, rhs, msg)

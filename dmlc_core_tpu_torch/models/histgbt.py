@@ -79,9 +79,15 @@ levers are ignored, as in the JAX package.  ``fit(eval_set=,
 early_stopping_rounds=, eval_every=)`` scores a validation set at chunk
 ends and stops early.
 
-Not ported: ranking objectives, ``predict_iter``, lossguide with NaN or
-with monotone constraints (the JAX package refuses both too), external
-memory, sharded ingest, one process over several GPUs.
+The ranking objectives (``rank:pairwise``, ``rank:ndcg``, ``rank:map``)
+train on rows regrouped by ``fit(qid=)`` into fixed-size query blocks.
+Out-of-core training (``fit_external``, ``models.histgbt_external``) and
+streaming prediction (:meth:`HistGBT.predict_iter`) read pages of a
+``data.iter.RowBlockIter``.
+
+Not ported: lossguide with NaN or with monotone constraints (the JAX
+package refuses both too), ``make_device_data_iter`` and sharded ingest,
+one process over several GPUs.
 """
 
 from __future__ import annotations
@@ -101,6 +107,7 @@ from dmlc_core_tpu_torch.base.timer import get_time
 from dmlc_core_tpu_torch.models.gbt_objectives import (
     _METRICS_BY_OBJECTIVE, EVAL_METRIC_NAMES, EVAL_METRICS, OBJECTIVE_NAMES,
     OBJECTIVES, fold_scale_pos_weight)
+from dmlc_core_tpu_torch.models.histgbt_external import _ExternalMemoryEngine
 from dmlc_core_tpu_torch.models.gbt_split import (_advance_node,
                                                   _host_bin_requested,
                                                   _host_bin_t,
@@ -425,7 +432,7 @@ class HistGBTParam(Parameter):
 _TREE_KEYS = ("feat", "gain", "leaf", "thr")
 
 
-class HistGBT:
+class HistGBT(_ExternalMemoryEngine):
     """Train/predict API on one device per process.
 
     ``device`` is ``"cuda"`` (the default) or ``"cpu"``; the CPU runs the
@@ -512,13 +519,21 @@ class HistGBT:
         self._train_rows = 0
         #: the storage layout of the last training matrix (None: plain)
         self._bin_layout: Optional[_bl.BinLayout] = None
+        #: after a ``rank:*`` fit, each original row's position in the
+        #: padded query layout (−1: truncated away), else None
+        self._rank_pos: Optional[np.ndarray] = None
+        #: the last fit_external: its route ("cached" | "chunked"), the
+        #: sketch pass's seconds; chunked: its chunk count and the bin
+        #: bytes its kept rounds uploaded
+        self.last_external_route: Optional[str] = None
+        self.last_sketch_seconds: Optional[float] = None
+        self.last_external_chunks: Optional[int] = None
+        self.last_upload_bytes: Optional[int] = None
 
     def _objective(self):
-        p = self.param
-        CHECK(p.objective in OBJECTIVES,
-              f"objective {p.objective!r} is not ported to this package yet "
-              f"(ported: {OBJECTIVES.list_all_names()})")
-        return OBJECTIVES[p.objective]
+        """The objective's class (a ``rank:*`` one is configured with its
+        group size by :meth:`_regroup_ranking`)."""
+        return OBJECTIVES[self.param.objective]
 
     def _check_fit_data(self, n_features: int, y: np.ndarray) -> None:
         """:meth:`fit`'s checks of the labels against ``num_class`` and of
@@ -573,13 +588,23 @@ class HistGBT:
     # ------------------------------------------------------------------
     def fit(self, X: np.ndarray, y: np.ndarray,
             weight: Optional[np.ndarray] = None,
-            cuts: Optional[torch.Tensor] = None, *,
+            eval_every: int = 0,
+            warmup_rounds: int = 0,
+            cuts: Optional[torch.Tensor] = None,
             eval_set: Optional[Tuple[np.ndarray, np.ndarray]] = None,
             early_stopping_rounds: int = 0,
-            eval_every: int = 0) -> "HistGBT":
+            qid: Optional[np.ndarray] = None) -> "HistGBT":
         """Boost ``n_trees`` rounds on ``X`` [n, F] / ``y`` [n]; bin cuts
         are computed from ``X`` unless ``cuts`` are given.  NaN in ``X``
-        is missing (:attr:`_missing`).
+        is missing (:attr:`_missing`).  The JAX package's parameter
+        order.  ``warmup_rounds`` extra rounds run first and are
+        discarded (the first use of every kernel), so that
+        ``last_fit_seconds`` covers the kept rounds only.
+
+        ``qid`` (required by the ``rank:*`` objectives, refused by the
+        others) groups rows into queries: rows regroup into fixed-size
+        query blocks (:meth:`_regroup_ranking`), so that every rank's
+        shard holds whole queries.
 
         On a model that has trees (a fit, or :meth:`load_model`) this
         CONTINUES training, XGBoost's ``xgb_model``: the saved cuts bin
@@ -596,8 +621,23 @@ class HistGBT:
         the first chunk end that many rounds past it — then
         :meth:`predict` uses the trees up to ``best_iteration + 1``.  On
         several ranks every rank scores the whole eval set."""
+        p = self.param
         X = np.ascontiguousarray(X, dtype=np.float32)
         y = np.ascontiguousarray(y, dtype=np.float32)
+        self._rank_pos = None
+        if p.objective.startswith("rank:"):
+            CHECK(qid is not None, f"{p.objective} needs qid=")
+            CHECK(eval_set is None,
+                  f"{p.objective} eval_set not supported (metrics need "
+                  "qid groups; use models.ranking.ndcg on predictions)")
+            CHECK(len(self.trees) == 0,
+                  f"{p.objective} continued fit not supported (padded "
+                  "layout is per-fit)")
+            X, y, weight = self._regroup_ranking(X, y, np.asarray(qid),
+                                                 weight)
+        else:
+            CHECK(qid is None, f"qid= only valid for rank objectives "
+                  f"(objective is {p.objective!r})")
         CHECK_EQ(len(y), len(X), "X/y row mismatch")
         if early_stopping_rounds:
             CHECK(eval_set is not None,
@@ -620,8 +660,58 @@ class HistGBT:
         if eval_set is not None:
             after_chunk = self._eval_hook(eval_set, early_stopping_rounds,
                                           n_prior)
-        return self._boost(dd, preds, n_prior, after_chunk=after_chunk,
-                           eval_every=eval_every)
+        return self._boost(dd, preds, n_prior, warmup_rounds=warmup_rounds,
+                           after_chunk=after_chunk, eval_every=eval_every)
+
+    def _regroup_ranking(self, X: np.ndarray, y: np.ndarray,
+                         qid: np.ndarray, weight: Optional[np.ndarray]
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Rows rearranged into fixed-size query blocks for ``rank:*`` —
+        the JAX package's layout: a stable sort by qid, every query
+        padded to ``G`` docs (pad docs: y = −1, weight 0, zero
+        features), the query count padded to a multiple of the data
+        axis's world size so that each rank's rows are whole queries.
+        ``max_group_size`` caps G; longer queries keep their first G
+        docs in input order (a warning counts the rest).  Sets the
+        objective (configured with G) and :attr:`_rank_pos`, each
+        original row's padded position (−1: truncated away), for
+        :meth:`train_margins`."""
+        p = self.param
+        n = len(y)
+        CHECK_EQ(len(qid), n, "qid/X row mismatch")
+        order = np.argsort(qid, kind="stable")
+        qs = qid[order]
+        starts = np.flatnonzero(np.r_[True, qs[1:] != qs[:-1]])
+        lens = np.diff(np.r_[starts, n])
+        G = int(lens.max())
+        if p.max_group_size:
+            G = min(G, p.max_group_size)
+        Q = len(starts)
+        Qp = Q + ((-Q) % self.mesh.size)
+        Xp = np.zeros((Qp * G, X.shape[1]), np.float32)
+        yp = np.full(Qp * G, -1.0, np.float32)
+        wp = np.zeros(Qp * G, np.float32)
+        pos = np.full(n, -1, np.int64)
+        w_in = (np.asarray(weight, np.float32) if weight is not None
+                else np.ones(n, np.float32))
+        # each sorted row's rank within its query; rows ranked >= G are
+        # truncated away
+        within = np.arange(n) - np.repeat(starts, lens)
+        kept = within < G
+        rows_all = order[kept]
+        dst_all = (np.repeat(np.arange(Q, dtype=np.int64), lens)[kept] * G
+                   + within[kept])
+        Xp[dst_all] = X[rows_all]
+        yp[dst_all] = y[rows_all]
+        wp[dst_all] = w_in[rows_all]
+        pos[rows_all] = dst_all
+        truncated = int(n - kept.sum())
+        if truncated:
+            LOG("WARNING", "%s: truncated %d docs beyond "
+                "max_group_size=%d", p.objective, truncated, G)
+        self._obj = OBJECTIVES[p.objective](G)
+        self._rank_pos = pos
+        return Xp, yp, wp
 
     def _eval_hook(self, eval_set: Tuple[np.ndarray, np.ndarray],
                    early_stopping_rounds: int, n_prior: int = 0
@@ -961,6 +1051,7 @@ class HistGBT:
             self.trees = []
             n_prior = 0
             preds = self._base_margin(dd["n"])
+        self._rank_pos = None
         return self._boost(dd, preds, n_prior, warmup_rounds=warmup_rounds,
                            chunk_callback=chunk_callback,
                            after_chunk=after_chunk, eval_every=eval_every)
@@ -988,20 +1079,34 @@ class HistGBT:
                warmup_rounds: int = 0,
                chunk_callback: Optional[Callable[[int, float], Any]] = None,
                after_chunk: Optional[Callable[..., bool]] = None,
-               eval_every: int = 0) -> "HistGBT":
-        """The boosting loop of :meth:`fit` and :meth:`fit_device`: append
-        ``n_trees`` rounds' trees to :attr:`trees`, starting from the
-        margins ``preds``, ``n_prior`` rounds into the model."""
+               eval_every: int = 0,
+               masks: Optional[Callable[[int], Tuple[Any, Any]]] = None
+               ) -> "HistGBT":
+        """The boosting loop of :meth:`fit`, :meth:`fit_device` and
+        ``fit_external``: append ``n_trees`` rounds' trees to
+        :attr:`trees`, starting from the margins ``preds``, ``n_prior``
+        rounds into the model.
+
+        ``dd["chunks"]`` (the external chunked route), a list of
+        ``(bins getter, lo, hi)`` over the rows, replaces ``dd["bins_t"]``:
+        the trees grow depth-wise over the chunks.  ``masks(r)`` gives
+        global round ``r``'s sampling draws (row keep [n] bool | None,
+        feature mask [F] | None) in place of the threefry draws."""
         CHECK(warmup_rounds >= 0, "warmup_rounds must be >= 0")
         p = self.param
-        bins_t, y_d, w_d = dd["bins_t"], dd["y_d"], dd["w_d"]
+        y_d, w_d = dd["y_d"], dd["w_d"]
+        chunks = dd.get("chunks")
+        if chunks is None:
+            bins_t = dd["bins_t"]
+            CHECK(bins_t.dtype == torch.uint8,
+                  "n_bins > 256 is not supported")
+            chunks = [(lambda: bins_t, 0, dd["n"])]
         layout = dd.get("layout")
         self._bin_layout = layout
-        CHECK(bins_t.dtype == torch.uint8, "n_bins > 256 is not supported")
         F = dd["n_features"]
         self._sync = _HistSync(self.mesh, dd.get("n_global", dd["n"]),
                                self._missing)
-        policy = _grow_policy()
+        policy = "depthwise" if "chunks" in dd else _grow_policy()
         mono = self._mono_array(policy)
         if mono is not None:
             CHECK_EQ(len(mono), F,
@@ -1022,16 +1127,21 @@ class HistGBT:
                                                  leaves, heap, feat_mask)
         else:
             def grow(g, h, feat_mask):
-                return self._grow_tree(bins_t, g, h, layout, feat_mask,
-                                       mono)
+                tree, deltas = self._grow_tree(
+                    [(get, g[lo:hi], h[lo:hi]) for get, lo, hi in chunks],
+                    layout, feat_mask, mono)
+                return tree, (deltas[0] if len(deltas) == 1
+                              else torch.cat(deltas))
 
         sampling = p.subsample < 1.0 or p.colsample_bytree < 1.0
-        base_key = prng.key(p.seed) if sampling else None
+        base_key = prng.key(p.seed) if sampling and masks is None else None
         n_class = p.num_class
 
         def boost(preds, key=None):
             keep = feat_mask = None
-            if key is not None:
+            if masks is not None and key is not None:
+                keep, feat_mask = masks(key)
+            elif key is not None:
                 keep, feat_mask = self._sample_masks(key, dd["n"], F)
             g, h = self._obj.grad_hess(preds, y_d)
             if n_class <= 1:
@@ -1058,9 +1168,12 @@ class HistGBT:
 
         def chunk_keys(start: int, k: int):
             """The round keys of a chunk of ``k`` rounds from global
-            round ``start`` (the JAX package's scan of splits)."""
+            round ``start`` (the JAX package's scan of splits; with
+            ``masks``, the global round indices)."""
             if not sampling:
                 return [None] * k
+            if masks is not None:
+                return list(range(start, start + k))
             key_c, out = prng.fold_in(base_key, start), []
             for _ in range(k):
                 key_c, key_r = prng.split(key_c)
@@ -1068,6 +1181,8 @@ class HistGBT:
             return out
 
         self._warmup(boost, preds, chunk_keys(n_prior, warmup_rounds))
+        # bin bytes the kept rounds upload (non-resident external chunks)
+        self.last_upload_bytes = 0
         K, rem = _rounds_schedule(p.n_trees, eval_every)
         report = _metrics.enabled()
         m = gbt_metrics() if report else None
@@ -1166,12 +1281,22 @@ class HistGBT:
             gbt_metrics()["phase"].observe(self.last_warmup_seconds,
                                            engine="incore", phase="warmup")
 
-    def _grow_tree(self, bins_t: torch.Tensor, g: torch.Tensor,
-                   h: torch.Tensor, layout: Optional[_bl.BinLayout] = None,
+    def _grow_tree(self, chunks: List[Tuple[Callable[[], torch.Tensor],
+                                            torch.Tensor, torch.Tensor]],
+                   layout: Optional[_bl.BinLayout] = None,
                    feat_mask: Optional[torch.Tensor] = None,
                    mono: Optional[np.ndarray] = None
-                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """One depth-wise tree on (g, h) → (tree arrays, margin delta).
+                   ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
+        """One depth-wise tree → (tree arrays, each chunk's margin delta).
+
+        ``chunks`` holds the training rows as ``(bins, g, h)`` per chunk
+        of rows: ``bins()`` gives the chunk's bin matrix on the device
+        (for a non-resident chunk of the external-memory route, an
+        upload, made once per level), ``g``/``h`` its gradients.  The
+        in-core fit is one chunk.  A level's histograms are summed over
+        the chunks in int64 fixed point before their conversion
+        (:func:`_sum_chunks`), so a chunked tree has the one-matrix
+        tree's bytes.
 
         Level 0 builds the root histogram over all rows; every deeper
         level is one fused round: rows descend by the level above's split
@@ -1205,7 +1330,7 @@ class HistGBT:
         split_leaf = _make_best_split(B, lam, p.gamma, p.min_child_weight,
                                       with_child_sums=True, alpha=alpha,
                                       missing=missing, mono=mono)
-        dev = bins_t.device
+        dev = chunks[0][1].device
         bounds = None
         if mono is not None:
             mono_t = torch.from_numpy(mono).to(dev)
@@ -1213,8 +1338,12 @@ class HistGBT:
                                   dtype=torch.float32, device=dev)
 
         sync = self._sync
-        scales = sync.scales(g, h)
-        node = torch.zeros(bins_t.shape[1], dtype=torch.int32, device=dev)
+        gs = [c[1] for c in chunks]
+        hs = [c[2] for c in chunks]
+        scales = (sync.scales(gs[0], hs[0]) if len(chunks) == 1
+                  else sync.scales(torch.cat(gs), torch.cat(hs)))
+        nodes = [torch.zeros(g.shape[0], dtype=torch.int32, device=dev)
+                 for g in gs]
         feats, thrs, gains, dirs = [], [], [], []
         prev_hist = feat = thr = dirv = gsum = hsum = None
         for level in range(depth):
@@ -1228,21 +1357,30 @@ class HistGBT:
                 return split(ev, feat_mask)
 
             if level == 0:
-                hist = sync.f32_sync(build_histogram(
-                    bins_t, node, g, h, 1, B, scales=scales, layout=layout,
-                    sync=sync.acc_sync))
+                def root(c, bins, hook):
+                    return build_histogram(bins, nodes[c], gs[c], hs[c], 1,
+                                           B, scales=scales, layout=layout,
+                                           sync=hook)
+
+                hist = sync.f32_sync(_sum_chunks(chunks, root,
+                                                 sync.acc_sync))
                 scores = score_fn(hist)
-            elif sync.fused_rounds:
-                node, hist, scores = fused_round(
-                    bins_t, node, feat, thr, g, h, prev_hist, n_nodes >> 1,
-                    B, score_fn=score_fn, by_node=True, scales=scales,
-                    layout=layout)
+            elif sync.fused_rounds and len(chunks) == 1:
+                nodes[0], hist, scores = fused_round(
+                    chunks[0][0](), nodes[0], feat, thr, gs[0], hs[0],
+                    prev_hist, n_nodes >> 1, B, score_fn=score_fn,
+                    by_node=True, scales=scales, layout=layout)
             else:
-                left, node = fused_descend_histogram(
-                    bins_t, node, feat, thr, g, h, n_nodes >> 1, B,
-                    fuse=sync.fuse, dir_sel=dirv, miss_bin=miss_bin,
-                    layout=layout, by_node=True, scales=scales,
-                    sync=sync.acc_sync)
+                def left_of(c, bins, hook, _f=feat, _t=thr, _d=dirv,
+                            _n=n_nodes >> 1):
+                    left, nodes[c] = fused_descend_histogram(
+                        bins, nodes[c], _f, _t, gs[c], hs[c], _n, B,
+                        fuse=sync.fuse, dir_sel=_d, miss_bin=miss_bin,
+                        layout=layout, by_node=True, scales=scales,
+                        sync=hook)
+                    return left
+
+                left = _sum_chunks(chunks, left_of, sync.acc_sync)
                 hist = sibling_pairs(sync.f32_sync(left), prev_hist)
                 scores = score_fn(hist)
             prev_hist = hist
@@ -1261,9 +1399,6 @@ class HistGBT:
             if mono is not None:
                 bounds = _child_bounds(bounds, gsum, hsum, lam, mono_t,
                                        feat, thr, B)
-        # final descend into the leaf layer
-        leaf_node = _advance_node(bins_t, node, feat, thr, layout, dirv,
-                                  miss_bin)
         leaf_w = -_maybe_l1(gsum, alpha) / (hsum + lam)
         if mono is not None:
             leaf_w = torch.minimum(torch.maximum(leaf_w, bounds[:, 0]),
@@ -1273,7 +1408,10 @@ class HistGBT:
                 "gain": torch.stack(gains), "leaf": leaf}
         if missing:
             tree["dir"] = torch.stack(dirs)
-        return tree, leaf[leaf_node]
+        # final descend into the leaf layer
+        return tree, [leaf[_advance_node(bins(), nodes[c], feat, thr, layout,
+                                         dirv, miss_bin)]
+                      for c, (bins, _, _) in enumerate(chunks)]
 
     def _grow_tree_lossguide(self, bins_t: torch.Tensor, g: torch.Tensor,
                              h: torch.Tensor,
@@ -1431,19 +1569,32 @@ class HistGBT:
 
     def train_margins(self) -> np.ndarray:
         """Raw training-set margins after :meth:`fit`, of all global rows
-        in their order (on several ranks: gathered from every rank)."""
-        CHECK(self._train_preds is not None, "call fit first")
+        in their order (on several ranks: gathered from every rank).
+        After a ``rank:*`` fit the padded query layout is unwound into
+        the original row order, and docs truncated by
+        ``max_group_size`` are NaN, as in the JAX package."""
+        CHECK(self._train_preds is not None,
+              "call fit first (train_margins is unavailable after a "
+              "chunked fit_external)")
         preds = self._train_preds
         world = self.mesh.size
         if world == 1:
-            return preds.cpu().numpy()
-        ranges = shard_row_ranges(self._train_rows, world)
-        width = max(hi - lo for lo, hi in ranges)
-        pad = (0, 0) * (preds.dim() - 1) + (0, width - preds.shape[0])
-        padded = torch.nn.functional.pad(preds, pad)
-        gathered = coll.device_allgather(padded, self.mesh).cpu()
-        return torch.cat([gathered[r * width:r * width + hi - lo]
-                          for r, (lo, hi) in enumerate(ranges)]).numpy()
+            flat = preds.cpu().numpy()
+        else:
+            ranges = shard_row_ranges(self._train_rows, world)
+            width = max(hi - lo for lo, hi in ranges)
+            pad = (0, 0) * (preds.dim() - 1) + (0, width - preds.shape[0])
+            padded = torch.nn.functional.pad(preds, pad)
+            gathered = coll.device_allgather(padded, self.mesh).cpu()
+            flat = torch.cat([gathered[r * width:r * width + hi - lo]
+                              for r, (lo, hi) in enumerate(ranges)]).numpy()
+        pos = self._rank_pos
+        if pos is not None:
+            out = np.full(len(pos), np.nan, np.float32)
+            kept = pos >= 0
+            out[kept] = flat[pos[kept]]
+            return out
+        return flat
 
     # ------------------------------------------------------------------
     # inference
@@ -1476,23 +1627,34 @@ class HistGBT:
             bins_t, s["feat"], s["thr"], s["leaf"], depth,
             margin if c is None else margin[:, c], s.get("dir"), miss), 1)
 
+    def _forest(self, trees: List[Dict[str, np.ndarray]]
+                ) -> List[Tuple[Dict[str, torch.Tensor], bool]]:
+        """The forest on the device in the JAX package's chunks of
+        ``_TREE_CHUNK`` trees: ``(stacked chunk, whether it is short)``."""
+        return [(self._stacked_trees(trees[lo:lo + _TREE_CHUNK]),
+                 len(trees) - lo < _TREE_CHUNK)
+                for lo in range(0, len(trees), _TREE_CHUNK)]
+
+    def _apply_forest(self, bins_t: torch.Tensor, forest,
+                      init: torch.Tensor) -> torch.Tensor:
+        """Add a :meth:`_forest`'s margins onto ``init`` in training's
+        order.  The JAX package pads the last chunk with all-zero trees;
+        a zero tree adds +0.0, so one +0.0 after a short chunk gives its
+        bits (a margin of −0.0 becomes +0.0) without descending the
+        padding."""
+        margin = init
+        for st, short in forest:
+            margin = self._apply_stacked(bins_t, st, margin)
+            if short:
+                margin = margin + 0.0
+        return margin
+
     def _apply_trees(self, bins_t: torch.Tensor,
                      trees: List[Dict[str, np.ndarray]],
                      init: torch.Tensor) -> torch.Tensor:
         """Add the forest's margins onto ``init`` in training's order —
-        the margin replay of a continued fit and :meth:`predict`.  The
-        JAX package stacks forests in chunks of ``_TREE_CHUNK`` trees,
-        the last padded with all-zero trees; a zero tree adds +0.0, so
-        one +0.0 after a short last chunk gives its bits (a margin of
-        −0.0 becomes +0.0) without descending the padding."""
-        margin = init
-        for lo in range(0, len(trees), _TREE_CHUNK):
-            part = trees[lo:lo + _TREE_CHUNK]
-            margin = self._apply_stacked(bins_t, self._stacked_trees(part),
-                                         margin)
-            if len(part) < _TREE_CHUNK:
-                margin = margin + 0.0
-        return margin
+        the margin replay of a continued fit."""
+        return self._apply_forest(bins_t, self._forest(trees), init)
 
     def predict(self, X: np.ndarray, output_margin: bool = False,
                 n_trees: Optional[int] = None) -> np.ndarray:
@@ -1504,18 +1666,50 @@ class HistGBT:
         CHECK(len(self.trees) > 0, "no trees trained")
         X = np.ascontiguousarray(X, dtype=np.float32)
         self._check_nan_allowed(X, "predict")
-        use = self._resolve_trees(n_trees)
+        forest = self._forest(self._resolve_trees(n_trees))
+        return self._predict_slabs(
+            (X[lo:lo + self._PREDICT_BATCH]
+             for lo in range(0, len(X), self._PREDICT_BATCH)),
+            forest, output_margin)
+
+    def _predict_slabs(self, slabs, forest, output_margin: bool
+                       ) -> np.ndarray:
+        """Predictions of a forest over an iterable of ``[n, F]`` f32
+        slabs, each binned and scored on the device before the next is
+        taken."""
         outs = []
-        for lo in range(0, len(X), self._PREDICT_BATCH):
-            xb = X[lo:lo + self._PREDICT_BATCH]
-            margin = self._apply_trees(
-                self._bins_of(torch.from_numpy(xb).to(self.device)), use,
+        for xb in slabs:
+            margin = self._apply_forest(
+                self._bins_of(torch.from_numpy(xb).to(self.device)), forest,
                 self._base_margin(len(xb)))
             out = margin if output_margin else self._obj.transform(margin)
             outs.append(out.cpu().numpy())
         if not outs:
             return np.zeros(self._margin_shape(0), np.float32)
         return np.concatenate(outs) if len(outs) > 1 else outs[0]
+
+    def predict_iter(self, row_iter, output_margin: bool = False,
+                     n_trees: Optional[int] = None,
+                     batch_rows: int = _PREDICT_BATCH) -> np.ndarray:
+        """Streaming prediction over a ``RowBlockIter`` — the inference
+        side of :meth:`fit_external`, as :meth:`predict` but page by page:
+        CSR pages densify into ``batch_rows`` slabs
+        (``data.iter.iter_dense_slabs``), each binned and scored on the
+        device; host memory holds one slab and the output, never the
+        dense matrix.  The forest goes up once.  The width is the cuts':
+        a page with a column past it fails loudly."""
+        from dmlc_core_tpu_torch.data.iter import iter_dense_slabs
+
+        CHECK(self.cuts is not None, "predict before fit")
+        CHECK(len(self.trees) > 0, "no trees trained")
+        forest = self._forest(self._resolve_trees(n_trees))
+        def slabs():
+            for xb, _, _ in iter_dense_slabs(row_iter, int(self.cuts.shape[0]),
+                                             batch_rows):
+                self._check_nan_allowed(xb, "predict_iter")
+                yield xb
+
+        return self._predict_slabs(slabs(), forest, output_margin)
 
     def predict_proba(self, X: np.ndarray,
                       n_trees: Optional[int] = None) -> np.ndarray:
@@ -1734,6 +1928,28 @@ class HistGBT:
         finally:
             s.close()
         return cls.from_state(payload, device=device)
+
+
+def _sum_chunks(chunks, build, sync):
+    """``build(c, bins, hook)`` over every chunk of rows, where ``hook``
+    (the ``sync=`` seam of the histogram ops) adds each chunk's int64
+    sums to the chunks' before it, and maps the last total by ``sync``
+    (the ranks' all-reduce, or None) — so only the sum over all chunks
+    is converted to f32.  Returns the last chunk's result, the whole
+    sum's histogram.  One chunk calls ``build`` with ``sync`` itself."""
+    if len(chunks) == 1:
+        return build(0, chunks[0][0](), sync)
+    carry = [None]
+    out = None
+    for c, (bins, _, _) in enumerate(chunks):
+        def hook(acc, _last=c == len(chunks) - 1):
+            if carry[0] is not None:
+                acc = acc + carry[0]
+            carry[0] = acc
+            return sync(acc) if _last and sync is not None else acc
+
+        out = build(c, bins(), hook)
+    return out
 
 
 def _child_bounds(bounds, cg, ch, lam: float, mono, feat, thr, B: int):

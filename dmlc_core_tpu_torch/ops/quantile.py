@@ -17,6 +17,12 @@ IEEE operation, so the result is the same on the CPU and on a GPU.
 ``torch.quantile`` is not used: it refuses inputs over 16M elements, and
 a 10M × 28 matrix is 280M.  Columns are sorted one feature at a time and
 interpolated by hand.
+
+:class:`SketchAccumulator` is the streaming, bounded-memory form for data
+that arrives in pages (``HistGBT.fit_external``): per-page summaries merge
+up a C-ary ladder by :func:`_weighted_collapse`, with the JAX package's
+stable sort, midpoint rule and ``linspace`` grid, so its cuts too are
+bit-equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 from dmlc_core_tpu_torch.base.logging import CHECK
 
 __all__ = ["local_summary", "merge_summaries", "compute_cuts", "apply_bins",
-           "apply_bins_missing", "xla_cumsum"]
+           "apply_bins_missing", "xla_cumsum", "SketchAccumulator"]
 
 #: XLA's CPU ReduceWindowRewriter block length for cumulative sums
 _SCAN_BASE = 16
@@ -240,6 +246,114 @@ def compute_cuts(x: torch.Tensor, n_bins: int = 256,
         return merge_summaries(summary[None], n_bins)
     gathered = np.asarray(allgather_fn(summary.cpu().numpy()), np.float32)
     return merge_summaries(torch.from_numpy(gathered).to(x.device), n_bins)
+
+
+def _weighted_collapse(stack: torch.Tensor, wts: torch.Tensor,
+                       n_out: int) -> torch.Tensor:
+    """Merge ``[K, F, S]`` summaries with per-summary weights ``[K]`` into
+    one ``[F, n_out]`` summary: each point carries ``w_k / S`` mass, the
+    merged multiset is re-quantiled on an even grid (stable sort,
+    midpoint-rule probabilities, ``jnp.interp``) — the JAX package's
+    fixed-shape merge, in its f32 arithmetic."""
+    K, F, S = stack.shape
+    pts = stack.permute(1, 0, 2).reshape(F, K * S)                    # [F, K·S]
+    w = (wts / float(S))[:, None].expand(K, S).reshape(K * S)
+    order = torch.argsort(pts, dim=1, stable=True)
+    xs = torch.gather(pts, 1, order)
+    ws = torch.gather(w[None, :].expand(F, K * S), 1, order)
+    cw = xla_cumsum(ws)
+    total = cw[:, -1:]
+    probs = (cw - 0.5 * ws) / total                                   # midpoint rule
+    return _interp(_linspace01(n_out, stack.device), probs, xs)       # [F, n_out]
+
+
+class SketchAccumulator:
+    """Streaming quantile sketch with bounded memory — the JAX package's
+    ``SketchAccumulator`` (the out-of-core sketch pass of
+    ``HistGBT.fit_external``).
+
+    Each page of rows contributes a fixed-size weighted summary
+    (:func:`local_summary`, on ``device``); summaries merge up a
+    **C-ary ladder** (C = ``buffer_pages``): whenever a level holds C
+    summaries they collapse (:func:`_weighted_collapse`) into one at the
+    next level, so any value passes at most ``⌈log_C P⌉`` merge stages and
+    host memory stays ``O(C · log_C P · F · n_summary)``.  Summaries are
+    kept on the host as numpy arrays, the page weights as the JAX
+    package's numpy sums.  ``finalize`` optionally merges across workers
+    through an allgather.  The cuts are bit-equal to the JAX package's on
+    any device."""
+
+    def __init__(self, n_features: int, n_summary: int = 2048,
+                 buffer_pages: int = 32, device=None):
+        from dmlc_core_tpu_torch.utils.device import resolve_device
+
+        CHECK(buffer_pages >= 2, "need at least 2 buffered summaries")
+        self._F = n_features
+        self._S = n_summary
+        self._cap = buffer_pages
+        self._device = resolve_device(device)
+        # merge ladder: _levels[ℓ] = list of ([F, S] summary, weight)
+        self._levels: list = [[]]
+        self.pages_seen = 0
+
+    def add(self, x: np.ndarray, weight: Optional[np.ndarray] = None) -> None:
+        """Absorb a page of rows ``[n, F]`` (``weight``: [n] or None)."""
+        x = np.asarray(x, np.float32)
+        CHECK(x.shape[1] == self._F, "feature-count mismatch")
+        if x.shape[0] == 0:
+            return
+        w = (None if weight is None else torch.from_numpy(
+            np.ascontiguousarray(weight, np.float32)).to(self._device))
+        s = local_summary(torch.from_numpy(x).to(self._device), w,
+                          self._S).cpu().numpy()
+        wt = float(x.shape[0] if weight is None else np.sum(weight))
+        self.pages_seen += 1
+        self._levels[0].append((s, wt))
+        lvl = 0
+        while len(self._levels[lvl]) >= self._cap:   # carry up the ladder
+            merged = self._merge_group(self._levels[lvl])
+            self._levels[lvl] = []
+            if lvl + 1 == len(self._levels):
+                self._levels.append([])
+            self._levels[lvl + 1].append(merged)
+            lvl += 1
+
+    def _collapse(self, stack: np.ndarray, wts: np.ndarray) -> torch.Tensor:
+        return _weighted_collapse(torch.from_numpy(stack).to(self._device),
+                                  torch.from_numpy(wts).to(self._device),
+                                  self._S)
+
+    def _merge_group(self, group: list) -> tuple:
+        wts = np.asarray([w for _, w in group], np.float32)
+        merged = self._collapse(np.stack([s for s, _ in group]), wts)
+        return merged.cpu().numpy(), float(wts.sum())
+
+    def summary(self) -> tuple:
+        """Current ``([F, S] summary, total_weight)`` — the fixed-size
+        message exchanged between workers.  Merges whatever sits on the
+        ladder (one cross-level stage) without disturbing it."""
+        pending = [sw for level in self._levels for sw in level]
+        CHECK(pending, "no data added")
+        if len(pending) == 1:
+            return pending[0]
+        return self._merge_group(pending)
+
+    def finalize(self, n_bins: int, allgather_fn=None) -> torch.Tensor:
+        """Merged cut points ``[F, n_bins-1]`` f32 on the sketch's device.
+
+        ``allgather_fn(arr) -> [W, ...]`` gathers across workers (numpy
+        in, numpy out); every worker computes the same cuts from the
+        gathered summaries."""
+        local, wt = self.summary()
+        if allgather_fn is not None:
+            gathered = np.asarray(allgather_fn(local), np.float32)     # [W, F, S]
+            wts = np.asarray(allgather_fn(np.asarray(wt, np.float32)),
+                             np.float32).reshape(-1)                   # [W]
+        else:
+            gathered = local[None]
+            wts = np.asarray([wt], np.float32)
+        merged = self._collapse(np.ascontiguousarray(gathered), wts)  # [F, S]
+        return merge_summaries(merged[None], n_bins)
 
 
 def _digitise(x: torch.Tensor, cuts: torch.Tensor, nan_bin: int,

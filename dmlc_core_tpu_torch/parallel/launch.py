@@ -17,12 +17,17 @@ A job is a JSON dict: ``X``/``y`` (``.npy`` paths, the global rows),
 optional ``cuts`` and ``Xv``, ``backend`` (``nccl``, or ``gloo`` for CPU
 tensors and several ranks on one card), ``device`` (``cpu``, a card such
 as ``cuda:0`` for every rank, or ``cuda`` for ``cuda:<rank>``),
-``threads`` (torch intra-op threads per rank), ``params`` (``HistGBT``
+``threads`` (torch intra-op threads per rank), optional ``qid`` (a
+``.npy`` of query ids: ``fit(qid=)`` for the ``rank:*`` objectives),
+``params`` (``HistGBT``
 keyword arguments), ``runs`` (``[{"name", "env"}]``: the ``DMLC_*``
 levers of each fit; a run may name its own ``X``/``y``/``cuts``/``Xv``,
 ``params`` (laid over the job's), and an ``eval`` dict, ``{"X", "y", "early_stopping_rounds"}``, which
 fits with that ``eval_set`` and writes ``eval_history``,
-``best_iteration`` and ``best_score`` into the run's ``.json``) and
+``best_iteration`` and ``best_score`` into the run's ``.json``, or an
+``external`` dict, ``{"page_rows", "cache_device"}`` (the latter
+optional), which trains by ``fit_external`` over this rank's rows,
+``shard_row_ranges(n, world)[rank]``, as ``ArrayRowIter`` pages) and
 ``out`` (a directory)::
 
     launch(job, world=2, timeout=120)
@@ -183,6 +188,7 @@ def run_worker(job: Dict[str, Any]) -> None:
         y = np.load(data["y"])
         cuts = np.load(data["cuts"]) if data.get("cuts") else None
         Xv = np.load(data["Xv"]) if data.get("Xv") else None
+        qid = np.load(data["qid"]) if data.get("qid") else None
         with _levers(run.get("env", {})):
             for k in kernels:
                 k.launches = 0
@@ -194,13 +200,24 @@ def run_worker(job: Dict[str, Any]) -> None:
             model = HistGBT(device=device,
                             **{**job["params"], **run.get("params", {})})
             ev = data.get("eval")
-            if ev:
+            ext = data.get("external")
+            if ext:
+                from dmlc_core_tpu_torch.data.iter import ArrayRowIter
+                from dmlc_core_tpu_torch.parallel.mesh import shard_row_ranges
+
+                lo, hi = shard_row_ranges(len(y), coll.world_size())[rank]
+                model.fit_external(
+                    ArrayRowIter(np.ascontiguousarray(X[lo:hi]), y[lo:hi],
+                                 page_rows=ext["page_rows"]),
+                    num_col=X.shape[1], cuts=cuts,
+                    cache_device=ext.get("cache_device", False))
+            elif ev:
                 model.fit(X, y, cuts=cuts,
                           eval_set=(np.load(ev["X"]), np.load(ev["y"])),
                           early_stopping_rounds=ev.get(
                               "early_stopping_rounds", 0))
             else:
-                model.fit(X, y, cuts=cuts)
+                model.fit(X, y, cuts=cuts, qid=qid)
             launches = {
                 "hist": H.hist_kernel.launches,
                 "hist_layout": H.hist_kernel.layout_launches,
@@ -224,10 +241,12 @@ def run_worker(job: Dict[str, Any]) -> None:
                 "eval_history": model.eval_history,
                 "best_iteration": model.best_iteration,
                 "best_score": model.best_score}
-        margins = model.train_margins()
+        margins = (model.train_margins() if model._train_preds is not None
+                   else None)
         model.save_model(str(out / f"{name}.{rank}.model"))
         if rank == 0:
-            np.save(out / f"{name}.margins.npy", margins)
+            if margins is not None:
+                np.save(out / f"{name}.margins.npy", margins)
             if Xv is not None:
                 np.save(out / f"{name}.pred.npy",
                         model.predict(Xv, output_margin=True))
