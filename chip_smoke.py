@@ -30,7 +30,8 @@ and the script exits non-zero without the final ``ok`` line:
    (:func:`nan_copy`: 10% of each of features 1.. from seed 9, and feature
    0 wherever it exceeds 1.0, so that both directions are learned): the
    device route's cuts and ``apply_bins_missing`` held bit-equal to the
-   host route's (``compute_cuts`` on the CPU, ``_host_bin_t``);
+   host route's (``compute_cuts`` on the CPU, ``_host_bin_t``) on the
+   first 2M of those rows;
    ``descend_kernel``'s direction mode against ``descend_plain`` at n_prev
    1..16 on those bins (bit-equal, both table forms, timed beside its
    9-bytes-a-row bound); then the depth-wise fit of phase 4 on them, with
@@ -89,6 +90,14 @@ and the script exits non-zero without the final ``ok`` line:
    the pages equals ``predict``, and a 200k-row slice written as libsvm
    text and read back through ``RowBlockIter.create("…#cache")`` trains
    the slice's ``ArrayRowIter`` file;
+6g2. ingest_iter — ``HistGBT.make_device_data_iter`` over 6g's pages
+   (densified page by page): the sketch pass and the slabs through
+   ``DeviceFeed`` binned on the card; its bins, labels and weights
+   ``torch.equal`` to ``make_device_data(X, y, cuts=same)``'s, one file
+   from a 5-tree ``fit_device`` of each handle; both passes' seconds, each
+   handle's peak device memory and the feed's stall fraction;
+6g3. infeed — the port bench's infeed smoke (24 ``[2048, 128]`` batches
+   through ``DeviceFeed(depth=2)``): its stall fraction;
 6h. ranking — ``rank:pairwise``, ``rank:ndcg`` and ``rank:map`` with
    ``fit(qid=)`` on MSLR-WEB10K-schema rows (:func:`mslr_like`: 136
    features, 10,000 queries, 1,200,192 docs), 5 rounds each: 1 ``hist``
@@ -159,6 +168,15 @@ and the script exits non-zero without the final ``ok`` line:
     variant and ``prod`` slope-timed (``_run_level``) with the launch
     counts set to 0 before and read after, beside the bound, the plain
     version's time and ``index_add_``'s (B1's yardstick);
+12b. sparse — ``SparseHistGBT`` at ``tools/bench_sparse.py``'s defaults
+    (100k rows × F = 100k at density 0.005, ~50M entries, 20 rounds, 32
+    bins, depth 6; its warm-up fits first): rounds/s, predict rows/s,
+    train accuracy above 0.9, one round's device time by group
+    (histogram, routing, split scan) from ``torch.profiler``; on the first
+    5,000 rows (3 trees) the card's model file equal to the CPU's, and two
+    gloo ranks sharing the card, each with half the slice and its cuts,
+    writing that file.  The sparse engine is torch array code (the JAX
+    package's is XLA array code): no hand kernel, so no launch count;
 13. bench — ``python -m dmlc_core_tpu_torch.bench`` as a child process at
     its defaults (10M × 28, 100 rounds after 10 warmup rounds, the
     flagship's levers, host binning), with a time limit: its last line
@@ -302,6 +320,9 @@ MISS_SEED = 9
 MISS_SHARE = 0.1
 MISS_CUT = 1.0
 MISS_N_PREV = (1, 2, 4, 8, 16)
+#: rows of the device-route vs host-route binning check (all 10M rows
+#: through PR 11; the host route's cuts take 73-88 s there)
+MISS_HOST_ROWS = 2_000_000
 MISS_MIN_ACC = 0.75
 #: the eval_set phase: rounds, early stopping, and the cuda-vs-cpu
 #: agreement of eval_history's scores
@@ -352,6 +373,15 @@ EXT_CHUNKS = 4
 EXT_SAMPLING = {"subsample": 0.8, "colsample_bytree": 0.8, "seed": 3}
 EXT_SLICE = 200_000
 EXT_BUDGET = "DMLC_TPU_EXTERNAL_DEVICE_BUDGET"
+
+# sparse: tools/bench_sparse.py's defaults (100k rows, F = 100k, density
+# 0.005, 20 rounds, 32 bins, depth 6); the card-vs-CPU and 2-rank checks
+# on the first SPARSE_SLICE rows, SPARSE_SLICE_TREES trees
+SPARSE_MIN_ACC = 0.9
+SPARSE_SLICE = 5_000
+SPARSE_SLICE_TREES = 3
+SPARSE_RANKS = 2
+SPARSE_PROFILE_TREES = 3
 
 BENCH_TIMEOUT = 600
 BENCH_ROUNDS = 100
@@ -1259,7 +1289,7 @@ def live_dirs(np, trees):
 def phase_missing(torch, np, H, rates, X, y, Xv, yv):
     """NaN-as-missing mode at the flagship's shapes: the NaN copies of the
     HIGGS-like rows; the device route's cuts and bins against the host
-    route's; ``descend_kernel``'s direction mode at ``MISS_N_PREV``
+    route's on the first ``MISS_HOST_ROWS`` rows; ``descend_kernel``'s direction mode at ``MISS_N_PREV``
     against its plain version on those bins; the depth-wise fit (B1 at
     every level, the direction-aware descend, no fused round).  Returns
     the NaN rows, the ``kernels`` entry of the direction mode and the
@@ -1279,28 +1309,36 @@ def phase_missing(torch, np, H, rates, X, y, Xv, yv):
     bins = apply_bins_missing(Xd, cuts, miss_bin)
     torch.cuda.synchronize()
     device_bin_s = time.perf_counter() - t0
+    require(cuts.shape == (FEATURES, N_BINS - 2), "missing: cut width")
+    require(bool(torch.isfinite(cuts).all()), "missing: cuts not finite")
+    # the host route (73-88 s at 10M rows on one core) against the card's
+    # on the first MISS_HOST_ROWS rows
+    s = slice(0, MISS_HOST_ROWS)
+    cuts_s = compute_cuts(Xd[s], N_BINS - 1, missing=True)
+    bins_s = apply_bins_missing(Xd[s], cuts_s, miss_bin).cpu().numpy()
     del Xd
     t0 = time.perf_counter()
-    cuts_h = compute_cuts(torch.from_numpy(Xm), N_BINS - 1,
+    cuts_h = compute_cuts(torch.from_numpy(Xm[s]), N_BINS - 1,
                           missing=True).numpy()
-    host = _host_bin_t(Xm, cuts_h, missing=True)
+    host = _host_bin_t(Xm[s], cuts_h, missing=True)
     host_bin_s = time.perf_counter() - t0
-    require(cuts.shape == (FEATURES, N_BINS - 2) and np.array_equal(
-        cuts.cpu().numpy().view(np.uint32), cuts_h.view(np.uint32)),
-        "missing: device-route cuts differ from the host route's")
-    require(bool(torch.isfinite(cuts).all()), "missing: cuts not finite")
-    bins_np = bins.cpu().numpy()
-    differ = (bins_np != host).sum(1)
+    require(np.array_equal(cuts_s.cpu().numpy().view(np.uint32),
+                           cuts_h.view(np.uint32)),
+            "missing: device-route cuts differ from the host route's")
+    differ = (bins_s != host).sum(1)
     require(bins.dtype == torch.uint8 and not differ.any(),
             f"missing: device bins differ from _host_bin_t on "
             f"{differ.tolist()} rows")
+    del host, bins_s
+    bins_np = bins.cpu().numpy()
     nan_rows = (bins_np == miss_bin).sum(1)
     require(np.array_equal(nan_rows, np.isnan(Xm).sum(0)),
             "missing: NaN rows not in the reserved bin")
-    del host, bins_np
+    del bins_np
     emit({"phase": "missing_binning", "rows": ROWS, "n_bins": N_BINS,
           "miss_bin": miss_bin, "nan_rows_per_feature": nan_rows.tolist(),
           "datagen_seconds": datagen_s, "device_bin_seconds": device_bin_s,
+          "host_check_rows": MISS_HOST_ROWS,
           "host_bin_seconds": host_bin_s, "rows_differing": 0})
     _, _, _, masked, gen, _, _ = kernel_inputs(torch, H, bins)
     cases = []
@@ -1863,7 +1901,7 @@ def write_libsvm(np, path, X, y):
                                                 X[lo:lo + 65_536].tolist())))
 
 
-def phase_external(torch, np, H, smi, X, y):
+def phase_external(torch, np, H, smi, X, y, pages):
     """``fit_external`` / ``predict_iter`` on the HIGGS-like rows as
     ``ArrayRowIter`` pages of ``EXT_PAGE_ROWS``, depth 6, 256 bins, 5
     trees: (a) the default route (cached: under the 6 GiB budget); (b)
@@ -1885,10 +1923,7 @@ def phase_external(torch, np, H, smi, X, y):
 
     kw = dict(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS)
     n, F = X.shape
-    t0 = time.perf_counter()
-    pages = ArrayRowIter(X, y, page_rows=EXT_PAGE_ROWS)
     page_rows = [b.size for b in pages]
-    pages_s = time.perf_counter() - t0
     chunk_budget = n * 24 + F * -(-n // EXT_CHUNKS)
     routes, models = {}, {}
     for name, budget, extra in (("a", None, {}), ("b", chunk_budget, {}),
@@ -1997,7 +2032,7 @@ def phase_external(torch, np, H, smi, X, y):
             "DiskRowIter slice's file differs from the ArrayRowIter's")
     emit({"phase": "external", "card": smi, "rows": n, "features": F,
           "pages": len(page_rows), "page_rows": EXT_PAGE_ROWS,
-          "pages_seconds": pages_s, "routes": routes,
+          "routes": routes,
           "cpu_sketch_seconds": cpu_sketch_s, "cuts_equal_cpu": True,
           "files_equal_incore": ["a", "b"],
           "sampled_kept_share_by_round": kept,
@@ -2010,6 +2045,203 @@ def phase_external(torch, np, H, smi, X, y):
         for k in total:
             total[k] += r["launches"][k]
     return total
+
+
+def phase_ingest_iter(torch, np, H, smi, pages, X, y):
+    """``HistGBT.make_device_data_iter`` over the external phase's pages
+    (each page densified as ``fit_external`` does, ``EXT_PAGE_ROWS``-row
+    slabs): pass 1 the
+    sketch on the card, pass 2 the slabs through ``DeviceFeed`` binned on
+    the card.  Checks: its bins, labels and weights ``torch.equal`` to
+    ``make_device_data(X, y, cuts=same)``'s on the card, and a
+    ``TREES``-tree ``fit_device`` from each handle writes one file (1
+    ``hist`` + 5 ``fused_round`` a tree, counts set to 0 before each fit
+    and read after).  Prints both passes' seconds, each handle's peak of
+    ``torch.cuda.max_memory_allocated`` over what was resident before it,
+    and the feed's stall fraction.  Returns the streamed handle's fit's
+    launches."""
+    from dmlc_core_tpu_torch import HistGBT
+
+    kw = dict(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS)
+    n, F = X.shape
+
+    def slabs():
+        return ((b.to_dense(F), b.label, b.weight) for b in pages)
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, \
+            torch.cuda.max_memory_allocated() - base
+
+    with levers({}):
+        streamed = HistGBT(device=DEVICE, **kw)
+        dd, iter_s, iter_peak = peak_of(
+            lambda: streamed.make_device_data_iter(slabs))
+        incore = HistGBT(device=DEVICE, **kw)
+        ref, ref_s, ref_peak = peak_of(
+            lambda: incore.make_device_data(X, y, cuts=streamed.cuts))
+        for key in ("bins_t", "y_d", "w_d"):
+            require(torch.equal(dd[key], ref[key]), f"ingest_iter: the "
+                    f"streamed handle's {key} differs from make_device_data's")
+        require(sorted(dd) == sorted(ref), "ingest_iter: handle keys differ")
+        fits = {}
+        for name, model, handle in (("iter", streamed, dd),
+                                    ("in_core", incore, ref)):
+            zero_counts(H)
+            model.fit_device(handle)
+            fits[name] = read_counts(H)
+            require_launches(fits[name], {
+                "hist": TREES, "fused_round": (MAX_DEPTH - 1) * TREES,
+                "fused_descend": 0}, f"ingest_iter ({name})")
+    require(model_bytes_of(streamed) == model_bytes_of(incore),
+            "ingest_iter: the streamed handle's file differs from "
+            "make_device_data's")
+    feed = streamed.last_feed_stats
+    emit({"phase": "ingest_iter", "card": smi, "rows": n, "features": F,
+          "slabs": feed["batches"], "slab_rows": EXT_PAGE_ROWS,
+          "pass1_sketch_seconds": streamed.last_sketch_seconds,
+          "pass2_feed_bin_seconds": (streamed.last_bin_seconds
+                                     - streamed.last_sketch_seconds),
+          "iter_seconds": iter_s, "make_device_data_seconds": ref_s,
+          "iter_peak_bytes": iter_peak, "make_device_data_peak_bytes":
+          ref_peak, "bin_matrix_bytes": n * F,
+          "feed_stall_fraction": feed["stall_fraction"], "feed": feed,
+          "bins_equal": True, "file_equal": True,
+          "launches": fits["iter"],
+          "steady_rounds_per_sec": steady_rounds_per_sec(
+              streamed.last_tree_times)})
+    return fits["iter"]
+
+
+def phase_infeed(torch, smi):
+    """The port bench's infeed smoke (``bench._smoke_infeed``): 24
+    ``[2048, 128]`` f32 batches through ``DeviceFeed(depth=2)`` onto the
+    card, each consumed by ``sum(tanh(x @ w))``."""
+    from dmlc_core_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    frac = bench._smoke_infeed(torch.device(DEVICE))
+    wall = time.perf_counter() - t0
+    require(0.0 <= frac <= 1.0, f"infeed: stall fraction {frac}")
+    emit({"phase": "infeed", "card": smi, "infeed_stall_frac": frac,
+          "batches": 24, "batch_shape": [2048, 128], "seconds": wall})
+
+
+def sparse_round_device_ms(torch, data, F, kw):
+    """A ``SparseHistGBT`` round's device time by group (the kernels
+    launched in the ``torch.profiler`` ranges ``sparse.histogram`` /
+    ``.route`` / ``.split``, and each range's span on the device), the
+    mean over a ``SPARSE_PROFILE_TREES``-tree fit under the profiler, with
+    the wall of the fit, its set-up, the device time of every kernel in it
+    (set-up included) and the busiest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmlc_core_tpu_torch.models.histgbt_sparse import (PROFILE_GROUPS,
+                                                           SparseHistGBT)
+
+    offset, index, value, y = data
+    T = SPARSE_PROFILE_TREES
+    model = SparseHistGBT(device=DEVICE, **{**kw, "n_trees": T})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.fit(offset, index, value, y, n_features=F)
+        torch.cuda.synchronize()
+    # a range's host-side event sums the device time of the kernels it
+    # launched; its device-side twin (the same name) spans them, gaps
+    # included
+    groups = {g: 0.0 for g in PROFILE_GROUPS}
+    spans = {g: 0.0 for g in PROFILE_GROUPS}
+    kernels_us = 0.0
+    top = {}
+    cuda = torch.autograd.DeviceType.CUDA
+    for evt in prof.key_averages():
+        if evt.key in groups:
+            (spans if evt.device_type == cuda else groups)[evt.key] += \
+                evt.device_time_total / 1e3 / T
+        elif evt.device_type == cuda:
+            us = getattr(evt, "self_device_time_total", 0.0)
+            kernels_us += us
+            if not evt.key.startswith("Memcpy"):
+                top[evt.key[:90]] = (us / 1e3, evt.count)
+    return {"trees": T, "by_group_ms": groups,
+            "round_ms": sum(groups.values()), "by_group_span_ms": spans,
+            "fit_kernels_ms": kernels_us / 1e3,
+            "top_kernels_ms_launches": dict(sorted(
+                top.items(), key=lambda kv: -kv[1][0])[:20]),
+            "fit_wall_ms": model.last_fit_seconds * 1e3,
+            "setup_ms": model.last_setup_seconds * 1e3}
+
+
+def phase_sparse(torch, np, smi):
+    """``SparseHistGBT`` at ``tools/bench_sparse.py``'s defaults on the
+    card (its warm-up fits, timed fit and predict): rounds/s, predict
+    rows/s, train accuracy above ``SPARSE_MIN_ACC``; one round's device
+    time by group from ``torch.profiler``; on the first ``SPARSE_SLICE``
+    rows (``SPARSE_SLICE_TREES`` trees, the full F) the card's model file
+    equal to the CPU's, and ``SPARSE_RANKS`` gloo ranks sharing the card,
+    each with its half of the slice's rows and the 1-process cuts, each
+    writing the card's 1-process file."""
+    from dmlc_core_tpu_torch.models.histgbt_sparse import SparseHistGBT
+    from dmlc_core_tpu_torch.parallel.launch import launch
+    from dmlc_core_tpu_torch.tools import bench_sparse as BS
+
+    k = BS.knobs()
+    t0 = time.perf_counter()
+    data = BS.sparse_data(k["n"], k["F"], k["density"])
+    gen_s = time.perf_counter() - t0
+    rec = BS.run(DEVICE, data=data)
+    rec.pop("_model")
+    require(rec["train_acc"] > SPARSE_MIN_ACC,
+            f"sparse: train accuracy {rec['train_acc']}")
+    kw = dict(max_depth=k["depth"], n_bins=k["n_bins"], learning_rate=0.3)
+    prof = sparse_round_device_ms(torch, data, k["F"], kw)
+    offset, index, value, y = data
+    s = SPARSE_SLICE
+    sl = (offset[:s + 1], index[:offset[s]], value[:offset[s]], y[:s])
+    files, cross_s = [], {}
+    one = None
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        m = SparseHistGBT(device=dev, n_trees=SPARSE_SLICE_TREES, **kw).fit(
+            *sl, n_features=k["F"])
+        cross_s[dev] = time.perf_counter() - t0
+        files.append(model_bytes_of(m))
+        one = one or m
+    require(files[0] == files[1], f"sparse: the card's file differs from "
+            f"the CPU's on {s} rows")
+    with tempfile.TemporaryDirectory() as d:
+        csr = os.path.join(d, "csr.npz")
+        np.savez(csr, offset=sl[0], index=sl[1], value=sl[2], y=sl[3])
+        cuts = os.path.join(d, "cuts.npz")
+        np.savez(cuts, cut_vals=one.cuts.cut_vals, cut_ptr=one.cuts.cut_ptr)
+        t0 = time.perf_counter()
+        launch({"backend": "gloo", "device": f"{DEVICE}:0",
+                "params": dict(n_trees=SPARSE_SLICE_TREES, **kw),
+                "runs": [{"name": "sparse", "sparse": {
+                    "csr": csr, "n_features": k["F"], "cuts": cuts}}],
+                "out": d}, world=SPARSE_RANKS, timeout=DP_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+        for r in range(SPARSE_RANKS):
+            with open(os.path.join(d, f"sparse.{r}.model"), "rb") as f:
+                require(f.read() == files[0], f"sparse: rank {r} of "
+                        f"{SPARSE_RANKS} wrote another file than 1 process")
+    emit({"phase": "sparse", "card": smi,
+          **{key: rec[key] for key in (
+              "value", "unit", "rows", "features", "nnz", "density",
+              "total_bins", "dense_bins_would_be", "n_bins", "depth",
+              "rounds", "warmup_seconds", "fit_seconds", "setup_seconds",
+              "predict_seconds", "predict_rows_per_sec", "train_acc")},
+          "rounds_per_sec": rec["value"], "gen_seconds": gen_s,
+          "round_device_ms": prof, "slice_rows": s,
+          "slice_trees": SPARSE_SLICE_TREES, "slice_seconds": cross_s,
+          "slice_file_equals_cpu": True, "ranks": SPARSE_RANKS,
+          "ranks_seconds": ranks_s, "ranks_file_equals_one_process": True})
 
 
 def phase_introspect(np, H, smi, models):
@@ -2678,6 +2910,9 @@ def phase_bench(np):
     launches = rec["kernel"]["launches"]
     require(launches["hist"] > 0 and launches["fused_round"] > 0,
             f"bench: the fit missed the kernels ({launches})")
+    infeed = rec.get("infeed_stall_frac") or {}
+    require(0.0 <= infeed.get("value", -1.0) <= 1.0,
+            f"bench: infeed_stall_frac {rec.get('infeed_stall_frac')}")
     phases = {}
     for ln in lines:
         r = json.loads(ln)
@@ -2685,6 +2920,7 @@ def phase_bench(np):
     keys = ("value", "value_basis", "rounds_per_sec_median_chunk",
             "rounds_per_sec_best_chunk", "chunk_seconds_per_round",
             "seconds", "warmup_seconds", "warm_dispatch_seconds",
+            "infeed_stall_frac",
             "warmup_breakdown", "compile_seconds", "compile_cache",
             "bin_seconds", "time_to_first_tree", "kernel", "rows",
             "features", "rounds", "levers", "device_kind", "nvidia_smi",
@@ -2702,6 +2938,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
+    from dmlc_core_tpu_torch.data.iter import ArrayRowIter
     from dmlc_core_tpu_torch.ops import _build
     from dmlc_core_tpu_torch.ops import attention as A
     from dmlc_core_tpu_torch.ops import histogram as H
@@ -2746,14 +2983,21 @@ def main() -> int:
     ranking_launches, ranking_errs = phase_ranking(torch, np, H, rates, smi)
     for k, err in ranking_errs.items():
         kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], err)
+    t0 = time.perf_counter()
+    pages = ArrayRowIter(X, y, page_rows=EXT_PAGE_ROWS)
+    emit({"phase": "pages", "pages": sum(1 for _ in pages),
+          "seconds": time.perf_counter() - t0})
     for counts in (softmax_launches,
                    phase_resume(torch, np, H, smi, X, y, lossguide_fit[1]),
                    phase_sampling(torch, np, H, smi, X, y, Xv, yv),
                    phase_monotone(torch, np, H, smi, X, y, Xv, yv),
-                   phase_external(torch, np, H, smi, X, y),
+                   phase_external(torch, np, H, smi, X, y, pages),
+                   phase_ingest_iter(torch, np, H, smi, pages, X, y),
                    ranking_launches):
         for k, v in counts.items():
             launches[k] += v
+    del pages
+    phase_infeed(torch, smi)
     phase_introspect(np, H, smi, {"main": (main_fit[2], Xv),
                                   "softmax": (softmax_model, Cv)})
     s = slice(0, CROSS_ROWS)
@@ -2780,6 +3024,7 @@ def main() -> int:
         require(v > 0, f"{k} was never launched on the BERT path")
         launches[k] = v
     kernels.update(attention)
+    phase_sparse(torch, np, smi)
     phase_bench(np)
     for k, v in floor.items():
         launches[k] = v.pop("launches")

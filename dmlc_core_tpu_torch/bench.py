@@ -25,11 +25,13 @@ the final line and exits 0; SIGTERM/SIGINT flush the same way.  Rows fall
 back 10M → 4M → 2M → 1M → 250k when the budget cannot fit the set-up
 (``BENCH_NO_FALLBACK=1`` pins them).  A run whose chunks disagree by more
 than 3× (``chunk_stats``' anomaly) is measured again on the resident data,
-and the official run is the first that is not anomalous.
+and the official run is the first that is not anomalous.  After the
+headline, the JAX bench's infeed smoke (24 ``[2048, 128]`` f32 batches
+through ``data.device_feed.DeviceFeed``) fills ``infeed_stall_frac``.
 
 Not in this module (the JAX bench's other modes): ``BENCH_CHIPS > 1`` and
 its scaling probe, ``--serve``, ``--fleet``, ``--tenants``, ``--stream``,
-``--ps``, ``--prodsim``, the infeed and kvstore smokes, the SLO scorecard
+``--ps``, ``--prodsim``, the kvstore smoke, the SLO scorecard
 and jitcheck's ``recompiles_steady_state``.  The record leaves their
 fields out, or writes null with a note.
 """
@@ -63,6 +65,8 @@ _PEAK_BF16: dict = {}
 _DATAGEN_BPS = 140e6
 _HOST_PREP_BPS = 35e6
 _BUILD_WARM_S = 10.0
+#: seconds of budget the infeed smoke needs left (the JAX bench's floor)
+_INFEED_FLOOR_S = 75
 _ROUND_S_PER_ROW = 6e-9
 
 #: the JAX bench's modes this module does not have
@@ -149,6 +153,30 @@ def _attach_metrics(out):
         out["metrics_summary"] = summary
     except Exception as e:  # noqa: BLE001
         out["metrics_error"] = f"{type(e).__name__}: {e}"[:200]
+
+
+def _smoke_infeed(dev):
+    """The JAX bench's infeed smoke: the ``DeviceFeed`` stall fraction on
+    24 synthetic ``[2048, 128]`` f32 batches (seed 1), each consumed by
+    ``sum(tanh(x @ w))`` on ``dev``."""
+    import torch
+
+    from dmlc_core_tpu_torch.data.device_feed import DeviceFeed
+
+    rng = np.random.default_rng(1)
+    n_batches, B, D = 24, 2048, 128
+
+    def host_iter():
+        for _ in range(n_batches):
+            yield (rng.normal(size=(B, D)).astype(np.float32),)
+
+    w = torch.from_numpy(rng.normal(size=(D, D)).astype(np.float32)).to(dev)
+    out = None
+    with DeviceFeed(host_iter, dev, depth=2) as feed:
+        for (x,) in feed:
+            out = torch.sum(torch.tanh(x @ w))
+        out.item()               # a real fetch: the pipe drained
+        return round(feed.stats.stall_fraction(), 4)
 
 
 def emit(final=False, **extra):
@@ -569,8 +597,18 @@ def main() -> None:
 
     EV["phase"] = "smoke"
     EV["smoke"] = {"infeed_stall_frac": None, "kvstore_sync_ms": None}
-    EV["notes"].append("scaling probe, infeed and kvstore smokes: not "
-                       "ported (null)")
+    if deadline - time.time() < _INFEED_FLOOR_S:
+        EV["notes"].append("infeed_stall_frac skipped: budget")
+    else:
+        try:
+            EV["smoke"] = {**EV["smoke"], "infeed_stall_frac": {
+                "value": _smoke_infeed(dev),
+                "basis": "24 x [2048, 128] f32 batches through "
+                         "DeviceFeed(depth=2), consumer sum(tanh(x @ w))"}}
+        except Exception as e:  # noqa: BLE001
+            EV["notes"].append(
+                f"infeed_stall_frac failed: {type(e).__name__}: {e}"[:200])
+    EV["notes"].append("scaling probe and kvstore smoke: not ported (null)")
     EV["phase"] = "done"
     emit(final=True)
 

@@ -10,3 +10,4 @@ Reference parity: ``include/dmlc/data.h`` (Row/RowBlock/Parser/RowBlockIter),
 from dmlc_core_tpu_torch.data.row_block import Row, RowBlock, RowBlockContainer  # noqa: F401
 from dmlc_core_tpu_torch.data.parsers import Parser  # noqa: F401
 from dmlc_core_tpu_torch.data.iter import RowBlockIter  # noqa: F401
+from dmlc_core_tpu_torch.data.device_feed import DeviceFeed, FeedStats  # noqa: F401

@@ -12,8 +12,8 @@ later epochs replay pages through a ThreadedIter so storage read overlaps
 consumption.
 
 This package's own copy of ``dmlc_core_tpu.data.iter`` (host numpy; held
-to the JAX package's own tests).  The sharded-ingest slab math
-(``slab_shard_slices``) is not copied yet.
+to the JAX package's own tests), with the sharded-ingest slab math
+(``slab_shard_slices``).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from dmlc_core_tpu_torch.io.threaded_iter import ThreadedIter
 from dmlc_core_tpu_torch.utils.profiler import global_tracer, tracing_enabled
 
 __all__ = ["RowBlockIter", "BasicRowIter", "DiskRowIter", "ArrayRowIter",
-           "iter_dense_slabs", "iter_csr_minibatches"]
+           "iter_dense_slabs", "iter_csr_minibatches", "slab_shard_slices"]
 
 # target bytes per cache page (reference uses a row-count heuristic; byte
 # budget maps better to fixed host-staging buffers)
@@ -295,6 +295,32 @@ class DiskRowIter(RowBlockIter):
 
     def close(self) -> None:
         self._stop_reader()
+
+
+def slab_shard_slices(lo: int, length: int, shard_rows: int):
+    """Map an ingest slab occupying global rows ``[lo, lo+length)`` onto
+    the equal-block layout (shard ``k`` owns rows
+    ``[k·shard_rows, (k+1)·shard_rows)``): returns
+    ``[(shard, src_lo, src_hi, dst_lo), ...]`` pieces, in order, whose
+    source slices tile the slab exactly.
+
+    A streamed chunk rarely aligns with shard boundaries (the last chunk
+    of a ``nrows % (shards · chunk)`` tail may start and end mid-shard),
+    so every piece lands at its exact per-shard offset ``dst_lo`` with no
+    row dropped or written twice.  In this package one process owns one
+    card, so ``HistGBT.make_device_data_iter`` calls it with a single
+    shard of every row: the pieces are then the slabs themselves, at
+    their global offsets.
+    """
+    out = []
+    pos = lo
+    end = lo + length
+    while pos < end:
+        k = pos // shard_rows
+        take = min(end, (k + 1) * shard_rows) - pos
+        out.append((k, pos - lo, pos - lo + take, pos - k * shard_rows))
+        pos += take
+    return out
 
 
 def iter_dense_slabs(row_iter, num_col: int, batch_rows: int):

@@ -85,9 +85,15 @@ Out-of-core training (``fit_external``, ``models.histgbt_external``) and
 streaming prediction (:meth:`HistGBT.predict_iter`) read pages of a
 ``data.iter.RowBlockIter``.
 
+Streamed ingest (:meth:`HistGBT.make_device_data_iter`) builds the same
+handle as ``make_device_data`` from a stream of slabs: a sketch pass, then
+the slabs through ``data.device_feed.DeviceFeed`` (pinned memory, a side
+stream) binned on the card.  JAX's sharded ingest places each device's
+rows from one process; here one process owns one card and all its rows,
+so it has no counterpart beyond that.
+
 Not ported: lossguide with NaN or with monotone constraints (the JAX
-package refuses both too), ``make_device_data_iter`` and sharded ingest,
-one process over several GPUs.
+package refuses both too), one process over several GPUs.
 """
 
 from __future__ import annotations
@@ -527,6 +533,9 @@ class HistGBT(_ExternalMemoryEngine):
         #: bytes its kept rounds uploaded
         self.last_external_route: Optional[str] = None
         self.last_sketch_seconds: Optional[float] = None
+        #: the last make_device_data_iter's pass-2 ``DeviceFeed`` counters
+        #: (``FeedStats.as_dict()``); its pass 1 is last_sketch_seconds
+        self.last_feed_stats: Optional[Dict[str, float]] = None
         self.last_external_chunks: Optional[int] = None
         self.last_upload_bytes: Optional[int] = None
 
@@ -921,6 +930,164 @@ class HistGBT(_ExternalMemoryEngine):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_bin_seconds = get_time() - t0
+        return dd
+
+    def make_device_data_iter(self, slab_source: Any,
+                              n_features: Optional[int] = None,
+                              cuts: Optional[Any] = None,
+                              n_rows: Optional[int] = None
+                              ) -> Dict[str, Any]:
+        """Streamed ingest: a :meth:`fit_device` handle built from a
+        STREAM of dense ``(X, y, w)`` slabs, without the dataset ever
+        existing whole on the host or its f32 ``X`` on the device — the
+        JAX package's ``make_device_data_iter``, contract and refusals
+        included.
+
+        ``slab_source`` is a callable returning a fresh iterator of ``(X
+        [rows, F] f32, y [rows], w [rows] | None)`` numpy slabs in global
+        row order (e.g. ``lambda: iter_dense_slabs(RowBlockIter.create(
+        "big.libsvm#cache.bin"), F, chunk)``), or a plain iterable when
+        ``cuts``, ``n_rows`` and ``n_features`` are all given (one pass).
+        Without cuts, pass 1 streams the slabs through the bounded-memory
+        :class:`~dmlc_core_tpu_torch.ops.quantile.SketchAccumulator` (the
+        JAX sketch's cuts, bit for bit); pass 2 feeds each slab through a
+        :class:`~dmlc_core_tpu_torch.data.device_feed.DeviceFeed` (pinned
+        memory, one slab in flight while the last one bins) onto this
+        rank's card, bins it there (on the host under
+        ``DMLC_TPU_BIN_BACKEND=cpu``, the uint8 slab going up instead)
+        and writes it into the uint8 ``[F, n]`` matrix at its rows, so
+        the device holds two slabs and the matrix at most.
+
+        The handle is :meth:`make_device_data`'s, with its keys (no bin
+        layout: the levers are not applied, as in JAX): the same rows give
+        the same bins, so trees grown from either handle are identical.
+        Missing mode is not supported (impute, or use :meth:`fit`).
+
+        Sharded ingest (``DMLC_SHARDED_INGEST``: JAX places each device's
+        row block from one process) has no counterpart beyond one rank's
+        rows: one process owns one card and every row, so the slabs map
+        onto it through ``slab_shard_slices`` with a single shard.  A data
+        axis of several ranks is refused; use :meth:`fit_external`."""
+        from dmlc_core_tpu_torch.data.device_feed import DeviceFeed
+        from dmlc_core_tpu_torch.data.iter import slab_shard_slices
+        from dmlc_core_tpu_torch.ops.quantile import SketchAccumulator
+
+        p = self.param
+        t_bin = get_time()
+        CHECK(not self._missing,
+              "make_device_data_iter: streamed ingest does not support "
+              "missing mode (NaN bin) — impute, or fit in-core")
+        CHECK(coll.world_size() <= 1,
+              "make_device_data_iter: one process stages the rows of its "
+              "own card only (one rank per card) — use fit_external for "
+              "multi-worker jobs")
+        two_pass = cuts is None and self.cuts is None
+        if two_pass or n_rows is None or n_features is None:
+            CHECK(callable(slab_source),
+                  "make_device_data_iter: slab_source must be a "
+                  "callable (re-iterable) unless cuts, n_rows and "
+                  "n_features are all provided")
+
+        # -- pass 1 (when needed): streaming sketch + row count --------
+        if cuts is not None:
+            self.cuts = torch.as_tensor(np.asarray(cuts, np.float32),
+                                        device=self.device)
+        t1 = get_time()
+        if self.cuts is None or n_rows is None or n_features is None:
+            sketch: Optional[SketchAccumulator] = None
+            count = 0
+            F_seen = n_features or 0
+            for X_s, y_s, w_s in slab_source():
+                X_s = np.array(X_s, dtype=np.float32)
+                CHECK(not np.isnan(X_s).any(),
+                      "make_device_data_iter: NaN features are only "
+                      "supported by the in-core fit — impute before "
+                      "streaming")
+                F_seen = max(F_seen, X_s.shape[1])
+                count += len(X_s)
+                if self.cuts is None:
+                    if sketch is None:
+                        sketch = SketchAccumulator(
+                            X_s.shape[1], n_summary=max(8 * p.n_bins, 64),
+                            device=self.device)
+                    sketch.add(X_s, fold_scale_pos_weight(
+                        p, np.array(y_s, dtype=np.float32),
+                        None if w_s is None
+                        else np.array(w_s, dtype=np.float32)))
+            CHECK(count > 0, "make_device_data_iter: empty input")
+            n_rows = count if n_rows is None else n_rows
+            CHECK_EQ(n_rows, count, "declared n_rows != streamed rows")
+            n_features = F_seen
+            if self.cuts is None:
+                self.cuts = sketch.finalize(p.n_bins)
+        self.last_sketch_seconds = get_time() - t1
+        F = int(n_features)
+        CHECK_EQ(int(self.cuts.shape[0]), F,
+                 "cuts width does not match the streamed feature count")
+        CHECK_EQ(int(self.cuts.shape[1]), p.n_bins - 1,
+                 "cuts must be standard mode (n_bins-1 boundaries) for "
+                 "the streamed ingest")
+        n = int(n_rows)
+        self.start_warmup(n, F)
+
+        # -- pass 2: bin each slab on the card into its rows -----------
+        host = _host_bin_requested()
+        cuts_np = self.cuts.cpu().numpy() if host else None
+
+        def slabs():
+            for X_s, y_s, w_s in (slab_source() if callable(slab_source)
+                                  else slab_source):
+                # a real copy: sources may yield views of a reused buffer
+                X_s = np.array(X_s, dtype=np.float32)
+                y_np = np.array(y_s, dtype=np.float32)
+                if p.num_class > 1 and len(y_np):
+                    CHECK(y_np.min() >= 0 and y_np.max() < p.num_class,
+                          f"multi:softmax labels must be in "
+                          f"[0, {p.num_class})")
+                w_np = fold_scale_pos_weight(
+                    p, y_np, np.ones(len(y_np), np.float32) if w_s is None
+                    else np.array(w_s, dtype=np.float32))
+                yield (_host_bin_t(X_s, cuts_np) if host else X_s,
+                       y_np, w_np)
+
+        width = int(self.cuts.shape[1])
+        bins_t = torch.empty(F, n, device=self.device,
+                             dtype=torch.uint8 if width < 256
+                             else torch.int32)
+        ys: List[torch.Tensor] = []
+        ws: List[torch.Tensor] = []
+        lo = 0
+        with DeviceFeed(slabs, self.device, depth=1,
+                        host_prefetch=2) as feed:
+            # next() without iter(): iter() rewinds, and a one-pass
+            # source cannot
+            for x, y_s, w_s in iter(lambda: next(feed, None), None):
+                L = x.shape[1] if host else x.shape[0]
+                CHECK(lo + L <= n,
+                      f"slab stream produced more than the declared "
+                      f"{n} rows")
+                if L:
+                    b = x if host else apply_bins(x, self.cuts)
+                    for _k, s_lo, s_hi, dst in slab_shard_slices(lo, L, n):
+                        bins_t[:, dst:dst + s_hi - s_lo] = b[:, s_lo:s_hi]
+                ys.append(y_s)
+                ws.append(w_s)
+                lo += L
+            self.last_feed_stats = feed.stats.as_dict()
+        CHECK_EQ(lo, n, "slab stream ended before the declared rows")
+        self._bin_layout = None
+        dd = {
+            "bins_t": bins_t,
+            "y_d": torch.cat(ys),
+            "w_d": torch.cat(ws),
+            "n": n,
+            "n_global": n,
+            "n_features": F,
+            "layout": None,
+        }
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.last_bin_seconds = get_time() - t_bin
         return dd
 
     def start_warmup(self, n_rows: int, n_features: int) -> bool:

@@ -27,8 +27,12 @@ fits with that ``eval_set`` and writes ``eval_history``,
 ``best_iteration`` and ``best_score`` into the run's ``.json``, or an
 ``external`` dict, ``{"page_rows", "cache_device"}`` (the latter
 optional), which trains by ``fit_external`` over this rank's rows,
-``shard_row_ranges(n, world)[rank]``, as ``ArrayRowIter`` pages) and
-``out`` (a directory)::
+``shard_row_ranges(n, world)[rank]``, as ``ArrayRowIter`` pages, or a
+``sparse`` dict, ``{"csr", "n_features", "cuts"}`` (``.npz`` paths: the
+global CSR rows ``offset``/``index``/``value``/``y``, and optional
+injected cuts ``cut_vals``/``cut_ptr``), which fits a ``SparseHistGBT``
+with the run's ``params`` on this rank's CSR rows (no ``X``/``y`` then))
+and ``out`` (a directory)::
 
     launch(job, world=2, timeout=120)
 
@@ -184,6 +188,9 @@ def run_worker(job: Dict[str, Any]) -> None:
     for run in job["runs"]:
         name = run["name"]
         data = {**job, **run}             # a run may bring its own rows
+        if data.get("sparse"):
+            _sparse_run(data, name, rank, device, out)
+            continue
         X = np.load(data["X"], mmap_mode="r")
         y = np.load(data["y"])
         cuts = np.load(data["cuts"]) if data.get("cuts") else None
@@ -253,6 +260,38 @@ def run_worker(job: Dict[str, Any]) -> None:
         (out / f"{name}.{rank}.json").write_text(json.dumps(stats))
     coll.barrier()
     coll.finalize()
+
+
+def _sparse_run(data: Dict[str, Any], name: str, rank: int, device: str,
+                out: Path) -> None:
+    """One rank of a ``sparse`` run: ``SparseHistGBT.fit`` on this rank's
+    rows of the global CSR (``shard_row_ranges``), the model file and a
+    ``.json`` of the fit's times."""
+    import numpy as np
+
+    from dmlc_core_tpu_torch.models.histgbt_sparse import SparseHistGBT
+    from dmlc_core_tpu_torch.ops.sparse_hist import cuts_from_ptr
+    from dmlc_core_tpu_torch.parallel import collectives as coll
+    from dmlc_core_tpu_torch.parallel.mesh import shard_row_ranges
+
+    sp = data["sparse"]
+    csr = np.load(sp["csr"])
+    offset = csr["offset"]
+    lo, hi = shard_row_ranges(len(offset) - 1, coll.world_size())[rank]
+    a, b = int(offset[lo]), int(offset[hi])
+    cuts = None
+    if sp.get("cuts"):
+        c = np.load(sp["cuts"])
+        cuts = cuts_from_ptr(c["cut_vals"], c["cut_ptr"])
+    with _levers(data.get("env", {})):
+        model = SparseHistGBT(device=device, **data["params"])
+        model.fit(offset[lo:hi + 1] - a, csr["index"][a:b],
+                  csr["value"][a:b], csr["y"][lo:hi],
+                  n_features=sp["n_features"], cuts=cuts)
+    model.save_model(str(out / f"{name}.{rank}.model"))
+    (out / f"{name}.{rank}.json").write_text(json.dumps({
+        "rank": rank, "world": coll.world_size(), "rows": hi - lo,
+        "fit_seconds": model.last_fit_seconds}))
 
 
 def main(argv=None) -> int:

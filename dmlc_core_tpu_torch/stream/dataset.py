@@ -21,9 +21,9 @@ existing primitives:
   a one-line adapter over this method);
 * **pipeline** — :meth:`prefetch` moves production onto a
   :class:`~dmlc_core_tpu_torch.io.threaded_iter.ThreadedIter` producer thread,
-  :meth:`device_feed` would hand the whole dataset to the JAX package's
-  ``DeviceFeed`` for double-buffered uploads; it is not ported yet and
-  refuses.
+  :meth:`device_feed` hands the whole dataset to
+  :class:`~dmlc_core_tpu_torch.data.device_feed.DeviceFeed` for
+  double-buffered uploads from pinned memory.
 
 Batch trainers and the online ``stream.trainer`` consume the same object
 — the refactor the train→serve loop needed (doc/streaming.md).
@@ -42,7 +42,7 @@ from typing import Any, Callable, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from dmlc_core_tpu_torch.base.logging import CHECK, log_fatal
+from dmlc_core_tpu_torch.base.logging import CHECK
 
 __all__ = ["Dataset", "encode_dense_event", "encode_dense_events",
            "decode_dense_events"]
@@ -212,13 +212,17 @@ class Dataset:
 
         return Dataset(make_iter, name=label)
 
-    def device_feed(self, sharding: Any, depth: int = 2,
+    def device_feed(self, device: Any = None, depth: int = 2,
                     host_prefetch: int = 4) -> Any:
-        """The JAX package's ``DeviceFeed`` (host parsing on a producer
-        thread, uploads ``depth`` batches ahead) — not ported yet."""
-        del sharding, depth, host_prefetch
-        log_fatal("Dataset.device_feed: DeviceFeed is not ported to this "
-                  "package yet")
+        """Hand the dataset to
+        :class:`~dmlc_core_tpu_torch.data.device_feed.DeviceFeed`: host
+        parsing on a producer thread, pinned copies to ``device`` (a
+        ``torch.device``, ``None`` for ``cuda``, or a mesh for this
+        rank's card) issued ``depth`` batches ahead."""
+        from dmlc_core_tpu_torch.data.device_feed import DeviceFeed
+
+        return DeviceFeed(self._make_iter, device, depth=depth,
+                          host_prefetch=host_prefetch)
 
 
 # ---------------------------------------------------------------------------
