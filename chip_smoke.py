@@ -177,15 +177,45 @@ and the script exits non-zero without the final ``ok`` line:
     gloo ranks sharing the card, each with half the slice and its cuts,
     writing that file.  The sparse engine is torch array code (the JAX
     package's is XLA array code): no hand kernel, so no launch count;
+12c. linear — ``GBLinear`` at Criteo's width: 50M × 39 rows by
+    ``cpp/gen_libsvm.cc``'s rule (seed 7, made on the card:
+    :func:`criteo_like`), 50 rounds, bf16 then f32: rounds/s from the
+    chunk evidence and the fit's peak device memory, held below X's bytes
+    plus the labels and weights, three upload slabs (``DeviceFeed``'s)
+    and a row block's temporaries; ``fit_iter`` over 50k rows of libsvm
+    text equal to ``fit``; the card's weights within rtol 2e-4, atol 2e-6
+    of the CPU's on 100k rows; ``save_model`` → ``load_model``;
+12d. fm — ``FM`` (k = 8, batch 8192) on the first 10M of those rows, one
+    epoch: steps/s, the held-out logloss falling; the card within rtol
+    1e-3, atol 1e-4 of the CPU on 100k rows; a saved and loaded model
+    resuming the same epoch bit for bit (parameters and Adam state);
+12e. sklearn — ``GBTClassifier`` with ``booster="gbtree"`` and
+    ``"gblinear"`` on 1M of those rows and the sparse route on a scipy
+    CSR of 100k: held-out accuracy, probabilities, the card's booster
+    file equal to the CPU's on 20k rows (gblinear: within its
+    tolerance);
+12f. serve — phase 5's model (configuration 1) in a ``ModelRegistry``,
+    its ladder 8..256 warmed: at every bucket (full and partly padded)
+    the served predictions bit-identical to ``predict`` and to the CPU's
+    ``predict`` of the same file, 30 ``descend_kernel`` launches (trees ×
+    depth) a batch; ``descend_kernel`` against ``descend_plain`` at a
+    256-row batch's shapes, every tree and level, timed beside its bound;
+    the HTTP frontend end to end (4 clients, a hot swap to phase 4's
+    model under traffic, every response bit-identical to the version it
+    reports, trees × depth launches a batch, the counts set to 0 just
+    before and read just after); GBLinear, FM and SparseHistGBT through
+    ``ModelRunner``, bit-identical to their ``predict``; the port
+    bench's ``--serve`` as a child process at its defaults;
 13. bench — ``python -m dmlc_core_tpu_torch.bench`` as a child process at
     its defaults (10M × 28, 100 rounds after 10 warmup rounds, the
     flagship's levers, host binning), with a time limit: its last line
     must be the final ``histgbt_rounds_per_sec_per_chip`` record of 100
     rounds, with kernel launches, and its headline fields are emitted;
 14. the ``kernels`` line (launches summed over phases 3b-6h and 8, phase
-    11's for attention, phase 12's timing pass for the B5 variants;
-    ``descend_dir`` is ``descend_kernel``'s direction mode, B2's descend
-    on the missing path), then
+    11's for attention, phase 12's timing pass for the B5 variants, phase
+    12f's HTTP run for ``descend``; ``descend_dir`` is
+    ``descend_kernel``'s direction mode, B2's descend on the missing
+    path, ``descend`` its plain mode, a served batch's), then
     the card's name and power limit, then the ``ok`` line.
 
 The fit phases (3b-8) run with ``DMLC_TPU_ROUNDS_PER_DISPATCH=1``: each
@@ -384,6 +414,40 @@ SPARSE_RANKS = 2
 SPARSE_PROFILE_TREES = 3
 
 BENCH_TIMEOUT = 600
+#: linear: GBLinear at Criteo's width, scripts/bench_gblinear.py's
+#: defaults (50M rows, 50 rounds, bf16 then f32) on cpp/gen_libsvm.cc's
+#: rows (seed 7), made on the card in blocks of LIN_BLOCK rows
+LIN_ROWS = 50_000_000
+LIN_FEATURES = 39
+LIN_ROUNDS = 50
+LIN_SEED = 7
+LIN_BLOCK = 4_000_000
+LIN_WARMUP = 3
+#: the card against the CPU, and fit_iter over libsvm text, on slices
+LIN_SLICE = 100_000
+LIN_TEXT_ROWS = 50_000
+#: the JAX package's bound between two f32 summation orders
+LIN_RTOL, LIN_ATOL = 2e-4, 2e-6
+#: fm: FM on the first FM_ROWS of those rows, one epoch
+FM_ROWS = 10_000_000
+FM_FACTORS = 8
+FM_BATCH = 8192
+FM_SLICE = 100_000
+FM_HELD_OUT = 100_000
+#: the JAX package's FM bound between two summation orders
+FM_RTOL, FM_ATOL = 1e-3, 1e-4
+#: sklearn: the wrappers on the card over the first SK_ROWS of those rows
+SK_ROWS = 1_000_000
+SK_TREES = 20
+SK_SLICE = 20_000
+SK_SPARSE_ROWS = 100_000
+SK_MIN_ACC = 0.7
+#: serve: the bucket ladder of the port bench's --serve
+SERVE_MAX_BATCH = 256
+SERVE_MIN_BUCKET = 8
+SERVE_CLIENTS = 4
+SERVE_PHASE_S = 1.5
+SERVE_TIMEOUT = 300
 BENCH_ROUNDS = 100
 BENCH_ROWS = 10_000_000
 
@@ -2930,6 +2994,537 @@ def phase_bench(np):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the other boosters and the serving tier
+# ---------------------------------------------------------------------------
+
+def criteo_like(torch, np, n, F, seed, block=LIN_BLOCK):
+    """``cpp/gen_libsvm.cc``'s rows, vectorised with torch on ``DEVICE``:
+    row ``r``'s state is ``splitmix64(seed · 0x100000001b3 + r)``, one
+    more ``splitmix64`` step a feature; ``(s & 31) == 0`` is missing (0,
+    as a densified page has it), else the fixed-point draw ``v = (s >> 40
+    & 0x7ff) − 1024`` gives the value the generator prints (``v / 128``
+    toward zero, then two decimals of ``|v| % 128 · 100 / 128``) as the
+    float32 its text parses to (``-0.00`` is ``-0.0``); the label is
+    ``v0·v1 + 256·v2 > 0`` over the first three draws (0 where missing).
+    uint64 arithmetic in int64 tensors (adds and products wrap alike,
+    right shifts masked to logical ones), ``block`` rows at a time into
+    host arrays: no ``[n, F]`` 64-bit temporary anywhere.
+    ``tests/test_torch_linear.py`` holds these rows bit for bit against
+    the compiled generator's text."""
+    dev = torch.device(DEVICE)
+
+    def c64(x):                        # a uint64 constant as int64 bits
+        return x - (1 << 64) if x >= 1 << 63 else x
+
+    def shr(x, k):
+        return (x >> k) & ((1 << (64 - k)) - 1)
+
+    def mix(x):
+        x = x + c64(0x9E3779B97F4A7C15)
+        x = (x ^ shr(x, 30)) * c64(0xBF58476D1CE4E5B9)
+        x = (x ^ shr(x, 27)) * c64(0x94D049BB133111EB)
+        return x ^ shr(x, 31)
+
+    X = np.empty((n, F), np.float32)
+    y = np.empty(n, np.float32)
+    for lo in range(0, n, block):
+        hi = min(n, lo + block)
+        s = mix(torch.arange(lo, hi, dtype=torch.int64, device=dev)
+                + seed * 0x100000001B3)
+        out = torch.empty((hi - lo, F), dtype=torch.float32, device=dev)
+        first = []
+        for j in range(F):
+            s = mix(s)
+            v = torch.where((s & 31) != 0, (shr(s, 40) & 0x7FF) - 1024, 0)
+            a = v.abs()
+            mag = ((a // 128) * 100 + (a % 128) * 100 // 128).double() / 100
+            out[:, j] = torch.where(v < 0, -mag, mag)   # "-0.00" is -0.0
+            if j < 3:
+                first.append(v)
+        X[lo:hi] = out.cpu().numpy()
+        y[lo:hi] = (first[0] * first[1] + 256 * first[2] > 0).cpu().numpy()
+    return X, y
+
+
+def logloss(np, p, y) -> float:
+    p = np.clip(p.astype(np.float64), 1e-7, 1 - 1e-7)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+def gc_cuda(torch):
+    """Free what the caching allocator holds (for a peak measured from
+    a clean base)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_linear(torch, np, smi):
+    """``GBLinear`` at Criteo's width (``criteo_like``: ``LIN_ROWS`` ×
+    ``LIN_FEATURES``), ``LIN_ROUNDS`` rounds, bf16 then f32: rounds/s from
+    the chunk evidence, the fit's peak device memory held below X's bytes
+    plus the labels and row weights, three upload slabs (the one being
+    cast, the one in flight, one awaiting reuse) and one row block's
+    temporaries; ``fit_iter`` over ``LIN_TEXT_ROWS`` rows of libsvm text
+    (``RowBlockIter.create``) equal to ``fit`` on the same rows; the
+    card's weights against the CPU's on ``LIN_SLICE`` rows; ``save_model``
+    → ``load_model`` giving the same predictions.  Returns the rows and
+    the bf16 model."""
+    from dmlc_core_tpu_torch.data.iter import RowBlockIter
+    from dmlc_core_tpu_torch.models import GBLinear
+    from dmlc_core_tpu_torch.models import linear as L
+
+    t0 = time.perf_counter()
+    X, y = criteo_like(torch, np, LIN_ROWS, LIN_FEATURES, LIN_SEED)
+    gen_s = time.perf_counter() - t0
+    n, F = X.shape
+    fits, models = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        gc_cuda(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        m = GBLinear(device=DEVICE, n_rounds=LIN_ROUNDS,
+                     objective="binary:logistic", feature_dtype=dtype)
+        t0 = time.perf_counter()
+        m.fit(X, y, warmup_rounds=LIN_WARMUP)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        x_bytes = n * F * (2 if dtype == "bfloat16" else 4)
+        allowed = (x_bytes + 2 * n * 4          # X, labels, row weights
+                   + 3 * L._UPLOAD_ROWS * F * 4  # f32 slabs going up
+                   + 2 * L._BLOCK_ROWS * F * 4  # a block and its square
+                   + 16 * L._BLOCK_ROWS * 4     # margin, g, h, their f64
+                   + (64 << 20))                # small tensors, rounding
+        require(peak <= allowed, f"linear {dtype}: peak device memory "
+                f"{peak} above its bound {allowed}")
+        require(np.isfinite(m.weights).all(), f"linear {dtype}: weights")
+        ct = m.last_chunk_times
+        require([d for d, _ in ct] == [25, 50],
+                f"linear {dtype}: chunk evidence {ct}")
+        acc = float(((m.predict(X[:1_000_000]) > 0.5)
+                     == (y[:1_000_000] > 0.5)).mean())
+        fits[dtype] = {
+            "fit_wall_seconds": wall,
+            "upload_seconds": wall - m.last_fit_seconds
+            - m.last_warmup_seconds,
+            "warmup_seconds": m.last_warmup_seconds,
+            "fit_seconds": m.last_fit_seconds,
+            "rounds_per_sec": LIN_ROUNDS / m.last_fit_seconds,
+            "chunk_rounds_per_sec": [
+                (d - d0) / (t - t0_) for (d0, t0_), (d, t) in
+                zip([(0, 0.0)] + ct[:-1], ct)],
+            "chunk_times": ct, "peak_device_bytes": peak,
+            "peak_bound_bytes": allowed, "x_device_bytes": x_bytes,
+            "train_accuracy_first_1M": acc}
+        models[dtype] = m
+    bf, f32 = models["bfloat16"], models["float32"]
+    # the JAX package's bf16-against-f32 oracle bound (tests/test_linear.py)
+    require(np.all(np.abs(bf.weights - f32.weights)
+                   <= 0.02 + 0.05 * np.abs(f32.weights)),
+            "linear: bf16 weights far from the f32 fit's")
+    # the card against the CPU, and fit_iter over libsvm text
+    s = slice(0, LIN_SLICE)
+    cross = {}
+    for dtype in ("bfloat16", "float32"):
+        a = GBLinear(device=DEVICE, n_rounds=LIN_ROUNDS,
+                     feature_dtype=dtype).fit(X[s], y[s])
+        b = GBLinear(device="cpu", n_rounds=LIN_ROUNDS,
+                     feature_dtype=dtype).fit(X[s], y[s])
+        err = float(np.max(np.abs(a.weights - b.weights)
+                           / (LIN_ATOL + LIN_RTOL * np.abs(b.weights))))
+        require(err <= 1.0 and abs(a.bias - b.bias)
+                <= LIN_ATOL + LIN_RTOL * abs(b.bias),
+                f"linear {dtype}: card and CPU weights differ "
+                f"({err} of the tolerance)")
+        cross[dtype] = err
+    t = slice(0, LIN_TEXT_ROWS)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "criteo.libsvm")
+        t0 = time.perf_counter()
+        write_libsvm(np, path, X[t], y[t])
+        it = RowBlockIter.create(path, 0, 1, "libsvm")
+        streamed = GBLinear(device=DEVICE, n_rounds=LIN_ROUNDS,
+                            feature_dtype="bfloat16").fit_iter(
+            it, num_col=F, rows_per_upload=16_384)
+        it.close()
+        text_s = time.perf_counter() - t0
+        dense = GBLinear(device=DEVICE, n_rounds=LIN_ROUNDS,
+                         feature_dtype="bfloat16").fit(X[t], y[t])
+        require(np.array_equal(streamed.weights, dense.weights)
+                and streamed.bias == dense.bias,
+                "linear: fit_iter over libsvm text != fit on the rows")
+        mpath = os.path.join(d, "lin.model")
+        bf.save_model(mpath)
+        again = GBLinear.load_model(mpath, device=DEVICE)
+        require(np.array_equal(again.predict(X[s]), bf.predict(X[s])),
+                "linear: load_model predictions differ")
+    emit({"phase": "linear", "card": smi, "rows": n, "features": F,
+          "rounds": LIN_ROUNDS, "missing_share": float((X == 0).mean()),
+          "positive_share": float(y.mean()), "gen_seconds": gen_s,
+          "fits": fits, "block_rows": L._BLOCK_ROWS,
+          "card_vs_cpu_slice": LIN_SLICE,
+          "card_vs_cpu_err_of_tolerance": cross,
+          "fit_iter_text_rows": LIN_TEXT_ROWS,
+          "fit_iter_text_seconds": text_s, "fit_iter_equals_fit": True,
+          "load_model_equal": True})
+    return X, y, bf
+
+
+def phase_fm(torch, np, smi, X, y):
+    """``FM`` (k = ``FM_FACTORS``, ``batch_size`` ``FM_BATCH``) on the
+    first ``FM_ROWS`` Criteo-like rows, one epoch: steps/s, the held-out
+    logloss falling from the initial state's; the card against the CPU on
+    ``FM_SLICE`` rows; ``save_model`` → ``load_model`` → one more epoch
+    on the card equal to the saved model's own next epoch.  Returns the
+    model."""
+    from dmlc_core_tpu_torch.models import FM
+
+    F = X.shape[1]
+    hold = slice(FM_ROWS, FM_ROWS + FM_HELD_OUT)
+    m = FM(device=DEVICE, n_factors=FM_FACTORS, batch_size=FM_BATCH,
+           n_epochs=1)
+    m._init_state(F)
+    before = logloss(np, m.predict(X[hold]), y[hold])
+    t0 = time.perf_counter()
+    m.fit(X[:FM_ROWS], y[:FM_ROWS])
+    wall = time.perf_counter() - t0
+    after = logloss(np, m.predict(X[hold]), y[hold])
+    steps = -(-FM_ROWS // FM_BATCH)
+    require(int(m._opt["t"]) == steps, f"fm: {int(m._opt['t'])} steps")
+    require(after < before, f"fm: held-out logloss {before} -> {after}")
+    s = slice(0, FM_SLICE)
+    kw = dict(n_factors=FM_FACTORS, batch_size=FM_BATCH, n_epochs=1)
+    a = FM(device=DEVICE, **kw).fit(X[s], y[s])
+    b = FM(device="cpu", **kw).fit(X[s], y[s])
+    cross = {}
+    for k in ("w0", "w", "v"):
+        pa, pb = a.params[k].cpu().numpy(), b.params[k].cpu().numpy()
+        cross[k] = float(np.max(np.abs(pa - pb)
+                                / (FM_ATOL + FM_RTOL * np.abs(pb))))
+        require(cross[k] <= 1.0, f"fm: card and CPU {k} differ "
+                f"({cross[k]} of the tolerance)")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "fm.model")
+        a.save_model(path)
+        again = FM.load_model(path, device=DEVICE)
+    require(int(again._opt["t"]) == int(a._opt["t"]), "fm: step not kept")
+    again.fit(X[s], y[s])
+    a.fit(X[s], y[s])
+    # the same ops on the same inputs: bit for bit, the Adam state too
+    resume = max(float((again.params[k] - a.params[k]).abs().max())
+                 for k in a.params)
+    require(all(torch.equal(again.params[k], a.params[k])
+                and torch.equal(again._opt["m"][k], a._opt["m"][k])
+                and torch.equal(again._opt["s"][k], a._opt["s"][k])
+                for k in a.params)
+            and int(again._opt["t"]) == int(a._opt["t"]),
+            f"fm: the loaded model resumed elsewhere ({resume})")
+    emit({"phase": "fm", "card": smi, "rows": FM_ROWS, "features": F,
+          "factors": FM_FACTORS, "batch_size": FM_BATCH, "epochs": 1,
+          "steps": steps, "fit_seconds": m.last_fit_seconds,
+          "fit_wall_seconds": wall,
+          "steps_per_sec": steps / m.last_fit_seconds,
+          "rows_per_sec": FM_ROWS / m.last_fit_seconds,
+          "heldout_logloss_before": before, "heldout_logloss_after": after,
+          "last_batch_loss": m.last_loss, "card_vs_cpu_slice": FM_SLICE,
+          "card_vs_cpu_err_of_tolerance": cross,
+          "resume_max_abs_diff": resume})
+    return m
+
+
+def phase_sklearn(torch, np, smi, X, y):
+    """The sklearn wrappers on the card: ``GBTClassifier`` with
+    ``booster="gbtree"`` and ``"gblinear"`` on the first ``SK_ROWS``
+    Criteo-like rows, and the sparse route (``SparseHistGBT``) on a scipy
+    CSR of the first ``SK_SPARSE_ROWS`` (absent entries missing): held-out
+    accuracy, probabilities; on ``SK_SLICE`` rows the card's booster file
+    equal to the CPU's (tree boosters) or its weights within
+    ``GBLinear``'s tolerance.  Returns the sparse model."""
+    import scipy.sparse as sps
+
+    from dmlc_core_tpu_torch.models import GBTClassifier
+
+    hv = slice(SK_ROWS, SK_ROWS + 100_000)
+    out = {}
+    cases = {"gbtree": dict(max_depth=MAX_DEPTH, n_bins=N_BINS),
+             "gblinear": {},
+             "sparse": dict(max_depth=MAX_DEPTH, n_bins=32)}
+    sparse_model = None
+    for name, kw in cases.items():
+        booster = "gblinear" if name == "gblinear" else "gbtree"
+        rows = SK_SPARSE_ROWS if name == "sparse" else SK_ROWS
+
+        def data(sl):
+            return sps.csr_matrix(X[sl]) if name == "sparse" else X[sl]
+
+        est = GBTClassifier(booster=booster, n_estimators=SK_TREES,
+                            device=DEVICE, **kw)
+        t0 = time.perf_counter()
+        est.fit(data(slice(0, rows)), y[:rows].astype(int))
+        fit_s = time.perf_counter() - t0
+        require(est.model.device == torch.device(DEVICE)
+                or est.model.device.type == DEVICE,
+                f"sklearn {name}: booster on {est.model.device}")
+        proba = est.predict_proba(data(hv))
+        require(proba.shape == (100_000, 2) and np.allclose(
+            proba.sum(1), 1.0, atol=1e-6), f"sklearn {name}: proba")
+        acc = est.score(data(hv), y[hv].astype(int))
+        if booster == "gbtree":
+            require(acc > SK_MIN_ACC, f"sklearn {name}: held-out accuracy "
+                    f"{acc}")
+        sl = slice(0, SK_SLICE)
+        pair = [GBTClassifier(booster=booster, n_estimators=SK_TREES,
+                              device=dev, **kw).fit(
+            data(sl), y[sl].astype(int)) for dev in (DEVICE, "cpu")]
+        if booster == "gbtree":
+            same = model_bytes_of(pair[0].model) == model_bytes_of(
+                pair[1].model)
+            require(same, f"sklearn {name}: the card's file != the CPU's")
+        else:
+            wa, wb = pair[0].model.weights, pair[1].model.weights
+            same = bool(np.all(np.abs(wa - wb)
+                               <= LIN_ATOL + LIN_RTOL * np.abs(wb)))
+            require(same, f"sklearn {name}: card and CPU weights differ")
+        if name == "sparse":
+            sparse_model = est.model
+        out[name] = {"rows": rows, "fit_seconds": fit_s,
+                     "heldout_accuracy": acc, "card_equals_cpu": same,
+                     "booster": type(est.model).__name__}
+    emit({"phase": "sklearn", "card": smi, "trees": SK_TREES,
+          "card_vs_cpu_slice": SK_SLICE, **out})
+    return sparse_model
+
+
+def check_descend_serve(torch, H, model, rows, rates):
+    """``descend_kernel`` (B2's descend, no direction) at a served batch's
+    shapes: the batch's bins ``[F, b]`` at every level of every tree of
+    ``model`` (the node ids of the real descend), against
+    ``descend_plain``, twice over; then the deepest level timed beside
+    its bound (the bin byte, the node id in and out: 9 bytes a row, plus
+    the tables)."""
+    dev = torch.device(DEVICE)
+    bins = model._bins_of(torch.from_numpy(rows).to(dev))
+    st = model._stacked_trees(model.trees)
+    F, n = bins.shape
+    err = 0.0
+    for t in range(st["feat"].shape[0]):
+        node = torch.zeros(n, dtype=torch.int32, device=dev)
+        for lv in range(MAX_DEPTH):
+            feat = st["feat"][t, lv].to(torch.int32).contiguous()
+            thr = st["thr"][t, lv].to(torch.int32).contiguous()
+            a = H.descend_kernel(bins, node, feat, thr, True)
+            b = H.descend_kernel(bins, node, feat, thr, True)
+            c = H.descend_plain(bins, node, feat, thr, True)
+            require(torch.equal(a, c) and torch.equal(a, b),
+                    f"descend_kernel != plain (tree {t}, level {lv})")
+            err = max(err, max_abs_err(torch, a, c))
+            last = (node, feat, thr)
+            node = a
+    node, feat, thr = last
+    n_prev = 1 << (MAX_DEPTH - 1)
+    nbytes = n + 4 * n + 4 * n + 8 * n_prev
+    b_ms, b_by = bound(nbytes, n, rates)
+    return {"rows": n, "F": F, "n_prev": n_prev,
+            "ms": time_ms(torch, lambda: H.descend_kernel(
+                bins, node, feat, thr, True), REPS, inner=10),
+            "plain_ms": time_ms(torch, lambda: H.descend_plain(
+                bins, node, feat, thr, True), REPS, inner=10),
+            "device_ms": device_ms(torch, lambda: H.descend_kernel(
+                bins, node, feat, thr, True), 10 * REPS),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "max_abs_err": err, "bytes": nbytes}
+
+
+def serve_http(np, registry, direct, Xv, swap):
+    """The frontend end to end: ``SERVE_CLIENTS`` threads post random
+    slices of ``Xv`` (1..16 rows) for ``SERVE_PHASE_S`` seconds, ``swap()``
+    publishes the next version under that traffic, ``SERVE_PHASE_S`` more
+    seconds.  Returns the frontend's batches and, per response,
+    ``(version, rows bit-identical to that version's predict)``."""
+    import threading
+
+    from dmlc_core_tpu_torch.base.metrics import default_registry
+    from dmlc_core_tpu_torch.serve import ResilientClient, ServeFrontend
+
+    hist = default_registry().histogram("serve_batch_rows",
+                                        labels=("batcher",))
+    out, errors, stop = [], [], threading.Event()
+    lock = threading.Lock()
+
+    def client(seed):
+        rng = np.random.default_rng(seed)
+        c = ResilientClient(fe.url)
+        while not stop.is_set():
+            k = int(rng.integers(1, 17))
+            lo = int(rng.integers(0, len(Xv) - k))
+            try:
+                got, version = c.predict(Xv[lo:lo + k])
+            except Exception as e:  # noqa: BLE001 — counted, then failed
+                with lock:
+                    errors.append(f"{type(e).__name__}: {e}"[:200])
+                continue
+            with lock:
+                out.append((version, got.tobytes()
+                            == direct[version][lo:lo + k].tobytes()))
+
+    batches0 = hist.count(batcher=registry.name)
+    with ServeFrontend(registry, max_batch=SERVE_MAX_BATCH,
+                       max_delay=0.002, max_queue=512) as fe:
+        threads = [threading.Thread(target=client, args=(100 + i,))
+                   for i in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(SERVE_PHASE_S)
+        swap()
+        time.sleep(SERVE_PHASE_S)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    require(not errors, f"serve: failed requests {errors[:3]}")
+    return hist.count(batcher=registry.name) - batches0, out
+
+
+def phase_serve(torch, np, H, rates, smi, Xv, lossguide_bytes, main_model,
+                others):
+    """The serving tier on the card: configuration 1's model (phase
+    ``main_lossguide``'s file) published to a ``ModelRegistry`` and its
+    ladder (``SERVE_MIN_BUCKET``..``SERVE_MAX_BATCH``) warmed; at every
+    bucket (full and partly padded) the served predictions bit-identical
+    to ``model.predict`` and to the CPU's ``predict`` of the same file,
+    ``descend_kernel`` launched trees × depth times a batch; the kernel
+    held against its plain version at a served batch's shapes; the HTTP
+    frontend end to end with a hot swap to phase ``main``'s model, each
+    response bit-identical to the version it reports, the launch counts
+    set to 0 just before and read just after; ``others`` (GBLinear, FM,
+    SparseHistGBT on the card) through ``ModelRunner``, bit-identical to
+    their ``predict``; then the port bench's ``--serve`` as a child
+    process at its defaults.  Returns the
+    ``descend`` kernels entry and its launches on the HTTP path."""
+    from dmlc_core_tpu_torch.serve import ModelRegistry, model_from_bytes
+    from dmlc_core_tpu_torch.serve.runner import ModelRunner, _dense_as_csr
+
+    model = model_from_bytes(lossguide_bytes, device=DEVICE)
+    cpu = model_from_bytes(lossguide_bytes, device="cpu")
+    registry = ModelRegistry(name="chip-serve", device=DEVICE,
+                             max_batch=SERVE_MAX_BATCH,
+                             min_bucket=SERVE_MIN_BUCKET)
+    v1 = registry.publish(model, source="main_lossguide")
+    runner = registry.get(v1)
+    warm_s = runner.warmup()
+    ladder = [SERVE_MIN_BUCKET << i for i in range(runner.shape_bound)]
+    require(sorted(runner.compiled_shapes) == ladder,
+            f"serve: warmed {sorted(runner.compiled_shapes)}")
+    per_batch = TREES * MAX_DEPTH
+    buckets = {}
+    for b in ladder:
+        for k in (b, b - b // 4 - 1):
+            rows = Xv[1000:1000 + k]
+            H.descend_kernel.launches = 0
+            H.descend_kernel.dir_launches = 0
+            got = runner.predict(rows)
+            launches = H.descend_kernel.launches
+            require(launches == per_batch
+                    and H.descend_kernel.dir_launches == 0,
+                    f"serve: {launches} descend launches for a batch of "
+                    f"{k} rows, want {per_batch}")
+            require(got.tobytes() == model.predict(rows).tobytes(),
+                    f"serve: bucket {b} ({k} rows) != model.predict")
+            require(got.tobytes() == cpu.predict(rows).tobytes(),
+                    f"serve: bucket {b} ({k} rows) != the CPU's predict")
+        times = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            runner.predict(Xv[:b])
+            times.append((time.perf_counter() - t0) * 1e3)
+        buckets[b] = statistics.median(times)
+    entry = check_descend_serve(torch, H, model, Xv[:SERVE_MAX_BATCH], rates)
+    emit({"phase": "kernel", "name": "descend", **entry})
+    direct = {1: model.predict(Xv), 2: main_model.predict(Xv)}
+    require(direct[1].tobytes() != direct[2].tobytes(),
+            "serve: the two versions predict alike")
+    H.descend_kernel.launches = 0
+    H.descend_kernel.dir_launches = 0
+    batches, answers = serve_http(
+        np, registry, direct, Xv,
+        lambda: registry.publish(main_model, source="main"))
+    launches = H.descend_kernel.launches
+    require(H.descend_kernel.dir_launches == 0,
+            "serve: direction-mode descends on the serve path")
+    require(launches == per_batch * batches and batches > 0,
+            f"serve: {launches} descend launches for {batches} batches")
+    versions = sorted({v for v, _ in answers})
+    require(versions == [1, 2], f"serve: versions answered {versions}")
+    require(all(ok for _, ok in answers), "serve: a response differs from "
+            "the predict of the version it reports")
+    fam = {}
+    for name, (m, rows) in others.items():
+        r = ModelRunner(m, max_batch=SERVE_MAX_BATCH,
+                        min_bucket=SERVE_MIN_BUCKET, name=name)
+        r.warmup()
+        x = rows[:100]
+        got = r.predict(x)
+        want = (m.predict(*_dense_as_csr(x)) if name == "sparse"
+                else m.predict(x))
+        require(got.tobytes() == want.tobytes(),
+                f"serve: {name} runner != predict")
+        fam[name] = {"compiled_shapes": sorted(r.compiled_shapes),
+                     "max_abs_diff": float(np.max(np.abs(got - want)))}
+    bench = phase_serve_bench(np)
+    emit({"phase": "serve", "card": smi, "trees": TREES,
+          "max_depth": MAX_DEPTH, "ladder": ladder, "warmup_seconds": warm_s,
+          "bucket_predict_ms": buckets,
+          "descend_launches_per_batch": per_batch,
+          "http_batches": batches, "http_responses": len(answers),
+          "http_descend_launches": launches,
+          "http_versions": versions, "families": fam,
+          "descend_kernel_ms": entry["ms"],
+          "descend_kernel_device_ms": entry["device_ms"],
+          "bench": bench})
+    return entry, launches
+
+
+def phase_serve_bench(np):
+    """``python -m dmlc_core_tpu_torch.bench --serve`` at its defaults as
+    a child process; its last line must be a final record with completed
+    requests, latency percentiles, buckets within the bound and
+    ``descend_kernel`` trees × depth launches a batch."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "SERVE_"))
+           and k != "DMLC_TPU_ROUNDS_PER_DISPATCH"}
+    platform = "cpu" if DEVICE == "cpu" else "gpu"
+    if platform == "cpu":          # a rehearsal of the script on the host
+        env["BENCH_FORCE_CPU"] = "1"
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.bench",
+                          "--serve"], cwd=ROOT, env=env,
+                         capture_output=True, text=True,
+                         timeout=SERVE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    require(res.returncode == 0 and lines,
+            f"bench --serve exited {res.returncode}: {res.stderr[-2000:]}")
+    rec = json.loads(lines[-1])
+    require(rec.get("metric") == "serve_requests_per_sec"
+            and rec.get("provisional") is False and "error" not in rec,
+            f"bench --serve: bad record {lines[-1][:500]}")
+    require(rec["platform"] == platform and rec["completed"] > 0
+            and rec["latency_p99_ms"] is not None,
+            f"bench --serve: {lines[-1][:500]}")
+    require(rec["compiled_shapes"]
+            and len(rec["compiled_shapes"]) <= rec["shape_bound"],
+            f"bench --serve: shapes {rec['compiled_shapes']}")
+    require(platform == "cpu" or rec["descend_launches_per_batch"]
+            == rec["descend_launches_per_batch_expected"],
+            f"bench --serve: {rec.get('descend_launches_per_batch')} "
+            "descend launches a batch")
+    rec.pop("metrics_summary", None)
+    rec["child_wall_seconds"] = wall
+    return rec
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -3025,6 +3620,16 @@ def main() -> int:
         launches[k] = v
     kernels.update(attention)
     phase_sparse(torch, np, smi)
+    Xl, yl, lin_model = phase_linear(torch, np, smi)
+    fm_model = phase_fm(torch, np, smi, Xl, yl)
+    sparse_model = phase_sklearn(torch, np, smi, Xl, yl)
+    kernels["descend"], launches["descend"] = phase_serve(
+        torch, np, H, rates, smi, Xv, lossguide_fit[1], main_fit[2],
+        {"gblinear": (lin_model, Xl), "fm": (fm_model, Xl),
+         "sparse": (sparse_model, Xl)})
+    require(launches["descend"] > 0, "descend was never launched on the "
+            "serve path")
+    del Xl, yl, lin_model, fm_model, sparse_model
     phase_bench(np)
     for k, v in floor.items():
         launches[k] = v.pop("launches")
@@ -3042,6 +3647,8 @@ def main() -> int:
                 # B2's descend, in the direction mode of the unfused
                 # chain's descend (fused_descend_histogram's dir_sel)
                 "descend_dir": "dmlc_core_tpu/ops/histogram.py:531",
+                # B2's descend alone: predict's, so a served batch's
+                "descend": "dmlc_core_tpu/ops/histogram.py:531",
                 "flash_fwd": f"{lib}:331",
                 "flash_bwd_dkv": f"{lib}:796",
                 "flash_bwd_dq": f"{lib}:1146",

@@ -12,10 +12,14 @@ same function that the CPU runs.
 Ported so far: dense in-core ``HistGBT`` — depth-wise and loss-guide
 growth, int4 bin packing and feature bundling, fit, predict, save/load
 (model files interchangeable with the JAX package's), data parallel over
-a ``torch.distributed`` group; ``models.BERT`` masked-LM training on
-one GPU with hand-written flash-attention kernels; the flagship bench
-(``python -m dmlc_core_tpu_torch.bench``); and the one-hot product
-histogram spike (``tools/spike_hist_floor.py``).
+a ``torch.distributed`` group, with its ranking objectives, out-of-core
+training and the sparse engine; ``models.GBLinear``, ``models.FM`` and
+the sklearn-style wrappers; ``models.BERT`` masked-LM training on one
+GPU with hand-written flash-attention kernels; the serving tier's core
+(``serve``: runner, batcher, registry, HTTP frontend and client); the
+flagship and serve benches (``python -m dmlc_core_tpu_torch.bench
+[--serve]``); and the one-hot product histogram spike
+(``tools/spike_hist_floor.py``).
 """
 
 from dmlc_core_tpu_torch.models.histgbt import HistGBT, HistGBTParam

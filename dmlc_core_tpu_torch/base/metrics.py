@@ -264,6 +264,11 @@ class Histogram(_MetricBase):
             s = self._series.get(key)
             return s.count if s is not None else 0
 
+    def time(self, **labels: Any) -> "_HistTimer":
+        """``with hist.time(...):`` — observe the block's wall seconds
+        (nothing is read or locked while collection is off)."""
+        return _HistTimer(self, labels)
+
     def _export(self) -> Iterator[str]:
         for key, s in sorted(self._series_items()):
             cum = 0
@@ -298,6 +303,27 @@ class Histogram(_MetricBase):
                 "reservoir": list(s.reservoir),
             })
         return out
+
+
+class _HistTimer:
+    """Context manager behind :meth:`Histogram.time`."""
+
+    __slots__ = ("_hist", "_labels", "_t0")
+
+    def __init__(self, hist: Histogram, labels: Dict[str, Any]) -> None:
+        self._hist = hist
+        self._labels = labels
+        self._t0 = 0.0
+
+    def __enter__(self) -> "_HistTimer":
+        if _ENABLED:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        if _ENABLED and self._t0:
+            self._hist.observe(time.perf_counter() - self._t0,
+                               **self._labels)
 
 
 class MetricsRegistry:

@@ -263,6 +263,11 @@ class Parameter(metaclass=_ParameterMeta):
         """Reference parity: ``__DICT__()``."""
         return {k: getattr(self, k) for k in self.__param_fields__ if hasattr(self, k)}
 
+    @classmethod
+    def fields(cls) -> Dict[str, "FieldEntry"]:
+        """Reference parity: ``__FIELDS__()``."""
+        return dict(cls.__param_fields__)
+
     def __repr__(self) -> str:
         body = ", ".join(f"{k}={v!r}" for k, v in self.to_dict().items())
         return f"{type(self).__name__}({body})"

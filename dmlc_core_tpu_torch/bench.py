@@ -29,11 +29,21 @@ and the official run is the first that is not anomalous.  After the
 headline, the JAX bench's infeed smoke (24 ``[2048, 128]`` f32 batches
 through ``data.device_feed.DeviceFeed``) fills ``infeed_stall_frac``.
 
+``--serve`` is the JAX bench's serving mode (:func:`_serve_bench`): a
+depth-4, 64-bin ``HistGBT`` of ``SERVE_TREES`` (20) trees on
+``SERVE_TRAIN_ROWS`` (50,000) rows, published to a ``ModelRegistry``,
+every bucket warmed, then Poisson arrivals at ``SERVE_QPS`` (300) for
+``SERVE_SECONDS`` (10) through a ``DynamicBatcher`` (``SERVE_MAX_BATCH``
+256, ``SERVE_MAX_DELAY_MS`` 2, request sizes from ``SERVE_REQ_SIZES``,
+default ``1,1,1,1,2,4,8,16``); metric ``serve_requests_per_sec`` with
+``bench.py``'s record fields, plus ``descend_kernel``'s launches per
+served batch.  ``BENCH_FORCE_CPU=1`` runs it on the CPU.
+
 Not in this module (the JAX bench's other modes): ``BENCH_CHIPS > 1`` and
-its scaling probe, ``--serve``, ``--fleet``, ``--tenants``, ``--stream``,
-``--ps``, ``--prodsim``, the kvstore smoke, the SLO scorecard
-and jitcheck's ``recompiles_steady_state``.  The record leaves their
-fields out, or writes null with a note.
+its scaling probe, ``--fleet``, ``--tenants``, ``--stream``, ``--ps``,
+``--prodsim``, the kvstore smoke, the SLO scorecard and jitcheck's
+``recompiles_steady_state``.  The record leaves their fields out, or
+writes null with a note.
 """
 
 import json
@@ -70,7 +80,7 @@ _INFEED_FLOOR_S = 75
 _ROUND_S_PER_ROW = 6e-9
 
 #: the JAX bench's modes this module does not have
-_NOT_PORTED_MODES = ("--serve", "--fleet", "--tenants", "--stream", "--ps",
+_NOT_PORTED_MODES = ("--fleet", "--tenants", "--stream", "--ps",
                      "--prodsim", "--scaling-probe")
 
 #: single shared evidence store; emit() renders it as one JSON line.
@@ -613,10 +623,201 @@ def main() -> None:
     emit(final=True)
 
 
+def latency_summary(lats_s):
+    """p50/p95/p99/mean (ms) of a latency sample list — the JAX bench's
+    serve percentile math, pure."""
+    if not lats_s:
+        return {"latency_p50_ms": None, "latency_p95_ms": None,
+                "latency_p99_ms": None, "latency_mean_ms": None}
+    s = sorted(lats_s)
+
+    def q(p):
+        return s[min(len(s) - 1, max(0, int(round(p * (len(s) - 1)))))]
+
+    return {
+        "latency_p50_ms": round(q(0.50) * 1e3, 3),
+        "latency_p95_ms": round(q(0.95) * 1e3, 3),
+        "latency_p99_ms": round(q(0.99) * 1e3, 3),
+        "latency_mean_ms": round(sum(s) / len(s) * 1e3, 3),
+    }
+
+
+def _serve_emit(rec, final=False):
+    rec = {"metric": "serve_requests_per_sec", "unit": "req/s",
+           "provisional": not final, **rec}
+    if final:
+        _attach_metrics(rec)
+    with _EMIT_LOCK:
+        sys.stdout.write(json.dumps(rec) + "\n")
+        sys.stdout.flush()
+
+
+def _serve_bench() -> None:
+    """``--serve``: open-loop load over the serve batcher and runner (the
+    JAX bench's mode, field for field).
+
+    Trains a small GBT, publishes it to a ModelRegistry, then drives the
+    DynamicBatcher directly (no HTTP — the socket layer has its own
+    tests) with Poisson arrivals at ``SERVE_QPS`` for ``SERVE_SECONDS``,
+    request sizes drawn uniformly from ``SERVE_REQ_SIZES`` (repeat a size
+    to weight it).  One provisional line per phase, then a final line
+    with throughput, latency percentiles, reject counts, a batch-size
+    summary and, on a card, ``descend_kernel``'s launches per batch.
+    Every bucket is warmed before the timed window.  The JAX record's
+    SLO scorecard has no counterpart here."""
+    t0 = time.time()
+    budget = float(os.environ.get("BENCH_TIME_BUDGET", 480))
+    qps = float(os.environ.get("SERVE_QPS", 300))
+    duration = min(float(os.environ.get("SERVE_SECONDS", 10)),
+                   max(budget - 120, 2.0))
+    max_batch = int(os.environ.get("SERVE_MAX_BATCH", 256))
+    max_delay = float(os.environ.get("SERVE_MAX_DELAY_MS", 2.0)) / 1e3
+    sizes = [int(s) for s in
+             os.environ.get("SERVE_REQ_SIZES", "1,1,1,1,2,4,8,16").split(",")]
+    train_rows = int(os.environ.get("SERVE_TRAIN_ROWS", 50_000))
+    n_trees = int(os.environ.get("SERVE_TREES", 20))
+    feats = int(os.environ.get("BENCH_FEATURES", 28))
+
+    cfg = {"qps": qps, "duration_s": duration, "max_batch": max_batch,
+           "max_delay_ms": max_delay * 1e3, "req_sizes": sizes,
+           "train_rows": train_rows, "n_trees": n_trees}
+    _serve_emit({"value": 0.0, "phase": "train", **cfg})
+
+    import torch
+
+    from dmlc_core_tpu_torch.models import HistGBT
+    from dmlc_core_tpu_torch.ops import histogram as H
+    from dmlc_core_tpu_torch.serve import (DynamicBatcher, ModelRegistry,
+                                           QueueFullError)
+    from dmlc_core_tpu_torch.utils.device import (gpu_name_and_power_limit,
+                                                  resolve_device)
+
+    try:
+        dev = resolve_device("cpu" if os.environ.get("BENCH_FORCE_CPU")
+                             else None)
+    except Exception as e:
+        _serve_emit({"value": 0.0, "phase": "done",
+                     "error": f"{type(e).__name__}: {e}"[:500], **cfg},
+                    final=True)
+        raise
+    card = ({"device_kind": torch.cuda.get_device_name(dev),
+             "nvidia_smi": gpu_name_and_power_limit()}
+            if dev.type == "cuda" else {})
+
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(train_rows, feats)).astype(np.float32)
+    y = (X[:, 0] * X[:, 1] + 0.5 * X[:, 2] > 0).astype(np.float32)
+    depth = 4
+    model = HistGBT(n_trees=n_trees, max_depth=depth, n_bins=64,
+                    learning_rate=0.3, device=dev)
+    model.fit(X, y)
+
+    registry = ModelRegistry(max_batch=max_batch, min_bucket=8)
+    registry.publish(model, source="serve-bench")
+    _, runner = registry.current()
+
+    def execute(batch):
+        version, r = registry.current()
+        return r.predict(batch), version
+
+    _serve_emit({"value": 0.0, "phase": "warmup", **cfg})
+    # every ladder bucket once: the kernels' build and load, the CUDA
+    # context and the allocator's blocks come before the timed window
+    warm_wall = runner.warmup(feats)
+
+    batcher = DynamicBatcher(execute, max_batch=max_batch,
+                             max_delay=max_delay, max_queue=512,
+                             name="serve-bench")
+    lats = []
+    errors = [0]
+    lock = threading.Lock()
+
+    def record(fut, t_sub):
+        try:
+            fut.result()
+        except Exception:  # noqa: BLE001
+            with lock:
+                errors[0] += 1
+            return
+        with lock:
+            lats.append(time.perf_counter() - t_sub)
+
+    _serve_emit({"value": 0.0, "phase": "load", **cfg})
+    H.descend_kernel.launches = 0
+    submitted = rejected = 0
+    start = time.perf_counter()
+    next_t = start
+    end = start + duration
+    while (now := time.perf_counter()) < end:
+        if now < next_t:
+            time.sleep(min(next_t - now, 0.005))
+            continue
+        next_t += rng.exponential(1.0 / qps)
+        k = int(rng.choice(sizes))
+        lo = int(rng.integers(0, train_rows - k))
+        t_sub = time.perf_counter()
+        try:
+            fut = batcher.submit(X[lo:lo + k], timeout=5.0)
+        except QueueFullError:
+            rejected += 1
+            continue
+        fut.add_done_callback(lambda f, t=t_sub: record(f, t))
+        submitted += 1
+    batcher.close(drain=True)
+    wall = time.perf_counter() - start
+    descends = H.descend_kernel.launches
+
+    # batch-size evidence straight from the serve instruments
+    batch_summary = {}
+    try:
+        from dmlc_core_tpu_torch.base.metrics import default_registry
+        snap = default_registry().snapshot()["metrics"]
+        hs = snap.get("dmlc_serve_batch_rows", {}).get("series", [])
+        se = next((s for s in hs
+                   if s["labels"].get("batcher") == "serve-bench"), None)
+        if se:
+            batch_summary = {
+                "batches": se["count"],
+                "batch_rows_p50": se["quantiles"]["p50"],
+                "batch_rows_p99": se["quantiles"]["p99"],
+                "batch_rows_max": se["max"],
+            }
+    except Exception:  # noqa: BLE001 — evidence, not the headline
+        pass
+    if dev.type == "cuda" and batch_summary.get("batches"):
+        batch_summary["descend_launches"] = descends
+        batch_summary["descend_launches_per_batch"] = (
+            descends / batch_summary["batches"])
+        batch_summary["descend_launches_per_batch_expected"] = (
+            n_trees * depth)
+
+    done = len(lats)
+    _serve_emit({
+        "value": round(done / wall, 2) if wall > 0 else 0.0,
+        "phase": "done",
+        "elapsed_s": round(time.time() - t0, 1),
+        "platform": "gpu" if dev.type == "cuda" else "cpu",
+        **card,
+        "submitted": submitted,
+        "completed": done,
+        "rejected": rejected,
+        "errors": errors[0],
+        "warmup_seconds": round(warm_wall, 3),
+        **latency_summary(lats),
+        **batch_summary,
+        "compiled_shapes": sorted(runner.compiled_shapes),
+        "shape_bound": runner.shape_bound,
+        **cfg,
+    }, final=True)
+
+
 if __name__ == "__main__":
     modes = [a for a in sys.argv[1:] if a in _NOT_PORTED_MODES]
     if modes:
         sys.stderr.write(f"dmlc_core_tpu_torch.bench: {modes[0]} is not "
-                         "ported (the flagship mode only)\n")
+                         "ported (the flagship and --serve modes only)\n")
         sys.exit(2)
-    main()
+    if "--serve" in sys.argv[1:]:
+        _serve_bench()
+    else:
+        main()

@@ -155,7 +155,7 @@ class DeviceFeed:
                               pin_memory=True)
             CHECK(buf.is_pinned(),
                   "DeviceFeed: pinned host memory is unavailable")
-            buf.numpy()[...] = a
+            buf.copy_(torch.from_numpy(a))   # torch's copy is multithreaded
             pinned.append(buf)
             return buf
 

@@ -31,7 +31,11 @@ optional), which trains by ``fit_external`` over this rank's rows,
 ``sparse`` dict, ``{"csr", "n_features", "cuts"}`` (``.npz`` paths: the
 global CSR rows ``offset``/``index``/``value``/``y``, and optional
 injected cuts ``cut_vals``/``cut_ptr``), which fits a ``SparseHistGBT``
-with the run's ``params`` on this rank's CSR rows (no ``X``/``y`` then))
+with the run's ``params`` on this rank's CSR rows (no ``X``/``y`` then),
+or a ``model`` name, ``gblinear`` or ``fm``, which fits a ``GBLinear`` or
+an ``FM`` with the run's ``params`` on the global ``X``/``y`` (and the
+job's optional ``weight``, a ``.npy`` of row weights; each rank keeps its
+rows) and writes only the model file and the fit's seconds)
 and ``out`` (a directory)::
 
     launch(job, world=2, timeout=120)
@@ -191,6 +195,9 @@ def run_worker(job: Dict[str, Any]) -> None:
         if data.get("sparse"):
             _sparse_run(data, name, rank, device, out)
             continue
+        if data.get("model"):
+            _model_run(data, name, rank, device, out)
+            continue
         X = np.load(data["X"], mmap_mode="r")
         y = np.load(data["y"])
         cuts = np.load(data["cuts"]) if data.get("cuts") else None
@@ -291,6 +298,30 @@ def _sparse_run(data: Dict[str, Any], name: str, rank: int, device: str,
     model.save_model(str(out / f"{name}.{rank}.model"))
     (out / f"{name}.{rank}.json").write_text(json.dumps({
         "rank": rank, "world": coll.world_size(), "rows": hi - lo,
+        "fit_seconds": model.last_fit_seconds}))
+
+
+def _model_run(data: Dict[str, Any], name: str, rank: int, device: str,
+               out: Path) -> None:
+    """One rank of a ``gblinear`` or ``fm`` run: the model's ``fit`` on
+    the global rows (the model keeps this rank's), its file and a
+    ``.json`` of the fit's seconds."""
+    import numpy as np
+
+    from dmlc_core_tpu_torch.models.fm import FM
+    from dmlc_core_tpu_torch.models.linear import GBLinear
+    from dmlc_core_tpu_torch.parallel import collectives as coll
+
+    cls = {"gblinear": GBLinear, "fm": FM}[data["model"]]
+    X = np.load(data["X"])
+    y = np.load(data["y"])
+    weight = np.load(data["weight"]) if data.get("weight") else None
+    with _levers(data.get("env", {})):
+        model = cls(device=device, **data["params"])
+        model.fit(X, y, weight=weight)
+    model.save_model(str(out / f"{name}.{rank}.model"))
+    (out / f"{name}.{rank}.json").write_text(json.dumps({
+        "rank": rank, "world": coll.world_size(),
         "fit_seconds": model.last_fit_seconds}))
 
 

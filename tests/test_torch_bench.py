@@ -132,7 +132,7 @@ def test_bench_needs_a_gpu_unless_forced_to_the_cpu():
 
 def test_bench_refuses_the_modes_it_does_not_have():
     res = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.bench",
-                          "--serve"], cwd=ROOT, capture_output=True,
+                          "--fleet"], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 2 and "not ported" in res.stderr
 

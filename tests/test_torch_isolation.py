@@ -93,6 +93,23 @@ def test_entry_module_loads_no_jax(module):
     assert "LOADED []" in res.stdout, res.stdout
 
 
+@pytest.mark.parametrize("module", [
+    "dmlc_core_tpu_torch.serve", "dmlc_core_tpu_torch.models.sklearn",
+    "dmlc_core_tpu_torch.models.linear", "dmlc_core_tpu_torch.models.fm",
+    "dmlc_core_tpu_torch.parallel.checkpoint"])
+def test_serving_and_booster_modules_load_no_jax(module):
+    # the serving tier and the other boosters stand alone too
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}\n"
+        "             or m.startswith('jax'))\n"
+        "print('LOADED', bad)\n")
+    res = _run_clean(code)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
+
+
 def test_no_finished_kernel_in_source():
     # the port's kernels are its own: no fused attention operator, no
     # torch.compile, no package of finished kernels anywhere in it
