@@ -206,14 +206,40 @@ and the script exits non-zero without the final ``ok`` line:
     before and read just after); GBLinear, FM and SparseHistGBT through
     ``ModelRunner``, bit-identical to their ``predict``; the port
     bench's ``--serve`` as a child process at its defaults;
+12g. tenancy — 12 ``HistGBT`` tenants (3..6 trees, depth 3..6, each its
+    own label) fit on the card, published to a
+    ``TenantRegistry(device="cuda")`` with a resident cap of 4 and served
+    through the frontend's ``tenants=`` seam over HTTP: Zipf(1.1) traffic
+    from one client with the ``X-Dmlc-Tenant`` header, every response
+    bit-identical to that tenant's ``predict`` on the card and to the
+    CPU's ``predict`` of the same bytes; evictions and restores both > 0,
+    each tenant's probe answered alike before and after the traffic;
+    ``descend_kernel`` launched trees × depth a batch, plus trees × depth
+    × the ladder's 4 buckets for each page-in's warmup (the counts set to
+    0 just before and read just after); ``torch.cuda.memory_allocated``
+    with the cap full and after the run, the page-ins' wall times; then
+    the port bench's ``--tenants`` as a child process at its defaults;
+12h. fleet — (a) in process, on the card: a ``FleetTracker``, 3
+    ``Replica(device="cuda")`` holding the port bench's v1 (5 trees,
+    depth 4) and a ``FleetRouter``: sequential routed predicts
+    bit-identical to the direct ``predict`` of the version each response
+    reports (and to the CPU's), trees × depth launches a batch, the
+    routed latency; one replica killed uncleanly under 3 clients' traffic
+    (zero dropped, zero wrong); a staged rollout to v2 (10 trees) under
+    traffic converging on v2; no replica answered a predict with 500
+    (the router would fail it over); (b) the port bench's ``--fleet`` as
+    a child process at its defaults, its 3 replicas subprocesses on the
+    card: no drop, no wrong answer, no respawn, no transport failover,
+    the rollout activated, every replica on v2 after it and 20 routed
+    answers v2's;
 13. bench — ``python -m dmlc_core_tpu_torch.bench`` as a child process at
     its defaults (10M × 28, 100 rounds after 10 warmup rounds, the
     flagship's levers, host binning), with a time limit: its last line
     must be the final ``histgbt_rounds_per_sec_per_chip`` record of 100
     rounds, with kernel launches, and its headline fields are emitted;
 14. the ``kernels`` line (launches summed over phases 3b-6h and 8, phase
-    11's for attention, phase 12's timing pass for the B5 variants, phase
-    12f's HTTP run for ``descend``; ``descend_dir`` is
+    11's for attention, phase 12's timing pass for the B5 variants, phases
+    12f-12h's HTTP runs for ``descend``; ``descend_dir`` is
     ``descend_kernel``'s direction mode, B2's descend on the missing
     path, ``descend`` its plain mode, a served batch's), then
     the card's name and power limit, then the ``ok`` line.
@@ -448,6 +474,21 @@ SERVE_MIN_BUCKET = 8
 SERVE_CLIENTS = 4
 SERVE_PHASE_S = 1.5
 SERVE_TIMEOUT = 300
+#: tenancy: TENANTS HistGBT tenants (trees and depth their own) over a
+#: resident cap of TENANT_CAP, Zipf(TENANT_ZIPF_A) traffic over HTTP
+TENANTS = 12
+TENANT_CAP = 4
+TENANT_ZIPF_A = 1.1
+TENANT_ROWS = 50_000
+TENANT_MAX_BATCH = 64
+TENANT_REQUESTS = 240
+#: fleet: the port bench's --fleet models (v1 5 trees, v2 10, depth 4,
+#: 32 bins, 20k rows) behind FLEET_REPLICAS in-process replicas
+FLEET_REPLICAS = 3
+FLEET_ROWS = 20_000
+FLEET_MAX_BATCH = 64
+FLEET_REQUESTS = 120
+FLEET_TIMEOUT = 300
 BENCH_ROUNDS = 100
 BENCH_ROWS = 10_000_000
 
@@ -3366,9 +3407,11 @@ def serve_http(np, registry, direct, Xv, swap):
                 with lock:
                     errors.append(f"{type(e).__name__}: {e}"[:200])
                 continue
+            # a version the script did not publish is a wrong answer
+            ok = (version in direct and got.tobytes()
+                  == direct[version][lo:lo + k].tobytes())
             with lock:
-                out.append((version, got.tobytes()
-                            == direct[version][lo:lo + k].tobytes()))
+                out.append((version, ok))
 
     batches0 = hist.count(batcher=registry.name)
     with ServeFrontend(registry, max_batch=SERVE_MAX_BATCH,
@@ -3486,33 +3529,44 @@ def phase_serve(torch, np, H, rates, smi, Xv, lossguide_bytes, main_model,
     return entry, launches
 
 
-def phase_serve_bench(np):
-    """``python -m dmlc_core_tpu_torch.bench --serve`` at its defaults as
-    a child process; its last line must be a final record with completed
-    requests, latency percentiles, buckets within the bound and
-    ``descend_kernel`` trees × depth launches a batch."""
+def bench_child(mode, metric, timeout):
+    """``python -m dmlc_core_tpu_torch.bench <mode>`` at its defaults as a
+    child process; its last line must be the mode's final record, on this
+    run's platform, with no error.  Returns the record, with the child's
+    wall seconds."""
     env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("BENCH_", "SERVE_"))
+           if not k.startswith(("BENCH_", "SERVE_", "FLEET_", "TENANTS_"))
            and k != "DMLC_TPU_ROUNDS_PER_DISPATCH"}
     platform = "cpu" if DEVICE == "cpu" else "gpu"
     if platform == "cpu":          # a rehearsal of the script on the host
         env["BENCH_FORCE_CPU"] = "1"
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.bench",
-                          "--serve"], cwd=ROOT, env=env,
-                         capture_output=True, text=True,
-                         timeout=SERVE_TIMEOUT)
+                          mode], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=timeout)
     wall = time.perf_counter() - t0
     lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
     require(res.returncode == 0 and lines,
-            f"bench --serve exited {res.returncode}: {res.stderr[-2000:]}")
+            f"bench {mode} exited {res.returncode}: {res.stderr[-2000:]}")
     rec = json.loads(lines[-1])
-    require(rec.get("metric") == "serve_requests_per_sec"
-            and rec.get("provisional") is False and "error" not in rec,
-            f"bench --serve: bad record {lines[-1][:500]}")
-    require(rec["platform"] == platform and rec["completed"] > 0
-            and rec["latency_p99_ms"] is not None,
-            f"bench --serve: {lines[-1][:500]}")
+    require(rec.get("metric") == metric
+            and rec.get("provisional") is False and "error" not in rec
+            and rec.get("platform") == platform,
+            f"bench {mode}: bad record {lines[-1][:500]}")
+    rec.pop("metrics_summary", None)
+    rec["child_wall_seconds"] = wall
+    return rec
+
+
+def phase_serve_bench(np):
+    """``python -m dmlc_core_tpu_torch.bench --serve`` at its defaults as
+    a child process; its last line must be a final record with completed
+    requests, latency percentiles, buckets within the bound and
+    ``descend_kernel`` trees × depth launches a batch."""
+    platform = "cpu" if DEVICE == "cpu" else "gpu"
+    rec = bench_child("--serve", "serve_requests_per_sec", SERVE_TIMEOUT)
+    require(rec["completed"] > 0 and rec["latency_p99_ms"] is not None,
+            f"bench --serve: {json.dumps(rec)[:500]}")
     require(rec["compiled_shapes"]
             and len(rec["compiled_shapes"]) <= rec["shape_bound"],
             f"bench --serve: shapes {rec['compiled_shapes']}")
@@ -3520,9 +3574,346 @@ def phase_serve_bench(np):
             == rec["descend_launches_per_batch_expected"],
             f"bench --serve: {rec.get('descend_launches_per_batch')} "
             "descend launches a batch")
-    rec.pop("metrics_summary", None)
-    rec["child_wall_seconds"] = wall
     return rec
+
+
+def restore_stats(names):
+    """Per tenant: (page-ins, their wall seconds) so far, from the
+    registry's ``tenant_restore_seconds`` histogram."""
+    from dmlc_core_tpu_torch.base.metrics import default_registry
+
+    h = default_registry().histogram("tenant_restore_seconds",
+                                     labels=("tenant",))
+    return {n: (h.count(tenant=n), h.sum(tenant=n)) for n in names}
+
+
+def phase_tenancy(torch, np, H, smi):
+    """Multi-tenant serving on the card through the frontend's
+    ``tenants=`` seam (see the module docstring, 12g).  Returns the
+    ``descend_kernel`` launches of its HTTP run."""
+    from dmlc_core_tpu_torch.models import HistGBT
+    from dmlc_core_tpu_torch.serve import (ModelRegistry, ResilientClient,
+                                           ServeFrontend, model_from_bytes,
+                                           model_to_bytes)
+    from dmlc_core_tpu_torch.serve.fleet.loadgen import (sample_tenant,
+                                                         zipf_weights)
+    from dmlc_core_tpu_torch.serve.tenancy import TenantRegistry
+
+    X, _ = higgs_like(np, TENANT_ROWS, FEATURES, 21)
+    Xs = X[:TENANT_MAX_BATCH * 8]
+    names = [f"t{i:02d}" for i in range(TENANTS)]
+    reg = TenantRegistry(resident_cap=TENANT_CAP, device=DEVICE,
+                         max_batch=TENANT_MAX_BATCH, min_bucket=8)
+    expected, per_batch, fit_s = {}, {}, 0.0
+    for i, name in enumerate(names):
+        trees, depth = 3 + i % 4, 3 + (i // 4 + i) % 4
+        y = (X[:, i % FEATURES] + 0.5 * X[:, (i + 1) % FEATURES]
+             > 0).astype(np.float32)
+        t0 = time.perf_counter()
+        m = HistGBT(n_trees=trees, max_depth=depth, n_bins=64,
+                    learning_rate=0.3, device=DEVICE).fit(X, y)
+        fit_s += time.perf_counter() - t0
+        card = m.predict(Xs)
+        cpu = model_from_bytes(model_to_bytes(m), device="cpu").predict(Xs)
+        require(card.tobytes() == cpu.tobytes(),
+                f"tenancy {name}: card and CPU predict differ")
+        expected[name] = card
+        per_batch[name] = trees * depth
+        reg.publish(name, m)
+        del m
+    gc_cuda(torch)
+    require(len(reg.resident()) == TENANT_CAP and reg.evictions > 0,
+            f"tenancy: resident {reg.resident()} after publishing")
+    mem_full = torch.cuda.memory_allocated()
+    ladder = reg.current(names[-1])[1].shape_bound
+    cum = zipf_weights(TENANTS, TENANT_ZIPF_A)
+    rng = np.random.default_rng(23)
+    probe = Xs[:16]
+    evict0, restore0 = reg.evictions, reg.restores
+    pages0 = restore_stats(names)
+    answers, lats, before = [], [], {}
+    single = ModelRegistry(name="chip-tenancy", device=DEVICE,
+                           max_batch=TENANT_MAX_BATCH)
+    H.descend_kernel.launches = 0
+    H.descend_kernel.dir_launches = 0
+    with ServeFrontend(single, max_batch=TENANT_MAX_BATCH,
+                       tenants=reg) as fe:
+        client = ResilientClient(fe.url)
+        for name in names:          # each tenant's probe: 12 page-ins
+            before[name] = client.predict(probe, tenant=name)
+        for _ in range(TENANT_REQUESTS):
+            name = sample_tenant(rng, names, cum)
+            k = int(rng.integers(1, TENANT_MAX_BATCH + 1))
+            lo = int(rng.integers(0, len(Xs) - k + 1))
+            t0 = time.perf_counter()
+            got, version = client.predict(Xs[lo:lo + k], tenant=name)
+            lats.append(time.perf_counter() - t0)
+            answers.append((name, version, got.tobytes()
+                            == expected[name][lo:lo + k].tobytes()))
+        after = {name: client.predict(probe, tenant=name)
+                 for name in names}
+    launches = H.descend_kernel.launches
+    pages = restore_stats(names)
+    gc_cuda(torch)
+    mem_after = torch.cuda.memory_allocated()
+    require(H.descend_kernel.dir_launches == 0,
+            "tenancy: direction-mode descends on the serve path")
+    require(all(ok and v == 1 for _, v, ok in answers),
+            "tenancy: a response differs from its tenant's predict")
+    for name in names:
+        require(before[name][0].tobytes() == after[name][0].tobytes()
+                == expected[name][:16].tobytes(),
+                f"tenancy {name}: probe answered differently")
+    evictions = reg.evictions - evict0
+    restores = reg.restores - restore0
+    require(evictions > 0 and restores > 0,
+            f"tenancy: {evictions} evictions, {restores} restores")
+    n_pages = {n: pages[n][0] - pages0[n][0] for n in names}
+    require(sum(n_pages.values()) == restores,
+            f"tenancy: {n_pages} page-ins, {restores} restores")
+    served = {n: 2 for n in names}           # the two probes
+    for name, _, _ in answers:
+        served[name] += 1
+    want = sum(served[n] * per_batch[n] + n_pages[n] * per_batch[n] * ladder
+               for n in names)
+    require(launches == want, f"tenancy: {launches} descend launches, want "
+            f"{want} (trees x depth a batch, x {ladder} a page-in)")
+    page_s = sum(pages[n][1] - pages0[n][1] for n in names)
+    bench = bench_child("--tenants", "tenant_requests_per_sec",
+                        SERVE_TIMEOUT)
+    require(bench["wrong"] == 0 and bench["requests"] > 0
+            and bench["evictions"] > 0 and bench["warm_restores"] > 0,
+            f"bench --tenants: {json.dumps(bench)[:500]}")
+    require(DEVICE == "cpu" or bench["descend_launches"] > 0,
+            "bench --tenants: no descend launches")
+    emit({"phase": "tenancy", "card": smi, "tenants": TENANTS,
+          "resident_cap": TENANT_CAP, "fit_seconds": fit_s,
+          "trees_x_depth": per_batch, "ladder_buckets": ladder,
+          "requests": len(answers) + 2 * TENANTS,
+          "by_tenant": {n: served[n] for n in names},
+          "evictions": evictions, "restores": restores,
+          "page_in_seconds_mean": page_s / max(restores, 1),
+          "latency_p50_ms": statistics.median(lats) * 1e3,
+          "latency_p99_ms": sorted(lats)[int(0.99 * (len(lats) - 1))] * 1e3,
+          "descend_launches": launches,
+          "memory_allocated_cap_full": mem_full,
+          "memory_allocated_after": mem_after,
+          "bench": bench})
+    return launches
+
+
+def routed(np, client, Xs, direct, rng, n, max_rows):
+    """``n`` sequential routed predicts of 1..``max_rows`` rows: per
+    response (version, bit-identical to that version's direct predict),
+    and the wall seconds of each."""
+    out, lats = [], []
+    for _ in range(n):
+        k = int(rng.integers(1, max_rows + 1))
+        lo = int(rng.integers(0, len(Xs) - k + 1))
+        t0 = time.perf_counter()
+        got, version = client.predict(Xs[lo:lo + k])
+        lats.append(time.perf_counter() - t0)
+        out.append((version, got.tobytes()
+                    == direct[version][lo:lo + k].tobytes()))
+    return out, lats
+
+
+def predict_500s():
+    """The ``/predict`` answers with status 500 so far, from the serve
+    frontends' ``serve_requests_total`` (every in-process replica's)."""
+    from dmlc_core_tpu_torch.base.metrics import default_registry
+
+    return sum(se["value"] for se in default_registry().snapshot()
+               ["metrics"].get("dmlc_serve_requests_total", {})
+               .get("series", [])
+               if se["labels"] == {"path": "/predict", "code": "500"})
+
+
+def fleet_traffic(np, url, Xs, direct, seconds, action, clients=3):
+    """``clients`` threads predict through the router for ``seconds``;
+    ``action()`` runs a third of the way in.  Returns the responses
+    ``(version, bit-identical)`` and the dropped requests."""
+    import threading
+
+    from dmlc_core_tpu_torch.base.resilience import RetryPolicy
+    from dmlc_core_tpu_torch.serve import ResilientClient
+
+    out, dropped, stop = [], [], threading.Event()
+    lock = threading.Lock()
+    policy = RetryPolicy(max_attempts=8, base_backoff_s=0.02,
+                         deadline_s=30.0)
+
+    def loop(seed):
+        c = ResilientClient(url, policy=policy)
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            k = int(rng.integers(1, 17))
+            lo = int(rng.integers(0, len(Xs) - k + 1))
+            try:
+                got, version = c.predict(Xs[lo:lo + k], timeout_ms=10_000)
+            except Exception as e:  # noqa: BLE001 — counted, then failed
+                with lock:
+                    dropped.append(f"{type(e).__name__}: {e}"[:200])
+                continue
+            # a version the script did not publish is a wrong answer
+            ok = (version in direct and got.tobytes()
+                  == direct[version][lo:lo + k].tobytes())
+            with lock:
+                out.append((version, ok))
+
+    threads = [threading.Thread(target=loop, args=(300 + i,))
+               for i in range(clients)]
+    for t in threads:
+        t.start()
+    time.sleep(seconds / 3)
+    result = action()
+    time.sleep(2 * seconds / 3)
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+    return out, dropped, result
+
+
+def phase_fleet(torch, np, H, smi):
+    """The replica fleet on the card (see the module docstring, 12h).
+    Returns the ``descend_kernel`` launches of its sequential routed
+    run."""
+    from dmlc_core_tpu_torch.base.resilience import RetryPolicy
+    from dmlc_core_tpu_torch.models import HistGBT
+    from dmlc_core_tpu_torch.serve import (ResilientClient, checkpoint_model,
+                                           model_from_bytes, model_to_bytes)
+    from dmlc_core_tpu_torch.serve.fleet import (FleetRouter, FleetTracker,
+                                                 HttpFleetAdmin, Replica,
+                                                 Rollout)
+
+    X, y = higgs_like(np, FLEET_ROWS, FEATURES, 11)
+    Xs = X[:512]
+    depth, trees = 4, {1: 5, 2: 10}
+    models = {v: HistGBT(n_trees=t, max_depth=depth, n_bins=32,
+                         learning_rate=0.3, device=DEVICE).fit(X, y)
+              for v, t in trees.items()}
+    direct = {v: m.predict(Xs) for v, m in models.items()}
+    for v, m in models.items():
+        cpu = model_from_bytes(model_to_bytes(m), device="cpu")
+        require(cpu.predict(Xs).tobytes() == direct[v].tobytes(),
+                f"fleet: v{v} card and CPU predict differ")
+    require(direct[1].tobytes() != direct[2].tobytes(),
+            "fleet: the two versions predict alike")
+    tmp = tempfile.mkdtemp(prefix="chip_fleet_")
+    uris = {v: f"file://{tmp}/v{v}.ckpt" for v in trees}
+    for v, m in models.items():
+        checkpoint_model(uris[v], m, version=v)
+    tracker = FleetTracker(nworker=8)
+    tracker.start()
+    replicas, router = [], None
+    try:
+        replicas = [Replica("127.0.0.1", tracker.port, model_uri=uris[1],
+                            max_batch=FLEET_MAX_BATCH, heartbeat_s=0.1,
+                            device=DEVICE)
+                    for _ in range(FLEET_REPLICAS)]
+        for r in replicas:
+            model = r.registry.current()[1].model
+            require(model.device.type == torch.device(DEVICE).type,
+                    f"fleet: replica {r.rank} serves on {model.device}")
+            r.registry.current()[1].warmup()
+        router = FleetRouter(tracker, probe_s=0.1).start()
+        client = ResilientClient(router.url, policy=RetryPolicy(
+            max_attempts=6, base_backoff_s=0.01))
+        rng = np.random.default_rng(31)
+        # the router hides a replica's failed predict (a 500) by failing
+        # over to the next one: every 500 of this phase fails it
+        errors0 = predict_500s()
+        H.descend_kernel.launches = 0
+        H.descend_kernel.dir_launches = 0
+        seq, lats = routed(np, client, Xs, direct, rng, FLEET_REQUESTS,
+                           FLEET_MAX_BATCH)
+        launches = H.descend_kernel.launches
+        require(all(v == 1 and ok for v, ok in seq),
+                "fleet: a routed response differs from v1's predict")
+        require(launches == trees[1] * depth * len(seq)
+                and H.descend_kernel.dir_launches == 0,
+                f"fleet: {launches} descend launches for {len(seq)} "
+                f"batches, want {trees[1] * depth} a batch")
+        from dmlc_core_tpu_torch.base.metrics import default_registry
+        routed_by = {se["labels"]["replica"]: se["value"] for se in
+                     default_registry().snapshot()["metrics"]
+                     .get("dmlc_fleet_routed_total", {}).get("series", [])}
+        # (a2) one replica dies uncleanly under traffic
+        victim = replicas[1]
+        kill_out, dropped, _ = fleet_traffic(
+            np, router.url, Xs, direct, 3.0,
+            lambda: victim.close(clean=False))
+        require(not dropped, f"fleet: dropped under the kill {dropped[:3]}")
+        require(kill_out and all(ok for _, ok in kill_out),
+                "fleet: a wrong answer under the kill")
+        require(victim.rank in tracker.dead_workers,
+                f"fleet: tracker missed the death ({tracker.dead_workers})")
+        live = [r for r in replicas if r is not victim]
+        router.probe_now()
+        require(sorted(tracker.serve_endpoints()) ==
+                sorted(r.rank for r in live),
+                f"fleet: endpoints {tracker.serve_endpoints()}")
+        # (a3) a staged rollout to v2 under traffic
+        roll_out, dropped, report = fleet_traffic(
+            np, router.url, Xs, direct, 3.0,
+            lambda: Rollout(HttpFleetAdmin(tracker.serve_endpoints()),
+                            wave_size=1, settle_s=0.2).run(uris[2]))
+        require(report["outcome"] == "activated" and report["version"] == 2,
+                f"fleet: rollout {report}")
+        require(not dropped, f"fleet: dropped in the rollout {dropped[:3]}")
+        require(all(ok for _, ok in roll_out),
+                "fleet: a wrong answer in the rollout")
+        require(all(r.registry.current_version() == 2 for r in live),
+                "fleet: the rollout did not converge on v2")
+        after, _ = routed(np, client, Xs, direct, rng, 10, FLEET_MAX_BATCH)
+        require(all(v == 2 and ok for v, ok in after),
+                "fleet: after the rollout a response is not v2's")
+        errors = predict_500s() - errors0
+        require(errors == 0, f"fleet: {errors} predicts failed in a replica")
+    finally:
+        if router is not None:
+            router.close()
+        for r in replicas:
+            try:
+                r.close()
+            except Exception:  # noqa: BLE001 — the killed one is closed
+                pass
+        tracker.stop()
+    del models
+    gc_cuda(torch)
+    bench = bench_child("--fleet", "fleet_requests_per_sec", FLEET_TIMEOUT)
+    # the child's JobSet respawns a crashed replica and its router fails
+    # over a replica's failed predict: both would hide a fault, so a
+    # respawn or a transport failover fails the phase, as does a replica
+    # or a routed answer not on v2 once the rollout is done
+    post = bench["post_rollout"]
+    require(bench["ok"] > 0 and bench["dropped"] == 0
+            and bench["wrong"] == 0
+            and bench["launch"]["respawns"] == 0
+            and bench["failover"].get("transport", 0) == 0
+            and set(bench["by_version"]) <= {"1", "2"}
+            and bench["rollout"]["outcome"] == "activated"
+            and bench["rollout"]["version"] == 2
+            and list(bench["replica_versions"].values())
+            == [2] * FLEET_REPLICAS
+            and post["wrong"] == 0 and post["requests"] > 0
+            and post["by_version"] == {"2": post["requests"]},
+            f"bench --fleet: {json.dumps(bench)[:800]}")
+    emit({"phase": "fleet", "card": smi, "replicas": FLEET_REPLICAS,
+          "trees": trees, "max_depth": depth,
+          "routed_requests": len(seq),
+          "routed_latency_p50_ms": statistics.median(lats) * 1e3,
+          "routed_latency_p99_ms":
+              sorted(lats)[int(0.99 * (len(lats) - 1))] * 1e3,
+          "routed_by_replica": routed_by,
+          "descend_launches": launches,
+          "descend_launches_per_batch": launches / len(seq),
+          "kill_responses": len(kill_out), "kill_dropped": 0,
+          "rollout": report,
+          "rollout_versions": sorted({v for v, _ in roll_out}),
+          "rollout_responses": len(roll_out),
+          "bench": bench})
+    return launches
 
 
 def main() -> int:
@@ -3630,6 +4021,8 @@ def main() -> int:
     require(launches["descend"] > 0, "descend was never launched on the "
             "serve path")
     del Xl, yl, lin_model, fm_model, sparse_model
+    launches["descend"] += phase_tenancy(torch, np, H, smi)
+    launches["descend"] += phase_fleet(torch, np, H, smi)
     phase_bench(np)
     for k, v in floor.items():
         launches[k] = v.pop("launches")

@@ -15,11 +15,13 @@ growth, int4 bin packing and feature bundling, fit, predict, save/load
 a ``torch.distributed`` group, with its ranking objectives, out-of-core
 training and the sparse engine; ``models.GBLinear``, ``models.FM`` and
 the sklearn-style wrappers; ``models.BERT`` masked-LM training on one
-GPU with hand-written flash-attention kernels; the serving tier's core
-(``serve``: runner, batcher, registry, HTTP frontend and client); the
-flagship and serve benches (``python -m dmlc_core_tpu_torch.bench
-[--serve]``); and the one-hot product histogram spike
-(``tools/spike_hist_floor.py``).
+GPU with hand-written flash-attention kernels; the serving tier
+(``serve``: runner, batcher, registry, HTTP frontend and client;
+``serve.tenancy``, ``serve.fleet``) with the ``tracker``, ``launch``
+and metrics-spool (``base.metrics_agg``) tiers under it; the flagship,
+serve, fleet and tenants benches (``python -m dmlc_core_tpu_torch.bench
+[--serve | --fleet | --tenants]``); and the one-hot product histogram
+spike (``tools/spike_hist_floor.py``).
 """
 
 from dmlc_core_tpu_torch.models.histgbt import HistGBT, HistGBTParam

@@ -35,8 +35,10 @@ DEFAULT_TIME_BUCKETS: Tuple[float, ...] = (
     1e-3, 2.5e-3, 5e-3, 1e-2, 2.5e-2, 5e-2,
     0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
 )
-#: observations a histogram series keeps for its quantiles
-_RESERVOIR_SIZE = 1024
+#: observations a histogram series keeps for its quantiles (the JAX
+#: package's size: a snapshot's reservoir is what the cross-process merge,
+#: ``base/metrics_agg.py``, re-samples, so both packages cap it alike)
+_RESERVOIR_SIZE = 256
 
 _ENABLED = os.environ.get("DMLC_METRICS", "1").lower() not in (
     "0", "false", "off", "no")
@@ -263,6 +265,18 @@ class Histogram(_MetricBase):
         with self._lock:
             s = self._series.get(key)
             return s.count if s is not None else 0
+
+    def sum(self, **labels: Any) -> float:
+        key = _label_key(self.label_names, labels)
+        with self._lock:
+            s = self._series.get(key)
+            return s.sum if s is not None else 0.0
+
+    def quantile(self, q: float, **labels: Any) -> Optional[float]:
+        key = _label_key(self.label_names, labels)
+        with self._lock:
+            s = self._series.get(key)
+            return s.quantile(q) if s is not None else None
 
     def time(self, **labels: Any) -> "_HistTimer":
         """``with hist.time(...):`` — observe the block's wall seconds

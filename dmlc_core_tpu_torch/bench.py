@@ -39,13 +39,31 @@ default ``1,1,1,1,2,4,8,16``); metric ``serve_requests_per_sec`` with
 ``bench.py``'s record fields, plus ``descend_kernel``'s launches per
 served batch.  ``BENCH_FORCE_CPU=1`` runs it on the CPU.
 
+``--fleet`` is the JAX bench's fleet mode (:func:`_fleet_bench`): v1 (5
+trees) and v2 (10 trees) depth-4, 32-bin ``HistGBT`` models on
+``FLEET_TRAIN_ROWS`` (20,000) rows, ``FLEET_REPLICAS`` (3) replica
+processes supervised by a ``LauncherScaler`` JobSet behind a
+``FleetRouter``, closed-loop load from ``FLEET_PROCS`` (2) ×
+``FLEET_THREADS`` (3) clients at ``FLEET_QPS`` (120) for ``FLEET_SECONDS``
+(8) with a staged rollout to v2 a third of the way in; metric
+``fleet_requests_per_sec``.  The replicas share the one card
+(``FLEET_DEVICE`` unset: ``cuda``); under ``BENCH_FORCE_CPU`` they get
+``FLEET_DEVICE=cpu``.  ``--tenants`` is the JAX bench's tenancy mode
+(:func:`_tenants_bench`): ``TENANTS_N`` (12) ``HistGBT`` tenants in one
+``TenantRegistry`` capped at ``TENANTS_RESIDENT_CAP`` (4) resident
+runners, ``TENANTS_THREADS`` (4) threads drawing tenants from a bounded
+Zipf (``TENANTS_ZIPF_A`` 1.1) for ``TENANTS_SECONDS`` (6); metric
+``tenant_requests_per_sec``, plus ``descend_kernel``'s launches per
+served batch on a card.
+
 Not in this module (the JAX bench's other modes): ``BENCH_CHIPS > 1`` and
-its scaling probe, ``--fleet``, ``--tenants``, ``--stream``, ``--ps``,
+its scaling probe, ``--stream``, ``--ps``,
 ``--prodsim``, the kvstore smoke, the SLO scorecard and jitcheck's
 ``recompiles_steady_state``.  The record leaves their fields out, or
 writes null with a note.
 """
 
+import functools
 import json
 import os
 import signal
@@ -80,8 +98,7 @@ _INFEED_FLOOR_S = 75
 _ROUND_S_PER_ROW = 6e-9
 
 #: the JAX bench's modes this module does not have
-_NOT_PORTED_MODES = ("--fleet", "--tenants", "--stream", "--ps",
-                     "--prodsim", "--scaling-probe")
+_NOT_PORTED_MODES = ("--stream", "--ps", "--prodsim", "--scaling-probe")
 
 #: single shared evidence store; emit() renders it as one JSON line.
 #: Written only by the main thread; read by the watchdog thread and
@@ -642,14 +659,21 @@ def latency_summary(lats_s):
     }
 
 
-def _serve_emit(rec, final=False):
-    rec = {"metric": "serve_requests_per_sec", "unit": "req/s",
-           "provisional": not final, **rec}
+def _mode_emit(metric, rec, final=False):
+    """One JSON line of a serving mode's record under ``metric`` (req/s):
+    provisional until ``final``, which attaches the metrics summary."""
+    rec = {"metric": metric, "unit": "req/s", "provisional": not final,
+           **rec}
     if final:
         _attach_metrics(rec)
     with _EMIT_LOCK:
         sys.stdout.write(json.dumps(rec) + "\n")
         sys.stdout.flush()
+
+
+_serve_emit = functools.partial(_mode_emit, "serve_requests_per_sec")
+_fleet_emit = functools.partial(_mode_emit, "fleet_requests_per_sec")
+_tenants_emit = functools.partial(_mode_emit, "tenant_requests_per_sec")
 
 
 def _serve_bench() -> None:
@@ -683,26 +707,12 @@ def _serve_bench() -> None:
            "train_rows": train_rows, "n_trees": n_trees}
     _serve_emit({"value": 0.0, "phase": "train", **cfg})
 
-    import torch
-
     from dmlc_core_tpu_torch.models import HistGBT
     from dmlc_core_tpu_torch.ops import histogram as H
     from dmlc_core_tpu_torch.serve import (DynamicBatcher, ModelRegistry,
                                            QueueFullError)
-    from dmlc_core_tpu_torch.utils.device import (gpu_name_and_power_limit,
-                                                  resolve_device)
 
-    try:
-        dev = resolve_device("cpu" if os.environ.get("BENCH_FORCE_CPU")
-                             else None)
-    except Exception as e:
-        _serve_emit({"value": 0.0, "phase": "done",
-                     "error": f"{type(e).__name__}: {e}"[:500], **cfg},
-                    final=True)
-        raise
-    card = ({"device_kind": torch.cuda.get_device_name(dev),
-             "nvidia_smi": gpu_name_and_power_limit()}
-            if dev.type == "cuda" else {})
+    dev, card = _bench_device(_serve_emit, cfg)
 
     rng = np.random.default_rng(11)
     X = rng.normal(size=(train_rows, feats)).astype(np.float32)
@@ -811,13 +821,353 @@ def _serve_bench() -> None:
     }, final=True)
 
 
+def _bench_device(emit_fn, cfg):
+    """The run's device (``BENCH_FORCE_CPU``: the CPU) and, on a card,
+    its name and power limit; without a GPU the final record carries the
+    error and the run fails."""
+    import torch
+
+    from dmlc_core_tpu_torch.utils.device import (gpu_name_and_power_limit,
+                                                  resolve_device)
+
+    try:
+        dev = resolve_device("cpu" if os.environ.get("BENCH_FORCE_CPU")
+                             else None)
+    except Exception as e:
+        emit_fn({"value": 0.0, "phase": "done",
+                 "error": f"{type(e).__name__}: {e}"[:500], **cfg},
+                final=True)
+        raise
+    card = ({"device_kind": torch.cuda.get_device_name(dev),
+             "nvidia_smi": gpu_name_and_power_limit()}
+            if dev.type == "cuda" else {})
+    return dev, card
+
+
+def _fleet_bench() -> None:
+    """``--fleet``: closed-loop load over a replica fleet behind the
+    consistent-hash router, with a staged v1->v2 rollout mid-run (the JAX
+    bench's mode, field for field).
+
+    Trains two GBT versions, checkpoints both, then stands up the fleet —
+    FleetTracker + ``FLEET_REPLICAS`` replica processes spawned through
+    the launch subsystem (a :class:`LauncherScaler`-backed JobSet) +
+    in-process FleetRouter — and drives it with the multi-process
+    closed-loop load generator (heavy-tail request sizes, diurnal QPS
+    ramp).  One third into the run a staged rollout (wave size 1)
+    hot-swaps the fleet to v2 under load.  Every response is verified
+    bit-exactly against the version it claims (the direct ``predict`` of
+    the model on this run's device), so ``dropped``/``wrong`` are the
+    zero-drop hot-swap evidence; per-replica balance and the failovers
+    by reason come from the router's ``fleet_routed_total`` and
+    ``fleet_failover_total`` series, the supervisor's view (respawns)
+    from the ``launch`` block.  After the load each replica's
+    ``/healthz`` version and 20 sequential routed predicts
+    (``post_rollout``, held against the version each reports) show
+    where the fleet ended.  The replicas share the run's one card: this
+    measures the router and the replica processes, not scaling.  The
+    JAX record's SLO scorecard has no counterpart here."""
+    t0 = time.time()
+    budget = float(os.environ.get("BENCH_TIME_BUDGET", 480))
+    n_replicas = int(os.environ.get("FLEET_REPLICAS", 3))
+    duration = min(float(os.environ.get("FLEET_SECONDS", 8)),
+                   max(budget - 180, 3.0))
+    qps = float(os.environ.get("FLEET_QPS", 120))
+    procs = int(os.environ.get("FLEET_PROCS", 2))
+    threads = int(os.environ.get("FLEET_THREADS", 3))
+    train_rows = int(os.environ.get("FLEET_TRAIN_ROWS", 20_000))
+    serve_rows = int(os.environ.get("FLEET_SERVE_ROWS", 512))
+    feats = int(os.environ.get("BENCH_FEATURES", 28))
+
+    cfg = {"replicas": n_replicas, "qps": qps, "duration_s": duration,
+           "procs": procs, "threads": threads, "train_rows": train_rows}
+    _fleet_emit({"value": 0.0, "phase": "train", **cfg})
+
+    import tempfile
+
+    from dmlc_core_tpu_torch.models import HistGBT
+    from dmlc_core_tpu_torch.serve import ResilientClient, checkpoint_model
+    from dmlc_core_tpu_torch.serve.fleet import (FleetRouter, FleetTracker,
+                                                 HttpFleetAdmin,
+                                                 LauncherScaler, Rollout,
+                                                 run_loadgen)
+
+    dev, card = _bench_device(_fleet_emit, cfg)
+    rng = np.random.default_rng(11)
+    Xt = rng.normal(size=(train_rows, feats)).astype(np.float32)
+    yt = (Xt[:, 0] * Xt[:, 1] + 0.5 * Xt[:, 2] > 0).astype(np.float32)
+    m1 = HistGBT(n_trees=5, max_depth=4, n_bins=32, learning_rate=0.3,
+                 device=dev).fit(Xt, yt)
+    m2 = HistGBT(n_trees=10, max_depth=4, n_bins=32, learning_rate=0.3,
+                 device=dev).fit(Xt, yt)
+    X = Xt[:serve_rows]
+
+    workdir = tempfile.mkdtemp(prefix="fleet_bench_")
+    v1_uri = f"file://{workdir}/v1.ckpt"
+    v2_uri = f"file://{workdir}/v2.ckpt"
+    checkpoint_model(v1_uri, m1, version=1)
+    checkpoint_model(v2_uri, m2, version=2)
+    expected_npz = os.path.join(workdir, "expected.npz")
+    direct = {1: m1.predict(X), 2: m2.predict(X)}
+    np.savez(expected_npz, X=X, v1=direct[1], v2=direct[2])
+
+    _fleet_emit({"value": 0.0, "phase": "spawn", **cfg})
+    # the replicas' device: the card (FLEET_DEVICE unset), or the CPU
+    # under BENCH_FORCE_CPU, as the JAX bench gives its children
+    # JAX_PLATFORMS=cpu
+    child_env = {"FLEET_DEVICE": "cpu"} if dev.type == "cpu" else None
+    tracker = FleetTracker(nworker=max(8, n_replicas + 2))
+    tracker.start()
+    scaler = LauncherScaler(tracker, v1_uri, initial=n_replicas,
+                            spawn_env=child_env)
+    router = None
+    rollout_report = {}
+    try:
+        deadline = time.time() + 180
+        while len(tracker.serve_endpoints()) < n_replicas:
+            stats = scaler.jobset.stats()
+            if time.time() > deadline or any(
+                    r["done"] for r in stats["ranks"].values()):
+                tails = {r: scaler.jobset.log_tail(r, 1500)
+                         for r in stats["ranks"]}
+                raise RuntimeError(f"fleet replicas never registered: "
+                                   f"{stats['ranks']} {tails}")
+            time.sleep(0.2)
+        router = FleetRouter(tracker, probe_s=0.2).start()
+
+        def _rollout():
+            time.sleep(duration / 3.0)
+            admin = HttpFleetAdmin(tracker.serve_endpoints())
+            rollout_report.update(
+                Rollout(admin, wave_size=1, settle_s=0.3).run(v2_uri))
+
+        _fleet_emit({"value": 0.0, "phase": "load", **cfg})
+        roller = threading.Thread(target=_rollout, daemon=True)
+        roller.start()
+        merged = run_loadgen(
+            router.url, expected_npz, duration_s=duration, procs=procs,
+            threads=threads, base_qps=qps, amplitude=0.5,
+            period_s=max(duration / 2.0, 2.0),
+            timeout_ms=10_000, workdir=workdir)
+        roller.join(timeout=120)
+
+        # after the rollout: each replica's version, and sequential
+        # routed answers held against the version they report (a
+        # replica respawned on v1 would show in both)
+        admin = HttpFleetAdmin(tracker.serve_endpoints())
+        replica_versions = {str(r): admin.health(r).get("version")
+                            for r in sorted(admin.replicas())}
+        client = ResilientClient(router.url)
+        post = {"requests": 0, "wrong": 0, "by_version": {}}
+        for i in range(20):
+            k = 1 + i % min(16, serve_rows)
+            lo = (37 * i) % (serve_rows - k + 1)
+            preds, version = client.predict(X[lo:lo + k], timeout_ms=10_000)
+            want = direct.get(int(version))
+            post["requests"] += 1
+            post["by_version"][str(version)] = \
+                post["by_version"].get(str(version), 0) + 1
+            if want is None or not np.array_equal(preds, want[lo:lo + k]):
+                post["wrong"] += 1
+
+        balance, failover = {}, {}
+        try:
+            from dmlc_core_tpu_torch.base.metrics import default_registry
+            snap = default_registry().snapshot()["metrics"]
+            for se in snap.get("dmlc_fleet_routed_total",
+                               {}).get("series", []):
+                balance[se["labels"]["replica"]] = se["value"]
+            for se in snap.get("dmlc_fleet_failover_total",
+                               {}).get("series", []):
+                failover[se["labels"]["reason"]] = se["value"]
+        except Exception:  # noqa: BLE001 — evidence, not the headline
+            pass
+
+        _fleet_emit({
+            "value": merged["throughput_rps"],
+            "phase": "done",
+            "elapsed_s": round(time.time() - t0, 1),
+            "platform": "gpu" if dev.type == "cuda" else "cpu",
+            **card,
+            "requests": merged["count"],
+            "ok": merged["ok"],
+            "dropped": merged["dropped"],
+            "wrong": merged["wrong"],
+            "by_version": merged["by_version"],
+            "latency_p50_ms": merged["latency_p50_ms"],
+            "latency_p95_ms": merged["latency_p95_ms"],
+            "latency_p99_ms": merged["latency_p99_ms"],
+            "per_replica_routed": balance,
+            "failover": failover,
+            "rollout": {k: rollout_report.get(k) for k in
+                        ("version", "outcome", "waves")},
+            "replica_versions": replica_versions,
+            "post_rollout": post,
+            "launch": {k: scaler.jobset.stats()[k] for k in
+                       ("backend", "respawns", "spawn_ms_p95")},
+            **cfg,
+        }, final=True)
+    finally:
+        if router is not None:
+            router.close()
+        scaler.reap(timeout=15)
+        tracker.stop()
+
+
+def _tenants_bench() -> None:
+    """``--tenants``: multi-tenant registry under a Zipf tenant mix (the
+    JAX bench's mode, field for field).
+
+    Publishes ``TENANTS_N`` distinct HistGBT models into one
+    :class:`TenantRegistry` on the run's device, capped at
+    ``TENANTS_RESIDENT_CAP`` resident runners, then drives it closed-loop
+    from ``TENANTS_THREADS`` threads sampling tenants from the bounded
+    Zipf law — the hot head stays warm, the long tail churns through
+    eviction and page-in (a page-in rebuilds the model on the card from
+    its bytes and runs the bucket ladder).  Every response is verified
+    bit-exactly against the publishing model, so ``wrong`` is
+    paging-correctness evidence; the final line carries per-tenant
+    p50/p99, the eviction/restore totals, the page-ins' wall times and,
+    on a card, ``descend_kernel``'s launches per served batch beside
+    trees × depth.  The JAX record's SLO scorecard has no counterpart
+    here."""
+    t0 = time.time()
+    budget = float(os.environ.get("BENCH_TIME_BUDGET", 480))
+    n_tenants = int(os.environ.get("TENANTS_N", 12))
+    cap = int(os.environ.get("TENANTS_RESIDENT_CAP", 4))
+    duration = min(float(os.environ.get("TENANTS_SECONDS", 6)),
+                   max(budget - 120, 2.0))
+    n_threads = int(os.environ.get("TENANTS_THREADS", 4))
+    zipf_a = float(os.environ.get("TENANTS_ZIPF_A", 1.1))
+    train_rows = int(os.environ.get("TENANTS_TRAIN_ROWS", 4000))
+    serve_rows = int(os.environ.get("TENANTS_SERVE_ROWS", 256))
+    feats = int(os.environ.get("BENCH_FEATURES", 28))
+
+    cfg = {"tenants": n_tenants, "resident_cap": cap, "zipf_a": zipf_a,
+           "duration_s": duration, "threads": n_threads}
+    _tenants_emit({"value": 0.0, "phase": "train", **cfg})
+
+    from dmlc_core_tpu_torch.base.metrics import default_registry
+    from dmlc_core_tpu_torch.models import HistGBT
+    from dmlc_core_tpu_torch.ops import histogram as H
+    from dmlc_core_tpu_torch.serve.fleet.loadgen import (sample_tenant,
+                                                         zipf_weights)
+    from dmlc_core_tpu_torch.serve.tenancy import TenantRegistry
+
+    dev, card = _bench_device(_tenants_emit, cfg)
+    rng = np.random.default_rng(17)
+    Xt = rng.normal(size=(train_rows, feats)).astype(np.float32)
+    X = Xt[:serve_rows]
+    reg = TenantRegistry(resident_cap=cap, device=dev, max_batch=64)
+    names = [f"t{i:02d}" for i in range(n_tenants)]
+    expected = {}
+    depth = 3
+    per_batch = {}
+    for i, name in enumerate(names):
+        yt = (Xt[:, i % feats] + 0.5 * Xt[:, (i + 1) % feats]
+              > 0).astype(np.float32)
+        m = HistGBT(n_trees=3 + i % 3, max_depth=depth, n_bins=32,
+                    device=dev).fit(Xt, yt)
+        reg.publish(name, m)
+        per_batch[name] = m.param.n_trees * depth
+        # HistGBT is bit-exact across batch shapes, so any prefix of
+        # this full-batch oracle is THE expected answer for a request
+        expected[name] = np.asarray(m.predict(X))
+
+    # every tenant's runner has the same bucket ladder (max_batch 64)
+    ladder = reg.current(names[-1])[1].shape_bound
+    cum = zipf_weights(n_tenants, zipf_a)
+    lat = {name: [] for name in names}   # list.append is GIL-atomic
+    # the runner's batches, per thread (a shared += would lose counts)
+    batches = [dict.fromkeys(names, 0) for _ in range(n_threads)]
+    wrongs = [0] * n_threads
+    stop = threading.Event()
+
+    def worker(idx):
+        r = np.random.default_rng(1000 + idx)
+        while not stop.is_set():
+            tenant = sample_tenant(r, names, cum)
+            n = int(r.integers(1, serve_rows + 1))
+            t1 = time.perf_counter()
+            _, runner = reg.current(tenant)
+            out = np.asarray(runner.predict(X[:n]))
+            lat[tenant].append(time.perf_counter() - t1)
+            batches[idx][tenant] += -(-n // 64)   # the runner's chunks
+            if not np.array_equal(out, expected[tenant][:n]):
+                wrongs[idx] += 1
+
+    restore = default_registry().histogram("tenant_restore_seconds",
+                                           labels=("tenant",))
+    restores0 = {name: (restore.count(tenant=name),
+                        restore.sum(tenant=name)) for name in names}
+    _tenants_emit({"value": 0.0, "phase": "load", **cfg})
+    H.descend_kernel.launches = 0
+    workers = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(n_threads)]
+    t_load = time.perf_counter()
+    for w in workers:
+        w.start()
+    time.sleep(duration)
+    stop.set()
+    for w in workers:
+        w.join(timeout=60)
+    wall = time.perf_counter() - t_load
+    descends = H.descend_kernel.launches
+
+    count = sum(len(v) for v in lat.values())
+    by_tenant = {}
+    for name in names:
+        ms = np.sort(np.asarray(lat[name], dtype=np.float64)) * 1000.0
+        by_tenant[name] = {"count": int(ms.size)}
+        if ms.size:
+            by_tenant[name].update(
+                p50_ms=round(float(np.percentile(ms, 50)), 3),
+                p99_ms=round(float(np.percentile(ms, 99)), 3))
+    n_in = sum(restore.count(tenant=n) - restores0[n][0] for n in names)
+    s_in = sum(restore.sum(tenant=n) - restores0[n][1] for n in names)
+    extra = {"page_in_seconds_mean": (s_in / n_in) if n_in else None}
+    if dev.type == "cuda":
+        served = {n: sum(b[n] for b in batches) for n in names}
+        n_batches = sum(served.values())
+        extra.update(
+            descend_launches=descends, batches=n_batches,
+            descend_launches_per_batch=descends / max(n_batches, 1),
+            # a page-in's warmup runs the bucket ladder through the
+            # kernel too; the workers' threads share the counter, so a
+            # lost increment can leave the count a launch short
+            descend_launches_expected=(
+                sum(served[n] * per_batch[n] for n in names)
+                + sum((restore.count(tenant=n) - restores0[n][0])
+                      * per_batch[n] * ladder for n in names)))
+    _tenants_emit({
+        "value": round(count / max(wall, 1e-9), 2),
+        "phase": "done",
+        "elapsed_s": round(time.time() - t0, 1),
+        "platform": "gpu" if dev.type == "cuda" else "cpu",
+        **card,
+        "requests": count,
+        "wrong": sum(wrongs),
+        "evictions": reg.evictions,
+        "warm_restores": reg.restores,
+        "resident": reg.resident(),
+        "by_tenant": by_tenant,
+        **extra,
+        **cfg,
+    }, final=True)
+
+
 if __name__ == "__main__":
     modes = [a for a in sys.argv[1:] if a in _NOT_PORTED_MODES]
     if modes:
         sys.stderr.write(f"dmlc_core_tpu_torch.bench: {modes[0]} is not "
-                         "ported (the flagship and --serve modes only)\n")
+                         "ported (the flagship, --serve, --fleet and "
+                         "--tenants modes only)\n")
         sys.exit(2)
     if "--serve" in sys.argv[1:]:
         _serve_bench()
+    elif "--fleet" in sys.argv[1:]:
+        _fleet_bench()
+    elif "--tenants" in sys.argv[1:]:
+        _tenants_bench()
     else:
         main()

@@ -18,8 +18,11 @@ apply the request.  The ``http`` / ``stream`` fault-injection points
 prove the whole URI stack survives a lossy wire bit-identically.
 
 This package's own copy of ``dmlc_core_tpu.io.http_util``'s round trip
-(``http_request``, ``HttpError``, the retry classification), whose user
-here is the serving client.  The JAX module's ranged-read and buffered
+(``http_request``, ``HttpError``, the retry classification), whose users
+here are the serving client and the fleet's router, rollouts and
+autoscale.  It builds its redirect-following opener once per process,
+where the JAX module builds one per request (loading the CA store
+each time: a serving round trip's floor there).  The JAX module's ranged-read and buffered
 write streams come with the remote filesystem backends that use them
 (ROADMAP item 18).
 """
@@ -73,6 +76,18 @@ class _NoRedirect(urllib.request.HTTPErrorProcessor):
 
 
 _opener = urllib.request.build_opener(_NoRedirect)
+
+#: the redirect-following opener, built once on first use: building one
+#: (``build_opener()``: its HTTPS handler loads the CA store) costs more
+#: than a local round trip, which the JAX package pays on every request
+_follow_opener: Optional[urllib.request.OpenerDirector] = None
+
+
+def _redirecting_opener() -> urllib.request.OpenerDirector:
+    global _follow_opener
+    if _follow_opener is None:
+        _follow_opener = urllib.request.build_opener()
+    return _follow_opener
 
 
 def _parse_retry_after(hdrs: Dict[str, str]) -> Optional[float]:
@@ -139,8 +154,7 @@ def http_request(
                                      method=method)
         for k, v in (headers or {}).items():
             req.add_header(k, v)
-        opener = (urllib.request.build_opener() if follow_redirects
-                  else _opener)
+        opener = _redirecting_opener() if follow_redirects else _opener
         try:
             with opener.open(req, timeout=60) as resp:
                 status = resp.status

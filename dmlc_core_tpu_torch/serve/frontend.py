@@ -37,10 +37,12 @@ per-model-version counter ``serve_version_requests_total{version}``.
 
 This package's own copy of ``dmlc_core_tpu.serve.frontend``: the same
 routes (``/predict``, ``/drain``, ``/healthz``, ``/metrics``), codes (400,
-503 with ``Retry-After``, 504) and ``base.faultinject`` hook.  The
-fleet tier that reuses :class:`HttpServer` and the ``serve.tenancy``
-registry behind ``tenants=`` are not ported yet (ROADMAP item 12); the
-``tenants`` seam is kept for them.
+503 with ``Retry-After``, 504) and ``base.faultinject`` hook.
+``tenants=`` takes the port's ``serve.tenancy.TenantRegistry``: a
+predict with the ``X-Dmlc-Tenant`` header runs on that tenant's runner
+(paged in when it was evicted), on the registry's device.  The fleet
+tier (``serve.fleet``) reuses :class:`HttpServer` for its router and
+subclasses :class:`ServeFrontend` for its replicas.
 """
 
 from __future__ import annotations

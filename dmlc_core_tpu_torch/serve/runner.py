@@ -1,6 +1,6 @@
 """Padded-batch model executor with power-of-two shape buckets.
 
-The counterpart of ``dmlc_core_tpu_torch/serve/runner.py``.  In the JAX
+The counterpart of ``dmlc_core_tpu/serve/runner.py``.  In the JAX
 package every distinct input shape is a fresh XLA compilation, and live
 traffic produces arbitrary batch sizes, so :class:`ModelRunner` routes
 any request batch into a small fixed ladder of power-of-two row buckets

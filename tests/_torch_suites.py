@@ -30,6 +30,7 @@ import dmlc_core_tpu_torch.data.device_feed  # noqa: E402,F401
 import dmlc_core_tpu_torch.models  # noqa: E402,F401
 import dmlc_core_tpu_torch.models.sklearn  # noqa: E402,F401
 import dmlc_core_tpu_torch.serve  # noqa: E402,F401
+import dmlc_core_tpu_torch.serve.fleet  # noqa: E402,F401
 from dmlc_core_tpu_torch.utils import device as _device  # noqa: E402
 
 

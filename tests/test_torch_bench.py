@@ -132,9 +132,26 @@ def test_bench_needs_a_gpu_unless_forced_to_the_cpu():
 
 def test_bench_refuses_the_modes_it_does_not_have():
     res = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.bench",
-                          "--fleet"], cwd=ROOT, capture_output=True,
+                          "--stream"], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 2 and "not ported" in res.stderr
+
+
+@pytest.mark.parametrize("mode,metric", [
+    ("--fleet", "fleet_requests_per_sec"),
+    ("--tenants", "tenant_requests_per_sec")])
+def test_bench_fleet_and_tenants_need_a_gpu(mode, metric):
+    # without BENCH_FORCE_CPU they ask for the card: no fallback
+    env = {k: v for k, v in os.environ.items() if k != "BENCH_FORCE_CPU"}
+    env.update(CUDA_VISIBLE_DEVICES="", FLEET_TRAIN_ROWS="2000",
+               TENANTS_TRAIN_ROWS="2000")
+    res = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.bench",
+                          mode], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode != 0 and "no CUDA GPU" in res.stderr
+    rec = json.loads(res.stdout.splitlines()[-1])
+    assert rec["metric"] == metric and rec["provisional"] is False
+    assert "no CUDA GPU" in rec["error"]
 
 
 # ---------------------------------------------------------------------------

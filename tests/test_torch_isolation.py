@@ -78,10 +78,31 @@ def test_bert_path_module_loads_no_jax(module):
 
 @pytest.mark.parametrize("module", [
     "dmlc_core_tpu_torch.bench",
-    "dmlc_core_tpu_torch.tools.spike_hist_floor"])
+    "dmlc_core_tpu_torch.tools.spike_hist_floor",
+    "dmlc_core_tpu_torch.tools.serve_threads"])
 def test_entry_module_loads_no_jax(module):
     # the port's bench and the one-hot spike are entry points of their
     # own: importing either loads no jax and nothing of the JAX package
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}\n"
+        "             or m.startswith('jax'))\n"
+        "print('LOADED', bad)\n")
+    res = _run_clean(code)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "dmlc_core_tpu_torch.serve.fleet", "dmlc_core_tpu_torch.serve.tenancy",
+    "dmlc_core_tpu_torch.serve.fleet.replica",
+    "dmlc_core_tpu_torch.serve.fleet.loadgen",
+    "dmlc_core_tpu_torch.launch", "dmlc_core_tpu_torch.tracker",
+    "dmlc_core_tpu_torch.base.metrics_agg"])
+def test_fleet_tenancy_launch_modules_load_no_jax(module):
+    # the rest of the serving tier, the launch tier, the tracker and the
+    # metrics spool stand alone too
     code = (
         "import sys\n"
         f"import {module}\n"

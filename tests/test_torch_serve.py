@@ -8,11 +8,10 @@ bench as ``python -m dmlc_core_tpu_torch.bench``),
 ``tests/test_resilience.py`` and ``tests/test_tracectx.py``.  Left out,
 each for what the port does not have yet:
 
-* ``test_resilience.py``: ``TestTrackerGrace`` (the rabit tracker,
-  ``tracker/tracker.py``, is not ported) and
-  ``test_chaos_soak_train_and_serve`` (it installs the lock-order, race
-  and leak checkers, ``base/lockcheck.py``, ``racecheck.py``,
-  ``leakcheck.py``, not ported);
+* ``test_resilience.py``: ``test_chaos_soak_train_and_serve`` (it
+  installs the lock-order, race and leak checkers,
+  ``base/lockcheck.py``, ``racecheck.py``, ``leakcheck.py``, not
+  ported);
 * ``test_tracectx.py``: ``TestTraceCollect`` (``scripts/trace_collect.py``
   is a script of the repository, not a module of either package; its
   own file runs it).
@@ -64,12 +63,11 @@ _HTTP = load_port("test_serve_http.py", [
     ('[sys.executable, "bench.py", "--serve"]',
      '[sys.executable, "-m", "dmlc_core_tpu.bench", "--serve"]')])
 export(globals(), _HTTP, ["TestServeHTTP", "TestServeSoak"])
-_RES = load_port("test_resilience.py", [
-    ("from dmlc_core_tpu.tracker.tracker import RabitTracker, "
-     "WorkerSession\n", "")])
+_RES = load_port("test_resilience.py")
 export(globals(), _RES, ["TestRetryPolicy", "TestCircuitBreaker",
                          "TestFaultInject", "TestChaosSchedule",
-                         "TestProducerRestart", "TestCheckpointDurability"])
+                         "TestProducerRestart", "TestCheckpointDurability",
+                         "TestTrackerGrace"])
 _TRACE = load_port("test_tracectx.py")
 export(globals(), _TRACE, ["TestEncoding", "TestDisabledDiscipline",
                            "TestSpanParenting", "TestTracerMetadata"])
