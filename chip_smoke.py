@@ -232,17 +232,53 @@ and the script exits non-zero without the final ``ok`` line:
     card: no drop, no wrong answer, no respawn, no transport failover,
     the rollout activated, every replica on v2 after it and 20 routed
     answers v2's;
+12i. stream — ``OnlineTrainer`` on the card at the stream bench's
+    defaults (chunks of 1024 HIGGS-like events of 28 features from a
+    RecordIO shard written from a seed, a window of 2, 5 trees a refresh
+    at depth 4 and 32 bins) behind a ``ModelPublisher`` with a 4096-row
+    holdout: 6 refreshes with the launch counts set to 0 just before and
+    read just after (``hist`` once and ``fused_round`` three times a
+    tree, ``descend_kernel`` for the margin replay and the gate); the
+    card's model file after 3 refreshes equal to the CPU's; the
+    warm-start contract on the card (window 1, decay 1 over chunks A
+    then B writes ``fit(A); fit(B)``'s file); two refreshes on
+    flipped labels rolled back by the gate, traffic on the good
+    version; then one refresh at ``chunk_rows`` 262,144 (window 2:
+    524,288 × 28) with its tail, decode, fit and publish seconds, and
+    ``hist``, ``fused_round`` and ``descend_kernel`` held against their
+    plain versions at that window's shapes; then the port bench's
+    ``--stream`` as a child process at its defaults (staleness
+    percentiles, at least one refresh published);
+12j. ps — an in-process scheduler and 2 servers, 2 worker threads each
+    running ``GBLinear.fit_ps`` and then ``FM.fit_ps`` with the models
+    on the card (10,000 sparse CTR rows each, 20,000 hashed features): the
+    finalized ``predict`` on the card against the CPU's on the same
+    weights (rtol 1e-5, atol 1e-5), the SSP lag within its bound;
+    ``KVStore("local")`` on the card writing the CPU's bytes; then the
+    port bench's ``--ps`` as a child process at its defaults
+    (``staleness_max`` within ``staleness_bound``, ``keys_per_sec``);
+12k. recovery — ``ElasticTrainer.run_device`` on configuration 1's
+    handle (phase 5's model), stride 2, killed after the round-2 commit
+    by the ``worker`` fault point and resumed by a fresh model: phase
+    5's file byte for byte; then ``ElasticTrainer.run`` with 2 worker
+    threads on the card under an ``ElasticTracker`` (200,000 rows, each
+    worker's ``ElasticSession`` its thread's host transport), clean,
+    then with worker 1 killed after its first commit and a replacement
+    rejoining its rank: the same file as the clean run;
 13. bench — ``python -m dmlc_core_tpu_torch.bench`` as a child process at
     its defaults (10M × 28, 100 rounds after 10 warmup rounds, the
     flagship's levers, host binning), with a time limit: its last line
     must be the final ``histgbt_rounds_per_sec_per_chip`` record of 100
-    rounds, with kernel launches, and its headline fields are emitted;
+    rounds, with kernel launches and a ``kvstore_sync_ms``, and its
+    headline fields are emitted;
 14. the ``kernels`` line (launches summed over phases 3b-6h and 8, phase
     11's for attention, phase 12's timing pass for the B5 variants, phases
-    12f-12h's HTTP runs for ``descend``; ``descend_dir`` is
+    12f-12h's HTTP runs for ``descend``, and phase 12i's refreshes for
+    ``hist``, ``fused_round`` and ``descend``; ``descend_dir`` is
     ``descend_kernel``'s direction mode, B2's descend on the missing
-    path, ``descend`` its plain mode, a served batch's), then
-    the card's name and power limit, then the ``ok`` line.
+    path, ``descend`` its plain mode, a served batch's and a refresh's
+    margin replay), then the card's name and power limit, then the
+    ``ok`` line.
 
 The fit phases (3b-8) run with ``DMLC_TPU_ROUNDS_PER_DISPATCH=1``: each
 tree is its own chunk, fetched on its own, so ``last_tree_times`` stay
@@ -256,6 +292,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -491,6 +528,29 @@ FLEET_REQUESTS = 120
 FLEET_TIMEOUT = 300
 BENCH_ROUNDS = 100
 BENCH_ROWS = 10_000_000
+#: the stream phase: the stream bench's defaults (chunks of 1024 events,
+#: a window of 2, 5 trees a refresh at depth 4 and 32 bins), the events
+#: of the main run's shard, its refreshes, and the big refresh's chunk
+STREAM_CHUNK = 1024
+STREAM_WINDOW = 2
+STREAM_KW = dict(n_trees=5, max_depth=4, n_bins=32, learning_rate=0.3)
+STREAM_REFRESHES = 6
+STREAM_EVENTS = STREAM_REFRESHES * STREAM_CHUNK
+STREAM_BIG = 262_144
+STREAM_TIMEOUT = 240
+#: the ps phase: sparse CTR rows a worker over F hashed features, the
+#: rows densified for the predict check, and the card-vs-CPU predict
+#: tolerance (a matrix product on each: the same weights, other
+#: summation orders)
+PS_FEATURES = 20_000
+PS_ROWS = 10_000
+PS_PREDICT_ROWS = 2_000
+PS_RTOL, PS_ATOL = 1e-5, 1e-5
+PS_TIMEOUT = 240
+#: the recovery phase's elastic run: rows, model, time limit
+ELASTIC_ROWS = 200_000
+ELASTIC_KW = dict(n_trees=6, max_depth=4, n_bins=32, learning_rate=0.3)
+ELASTIC_TIMEOUT = 300
 
 
 def emit(obj) -> None:
@@ -3018,6 +3078,9 @@ def phase_bench(np):
     infeed = rec.get("infeed_stall_frac") or {}
     require(0.0 <= infeed.get("value", -1.0) <= 1.0,
             f"bench: infeed_stall_frac {rec.get('infeed_stall_frac')}")
+    kvs = rec.get("kvstore_sync_ms") or {}
+    require(isinstance(kvs.get("value"), float) and kvs["value"] > 0,
+            f"bench: kvstore_sync_ms {rec.get('kvstore_sync_ms')}")
     phases = {}
     for ln in lines:
         r = json.loads(ln)
@@ -3025,7 +3088,7 @@ def phase_bench(np):
     keys = ("value", "value_basis", "rounds_per_sec_median_chunk",
             "rounds_per_sec_best_chunk", "chunk_seconds_per_round",
             "seconds", "warmup_seconds", "warm_dispatch_seconds",
-            "infeed_stall_frac",
+            "infeed_stall_frac", "kvstore_sync_ms",
             "warmup_breakdown", "compile_seconds", "compile_cache",
             "bin_seconds", "time_to_first_tree", "kernel", "rows",
             "features", "rounds", "levers", "device_kind", "nvidia_smi",
@@ -3535,7 +3598,8 @@ def bench_child(mode, metric, timeout):
     run's platform, with no error.  Returns the record, with the child's
     wall seconds."""
     env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("BENCH_", "SERVE_", "FLEET_", "TENANTS_"))
+           if not k.startswith(("BENCH_", "SERVE_", "FLEET_", "TENANTS_",
+                                "STREAM_"))
            and k != "DMLC_TPU_ROUNDS_PER_DISPATCH"}
     platform = "cpu" if DEVICE == "cpu" else "gpu"
     if platform == "cpu":          # a rehearsal of the script on the host
@@ -3916,6 +3980,505 @@ def phase_fleet(torch, np, H, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# streaming, the parameter server and elastic recovery
+# ---------------------------------------------------------------------------
+
+def write_events(np, path, X, y, mode="ab"):
+    """Rows ``X, y`` appended to ``path`` as dense events (one RecordIO
+    record a row, the stream's codec)."""
+    from dmlc_core_tpu_torch.io.recordio import encode_records
+    from dmlc_core_tpu_torch.stream import encode_dense_events
+
+    with open(path, mode) as f:
+        f.write(encode_records(encode_dense_events(X, y)))
+
+
+def stream_trainer(path, device, publisher=None, chunk_rows=STREAM_CHUNK,
+                   window=STREAM_WINDOW, decay=1.0, name="smoke"):
+    """An ``OnlineTrainer`` at the stream bench's defaults (5 trees a
+    refresh, depth 4, 32 bins) over the shard at ``path``."""
+    from dmlc_core_tpu_torch.models import HistGBT
+    from dmlc_core_tpu_torch.stream import OnlineTrainer, RecordIOTailer
+
+    model = HistGBT(device=device, **STREAM_KW)
+    return OnlineTrainer(model, RecordIOTailer(path, name=name),
+                         n_features=FEATURES, chunk_rows=chunk_rows,
+                         window_chunks=window, decay=decay,
+                         publisher=publisher, commit_cursor=False,
+                         name=name)
+
+
+def stream_kernels(torch, H, model, X):
+    """``hist`` (root), ``fused_round`` (each level below it) and
+    ``descend_kernel`` (every level of every tree) at a refresh's own
+    shapes — the window's bins ``[28, 524288]`` in 32 bins — against
+    their plain versions on the same inputs, bit for bit."""
+    dev = torch.device(DEVICE)
+    bins = model._bins_of(torch.from_numpy(X).to(dev))
+    n = bins.shape[1]
+    B = STREAM_KW["n_bins"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    p = torch.sigmoid(0.5 * torch.randn(n, device=dev, generator=gen))
+    y = (torch.rand(n, device=dev, generator=gen) < p).float()
+    g, h = p - y, p * (1 - p)
+    kg, kh = H.hist_scales(g, h)
+    node = torch.zeros(n, dtype=torch.int32, device=dev)
+    a = H.hist_kernel(bins, node, g, h, 1, B, kg, kh)
+    c = H.hist_plain(bins, node, g, h, 1, B, kg, kh)
+    torch.cuda.synchronize()
+    require(torch.equal(a, c), "stream: hist kernel != hist_plain")
+    errs = {"hist": max_abs_err(torch, a, c), "fused_round": 0.0,
+            "descend": 0.0}
+    for lv in range(1, STREAM_KW["max_depth"]):
+        n_prev = 1 << (lv - 1)
+        nd = torch.randint(0, n_prev, (n,), dtype=torch.int32, device=dev,
+                           generator=gen)
+        feat = torch.randint(0, FEATURES, (n_prev,), dtype=torch.int32,
+                             device=dev, generator=gen)
+        thr = torch.randint(0, B - 1, (n_prev,), dtype=torch.int32,
+                            device=dev, generator=gen)
+        prev = H.hist_plain(bins, nd, g, h, n_prev, B, kg, kh)
+        a = H.fused_round_kernel(bins, nd, feat, thr, g, h, prev, n_prev, B,
+                                 kg, kh, True)
+        c = H.fused_round_plain(bins, nd, feat, thr, g, h, prev, n_prev, B,
+                                kg, kh, True)
+        torch.cuda.synchronize()
+        require(torch.equal(a[0], c[0]) and torch.equal(a[1], c[1]),
+                f"stream: fused_round != plain (n_prev {n_prev})")
+        errs["fused_round"] = max(errs["fused_round"],
+                                  max_abs_err(torch, a[1], c[1]))
+    st = model._stacked_trees(model.trees)
+    for t in range(st["feat"].shape[0]):
+        node = torch.zeros(n, dtype=torch.int32, device=dev)
+        for lv in range(STREAM_KW["max_depth"]):
+            feat = st["feat"][t, lv].to(torch.int32).contiguous()
+            thr = st["thr"][t, lv].to(torch.int32).contiguous()
+            a = H.descend_kernel(bins, node, feat, thr, True)
+            c = H.descend_plain(bins, node, feat, thr, True)
+            require(torch.equal(a, c),
+                    f"stream: descend_kernel != plain (tree {t}, level {lv})")
+            node = a
+    return errs
+
+
+def phase_stream(torch, np, H, smi):
+    """Online learning on the card (see the module docstring, 12i).
+    Returns the kernel launches of its main run and the largest errors of
+    the kernels held at the big refresh's shapes."""
+    from dmlc_core_tpu_torch.models import HistGBT
+    from dmlc_core_tpu_torch.serve import ModelRegistry
+    from dmlc_core_tpu_torch.stream import ModelPublisher
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke_stream_")
+    X, y = higgs_like(np, STREAM_EVENTS, FEATURES, 21)
+    Xh, yh = higgs_like(np, 4096, FEATURES, 22)
+    shard = os.path.join(tmp, "events.rec")
+    write_events(np, shard, X, y, "wb")
+    # (a) the main run: 6 refreshes gated by a publisher, launch counts
+    # set to 0 just before and read just after
+    reg = ModelRegistry(max_batch=256, min_bucket=8, device=DEVICE)
+    pub = ModelPublisher(reg, holdout=(Xh, yh), name="smoke")
+    tr = stream_trainer(shard, DEVICE, publisher=pub)
+    zero_counts(H)
+    outs = tr.run(max_refreshes=STREAM_REFRESHES, timeout=1.0)
+    launches = {"hist": H.hist_kernel.launches,
+                "fused_round": H.fused_round_kernel.launches,
+                "descend": H.descend_kernel.launches}
+    require(len(outs) == STREAM_REFRESHES
+            and [o["window_rows"] for o in outs[:2]]
+            == [STREAM_CHUNK, STREAM_CHUNK * STREAM_WINDOW],
+            f"stream: refreshes {[(o['rows'], o['window_rows']) for o in outs]}")
+    trees = STREAM_KW["n_trees"] * STREAM_REFRESHES
+    require(launches["hist"] == trees and launches["fused_round"]
+            == trees * (STREAM_KW["max_depth"] - 1),
+            f"stream: launches {launches} for {trees} trees")
+    require(launches["descend"] > 0, "stream: no descend launch (the "
+            "margin replay and the gate run on the card)")
+    require(pub.activations >= 1, "stream: nothing activated")
+    # the card's model file after 3 refreshes equals the CPU's
+    files = {}
+    for dev in (DEVICE, "cpu"):
+        t3 = stream_trainer(shard, dev, name=f"files-{dev}")
+        t3.run(max_refreshes=3, timeout=1.0)
+        files[dev] = model_bytes_of(t3.model)
+    require(files[DEVICE] == files["cpu"],
+            "stream: the card's file after 3 refreshes != the CPU's")
+    # the warm-start contract on the card: window 1, decay 1 over chunks
+    # A then B writes the file of fit(A); fit(B)
+    A = slice(0, STREAM_CHUNK)
+    Bs = slice(STREAM_CHUNK, 2 * STREAM_CHUNK)
+    manual = HistGBT(device=DEVICE, **STREAM_KW)
+    manual.fit(X[A], y[A])
+    manual.fit(X[Bs], y[Bs])
+    tw = stream_trainer(shard, DEVICE, window=1, name="warm")
+    tw.run(max_refreshes=2, timeout=1.0)
+    require(model_bytes_of(tw.model) == model_bytes_of(manual),
+            "stream: warm-start contract broken on the card")
+    # a forced regression: poisoned (flipped) labels, rolled back with
+    # traffic still on the good version
+    good_v, runner = reg.current()
+    good = np.asarray(runner.predict(Xh[:256]))
+    Xp, yp = higgs_like(np, 2 * STREAM_CHUNK, FEATURES, 23)
+    write_events(np, shard, Xp, 1.0 - yp)
+    rolled = [tr.refresh(timeout=1.0) for _ in range(2)]
+    require(any(r is not None and not r["activated"] for r in rolled),
+            f"stream: the poisoned refreshes activated ({rolled})")
+    cur_v, runner = reg.current()
+    require(pub.rollbacks >= 1 and cur_v in reg.versions(),
+            "stream: no rollback counted")
+    if all(not r["activated"] for r in rolled):
+        require(cur_v == good_v and np.asarray(runner.predict(
+            Xh[:256])).tobytes() == good.tobytes(),
+                "stream: traffic left the good version")
+    emit({"phase": "stream", "part": "main", "refreshes": len(outs),
+          "refresh_seconds": [o["refresh_seconds"] for o in outs],
+          "fit_seconds": [o["fit_seconds"] for o in outs],
+          "launches": launches, "activations": pub.activations,
+          "rollbacks": pub.rollbacks,
+          "poisoned": [None if r is None else
+                       {k: r[k] for k in ("version", "activated", "score",
+                                          "baseline")} for r in rolled],
+          "files_equal_cpu": True, "warm_start_contract": True})
+    del X, y
+    # (b) one refresh at chunk_rows 262,144 (window 2: 524,288 rows),
+    # timed by part: tail (poll), decode, fit, publish
+    Xb, yb = higgs_like(np, 2 * STREAM_BIG, FEATURES, 24)
+    big = os.path.join(tmp, "big.rec")
+    write_events(np, big, Xb, yb, "wb")
+    reg2 = ModelRegistry(max_batch=256, min_bucket=8, device=DEVICE)
+    pub2 = ModelPublisher(reg2, holdout=(Xh, yh), name="big")
+    tb = stream_trainer(big, DEVICE, publisher=pub2, chunk_rows=STREAM_BIG,
+                        name="big")
+    parts = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    tb.tailer.wait_records = timed("tail", tb.tailer.wait_records)
+    tb._decode = timed("decode", tb._decode)
+    pub2.publish = timed("publish", pub2.publish)
+    tb.refresh(timeout=30.0)                  # the window's first chunk
+    zero_counts(H)
+    r = tb.refresh(timeout=30.0)
+    big_launches = {"hist": H.hist_kernel.launches,
+                    "fused_round": H.fused_round_kernel.launches,
+                    "descend": H.descend_kernel.launches}
+    require(r is not None and r["window_rows"] == 2 * STREAM_BIG,
+            f"stream: big refresh {r}")
+    for k, v in big_launches.items():
+        launches[k] += v
+    errs = stream_kernels(torch, H, tb.model, Xb)
+    emit({"phase": "stream", "part": "big_refresh", "chunk_rows": STREAM_BIG,
+          "window_rows": r["window_rows"], "features": FEATURES,
+          "tail_seconds": parts["tail"], "decode_seconds": parts["decode"],
+          "fit_seconds": r["fit_seconds"],
+          "publish_seconds": parts["publish"],
+          "refresh_seconds": r["refresh_seconds"],
+          "activated": r.get("activated"), "launches": big_launches,
+          "kernels_held": errs, "nvidia_smi": smi})
+    del Xb, yb
+    shutil.rmtree(tmp, ignore_errors=True)
+    # (c) the port bench's --stream as a child process at its defaults
+    rec = bench_child("--stream", "stream_staleness_seconds", STREAM_TIMEOUT)
+    st = rec["staleness_seconds"]
+    require(all(isinstance(st[q], float) for q in ("p50", "p95", "p99"))
+            and rec["refreshes_published"] >= 1 and rec["events_served"] > 0,
+            f"bench --stream: {json.dumps(rec)[:500]}")
+    emit({**rec, "phase": "stream", "part": "bench",
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches, errs
+
+
+def ctr_blocks(np, n, F, nnz, seed):
+    """Sparse CTR rows (the PS bench's rule at a smaller width): ``nnz``
+    hashed ids a row, the label from a few signal features."""
+    from dmlc_core_tpu_torch.data.row_block import RowBlock
+
+    rng = np.random.default_rng(seed)
+    hot = rng.choice(F, 64, replace=False)
+    w_true = rng.normal(size=64).astype(np.float32)
+    idx = rng.integers(0, F, size=(n, nnz)).astype(np.int64)
+    pick = rng.integers(0, 64, size=(n, 4))
+    idx[:, :4] = hot[pick]
+    vals = rng.normal(size=(n, nnz)).astype(np.float32)
+    y = ((vals[:, :4] * w_true[pick]).sum(1) > 0).astype(np.float32)
+    off = np.arange(0, n * nnz + 1, nnz, dtype=np.int64)
+    return [RowBlock(offset=off, label=y, index=idx.ravel(),
+                     value=vals.ravel())]
+
+
+def phase_ps(torch, np, smi):
+    """The parameter server with models on the card (see the module
+    docstring, 12j)."""
+    import threading
+
+    from dmlc_core_tpu_torch.models import FM, GBLinear
+    from dmlc_core_tpu_torch.parallel.kvstore import (DistAsyncKVStore,
+                                                      KVStore)
+    from dmlc_core_tpu_torch.parallel.ps import (PSClient, PSScheduler,
+                                                 PSServer)
+
+    t_phase = time.perf_counter()
+    F = PS_FEATURES
+    sched = PSScheduler("127.0.0.1", nworker=2, nserver=2)
+    sched.start()
+    servers = [PSServer("127.0.0.1", sched.port, server_id=i)
+               for i in range(2)]
+    threads = []
+    for srv in servers:
+        srv.start()
+        threads.append(threading.Thread(target=srv.serve_forever,
+                                        daemon=True))
+        threads[-1].start()
+    models, errors = {}, []
+
+    def worker(rank):
+        try:
+            kv = DistAsyncKVStore(PSClient(root_uri="127.0.0.1",
+                                           root_port=sched.port, rank=rank),
+                                  learning_rate=0.3)
+            blocks = ctr_blocks(np, PS_ROWS, F, 16, 30 + rank)
+            lin = GBLinear(device=DEVICE, learning_rate=0.3, reg_lambda=0.0)
+            lin.fit_ps(blocks, kv, num_col=F, batch_rows=1024, n_epochs=2)
+            fm = FM(device=DEVICE, n_factors=8, n_epochs=2, seed=3)
+            fm.fit_ps(blocks, kv, num_col=F, batch_rows=1024)
+            models[rank] = (lin, fm, blocks, max(kv.staleness_samples))
+            kv.close()
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(repr(e))
+
+    wts = [threading.Thread(target=worker, args=(r,)) for r in range(2)]
+    t0 = time.perf_counter()
+    for t in wts:
+        t.start()
+    for t in wts:
+        t.join(timeout=PS_TIMEOUT)
+    fit_s = time.perf_counter() - t0
+    for t in threads:
+        t.join(timeout=30)
+    sched.join(timeout=30)
+    require(not errors and sorted(models) == [0, 1], f"ps: {errors}")
+    lin, fm, blocks, lag = models[0]
+    require(lag <= 4, f"ps: staleness {lag} past the bound")
+    Xd = blocks[0].to_dense(F)[:PS_PREDICT_ROWS]
+    yd = blocks[0].label[:PS_PREDICT_ROWS]
+    # finalized predict on the card vs the CPU's on the same weights
+    lin_cpu = GBLinear(device="cpu")
+    lin_cpu.weights, lin_cpu.bias = lin.weights, lin.bias
+    fm_cpu = FM(device="cpu", n_factors=8)
+    fm_cpu.params_from_numpy({k: v.cpu().numpy()
+                              for k, v in fm.params.items()})
+    require(all(v.device.type == torch.device(DEVICE).type
+                for v in fm.params.values()),
+            "ps: FM's finalized parameters are not on the card")
+    errs = {}
+    for name, m, c in (("gblinear", lin, lin_cpu), ("fm", fm, fm_cpu)):
+        a = m.predict(Xd, output_margin=True)
+        b = c.predict(Xd, output_margin=True)
+        errs[name] = float(np.max(np.abs(a - b)))
+        np.testing.assert_allclose(a, b, rtol=PS_RTOL, atol=PS_ATOL)
+    acc = float(((lin.predict(Xd) > 0.5) == (yd > 0.5)).mean())
+    require(acc > 0.7, f"ps: GBLinear accuracy {acc}")
+    # KVStore("local") on the card: the CPU's bytes
+    out = {}
+    rng = np.random.default_rng(5)
+    vals = [rng.normal(size=s).astype(np.float32)
+            for s in ((4000, 128), (128, 512), (512,))]
+    grads = [[rng.normal(size=v.shape).astype(np.float32) for v in vals]
+             for _ in range(3)]
+    keys = ["embed", "w", "b"]
+    for dev in (DEVICE, "cpu"):
+        kv = KVStore.create("local", learning_rate=0.01, device=dev)
+        kv.init(keys, vals)
+        for step in grads:
+            kv.push(keys, step)
+            kv.push(keys[:1], step[:1])
+            kv.pull(keys)
+        out[dev] = [v.cpu().numpy().tobytes() for v in kv.pull(keys)]
+    require(out[DEVICE] == out["cpu"], "ps: KVStore(local) card != CPU")
+    emit({"phase": "ps", "part": "fit_ps", "features": F,
+          "rows_per_worker": PS_ROWS, "fit_seconds": fit_s,
+          "predict_max_abs_err": errs, "gblinear_accuracy": acc,
+          "staleness_max": lag, "kvstore_local_equal_cpu": True})
+    rec = ps_bench_child()
+    emit({**rec, "phase": "ps", "part": "bench",
+          "phase_seconds": time.perf_counter() - t_phase})
+
+
+def ps_bench_child():
+    """``python -m dmlc_core_tpu_torch.bench --ps`` at its defaults as a
+    child process: a final record with ``keys_per_sec`` and the observed
+    staleness within its bound."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "PS_"))}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.bench",
+                          "--ps"], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=PS_TIMEOUT)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    require(res.returncode == 0 and lines,
+            f"bench --ps exited {res.returncode}: {res.stderr[-2000:]}")
+    rec = json.loads(lines[-1])
+    require(rec.get("bench") == "ps_sparse_ctr"
+            and isinstance(rec.get("keys_per_sec"), float)
+            and rec["keys_per_sec"] > 0
+            and rec["staleness_max"] is not None
+            and rec["staleness_max"] <= rec["staleness_bound"],
+            f"bench --ps: bad record {lines[-1][:500]}")
+    rec.pop("metrics_summary", None)
+    rec["child_wall_seconds"] = wall
+    return rec
+
+
+def elastic_worker(tracker, directory, X, y, out, errs, rank=-1,
+                   die_after_faults=None):
+    """One elastic worker thread on the card (the JAX package's protocol
+    tests' worker): its own ``ElasticSession`` as its thread's host
+    transport, ``ElasticTrainer.run`` over ``fit_external`` legs of its
+    rows; ``die_after_faults`` ends it uncleanly (its socket closed
+    without a shutdown) after that many fault points."""
+    import threading
+
+    from dmlc_core_tpu_torch.data.iter import ArrayRowIter
+    from dmlc_core_tpu_torch.models import HistGBT
+    from dmlc_core_tpu_torch.parallel.recovery import (ElasticSession,
+                                                       ElasticTrainer,
+                                                       WorkerAborted)
+
+    def worker():
+        sess = None
+        try:
+            sess = ElasticSession("127.0.0.1", tracker.port, rank=rank)
+            m = HistGBT(device=DEVICE, **ELASTIC_KW)
+            tr = ElasticTrainer(m, ELASTIC_KW["n_trees"],
+                                recovery_dir=directory, stride=2)
+            if die_after_faults is not None:
+                calls = [0]
+
+                def fault():
+                    calls[0] += 1
+                    if calls[0] > die_after_faults:
+                        raise WorkerAborted("simulated death")
+                tr._worker_fault = fault
+            tr.run(sess, lambda lo, hi: ArrayRowIter(X[lo:hi], y[lo:hi]),
+                   len(y), join_timeout_s=120)
+            out[sess.grank] = (model_bytes_of(m), tr.rounds_replayed)
+            sess.shutdown()
+        except WorkerAborted:
+            sess.close()                # no shutdown: a death
+        except Exception as e:  # noqa: BLE001 — raised by the caller
+            errs.append(repr(e))
+    return threading.Thread(target=worker, daemon=True)
+
+
+def phase_recovery(torch, np, H, smi, X, y, lossguide_bytes):
+    """Round-versioned recovery on the card (see the module docstring,
+    12k)."""
+    from dmlc_core_tpu_torch.base import faultinject as fi
+    from dmlc_core_tpu_torch.models import HistGBT
+    from dmlc_core_tpu_torch.parallel.recovery import (ElasticTracker,
+                                                       ElasticTrainer,
+                                                       WorkerAborted)
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke_recovery_")
+    kw = dict(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS)
+    # (a) run_device on configuration 1's handle, stride 2, killed after
+    # the round-2 commit (the third fault point: rounds 1 and 2, then the
+    # commit), resumed by a fresh model
+    with levers(BENCH_LEVERS):
+        m1 = HistGBT(device=DEVICE, **kw)
+        dd = m1.make_device_data(X, y)
+        require(dd["layout"] is None, "recovery: a layout fired")
+        tr1 = ElasticTrainer(m1, TREES, recovery_dir=tmp, stride=2)
+        with fi.inject("worker:abort:after=2"):
+            try:
+                tr1.run_device(dd)
+                require(False, "recovery: the injected abort never fired")
+            except WorkerAborted:
+                pass
+        require(tr1.rounds_trained == 2, f"recovery: killed at round "
+                f"{tr1.rounds_trained}")
+        del dd, m1
+        m2 = HistGBT(device=DEVICE, **kw)
+        dd = m2.make_device_data(X, y)
+        tr2 = ElasticTrainer(m2, TREES, recovery_dir=tmp, stride=2)
+        zero_counts(H)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr2.run_device(dd)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        counts = read_counts(H)
+        replay = H.descend_kernel.launches
+    require(tr2.resumed_from == 2, f"recovery: resumed from "
+            f"{tr2.resumed_from}")
+    require(model_bytes_of(m2) == lossguide_bytes,
+            "recovery: the resumed run's file != phase main_lossguide's")
+    del dd, m2
+    gc_cuda(torch)
+    emit({"phase": "recovery", "part": "run_device", "stride": 2,
+          "killed_at_round": 2, "resumed_from": 2,
+          "resume_seconds": resume_s, "launches": counts,
+          "replay_descend_launches": replay, "file_equal_main": True})
+    # (b) run over fit_external: 2 worker threads on the card under an
+    # ElasticTracker, clean and with a kill and rejoin
+    Xs, ys = X[:ELASTIC_ROWS], y[:ELASTIC_ROWS]
+    blobs = {}
+    for mode in ("clean", "kill"):
+        d = os.path.join(tmp, mode)
+        tracker = ElasticTracker(nworker=2, grace_s=60.0)
+        tracker.start()
+        out, errs = {}, []
+        t0 = time.perf_counter()
+        try:
+            threads = [elastic_worker(
+                tracker, d, Xs, ys, out, errs,
+                die_after_faults=1 if mode == "kill" and i == 1 else None)
+                for i in range(2)]
+            for t in threads:
+                t.start()
+            if mode == "kill":
+                deadline = time.time() + 120
+                while time.time() < deadline and not tracker.lost_ranks():
+                    time.sleep(0.05)
+                lost = tracker.lost_ranks()
+                require(len(lost) == 1, f"recovery: lost {lost}")
+                threads.append(elastic_worker(tracker, d, Xs, ys, out, errs,
+                                              rank=lost[0]))
+                threads[-1].start()
+            for t in threads:
+                t.join(timeout=ELASTIC_TIMEOUT)
+            floor = tracker.recovery_floor()
+        finally:
+            tracker.stop()
+        require(not errs and sorted(out) == [0, 1],
+                f"recovery {mode}: {errs} {sorted(out)}")
+        files = [v[0] for v in out.values()]
+        require(files[0] == files[1], f"recovery {mode}: workers disagree")
+        blobs[mode] = files[0]
+        emit({"phase": "recovery", "part": f"elastic_{mode}",
+              "rows": ELASTIC_ROWS, "workers": 2, "floor": floor,
+              "rounds_replayed": {r: v[1] for r, v in out.items()},
+              "seconds": time.perf_counter() - t0})
+    require(blobs["kill"] == blobs["clean"],
+            "recovery: the kill-and-rejoin run's file != the clean run's")
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "recovery", "part": "done", "kill_equals_clean": True,
+          "phase_seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -4002,7 +4565,6 @@ def main() -> int:
     del Xm, Xmv
     for k, v in launches.items():
         require(v > 0, f"{k} was never launched on the main paths")
-    del X, y
     phase_deep_kernels(torch, H, rates, mats)
     floor = phase_hist_floor(torch, np, H, rates, tc_rate)
     attention = phase_attention_kernels(torch, A, rates, tc_rate)
@@ -4023,6 +4585,15 @@ def main() -> int:
     del Xl, yl, lin_model, fm_model, sparse_model
     launches["descend"] += phase_tenancy(torch, np, H, smi)
     launches["descend"] += phase_fleet(torch, np, H, smi)
+    stream_launches, stream_errs = phase_stream(torch, np, H, smi)
+    for k, v in stream_launches.items():
+        require(v > 0, f"{k} was never launched on the stream path")
+        launches[k] += v
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"],
+                                        stream_errs[k])
+    phase_ps(torch, np, smi)
+    phase_recovery(torch, np, H, smi, X, y, lossguide_fit[1])
+    del X, y
     phase_bench(np)
     for k, v in floor.items():
         launches[k] = v.pop("launches")

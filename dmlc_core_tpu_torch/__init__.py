@@ -18,10 +18,15 @@ the sklearn-style wrappers; ``models.BERT`` masked-LM training on one
 GPU with hand-written flash-attention kernels; the serving tier
 (``serve``: runner, batcher, registry, HTTP frontend and client;
 ``serve.tenancy``, ``serve.fleet``) with the ``tracker``, ``launch``
-and metrics-spool (``base.metrics_agg``) tiers under it; the flagship,
-serve, fleet and tenants benches (``python -m dmlc_core_tpu_torch.bench
-[--serve | --fleet | --tenants]``); and the one-hot product histogram
-spike (``tools/spike_hist_floor.py``).
+and metrics-spool (``base.metrics_agg``) tiers under it; online
+learning (``stream``: the tailer, the online trainer, the publisher);
+distributed state (``parallel.kvstore``, the parameter server
+``parallel.ps`` behind ``fit_ps``, sharded checkpoints, the host
+transport and the elastic recovery layer ``parallel.recovery``); the
+flagship, serve, fleet, tenants, stream and ps benches (``python -m
+dmlc_core_tpu_torch.bench [--serve | --fleet | --tenants | --stream |
+--ps]``); and the one-hot product histogram spike
+(``tools/spike_hist_floor.py``).
 """
 
 from dmlc_core_tpu_torch.models.histgbt import HistGBT, HistGBTParam

@@ -56,11 +56,27 @@ Zipf (``TENANTS_ZIPF_A`` 1.1) for ``TENANTS_SECONDS`` (6); metric
 ``tenant_requests_per_sec``, plus ``descend_kernel``'s launches per
 served batch on a card.
 
+``--stream`` is the JAX bench's online-learning mode
+(:func:`_stream_bench`): a generator thread appends events at
+``STREAM_EVENTS_PER_SEC`` (1500) to a growing RecordIO shard set while an
+``OnlineTrainer`` refreshes a depth-4, 32-bin ``HistGBT`` by
+``STREAM_TREES`` (5) trees on a window of ``STREAM_WINDOW_CHUNKS`` (2)
+chunks of ``STREAM_CHUNK_ROWS`` (1024) rows × ``BENCH_FEATURES`` (28),
+gated and hot-swapped by a ``ModelPublisher``, for ``STREAM_SECONDS``
+(10); metric ``stream_staleness_seconds`` (event appended → an activated
+version trained on it, p50/p95/p99).  ``--ps`` is the JAX bench's
+parameter-server mode (:func:`_ps_bench`): an in-process scheduler,
+``PS_SERVERS`` (2) servers and ``PS_WORKERS`` (2) worker threads running
+``GBLinear.fit_ps`` over a 10M-feature hashed CTR stream of
+``PS_ROWS`` (40,000) rows of ``PS_NNZ`` (32) ids; record
+``keys_per_sec``, ``staleness_p95``, ``staleness_max``,
+``staleness_bound``.  The flagship record's ``kvstore_sync_ms`` is the
+JAX bench's kvstore smoke on the port (:func:`_smoke_kvstore`).
+
 Not in this module (the JAX bench's other modes): ``BENCH_CHIPS > 1`` and
-its scaling probe, ``--stream``, ``--ps``,
-``--prodsim``, the kvstore smoke, the SLO scorecard and jitcheck's
-``recompiles_steady_state``.  The record leaves their fields out, or
-writes null with a note.
+its scaling probe, ``--prodsim``, the SLO scorecard and jitcheck's
+``recompiles_steady_state`` (the port compiles nothing).  The record
+leaves their fields out, or writes null with a note.
 """
 
 import functools
@@ -93,12 +109,14 @@ _PEAK_BF16: dict = {}
 _DATAGEN_BPS = 140e6
 _HOST_PREP_BPS = 35e6
 _BUILD_WARM_S = 10.0
-#: seconds of budget the infeed smoke needs left (the JAX bench's floor)
+#: seconds of budget the infeed and kvstore smokes need left (the JAX
+#: bench's floors)
 _INFEED_FLOOR_S = 75
+_KVSTORE_FLOOR_S = 60
 _ROUND_S_PER_ROW = 6e-9
 
 #: the JAX bench's modes this module does not have
-_NOT_PORTED_MODES = ("--stream", "--ps", "--prodsim", "--scaling-probe")
+_NOT_PORTED_MODES = ("--prodsim", "--scaling-probe")
 
 #: single shared evidence store; emit() renders it as one JSON line.
 #: Written only by the main thread; read by the watchdog thread and
@@ -204,6 +222,60 @@ def _smoke_infeed(dev):
             out = torch.sum(torch.tanh(x @ w))
         out.item()               # a real fetch: the pipe drained
         return round(feed.stats.stall_fraction(), 4)
+
+
+def _smoke_kvstore(dev):
+    """The JAX bench's kvstore smoke: fused dist_sync push+pull ms/step
+    on a small BERT-shaped key set (an embedding and 12 layers of two
+    matrices and a bias, hidden 128), median of 3 repeats of 3 steps.
+    The pull's collective needs a process group behind the store's
+    mesh: without one, a group of one on this device (NCCL on a card,
+    gloo on the CPU) is made for the smoke and taken down after it."""
+    import torch
+    import torch.distributed as dist
+
+    from dmlc_core_tpu_torch.parallel.kvstore import KVStore
+    from dmlc_core_tpu_torch.parallel.launch import free_port
+
+    hidden = 128
+    shapes = [("embed", (4000, hidden))]
+    for i in range(12):
+        shapes += [(f"l{i}.w1", (hidden, 4 * hidden)),
+                   (f"l{i}.w2", (4 * hidden, hidden)),
+                   (f"l{i}.b", (hidden,))]
+    rng = np.random.default_rng(2)
+    own = not dist.is_initialized()
+    if own:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+            rank=0)
+    try:
+        grads = {k: torch.from_numpy(rng.normal(size=s).astype(
+            np.float32)).to(dev) for k, s in shapes}
+        kv = KVStore.create("dist_sync", learning_rate=0.01, device=dev)
+        keys = [k for k, _ in shapes]
+        kv.init(keys, [np.zeros(s, np.float32) for _, s in shapes])
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        kv.push(keys, [grads[k] for k in keys])      # first use of each op
+        kv.pull(keys)
+        sync()
+        steps, reps = 3, []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                kv.push(keys, [grads[k] for k in keys])
+                kv.pull(keys)
+            sync()
+            reps.append((time.perf_counter() - t0) / steps * 1e3)
+        return round(sorted(reps)[1], 3)
+    finally:
+        if own:
+            dist.destroy_process_group()
 
 
 def emit(final=False, **extra):
@@ -624,18 +696,25 @@ def main() -> None:
 
     EV["phase"] = "smoke"
     EV["smoke"] = {"infeed_stall_frac": None, "kvstore_sync_ms": None}
-    if deadline - time.time() < _INFEED_FLOOR_S:
-        EV["notes"].append("infeed_stall_frac skipped: budget")
-    else:
+    smokes = (
+        ("infeed_stall_frac", _smoke_infeed, _INFEED_FLOOR_S,
+         "24 x [2048, 128] f32 batches through DeviceFeed(depth=2), "
+         "consumer sum(tanh(x @ w))"),
+        ("kvstore_sync_ms", _smoke_kvstore, _KVSTORE_FLOOR_S,
+         "dist_sync push+pull ms/step of a BERT-shaped key set (37 keys, "
+         "2.09M f32) over a process group of one on this device, median "
+         "of 3 x 3 steps"))
+    for name, fn, floor, basis in smokes:
+        if deadline - time.time() < floor:
+            EV["notes"].append(f"{name} skipped: budget")
+            continue
         try:
-            EV["smoke"] = {**EV["smoke"], "infeed_stall_frac": {
-                "value": _smoke_infeed(dev),
-                "basis": "24 x [2048, 128] f32 batches through "
-                         "DeviceFeed(depth=2), consumer sum(tanh(x @ w))"}}
+            EV["smoke"] = {**EV["smoke"],
+                           name: {"value": fn(dev), "basis": basis}}
         except Exception as e:  # noqa: BLE001
             EV["notes"].append(
-                f"infeed_stall_frac failed: {type(e).__name__}: {e}"[:200])
-    EV["notes"].append("scaling probe and kvstore smoke: not ported (null)")
+                f"{name} failed: {type(e).__name__}: {e}"[:200])
+    EV["notes"].append("scaling probe: not ported")
     EV["phase"] = "done"
     emit(final=True)
 
@@ -1156,12 +1235,337 @@ def _tenants_bench() -> None:
     }, final=True)
 
 
+def _stream_emit(rec, final=False):
+    """One JSON line of the stream mode's record (seconds of staleness):
+    provisional until ``final``, which attaches the metrics summary."""
+    rec = {"metric": "stream_staleness_seconds", "unit": "s",
+           "provisional": not final, **rec}
+    if final:
+        _attach_metrics(rec)
+    with _EMIT_LOCK:
+        sys.stdout.write(json.dumps(rec) + "\n")
+        sys.stdout.flush()
+
+
+def _stream_bench() -> None:
+    """``--stream``: closed-loop online-learning benchmark (the JAX
+    bench's mode, field for field).
+
+    A generator thread appends synthetic events (dense-event codec,
+    slight concept drift) to a growing RecordIO shard set at
+    ``STREAM_EVENTS_PER_SEC`` (1500); the main loop runs the full
+    train→serve path — tail → warm-start boost of ``STREAM_TREES`` (5)
+    trees on a window of ``STREAM_WINDOW_CHUNKS`` (2) chunks of
+    ``STREAM_CHUNK_ROWS`` (1024) rows × ``BENCH_FEATURES`` (28) → gated
+    publish → registry hot-swap — for ``STREAM_SECONDS`` (10).  The
+    headline is **staleness**: event appended → an *activated* version
+    has trained on it (p50/p95/p99 over all served events), with refresh
+    throughput.  On a card the record adds the refreshes' kernel
+    launches (``hist``, ``fused_round``, ``descend``).  The JAX record's
+    ``recompiles_steady_state`` (its jitcheck gate) has no counterpart:
+    the port compiles nothing, so the field is null."""
+    t0 = time.time()
+    budget = float(os.environ.get("BENCH_TIME_BUDGET", 480))
+    duration = min(float(os.environ.get("STREAM_SECONDS", 10)),
+                   max(budget - 120, 2.0))
+    rate = float(os.environ.get("STREAM_EVENTS_PER_SEC", 1500))
+    chunk_rows = int(os.environ.get("STREAM_CHUNK_ROWS", 1024))
+    window_chunks = int(os.environ.get("STREAM_WINDOW_CHUNKS", 2))
+    trees = int(os.environ.get("STREAM_TREES", 5))
+    feats = int(os.environ.get("BENCH_FEATURES", 28))
+    shard_events = int(os.environ.get("STREAM_SHARD_EVENTS",
+                                      8 * chunk_rows))
+
+    cfg = {"duration_s": duration, "events_per_sec": rate,
+           "chunk_rows": chunk_rows, "window_chunks": window_chunks,
+           "trees_per_refresh": trees, "features": feats}
+    _stream_emit({"value": 0.0, "phase": "setup", **cfg})
+
+    import shutil
+    import tempfile
+
+    from dmlc_core_tpu_torch.base.metrics import default_registry
+    from dmlc_core_tpu_torch.io.recordio import encode_records
+    from dmlc_core_tpu_torch.models import HistGBT
+    from dmlc_core_tpu_torch.ops import histogram as H
+    from dmlc_core_tpu_torch.serve import ModelRegistry
+    from dmlc_core_tpu_torch.stream import (ModelPublisher, OnlineTrainer,
+                                            RecordIOTailer,
+                                            encode_dense_events)
+
+    dev, card = _bench_device(_stream_emit, cfg)
+    stale_hist = default_registry().histogram(
+        "stream_staleness_seconds",
+        "event appended → servable prediction (an activated version "
+        "has trained on it)",
+        buckets=(0.25, 0.5, 1, 2, 4, 8, 16, 32, 64))
+
+    rng = np.random.default_rng(13)
+
+    def make_events(n, drift):
+        X = rng.normal(size=(n, feats)).astype(np.float32)
+        y = (X[:, 0] * X[:, 1] + (0.5 + drift) * X[:, 2]
+             - drift * X[:, 3] > 0).astype(np.float32)
+        return X, y
+
+    root = tempfile.mkdtemp(prefix="bench_stream_")
+    shard_dir = os.path.join(root, "events")
+    os.makedirs(shard_dir)
+    append_ts = []                    # wall clock per appended event seq
+    stop_gen = threading.Event()
+
+    def generator():
+        """Paced appender: bursts every tick, flushed so the tailer sees
+        bytes promptly; rotates shards so the tailer's growing-file-set
+        path is exercised."""
+        written = 0
+        shard_idx = 0
+        f = open(os.path.join(shard_dir, f"part-{shard_idx:04d}.rec"), "ab")
+        start = time.perf_counter()
+        try:
+            while not stop_gen.is_set():
+                target = int((time.perf_counter() - start) * rate)
+                burst = min(target - written, 4096)
+                if burst <= 0:
+                    time.sleep(0.01)
+                    continue
+                drift = 0.2 * ((written // shard_events) % 3)
+                X, y = make_events(burst, drift)
+                blob = encode_records(encode_dense_events(X, y))
+                f.write(blob)
+                f.flush()
+                now = time.time()
+                append_ts.extend([now] * burst)
+                written += burst
+                if written // shard_events > shard_idx:
+                    f.close()
+                    shard_idx = written // shard_events
+                    f = open(os.path.join(
+                        shard_dir, f"part-{shard_idx:04d}.rec"), "ab")
+        finally:
+            f.close()
+
+    Xh, yh = make_events(4096, drift=0.0)
+    registry = ModelRegistry(max_batch=256, min_bucket=8, device=dev)
+    publisher = ModelPublisher(registry, holdout=(Xh, yh),
+                               name="stream-bench")
+    model = HistGBT(n_trees=trees, max_depth=4, n_bins=32,
+                    learning_rate=0.3, device=dev)
+    tailer = RecordIOTailer(shard_dir,
+                            cursor_uri=os.path.join(root, "cursor.ckpt"),
+                            name="stream-bench")
+    trainer = OnlineTrainer(model, tailer, n_features=feats,
+                            chunk_rows=chunk_rows,
+                            window_chunks=window_chunks, decay=1.0,
+                            publisher=publisher, name="stream-bench")
+
+    gen = threading.Thread(target=generator, daemon=True)
+    gen.start()
+    _stream_emit({"value": 0.0, "phase": "loop", **cfg})
+
+    counters = ((H.hist_kernel, "launches"), (H.fused_round_kernel,
+                "launches"), (H.descend_kernel, "launches"))
+    before = [getattr(fn, a) for fn, a in counters]
+    staleness = []
+    served_floor = 0                  # events covered by an activation
+    refreshes = []
+    end = time.perf_counter() + duration
+    try:
+        while time.perf_counter() < end:
+            left = end - time.perf_counter()
+            r = trainer.refresh(timeout=max(min(left, 5.0), 0.1))
+            if r is None:
+                continue
+            refreshes.append(r)
+            if r.get("activated"):
+                now = time.time()
+                covered = min(r["records_total"], len(append_ts))
+                for seq in range(served_floor, covered):
+                    st = now - append_ts[seq]
+                    staleness.append(st)
+                    stale_hist.observe(st)
+                served_floor = covered
+    finally:
+        stop_gen.set()
+        gen.join(timeout=5.0)
+        tailer.close()
+
+    wall = time.time() - t0
+    activated = sum(1 for r in refreshes if r.get("activated"))
+    stale_sorted = sorted(staleness)
+
+    def q(p):
+        if not stale_sorted:
+            return None
+        return round(stale_sorted[min(len(stale_sorted) - 1,
+                                      int(round(p * (len(stale_sorted)
+                                                     - 1))))], 3)
+
+    fit_s = [r["fit_seconds"] for r in refreshes]
+    extra = {}
+    if dev.type == "cuda":
+        extra["kernel_launches"] = {
+            name: getattr(fn, a) - b for name, (fn, a), b in zip(
+                ("hist", "fused_round", "descend"), counters, before)}
+    final = {
+        "value": q(0.95) or 0.0,
+        "phase": "done",
+        "elapsed_s": round(wall, 1),
+        "platform": "gpu" if dev.type == "cuda" else "cpu",
+        **card,
+        "staleness_seconds": {"p50": q(0.50), "p95": q(0.95),
+                              "p99": q(0.99)},
+        "refreshes_published": activated,
+        "refreshes_total": len(refreshes),
+        "rollbacks": publisher.rollbacks,
+        "refreshes_per_sec": round(len(refreshes) / max(duration, 1e-9), 3),
+        "refresh_rows_per_sec": round(
+            sum(r["rows"] for r in refreshes) / max(duration, 1e-9), 1),
+        "fit_seconds_mean": (round(sum(fit_s) / len(fit_s), 3)
+                             if fit_s else None),
+        "refresh_seconds_mean": (round(sum(
+            r["refresh_seconds"] for r in refreshes) / len(refreshes), 3)
+            if refreshes else None),
+        "events_appended": len(append_ts),
+        "events_consumed": tailer.records_seen,
+        "events_served": served_floor,
+        "trees_total": len(model.trees),
+        "registry_versions": len(registry.versions()),
+        "recompiles_steady_state": None,
+        **extra,
+        **cfg,
+    }
+    _stream_emit(final, final=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _ps_bench() -> None:
+    """``--ps``: web-scale sparse CTR over the sharded parameter server
+    (the JAX bench's mode, field for field).
+
+    In-process fleet (scheduler + ``PS_SERVERS`` (2) server threads) with
+    ``PS_WORKERS`` (2) worker threads each running ``GBLinear.fit_ps``
+    over its own synthetic hashing-space CTR stream — ``PS_FEATURES``
+    (10M) feature cardinality, ``PS_ROWS`` (40,000) rows a worker of
+    ``PS_NNZ`` (32) ids, minibatches of ``PS_BATCH_ROWS`` (2048) — so the
+    weight vector exists only range-sharded on the fleet and each
+    minibatch moves only its touched ids.  Headlines: **keys_per_sec**
+    (sparse ids crossing the wire, push+pull directions) and
+    **staleness_p95** (SSP lag observed at pull, in rounds — bounded by
+    ``DMLC_PS_STALENESS``).  The parameter server is host numpy and
+    sockets in both packages: no device work, so no device fields.  Each
+    worker counts its shutdown at the scheduler (the JAX bench counts
+    rank 0's alone, so its final join waits out its 30 s timeout; the
+    record's ``elapsed_s`` leaves that wait out in both)."""
+    t0 = time.time()
+    features = int(os.environ.get("PS_FEATURES", 10_000_000))
+    rows = int(os.environ.get("PS_ROWS", 40_000))
+    nnz = int(os.environ.get("PS_NNZ", 32))
+    batch_rows = int(os.environ.get("PS_BATCH_ROWS", 2048))
+    nserver = int(os.environ.get("PS_SERVERS", 2))
+    nworker = int(os.environ.get("PS_WORKERS", 2))
+
+    from dmlc_core_tpu_torch.data.row_block import RowBlock
+    from dmlc_core_tpu_torch.models.linear import GBLinear
+    from dmlc_core_tpu_torch.parallel.kvstore import DistAsyncKVStore
+    from dmlc_core_tpu_torch.parallel.ps import (PSClient, PSScheduler,
+                                                 PSServer)
+
+    class _CTRStream:
+        """Re-iterable synthetic sparse CTR pages (hashing space)."""
+
+        def __init__(self, seed):
+            self.seed = seed
+            self.num_col = features
+
+        def __iter__(self):
+            rng = np.random.default_rng(self.seed)
+            hot = rng.choice(features, 256, replace=False)
+            w_true = rng.normal(size=256).astype(np.float32)
+            page = 4 * batch_rows
+            for lo in range(0, rows, page):
+                n = min(page, rows - lo)
+                idx = rng.integers(0, features, size=(n, nnz))
+                # every row carries a few signal features
+                idx[:, :4] = hot[rng.integers(0, 256, size=(n, 4))]
+                vals = rng.normal(size=(n, nnz)).astype(np.float32)
+                sig = np.searchsorted(np.sort(hot), idx[:, :4])
+                m = (vals[:, :4] * w_true[np.argsort(hot)][sig]).sum(1)
+                y = (m > 0).astype(np.float32)
+                off = np.arange(0, n * nnz + 1, nnz, dtype=np.int64)
+                yield RowBlock(offset=off, label=y,
+                               index=idx.ravel().astype(np.int64),
+                               value=vals.ravel())
+
+    sched = PSScheduler("127.0.0.1", nworker=nworker, nserver=nserver)
+    sched.start()
+    servers = [PSServer("127.0.0.1", sched.port, server_id=i)
+               for i in range(nserver)]
+    for srv in servers:
+        srv.start()
+    sthreads = [threading.Thread(target=srv.serve_forever, daemon=True)
+                for srv in servers]
+    for st in sthreads:
+        st.start()
+
+    stats = {}
+
+    def worker(rank):
+        client = PSClient(root_uri="127.0.0.1", root_port=sched.port,
+                          rank=rank)
+        kv = DistAsyncKVStore(client, learning_rate=0.1)
+        model = GBLinear(learning_rate=0.1, reg_lambda=0.0, device="cpu")
+        model.fit_ps(_CTRStream(seed=rank), kv, num_col=features,
+                     batch_rows=batch_rows, finalize=False)
+        stats[rank] = {"keys": kv.stats["keys_synced"],
+                       "staleness": list(kv.staleness_samples)}
+        kv.close()      # every worker's shutdown, so the join ends now
+
+    wthreads = [threading.Thread(target=worker, args=(r,))
+                for r in range(nworker)]
+    t_train = time.time()
+    for wt in wthreads:
+        wt.start()
+    for wt in wthreads:
+        wt.join()
+    elapsed = time.time() - t_train
+    for st in sthreads:
+        st.join(timeout=30)
+    sched.join(timeout=30)
+
+    keys = sum(st["keys"] for st in stats.values())
+    lags = np.array(sum((st["staleness"] for st in stats.values()), []),
+                    np.float64)
+    rec = {
+        "bench": "ps_sparse_ctr", "provisional": False,
+        "features": features, "rows_per_worker": rows, "nnz": nnz,
+        "batch_rows": batch_rows, "servers": nserver, "workers": nworker,
+        "elapsed_s": round(elapsed, 2),
+        "rows_per_sec": round(nworker * rows / max(elapsed, 1e-9), 1),
+        # each pushed id was pulled the same round: count both directions
+        "keys_per_sec": round(2 * keys / max(elapsed, 1e-9), 1),
+        "keys_moved": int(2 * keys),
+        "staleness_p95": (float(np.percentile(lags, 95))
+                          if len(lags) else None),
+        "staleness_max": float(lags.max()) if len(lags) else None,
+        "staleness_bound": int(os.environ.get("DMLC_PS_STALENESS", 4)),
+        "pull_rounds": int(len(lags)),
+        "wall_s": round(time.time() - t0, 2),
+        "basis": "in-process fleet, single host: wire framing + server "
+                 "aggregation are real, network hops are loopback",
+    }
+    _attach_metrics(rec)
+    with _EMIT_LOCK:
+        sys.stdout.write(json.dumps(rec) + "\n")
+        sys.stdout.flush()
+
+
 if __name__ == "__main__":
     modes = [a for a in sys.argv[1:] if a in _NOT_PORTED_MODES]
     if modes:
         sys.stderr.write(f"dmlc_core_tpu_torch.bench: {modes[0]} is not "
-                         "ported (the flagship, --serve, --fleet and "
-                         "--tenants modes only)\n")
+                         "ported (the flagship, --serve, --fleet, "
+                         "--tenants, --stream and --ps modes only)\n")
         sys.exit(2)
     if "--serve" in sys.argv[1:]:
         _serve_bench()
@@ -1169,5 +1573,9 @@ if __name__ == "__main__":
         _fleet_bench()
     elif "--tenants" in sys.argv[1:]:
         _tenants_bench()
+    elif "--stream" in sys.argv[1:]:
+        _stream_bench()
+    elif "--ps" in sys.argv[1:]:
+        _ps_bench()
     else:
         main()

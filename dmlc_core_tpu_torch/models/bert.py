@@ -98,8 +98,8 @@ class BERT:
               "ffn_type='moe': the Switch-MoE FFN (parallel/moe.py) is not "
               "ported yet (ROADMAP A16)")
         CHECK(p.grad_sync == "fused",
-              "grad_sync='kvstore': the KVStore sync is not ported yet "
-              "(ROADMAP A15)")
+              "grad_sync='kvstore': BERT's KVStore gradient sync needs BERT "
+              "on several ranks, which waits (ROADMAP item 7)")
         self.device = resolve_device(device)
         self.params: Optional[Dict[str, torch.Tensor]] = None
         self.opt_state: Optional[Dict[str, torch.Tensor]] = None

@@ -30,8 +30,10 @@ reads the loss with ``float(loss)``, one sync a step; ``fit_iter``
 densifies each ``RowBlockIter`` page (missing = 0).  The initial ``v``
 is drawn from ``np.random.default_rng(seed)`` on the host, bit-equal to
 the JAX package's.  JAX's compiled-step cache (``_STEP_FN_CACHE``) has
-no counterpart: eager torch compiles nothing.  ``fit_ps`` waits for the
-port's KVStore (ROADMAP item 14) and raises.
+no counterpart: eager torch compiles nothing.  ``fit_ps`` is sparse
+FM-SGD over a dist_async KVStore (``parallel/ps``): JAX's host arithmetic
+over CSR minibatches, line for line; ``finalize=True`` puts the pulled
+``w0``, ``w`` and ``v`` on the model's device, so ``predict`` runs there.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from dmlc_core_tpu_torch.base.logging import CHECK, CHECK_EQ, log_fatal
+from dmlc_core_tpu_torch.base.logging import CHECK, CHECK_EQ
 from dmlc_core_tpu_torch.base.parameter import Parameter, field
 from dmlc_core_tpu_torch.base.timer import get_time
 from dmlc_core_tpu_torch.parallel import collectives as coll
@@ -276,10 +278,92 @@ class FM:
     def fit_ps(self, row_iter, kv, num_col: Optional[int] = None,
                batch_rows: int = 8192, name: str = "fm",
                finalize: bool = True) -> "FM":
-        """Sparse FM-SGD over a parameter server: needs the dist_async
-        KVStore, which the port does not have yet (ROADMAP item 14)."""
-        log_fatal("FM.fit_ps needs the dist_async KVStore, which is not "
-                  "ported yet (ROADMAP item 14)")
+        """Web-scale sparse FM-SGD over a parameter server (the JAX
+        package's ``fit_ps``).
+
+        Two PS arrays carry the model: ``{name}:w`` [F+1] (linear
+        weights, bias at id F, zero-init) and ``{name}:v`` [F, k]
+        (factors, server-side Normal(0, init_scale) init seeded by key
+        range).  Each CSR minibatch pulls only the rows its feature ids
+        touch, computes the exact FM gradient on the host via the
+        O(nnz·k) identity, and pushes back asynchronously (server-side
+        SGD).  One ``tick`` per minibatch; ``n_epochs`` passes.
+        ``reg_w`` / ``reg_v`` apply lazily (touched rows only).
+        ``finalize`` pulls both arrays into ``self.params`` on the
+        model's device so :meth:`predict` works — skip it at true 10M+
+        scale.
+        """
+        from dmlc_core_tpu_torch.data.iter import iter_csr_minibatches
+
+        p = self.param
+        F = max(num_col or 0, getattr(row_iter, "num_col", 0) or 0)
+        CHECK(F > 0, "fit_ps: no columns (num_col unset and the "
+                     "iterator reports width 0)")
+        K = p.n_factors
+        wname, vname = f"{name}:w", f"{name}:v"
+        kv.init_sparse(wname, n_keys=F + 1)
+        kv.init_sparse(vname, n_keys=F, width=(K,),
+                       init_scale=p.init_scale, seed=p.seed)
+        logistic = p.objective == "binary:logistic"
+        t0 = get_time()
+        for _epoch in range(p.n_epochs):
+            for blk in iter_csr_minibatches(row_iter, batch_rows):
+                n = blk.size
+                vals = (np.asarray(blk.value, np.float32)
+                        if blk.value is not None
+                        else np.ones(blk.nnz, np.float32))
+                uids, inv = np.unique(blk.index, return_inverse=True)
+                wids = np.concatenate([uids, [F]])
+                w = np.asarray(kv.pull_sparse(wname, wids), np.float32)
+                V = np.asarray(kv.pull_sparse(vname, uids), np.float32)
+                rows = np.repeat(np.arange(n),
+                                 np.diff(blk.offset)).astype(np.int64)
+                vnz = V[inv]                                  # [nnz, K]
+                xnz = vals[:, None]
+                lin = np.full(n, w[-1], np.float32)
+                np.add.at(lin, rows, w[:-1][inv] * vals)
+                xv = np.zeros((n, K), np.float32)             # Σ v·x
+                np.add.at(xv, rows, vnz * xnz)
+                x2v2 = np.zeros((n, K), np.float32)           # Σ v²x²
+                np.add.at(x2v2, rows, vnz * vnz * xnz * xnz)
+                margin = lin + 0.5 * np.sum(xv * xv - x2v2, axis=1)
+                y = np.asarray(blk.label, np.float32)
+                if logistic:
+                    g = 1.0 / (1.0 + np.exp(-margin)) - y
+                else:
+                    g = margin - y
+                if blk.weight is not None:
+                    g = g * blk.weight
+                gr = g[rows]                                  # [nnz]
+                gw = np.zeros(len(uids), np.float32)
+                np.add.at(gw, inv, gr * vals)
+                gv = np.zeros((len(uids), K), np.float32)
+                np.add.at(gv, inv,
+                          gr[:, None] * (xnz * xv[rows] - vnz * xnz * xnz))
+                kv.push_sparse(wname, wids, np.concatenate(
+                    [gw + 2 * p.reg_w * w[:-1], [g.sum()]]) / n)
+                kv.push_sparse(vname, uids,
+                               (gv + 2 * p.reg_v * V) / n)
+                kv.tick()
+        kv.flush()
+        self.last_fit_seconds = get_time() - t0
+        if finalize:
+            wfull = np.asarray(
+                kv.pull_sparse(wname, np.arange(F + 1, dtype=np.int64)),
+                np.float32)
+            vfull = np.asarray(
+                kv.pull_sparse(vname, np.arange(F, dtype=np.int64)),
+                np.float32)
+            if self.params is None:
+                self._init_state(F)
+
+            def put(a):
+                return torch.as_tensor(np.array(a, np.float32),
+                                       device=self.device)
+
+            self.params = {"v": put(vfull), "w": put(wfull[:-1]),
+                           "w0": put(wfull[-1])}
+        return self
 
     # -- checkpointing --------------------------------------------------
     def save_model(self, uri: str) -> None:

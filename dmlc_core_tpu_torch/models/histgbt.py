@@ -989,8 +989,8 @@ class HistGBT(_ExternalMemoryEngine):
                   "n_features are all provided")
 
         # -- pass 1 (when needed): streaming sketch + row count --------
-        if cuts is not None:
-            self.cuts = torch.as_tensor(np.asarray(cuts, np.float32),
+        if cuts is not None:        # numpy, or a model's own tensor cuts
+            self.cuts = torch.as_tensor(cuts, dtype=torch.float32,
                                         device=self.device)
         t1 = get_time()
         if self.cuts is None or n_rows is None or n_features is None:
@@ -1360,9 +1360,18 @@ class HistGBT(_ExternalMemoryEngine):
         while done < p.n_trees:
             k = K if p.n_trees - done >= K else rem
             chunk = []
-            for key in chunk_keys(n_prior + done, k):
-                tree, preds = boost(preds, key)
-                chunk.append(tree)
+            try:
+                for key in chunk_keys(n_prior + done, k):
+                    tree, preds = boost(preds, key)
+                    chunk.append(tree)
+            except BaseException:
+                # the rounds that ended stay the model's, as the JAX
+                # external engine appends each round's trees when it ends
+                # (an elastic worker whose collective aborts mid-chunk
+                # rolls them back and counts them replayed)
+                if chunk:
+                    self.trees.extend(_fetch_trees(chunk))
+                raise
             self.trees.extend(_fetch_trees(chunk))    # the chunk's one sync
             done += k
             prev_t = self.last_chunk_times[-1][1] if done > k else 0.0

@@ -107,8 +107,8 @@ class _ExternalMemoryEngine:
             # one global width for the sketch gather and the histograms
             F = int(coll.allreduce(np.asarray([F], np.int64), op="max")[0])
         CHECK(F > 0, "fit_external: empty input")
-        if cuts is not None:
-            self.cuts = torch.as_tensor(np.asarray(cuts, np.float32),
+        if cuts is not None:        # numpy, or a model's own tensor cuts
+            self.cuts = torch.as_tensor(cuts, dtype=torch.float32,
                                         device=self.device)
         else:
             sketch: Optional[SketchAccumulator] = None

@@ -38,8 +38,11 @@ JAX package caches one compiled program per chunk length
 program cache, and ``warmup_rounds > 0`` runs one discarded round (the
 first use of every torch op) where JAX compiles both chunk programs.
 
-``fit_ps`` (sparse SGD over a dist_async KVStore) waits for the port's
-KVStore (ROADMAP item 14) and raises.
+``fit_ps`` is sparse SGD over a dist_async KVStore (``parallel/ps``):
+JAX's host arithmetic over CSR minibatches, line for line, so one worker
+against one server writes the JAX package's weights bit for bit; the
+finalized weights are the model's (host) weight vector, which
+``predict`` uploads to the model's device.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from typing import Any, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from dmlc_core_tpu_torch.base.logging import CHECK, CHECK_EQ, log_fatal
+from dmlc_core_tpu_torch.base.logging import CHECK, CHECK_EQ
 from dmlc_core_tpu_torch.base.parameter import Parameter, field
 from dmlc_core_tpu_torch.base.timer import get_time
 from dmlc_core_tpu_torch.data.device_feed import DeviceFeed
@@ -295,10 +298,68 @@ class GBLinear:
                batch_rows: int = 8192, n_epochs: int = 1,
                name: str = "gblinear", finalize: bool = True
                ) -> "GBLinear":
-        """Sparse SGD over a parameter server: needs the dist_async
-        KVStore, which the port does not have yet (ROADMAP item 14)."""
-        log_fatal("GBLinear.fit_ps needs the dist_async KVStore, which "
-                  "is not ported yet (ROADMAP item 14)")
+        """Web-scale sparse SGD over a parameter server (the JAX
+        package's ``fit_ps``).
+
+        Weights live range-sharded on the PS fleet behind ``kv`` (a
+        dist_async :class:`~dmlc_core_tpu_torch.parallel.kvstore.
+        DistAsyncKVStore`); each CSR minibatch pulls only the feature ids
+        it touches, computes the mean-loss gradient on the host straight
+        off the ``offset``/``index``/``value`` arrays, and pushes it back
+        asynchronously — the server applies SGD with the store's
+        learning_rate on arrival.  One ``tick`` per minibatch is the SSP
+        round.  ``reg_lambda`` is applied lazily (touched coordinates
+        only), scaled 1/n with the data term.
+
+        ``finalize`` pulls the full weight vector into ``self.weights`` /
+        ``self.bias`` so :meth:`predict` (on the model's device) works;
+        pass False at true 10M+ scale and serve from the fleet instead.
+        """
+        from dmlc_core_tpu_torch.data.iter import iter_csr_minibatches
+
+        p = self.param
+        F = max(num_col or 0, getattr(row_iter, "num_col", 0) or 0)
+        CHECK(F > 0, "fit_ps: no columns (num_col unset and the "
+                     "iterator reports width 0)")
+        # bias rides at id F: one PS array, one pull per minibatch
+        kv.init_sparse(name, n_keys=F + 1)
+        logistic = p.objective == "binary:logistic"
+        lam = p.reg_lambda
+        t0 = get_time()
+        for _ in range(int(n_epochs)):
+            for blk in iter_csr_minibatches(row_iter, batch_rows):
+                n = blk.size
+                vals = (blk.value if blk.value is not None
+                        else np.ones(blk.nnz, np.float32))
+                uids, inv = np.unique(blk.index, return_inverse=True)
+                ids = np.concatenate([uids, [F]])
+                w = np.asarray(kv.pull_sparse(name, ids), np.float32)
+                rows = np.repeat(np.arange(n),
+                                 np.diff(blk.offset)).astype(np.int64)
+                margin = np.full(n, w[-1] + p.base_score, np.float32)
+                np.add.at(margin, rows, w[:-1][inv] * vals)
+                y = blk.label
+                if logistic:
+                    g = 1.0 / (1.0 + np.exp(-margin)) - y
+                else:
+                    g = margin - y
+                sw = fold_scale_pos_weight(p, y, blk.weight)
+                if sw is not None:
+                    g = g * sw
+                gfeat = np.zeros(len(uids), np.float32)
+                np.add.at(gfeat, inv, g[rows] * vals)
+                grad = np.concatenate([gfeat + lam * w[:-1],
+                                       [g.sum()]]) / n
+                kv.push_sparse(name, ids, grad.astype(np.float32))
+                kv.tick()
+        kv.flush()
+        self.last_fit_seconds = get_time() - t0
+        if finalize:
+            ids = np.arange(F + 1, dtype=np.int64)
+            w = np.asarray(kv.pull_sparse(name, ids), np.float32)
+            self.weights = w[:-1]
+            self.bias = float(w[-1]) + p.base_score
+        return self
 
     # -- inference ------------------------------------------------------
     def predict(self, X: np.ndarray,

@@ -65,6 +65,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -94,6 +95,18 @@ _SCALE_CLAMP = 100
 #: one-hot product measurements (``tools/spike_hist_floor.py``) tile rows
 #: the same way
 _TILE_ROWS = 16384
+
+#: one lock for every wrapper's launch count: worker threads of one
+#: process (the elastic recovery layer's in-process workers) launch
+#: kernels side by side, and ``+=`` on an attribute is no atomic step
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper, name: str) -> None:
+    """Add one launch to ``wrapper.<name>``."""
+    with _COUNT_LOCK:
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
+
 
 #: the JAX package's measured-best ``lo`` per n_build at n_bins=256 (v5e,
 #: tile 16384, 10M rows), kept so the factored split ``bin = hi·lo +
@@ -653,9 +666,9 @@ def hist_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
         acc = sync(acc)
     out = _epilogue_kernel(acc, None, n_nodes, kg, kh)
     if layout is None:
-        hist_kernel.launches += 1
+        _count(hist_kernel, "launches")
     else:
-        hist_kernel.layout_launches += 1
+        _count(hist_kernel, "layout_launches")
     return out
 
 
@@ -695,9 +708,9 @@ def fused_round_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
                         True, layout)
     hist = _epilogue_kernel(acc, prev_hist, n_prev, kg, kh)
     if layout is None:
-        fused_round_kernel.launches += 1
+        _count(fused_round_kernel, "launches")
     else:
-        fused_round_kernel.layout_launches += 1
+        _count(fused_round_kernel, "layout_launches")
     return new_node, hist
 
 
@@ -754,9 +767,9 @@ def descend_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
     new_node = _descend_kernel(bins_t, node_id, feat, thr, by_node, layout,
                                dir_sel, -1 if miss_bin is None else miss_bin)
     if dir_sel is None:
-        descend_kernel.launches += 1
+        _count(descend_kernel, "launches")
     else:
-        descend_kernel.dir_launches += 1
+        _count(descend_kernel, "dir_launches")
     return new_node
 
 
@@ -807,7 +820,7 @@ def fused_descend_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
     if sync is not None:
         acc = sync(acc)
     left = _epilogue_kernel(acc, None, n_prev, kg, kh)
-    fused_descend_kernel.launches += 1
+    _count(fused_descend_kernel, "launches")
     return left, new_node
 
 

@@ -44,8 +44,18 @@ either package loads in the other.  Where JAX flattens a pytree
 (``jax.tree``), this module flattens dicts (keys sorted), lists and
 tuples of numpy arrays, torch tensors and scalars in the same leaf order
 (``None`` has no leaf), and loads tensor leaves onto the device of the
-``like`` leaf.  ``sharded=True`` (per-rank shard files) waits for the
-port's sharded state (ROADMAP item 14) and raises.
+``like`` leaf.
+
+``sharded=True`` writes and reads one file per rank,
+``uri.shard-K-of-N`` in the JAX file format, each holding this rank's
+leaves as they are (one process per GPU: every tensor of a rank is its
+own, so no leaf is split across ranks; JAX's per-shard leaf lists, which
+a multi-device process writes for arrays it addresses only in part, have
+no counterpart and raise at load).  In a world
+of one it is the unsharded path, as in JAX.  ``local=True`` (this caller
+writes ``uri`` itself, no rank-0 election and no barrier) is the per-rank
+commit of the elastic recovery layer and of the parameter server's
+snapshots.
 """
 
 from __future__ import annotations
@@ -285,21 +295,27 @@ def _corrupt_blob(uri: str) -> None:
         out.write(bytes(data))
 
 
-def checkpoint(uri: str, state: Any, version: int = 0,
-               sharded: bool = False) -> None:
+def checkpoint(uri: str, state: Any, version: int = 0, sharded: bool = False,
+               local: bool = False) -> None:
     """Save a tree of arrays/tensors/scalars.  Reference: rabit
     ``CheckPoint``.
 
-    ``sharded=True`` (one file per process, ``uri.shard-K-of-N``) is not
-    ported yet and raises (ROADMAP item 14).
+    ``sharded=True`` writes one file per process (``uri.shard-K-of-N``)
+    holding this rank's own leaves — no barrier, no rank-0 election.
+
+    ``local=True`` skips the collective semantics entirely: THIS caller
+    writes ``uri`` as given (per-rank recovery commits, where a dying
+    peer must not wedge the commit path).
 
     The write is crash-safe: payload lands in a temp file (or a commit-
     on-close backend stream) and only a complete write replaces ``uri``;
     with retention on (see ``DMLC_CKPT_KEEP``) the replaced version
     survives as ``uri + ".prev"`` for corruption fallback.
     """
-    _refuse_sharded(sharded)
-    if coll.world_size() > 1 and coll.rank() != 0:
+    world = coll.world_size()
+    if sharded and not local and world > 1:
+        uri = _shard_uri(uri)
+    elif not local and world > 1 and coll.rank() != 0:
         # symmetric by construction: non-root ranks barrier here and
         # return, rank 0 barriers at the end of the write path below
         # — every rank reaches exactly one "ckpt" barrier
@@ -332,13 +348,13 @@ def checkpoint(uri: str, state: Any, version: int = 0,
     if fault is not None and fault.kind == "corrupt":
         _corrupt_blob(uri)
 
-    if coll.world_size() > 1:
+    if world > 1 and not sharded and not local:
         coll.barrier("ckpt")
 
 
-def _refuse_sharded(sharded: bool) -> None:
-    CHECK(not sharded, "checkpoint: sharded=True (per-rank shard files) is "
-          "not ported yet (ROADMAP item 14)")
+def _shard_uri(uri: str) -> str:
+    """This rank's shard file of ``uri``: ``uri.shard-K-of-N``."""
+    return f"{uri}.shard-{coll.rank()}-of-{coll.world_size()}"
 
 
 def _rebuild(payload: List[Any], like: Any) -> Any:
@@ -350,7 +366,9 @@ def _rebuild(payload: List[Any], like: Any) -> Any:
     for saved, ref in zip(payload, leaves):
         CHECK(not (isinstance(saved, list) and saved
                    and isinstance(saved[0], tuple)),
-              "checkpoint: a sharded leaf (not ported yet, ROADMAP item 14)")
+              "checkpoint: a leaf saved as a JAX process's addressable "
+              "shards (a multi-device process); the port holds one "
+              "device per process and loads whole leaves only")
         if isinstance(ref, torch.Tensor):
             out_leaves.append(torch.from_numpy(
                 np.array(saved)).to(ref.device))
@@ -371,7 +389,8 @@ def load_checkpoint(uri: str, like: Any, sharded: bool = False) -> Tuple[int, An
     (``dmlc_checkpoint_fallbacks_total``); only when every candidate is
     corrupt does the load raise.
     """
-    _refuse_sharded(sharded)
+    if sharded and coll.world_size() > 1:
+        uri = _shard_uri(uri)
     first_error: Optional[BaseException] = None
     any_present = False
     for idx, cand in enumerate((uri, uri + _PREV_SUFFIX)):

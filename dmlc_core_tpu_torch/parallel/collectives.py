@@ -23,13 +23,24 @@ worker-side rabit API (``Allreduce<op>``, ``Broadcast``,
   package, so every op is supported and every rank gets the same bits.
 
 Without a process group every collective is the identity on one worker,
-so the same program runs on one GPU or many.  The tracker's host
-transport (``set_host_transport``) is not ported yet.
+so the same program runs on one GPU or many.
+
+* **Host transport** (``set_host_transport``, thread-local as in the JAX
+  package): the elastic recovery layer (``parallel.recovery``) runs the
+  collectives over the tracker's TCP protocol instead of a process
+  group.  An installed transport overrides ``rank``/``world_size`` and
+  every host collective; the device collectives become host round trips
+  through it (the tensor to numpy, the transport's deterministic
+  reduction, the result back onto the tensor's own device), and
+  :class:`~dmlc_core_tpu_torch.parallel.mesh.Mesh` takes its size and
+  rank from it.  Threads of one process, each with its own transport,
+  are workers of one job.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -42,7 +53,8 @@ __all__ = [
     "init", "finalize", "rank", "world_size", "is_distributed",
     "allreduce", "broadcast", "allgather", "barrier",
     "device_allreduce", "device_allgather", "device_reduce_scatter",
-    "record_hist_psum", "get_tree", "find_share_ring", "get_link_map",
+    "allreduce_device", "record_hist_psum", "set_host_transport",
+    "get_host_transport", "get_tree", "find_share_ring", "get_link_map",
 ]
 
 BACKENDS = ("nccl", "gloo")
@@ -60,6 +72,25 @@ def _dist():
     import torch.distributed as dist
 
     return dist
+
+
+_HOST_TRANSPORT = threading.local()
+
+
+def set_host_transport(transport: Optional[Any]) -> None:
+    """Install (``None`` clears) this thread's host-collective transport.
+
+    A transport duck-types ``rank``/``world`` attributes and
+    ``allreduce(np_array, op)`` / ``allgather(np_array)`` /
+    ``broadcast(value, root)`` / ``barrier(name)`` methods — see
+    ``parallel.recovery.ElasticSession``."""
+    _HOST_TRANSPORT.t = transport
+
+
+def get_host_transport() -> Optional[Any]:
+    """The transport installed on this thread (None: the process group,
+    or one worker)."""
+    return getattr(_HOST_TRANSPORT, "t", None)
 
 
 def _initialized() -> bool:
@@ -154,13 +185,27 @@ def finalize() -> None:
 
 
 def rank() -> int:
-    """This worker's rank (rabit ``GetRank``); 0 without a group."""
+    """This worker's rank (rabit ``GetRank``): the installed transport's,
+    else the group's; 0 without either."""
+    t = get_host_transport()
+    if t is not None:
+        return t.rank
     return _dist().get_rank() if _initialized() else 0
 
 
 def world_size() -> int:
-    """Number of workers (rabit ``GetWorldSize``); 1 without a group."""
+    """Number of workers (rabit ``GetWorldSize``): the installed
+    transport's, else the group's; 1 without either."""
+    t = get_host_transport()
+    if t is not None:
+        return t.world
     return _dist().get_world_size() if _initialized() else 1
+
+
+def _single() -> bool:
+    """No process group of several ranks behind the host collectives
+    (they are then the identity on this one worker)."""
+    return not _initialized() or _dist().get_world_size() == 1
 
 
 def is_distributed() -> bool:
@@ -189,11 +234,14 @@ def allgather(x: np.ndarray) -> np.ndarray:
     rank order (``[world, ...]``; ``x[None]`` on one worker)."""
     x = np.asarray(x)
     _count("allgather", x.nbytes)
+    t = get_host_transport()
+    if t is not None:
+        return t.allgather(x)
     return _gather(x)
 
 
 def _gather(x: np.ndarray) -> np.ndarray:
-    if world_size() == 1:
+    if _single():
         return x[None]
     dist = _dist()
     as_u8 = x.dtype == np.bool_
@@ -214,7 +262,10 @@ def allreduce(x: np.ndarray, op: str = "sum") -> np.ndarray:
     if op not in _REDUCERS:
         log_fatal(f"allreduce: unknown op {op!r}; valid: {sorted(_REDUCERS)}")
     _count("allreduce", x.nbytes)
-    if world_size() == 1:
+    t = get_host_transport()
+    if t is not None:
+        return t.allreduce(x, op)
+    if _single():
         return x
     return _REDUCERS[op](_gather(x), axis=0)
 
@@ -224,7 +275,10 @@ def broadcast(x: Any, root: int = 0) -> Any:
     numpy array (the same shape and dtype on every rank) or any
     picklable object."""
     _count("broadcast", getattr(x, "nbytes", 0))
-    if world_size() == 1:
+    t = get_host_transport()
+    if t is not None:
+        return t.broadcast(x, root)
+    if _single():
         return x
     dist = _dist()
     if isinstance(x, np.ndarray):
@@ -239,9 +293,12 @@ def broadcast(x: Any, root: int = 0) -> Any:
 def barrier(name: str = "dmlc") -> None:
     """Cross-process barrier (rabit's implicit sync points, made
     explicit)."""
-    del name
     _count("barrier", 0)
-    if world_size() > 1:
+    t = get_host_transport()
+    if t is not None:
+        t.barrier(name)
+        return
+    if not _single():
         _dist().barrier()
 
 
@@ -256,12 +313,41 @@ def _reduce_op(op: str):
     return getattr(_dist().ReduceOp, ops[op])
 
 
+def _via_transport(t, x: torch.Tensor, op: str) -> torch.Tensor:
+    """``x`` reduced by the transport: a host round trip back onto the
+    tensor's own device."""
+    host = x.detach().cpu().numpy()
+    return torch.from_numpy(np.ascontiguousarray(
+        t.allreduce(host, op))).to(x.device)
+
+
+def allreduce_device(x: torch.Tensor) -> torch.Tensor:
+    """Sum a per-worker tensor over the workers and return the sum on the
+    tensor's device (the JAX package's ``allreduce_device``): with a host
+    transport a host round trip through its deterministic sum, else the
+    process group's ``all_reduce`` of a copy; ``x`` itself on one
+    worker."""
+    t = get_host_transport()
+    if t is not None:
+        return _via_transport(t, x, "sum")
+    if _single():
+        return x
+    return device_allreduce(x.clone())
+
+
 def device_allreduce(x: torch.Tensor, mesh=None,
                      op: str = "sum") -> torch.Tensor:
     """Reduce ``x`` over the data axis IN PLACE and return it — the
     histogram-sync primitive (``dist.all_reduce``; rabit's tree
-    allreduce).  Runs whenever a process group stands behind the axis,
-    a group of one included; the identity without one."""
+    allreduce).  Runs whenever a process group or a host transport
+    stands behind the axis, a group of one included; the identity
+    without one.  Under a transport it is a host round trip (the
+    transport's deterministic reduction) written back into ``x``."""
+    t = get_host_transport()
+    if t is not None:
+        _count("device_allreduce", x.numel() * x.element_size())
+        x.copy_(_via_transport(t, x, op))
+        return x
     red = _reduce_op(op)
     if not _initialized():
         return x
@@ -272,7 +358,14 @@ def device_allreduce(x: torch.Tensor, mesh=None,
 
 def device_allgather(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """All-gather equal-shape tensors over the data axis, concatenated
-    along dim 0 in rank order (JAX's tiled ``all_gather``)."""
+    along dim 0 in rank order (JAX's tiled ``all_gather``); under a host
+    transport its ``allgather`` of the host copy."""
+    t = get_host_transport()
+    if t is not None:
+        _count("device_allgather", x.numel() * x.element_size())
+        parts = t.allgather(x.detach().cpu().numpy())
+        return torch.from_numpy(np.ascontiguousarray(parts)).reshape(
+            (-1,) + tuple(x.shape[1:])).to(x.device)
     if not _initialized():
         return x
     dist = _dist()

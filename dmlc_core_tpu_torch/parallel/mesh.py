@@ -9,6 +9,9 @@ initialised) and this process is one position on it.  Rows are split
 over the axis by :func:`shard_row_ranges`; everything else (cuts, trees,
 split decisions) is replicated, each rank computing it from the synced
 histograms.  A single process driving several GPUs is not supported.
+Under a host transport (``collectives.set_host_transport``, the elastic
+recovery layer's tracker hub) the axis is the transport's world: its size
+and rank are the transport's, read on the calling thread.
 
 :func:`shard_row_ranges` and :func:`row_shard_layout` are the JAX
 package's row math, value for value.
@@ -30,6 +33,12 @@ def _dist():
     return dist
 
 
+def _transport():
+    from dmlc_core_tpu_torch.parallel.collectives import get_host_transport
+
+    return get_host_transport()
+
+
 class Mesh:
     """The ``data`` axis over a process group (``group=None``: the
     default group).  ``size`` is 1 and ``rank`` 0 while no group is
@@ -42,18 +51,27 @@ class Mesh:
 
     @property
     def initialized(self) -> bool:
-        """True when a process group stands behind the axis (the
-        histogram sync then runs, even on a group of one)."""
+        """True when a process group or this thread's host transport
+        stands behind the axis (the histogram sync then runs, even on a
+        world of one)."""
+        if _transport() is not None:
+            return True
         dist = _dist()
         return dist.is_available() and dist.is_initialized()
 
     @property
     def size(self) -> int:
+        t = _transport()
+        if t is not None:
+            return t.world
         return (_dist().get_world_size(self.group) if self.initialized
                 else 1)
 
     @property
     def rank(self) -> int:
+        t = _transport()
+        if t is not None:
+            return t.rank
         return _dist().get_rank(self.group) if self.initialized else 0
 
     @property

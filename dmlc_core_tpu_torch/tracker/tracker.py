@@ -18,8 +18,8 @@ or replica of either package talks to a tracker of the other.  Torch
 workers do not connect either: ``parallel.collectives.init`` hands
 ``DMLC_TRACKER_URI:PORT`` to ``torch.distributed``'s TCP store.  The
 topology comes from the port's ``parallel.collectives.get_link_map``.
-:class:`PSTracker` keeps its env ABI, but :meth:`PSTracker.start` raises:
-the parameter server (``parallel/ps``) is not ported (ROADMAP item 14).
+:class:`PSTracker.start` hosts the port's ``parallel/ps`` scheduler, as
+the JAX package's does.
 """
 
 from __future__ import annotations
@@ -551,10 +551,11 @@ class PSTracker:
     """Parameter-server role bootstrap.
 
     Reference parity: ``tracker.py :: PSTracker`` — exports
-    ``DMLC_PS_ROOT_URI/PORT`` and role env vars.  In the JAX package
-    :meth:`start` hosts its ``parallel/ps`` scheduler; the port has no
-    parameter server yet (ROADMAP item 14), so here :meth:`start` raises
-    and the class serves the env ABI alone.
+    ``DMLC_PS_ROOT_URI/PORT`` and role env vars.  :meth:`start` hosts a
+    :class:`~dmlc_core_tpu_torch.parallel.ps.PSScheduler` on this
+    tracker's host/port, so processes launched with these envs and
+    ``KVStore.create("dist_async")`` form a working
+    scheduler/server/worker triad.
     """
 
     def __init__(self, host_ip: str = "127.0.0.1", port: int = 9092,
@@ -564,9 +565,15 @@ class PSTracker:
         self._scheduler: Optional[Any] = None
 
     def start(self) -> None:
-        """Host the PS scheduler in-process — not ported: raises."""
-        log_fatal("PSTracker.start: the parameter server (parallel/ps) is "
-                  "not ported to dmlc_core_tpu_torch (ROADMAP item 14)")
+        """Host the PS scheduler in-process (port 0 binds a free port
+        and updates ``self.port`` so the env ABI advertises it)."""
+        from dmlc_core_tpu_torch.parallel.ps import PSScheduler
+
+        self._scheduler = PSScheduler(
+            host_ip=self.host_ip, port=self.port,
+            nworker=self.nworker, nserver=max(1, self.nserver))
+        self._scheduler.start()
+        self.port = self._scheduler.port
 
     def join(self, timeout: Optional[float] = None) -> bool:
         """Wait for every worker's shutdown (True when all arrived)."""
@@ -614,7 +621,9 @@ def submit(
     RabitTracker TCP service is only started when ``start_tracker=True``
     (legacy workers); it then runs on its *own* port, exported as
     ``DMLC_LEGACY_TRACKER_PORT``.  In PS mode ``start_tracker=True``
-    raises (:meth:`PSTracker.start`: no parameter server in the port).
+    hosts the PS scheduler in-process (``parallel/ps``) on a free port
+    and returns the :class:`PSTracker` — launched processes bind their
+    roles through ``KVStore.create("dist_async")``.
     """
     CHECK(nworker >= 1, "need at least one worker")
     envs: Dict[str, str] = {

@@ -66,11 +66,18 @@ def _cpu_default(device=None):
 _device_resolve = _device.resolve_device
 
 
-@pytest.fixture
-def on_cpu(monkeypatch):
-    """``device=None`` resolves to the CPU in every loaded port module."""
+def patch_cpu_default(monkeypatch):
+    """``device=None`` resolves to the CPU in every loaded port module
+    until ``monkeypatch`` is undone (a module-scoped fixture's own
+    ``pytest.MonkeyPatch.context()``, or :func:`on_cpu`'s)."""
     for name, mod in list(sys.modules.items()):
         if (name.startswith("dmlc_core_tpu_torch")
                 and getattr(mod, "resolve_device", None) is _device_resolve):
             monkeypatch.setattr(mod, "resolve_device", _cpu_default)
+
+
+@pytest.fixture
+def on_cpu(monkeypatch):
+    """``device=None`` resolves to the CPU in every loaded port module."""
+    patch_cpu_default(monkeypatch)
     yield

@@ -5,8 +5,11 @@ rounds, the host binning route, the boosting metrics.
 * ``chunk_stats``, ``scaling_summary``, ``_host_cuts`` and the cost model
   ``_derived_metrics`` give ``bench.py``'s values on the same inputs;
 * the bench under ``BENCH_FORCE_CPU=1`` (a subprocess, small rows) ends
-  with a final record carrying ``bench.py``'s flagship fields; without a
-  GPU and without ``BENCH_FORCE_CPU`` it fails;
+  with a final record carrying ``bench.py``'s flagship fields, the
+  kvstore smoke's ``kvstore_sync_ms`` among them; without a GPU and
+  without ``BENCH_FORCE_CPU`` it fails (the flagship, ``--fleet``,
+  ``--tenants`` and ``--stream``); a mode it does not have
+  (``--prodsim``) is refused;
 * any chunk size (``DMLC_TPU_ROUNDS_PER_DISPATCH``) and any number of
   warmup rounds write the model file of ``fit``, byte for byte, and
   ``chunk_callback`` fires once per chunk;
@@ -118,7 +121,7 @@ def test_bench_final_record_on_the_cpu():
     assert kernel["fused_round"] is True and kernel["bin_layout"] is None
     assert kernel["leaves_built_per_round"] == 16
     assert 0.0 <= rec["infeed_stall_frac"]["value"] <= 1.0
-    assert rec["kvstore_sync_ms"] is None
+    assert rec["kvstore_sync_ms"]["value"] > 0
     assert rec["metrics_summary"]["rounds_total"] == 4.0
 
 
@@ -132,14 +135,15 @@ def test_bench_needs_a_gpu_unless_forced_to_the_cpu():
 
 def test_bench_refuses_the_modes_it_does_not_have():
     res = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.bench",
-                          "--stream"], cwd=ROOT, capture_output=True,
+                          "--prodsim"], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 2 and "not ported" in res.stderr
 
 
 @pytest.mark.parametrize("mode,metric", [
     ("--fleet", "fleet_requests_per_sec"),
-    ("--tenants", "tenant_requests_per_sec")])
+    ("--tenants", "tenant_requests_per_sec"),
+    ("--stream", "stream_staleness_seconds")])
 def test_bench_fleet_and_tenants_need_a_gpu(mode, metric):
     # without BENCH_FORCE_CPU they ask for the card: no fallback
     env = {k: v for k, v in os.environ.items() if k != "BENCH_FORCE_CPU"}

@@ -156,8 +156,48 @@ def test_fit_iter_equals_fit_on_one_page():
 
 
 def test_fit_ps_waits_for_the_kvstore():
-    with pytest.raises(Error, match="item 14"):
-        FM(device="cpu").fit_ps(None, kv=None, num_col=3)
+    """``fit_ps`` over the port's dist_async KVStore (an in-process
+    scheduler and two servers): the finalized ``w0``, ``w`` and ``v`` are
+    the fleet's, on the model's device, and ``predict`` uses them."""
+    import threading
+
+    from dmlc_core_tpu_torch.parallel.kvstore import DistAsyncKVStore
+    from dmlc_core_tpu_torch.parallel.ps import (PSClient, PSScheduler,
+                                                 PSServer)
+
+    X, y = _data(n=300, seed=4)
+    sched = PSScheduler("127.0.0.1", nworker=1, nserver=2)
+    sched.start()
+    servers = [PSServer("127.0.0.1", sched.port, server_id=i)
+               for i in range(2)]
+    threads = []
+    for srv in servers:
+        srv.start()
+        threads.append(threading.Thread(target=srv.serve_forever,
+                                        daemon=True))
+        threads[-1].start()
+    kv = DistAsyncKVStore(PSClient(root_uri="127.0.0.1",
+                                   root_port=sched.port, rank=0),
+                          learning_rate=0.1)
+    m = FM(device="cpu", n_factors=3, n_epochs=2, seed=1)
+    m.fit_ps(ArrayRowIter(X, y, page_rows=100), kv, batch_rows=50)
+    F = X.shape[1]
+    w = kv.pull_sparse("fm:w", np.arange(F + 1, dtype=np.int64))
+    v = kv.pull_sparse("fm:v", np.arange(F, dtype=np.int64))
+    kv.close()
+    for th in threads:
+        th.join(timeout=30)
+    sched.join(timeout=30)
+    assert m.params["w"].numpy().tobytes() == w[:-1].tobytes()
+    assert m.params["v"].numpy().tobytes() == v.tobytes()
+    assert float(m.params["w0"]) == float(w[-1])
+    xv = X @ v
+    margin = (w[-1] + X @ w[:-1]
+              + 0.5 * np.sum(xv * xv - (X * X) @ (v * v), axis=1))
+    np.testing.assert_allclose(m.predict(X, output_margin=True), margin,
+                               rtol=1e-4, atol=1e-5)
+    with pytest.raises(Error):
+        FM(device="cpu").fit_ps(None, kv=None, num_col=0)
 
 
 def test_two_ranks_match_one_process(tmp_path):

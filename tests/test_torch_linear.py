@@ -197,10 +197,43 @@ def test_model_files_cross_load(objective, tmp_path):
 
 
 def test_fit_ps_waits_for_the_kvstore():
-    m = GBLinear(device="cpu")
-    with pytest.raises(Error, match="item 14"):
-        m.fit_ps(ArrayRowIter(np.zeros((4, 2), np.float32),
-                              np.zeros(4, np.float32)), kv=None)
+    """``fit_ps`` over the port's dist_async KVStore (an in-process
+    scheduler and server): the finalized weights are the fleet's, and
+    ``predict`` on them is the dense margin."""
+    import threading
+
+    from dmlc_core_tpu_torch.parallel.kvstore import DistAsyncKVStore
+    from dmlc_core_tpu_torch.parallel.ps import (PSClient, PSScheduler,
+                                                 PSServer)
+
+    X, yc = _problem(n=400, F=5)
+    y = (yc > 0.3).astype(np.float32)
+    sched = PSScheduler("127.0.0.1", nworker=1, nserver=1)
+    sched.start()
+    server = PSServer("127.0.0.1", sched.port)
+    server.start()
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    kv = DistAsyncKVStore(PSClient(root_uri="127.0.0.1",
+                                   root_port=sched.port, rank=0),
+                          learning_rate=0.5)
+    m = GBLinear(device="cpu", reg_lambda=0.0)
+    m.fit_ps(ArrayRowIter(X, y, page_rows=128), kv, batch_rows=64,
+             n_epochs=3)
+    w = kv.pull_sparse("gblinear", np.arange(6, dtype=np.int64))
+    kv.close()
+    th.join(timeout=30)
+    sched.join(timeout=30)
+    assert m.weights.tobytes() == w[:-1].tobytes() and m.bias == float(w[-1])
+    np.testing.assert_allclose(m.predict(X, output_margin=True),
+                               X @ m.weights + np.float32(m.bias),
+                               rtol=1e-5, atol=1e-5)
+    acc = ((m.predict(X) > 0.5) == (y > 0.5)).mean()
+    assert acc > 0.7, acc
+    with pytest.raises(Error):
+        GBLinear(device="cpu").fit_ps(
+            ArrayRowIter(np.zeros((4, 0), np.float32),
+                         np.zeros(4, np.float32)), kv=None)
 
 
 @pytest.mark.parametrize("feature_dtype", ["float32", "bfloat16"])

@@ -117,10 +117,12 @@ def test_state_tree_checkpoint_bytes_equal_jax(tmp_path):
     v, got = jax_ckpt.load_checkpoint(str(tmp_path / "t.ckpt"), state_np)
     np.testing.assert_array_equal(np.asarray(got["z"][0]), a)
     assert ckpt.load_checkpoint(str(tmp_path / "none"), like) == (0, like)
-    with pytest.raises(Error, match="item 14"):
-        ckpt.checkpoint(str(tmp_path / "s"), state_t, sharded=True)
-    with pytest.raises(Error, match="item 14"):
-        ckpt.load_checkpoint(str(tmp_path / "t.ckpt"), like, sharded=True)
+    # sharded=True in a world of one is the unsharded path, as in JAX
+    ckpt.checkpoint(str(tmp_path / "s"), state_t, version=3, sharded=True)
+    assert (tmp_path / "s").read_bytes() == (tmp_path / "t.ckpt").read_bytes()
+    v, got = ckpt.load_checkpoint(str(tmp_path / "j.ckpt"), like,
+                                  sharded=True)
+    assert v == 3 and got["a"] == {"k": 7, "c": "s"}
 
 
 def _families(X, y):

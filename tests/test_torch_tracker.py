@@ -14,7 +14,7 @@ of that file.
 
 The port's own checks: a JAX ``WorkerSession`` handshakes with a port
 tracker and the reverse (one wire protocol); ``PSTracker`` serves the
-JAX package's env ABI and its ``start`` raises, naming ROADMAP item 14;
+JAX package's env ABI and its ``start`` hosts the port's PS scheduler;
 ``submit`` exports the JAX package's env.
 """
 
@@ -87,15 +87,35 @@ def test_one_wire_protocol(server, client):
 
 
 def test_ps_tracker_env_and_refusal():
+    """``PSTracker`` serves the JAX package's env ABI; ``start`` and
+    ``submit(nserver>0, start_tracker=True)`` host the port's PS
+    scheduler on a free port, which a JAX server registers with."""
     kw = dict(host_ip="10.0.0.2", port=9092, nworker=3, nserver=2)
     port, jax = port_tracker.PSTracker(**kw), jax_tracker.PSTracker(**kw)
     for env in ("slave_envs", "worker_envs", "server_envs",
                 "scheduler_envs"):
         assert getattr(port, env)() == getattr(jax, env)()
-    with pytest.raises(Error, match="item 14"):
-        port.start()
-    with pytest.raises(Error, match="item 14"):
-        port_tracker.submit(2, 1, lambda n, e: None, start_tracker=True)
+    from dmlc_core_tpu.parallel.ps import PSServer as JaxPSServer
+    from dmlc_core_tpu_torch.parallel.ps import PSScheduler
+
+    tr = port_tracker.PSTracker(host_ip="127.0.0.1", port=0, nworker=1,
+                                nserver=1)
+    tr.start()
+    try:
+        assert isinstance(tr._scheduler, PSScheduler) and tr.port > 0
+        srv = JaxPSServer("127.0.0.1", tr.port)
+        assert srv.server_id == 0 and srv.nserver == 1
+        srv.stop()
+    finally:
+        tr.stop()
+    env = {}
+    tr = port_tracker.submit(2, 1, lambda n, e: env.update(e, n=n),
+                             start_tracker=True)
+    try:
+        assert isinstance(tr, port_tracker.PSTracker)
+        assert env["DMLC_PS_ROOT_PORT"] == str(tr.port) and env["n"] == 3
+    finally:
+        tr.stop()
 
 
 def test_submit_exports_jax_env():
