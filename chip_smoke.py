@@ -136,7 +136,8 @@ and the script exits non-zero without the final ``ok`` line:
 10. attention_kernels — the three flash-attention kernels of
     ``csrc/attention.cu`` (forward, dK/dV, dQ) at BERT-base's shape
     (``[8, 512, 12, 64]`` bf16, q/k/v views of one QKV tensor as the model
-    makes them), causal at the same shape, and at sequences that are no
+    makes them), causal at the same shape, at a rank's head shard under
+    Ulysses at seq 2 (``[8, 512, 6, 64]``), and at sequences that are no
     tile multiple and the other head dims: each against its plain version
     on the same inputs (``o`` within 2^-7 and dq/dk/dv within 2^-6 of the
     plain result's largest magnitude, ``lse`` within 1e-4), twice on the
@@ -156,6 +157,18 @@ and the script exits non-zero without the final ``ok`` line:
     next loss; and a two-layer BERT (head dim 64) trained three steps on
     the card and on the CPU from one seed: losses within 2e-3, weights
     within 1e-3;
+11b. bert_parallel — BERT's parallel axes at BERT-base width: (a) one
+    rank on ``create_mesh(MeshSpec(data=1))`` (every axis named at size
+    1; its ``seq`` axis takes ring attention, as JAX's does), its first
+    loss within 2e-3 of phase 11's; (b) two gloo ranks sharing the card
+    (``tools/bert_mesh.py`` as child processes with a time limit), 3
+    steps each on ``model=2``, ``seq=2`` ring, ``seq=2`` Ulysses,
+    ``data=2`` with the KVStore sync, and ``expert=2`` Switch-MoE (8
+    experts), each held to one rank's run from the same weights (losses
+    within 2e-3, gathered weights within 1e-3); the flash kernels'
+    launches counted on the Ulysses run (12 of each a step); steps/s and
+    the host-staged bytes a step printed (ranks sharing one card: no
+    scaling);
 12. hist_floor — B5, the one-hot product histogram on the tensor cores
     (``tools/spike_hist_floor.py``, ``csrc/hist_floor.cu``): every variant
     at the spike's shapes (10M rows, the first 24 of 28 features, n_build
@@ -271,8 +284,10 @@ and the script exits non-zero without the final ``ok`` line:
     must be the final ``histgbt_rounds_per_sec_per_chip`` record of 100
     rounds, with kernel launches and a ``kvstore_sync_ms``, and its
     headline fields are emitted;
-14. the ``kernels`` line (launches summed over phases 3b-6h and 8, phase
-    11's for attention, phase 12's timing pass for the B5 variants, phases
+14. the ``kernels`` line (launches summed over phases 3b-6h and 8, phases
+    11 and 11b's Ulysses run for attention — each beside its part and the
+    kernels' times at the Ulysses shard —, phase 12's timing pass for the
+    B5 variants, phases
     12f-12h's HTTP runs for ``descend``, and phase 12i's refreshes for
     ``hist``, ``fused_round`` and ``descend``; ``descend_dir`` is
     ``descend_kernel``'s direction mode, B2's descend on the missing
@@ -361,9 +376,11 @@ ATTN_SHAPES = (("bert", (8, 512, 12, 64), False),
                ("odd", (2, 200, 3, 64), False),
                ("odd_causal", (2, 200, 3, 64), True),
                ("d80", (1, 77, 2, 80), False),
-               ("d128_causal", (2, 130, 2, 128), True))
+               ("d128_causal", (2, 130, 2, 128), True),
+               # a rank's head shard under Ulysses at seq = 2 (BERT-base)
+               ("ulysses", (8, 512, 6, 64), False))
 #: shapes timed as well as checked
-ATTN_TIMED = ("bert", "bert_causal")
+ATTN_TIMED = ("bert", "bert_causal", "ulysses")
 #: agreement with the plain versions: o and dq/dk/dv within these shares
 #: of the plain result's largest magnitude (bf16 outputs; the kernels
 #: round P and dS to bf16 before their products), lse absolute (f32)
@@ -390,6 +407,24 @@ CROSS_BERT = dict(n_layers=2, d_model=128, n_heads=2, d_ff=256,
 CROSS_BERT_STEPS = 3
 LOSS_RTOL = 2e-3
 PARAM_ATOL = 1e-3
+#: BERT's parallel axes at BERT-base width: two gloo ranks sharing this
+#: card (NCCL refuses two ranks on one GPU), each mesh for a few steps
+#: from the weights of seed 0, held to one rank's run from those weights.
+#: The MoE run's capacity is loose (2× the mean load): capacity binds per
+#: dispatch group by design, so a tight one would drop other tokens on
+#: two ranks than on one (the JAX package's parity test loosens it alike)
+BERT_PAR_RANKS = 2
+BERT_PAR_STEPS = 3
+BERT_PAR_TIMEOUT = 600
+BERT_PAR_RUNS = (
+    ("model2", {"data": 1, "model": 2}, {}),
+    ("seq2_ring", {"data": 1, "seq": 2}, {}),
+    ("seq2_ulysses", {"data": 1, "seq": 2}, {"sp_method": "ulysses"}),
+    ("data2_kvstore", {"data": 2}, {"grad_sync": "kvstore"}),
+    ("expert2_moe", {"data": 1, "expert": 2},
+     {"ffn_type": "moe", "n_experts": 8, "capacity_factor": 2.0}))
+#: BERT keywords of the phase (none: BERT-base)
+BERT_PAR_KW: dict = {}
 #: B5 on general g/h: the product variants within this share of each
 #: plane's largest plain cell (both sum the same bf16 values in f32, in
 #: other orders: 2^10 adds a tile in the worst case of 2^-24 each, far
@@ -2770,7 +2805,8 @@ def check_attention(torch, A, name, shape, causal, rates, tc_rate):
 
 def phase_attention_kernels(torch, A, rates, tc_rate):
     """Every ``ATTN_SHAPES`` check; returns the ``kernels`` entries, from
-    BERT-base's non-causal shape (the main path's)."""
+    BERT-base's non-causal shape (the main path's), and the Ulysses
+    shard's results (with its ``shape``)."""
     entries = None
     for name, shape, causal in ATTN_SHAPES:
         res = check_attention(torch, A, name, shape, causal, rates, tc_rate)
@@ -2780,12 +2816,14 @@ def phase_attention_kernels(torch, A, rates, tc_rate):
                   **case})
         if name == "bert":
             entries = res
+        if name == "ulysses":
+            ulysses = {k: {**v, "shape": shape} for k, v in res.items()}
     # SDPA's backward computes dq, dk and dv in one call: it stands beside
     # each backward kernel as the time of the whole backward
     for kname in ("flash_bwd_dkv", "flash_bwd_dq"):
         entries[kname]["library_call"] = "sdpa backward (dq, dk, dv)"
     entries["flash_fwd"]["library_call"] = "sdpa forward"
-    return entries
+    return entries, ulysses
 
 
 def zero_attention_counts(A):
@@ -2870,7 +2908,78 @@ def phase_bert(torch, np, A, rates):
           "max_memory_allocated": peak, "model_file_bytes": file_bytes,
           "save_load_seconds": save_load_s, "next_loss": nxt,
           "round_trip_exact": True, "cross_device": cross})
-    return launches
+    return launches, first
+
+
+def phase_bert_parallel(torch, np, A, smi, first_loss):
+    """BERT's parallel axes at BERT-base width.  (a) one rank on a mesh
+    naming every axis at size 1 (its ``seq`` axis takes ring attention,
+    as JAX's does): the first loss within ``LOSS_RTOL`` of the ``bert``
+    phase's; (b) two gloo ranks sharing the card on each of
+    ``BERT_PAR_RUNS``, ``BERT_PAR_STEPS`` steps each, held to one rank's
+    run from the same weights (losses within ``LOSS_RTOL``, gathered
+    weights within ``PARAM_ATOL``), the flash kernels' launches counted
+    on the Ulysses run.  Returns those launches."""
+    from dmlc_core_tpu_torch.models import BERT, BERTParam
+    from dmlc_core_tpu_torch.parallel.launch import run_ranks
+    from dmlc_core_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
+    t0 = time.perf_counter()
+    model = BERT(mesh=create_mesh(MeshSpec(data=1)), device=DEVICE,
+                 **BERT_PAR_KW)
+    model.init_params(0)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, model.param.vocab_size,
+                          size=(BERT_BATCH, BERT_SEQ))
+    loss = model.train_step(tokens, tokens.copy(),
+                            np.ones(tokens.shape, np.float32))
+    rel = abs(loss - first_loss) / abs(first_loss)
+    require(rel <= LOSS_RTOL, f"bert_parallel (a): loss {loss} vs the bert "
+            f"phase's {first_loss}")
+    emit({"phase": "bert_parallel", "part": "a", "mesh": model.mesh.shape,
+          "loss": loss, "bert_phase_loss": first_loss, "loss_rel_diff": rel,
+          "seconds": time.perf_counter() - t0})
+    del model
+    gc_cuda(torch)
+    runs = [{"name": name, "mesh": mesh, "bert": kw, "seed": 0,
+             "steps": BERT_PAR_STEPS} for name, mesh, kw in BERT_PAR_RUNS]
+    with tempfile.TemporaryDirectory() as d:
+        job = {"threads": 4, "bert": BERT_PAR_KW,
+               "device": "cuda:0" if DEVICE == "cuda" else DEVICE,
+               "batch": {"seed": 0, "B": BERT_BATCH, "S": BERT_SEQ},
+               "reference": True, "runs": runs, "out": d}
+        path = os.path.join(d, "job.json")
+        with open(path, "w") as f:
+            json.dump(job, f)
+        t0 = time.perf_counter()
+        run_ranks([sys.executable, "-m",
+                   "dmlc_core_tpu_torch.tools.bert_mesh", path],
+                  BERT_PAR_RANKS, BERT_PAR_TIMEOUT, d)
+        wall = time.perf_counter() - t0
+        recs = {}
+        for run in runs:
+            with open(os.path.join(d, f"{run['name']}.json")) as f:
+                recs[run["name"]] = json.load(f)
+    p = BERTParam(**BERT_PAR_KW)
+    for name, rec in recs.items():
+        require(rec["finite"], f"bert_parallel {name}: non-finite values")
+        require(rec["loss_max_rel_diff"] <= LOSS_RTOL,
+                f"bert_parallel {name}: losses {rec['losses']} vs one "
+                f"rank's {rec['ref_losses']}")
+        require(rec["param_max_abs_diff"] <= PARAM_ATOL,
+                f"bert_parallel {name}: weights off one rank's by "
+                f"{rec['param_max_abs_diff']}")
+        want = p.n_layers * BERT_PAR_STEPS if name == "seq2_ulysses" else 0
+        for kname, n in rec["launches"].items():
+            require(n == want, f"bert_parallel {name}: {kname} launched "
+                    f"{n} times, want {want}")
+        emit({"phase": "bert_parallel", "part": "b", **rec,
+              "note": "two gloo ranks sharing one card, collectives "
+                      "staged through host memory: not a scaling "
+                      "measurement", "card": smi})
+    emit({"phase": "bert_parallel", "part": "b", "ranks": BERT_PAR_RANKS,
+          "runs": len(runs), "wall_seconds": wall})
+    return recs["seq2_ulysses"]["launches"]
 
 
 def bert_cross_device(torch, np, A):
@@ -4567,10 +4676,22 @@ def main() -> int:
         require(v > 0, f"{k} was never launched on the main paths")
     phase_deep_kernels(torch, H, rates, mats)
     floor = phase_hist_floor(torch, np, H, rates, tc_rate)
-    attention = phase_attention_kernels(torch, A, rates, tc_rate)
-    for k, v in phase_bert(torch, np, A, rates).items():
+    attention, ulysses_shape = phase_attention_kernels(torch, A, rates,
+                                                       tc_rate)
+    bert_launches, first_loss = phase_bert(torch, np, A, rates)
+    ulysses_launches = phase_bert_parallel(torch, np, A, smi, first_loss)
+    for k, v in bert_launches.items():
         require(v > 0, f"{k} was never launched on the BERT path")
-        launches[k] = v
+        require(ulysses_launches[k] > 0,
+                f"{k} was never launched on the Ulysses path")
+        launches[k] = v + ulysses_launches[k]
+        attention[k]["launches_bert"] = v
+        attention[k]["launches_ulysses"] = ulysses_launches[k]
+        attention[k]["ulysses_B_S_H_D"] = list(ulysses_shape[k]["shape"])
+        for x in ("ms", "device_ms", "bound_ms", "max_abs_err"):
+            attention[k][f"ulysses_{x}"] = ulysses_shape[k][x]
+        attention[k]["max_abs_err"] = max(attention[k]["max_abs_err"],
+                                          ulysses_shape[k]["max_abs_err"])
     kernels.update(attention)
     phase_sparse(torch, np, smi)
     Xl, yl, lin_model = phase_linear(torch, np, smi)
@@ -4618,7 +4739,10 @@ def main() -> int:
                 "flash_bwd_dq": f"{lib}:1146",
                 **{k: "scripts/spike_hist_floor.py:55" for k in floor}}
     extra = ("unfused_chain_ms", "chain_device_ms", "device_ms",
-             "library_call", "library_device_ms", "by_n_build")
+             "library_call", "library_device_ms", "by_n_build",
+             "launches_bert", "launches_ulysses", "ulysses_B_S_H_D",
+             "ulysses_ms", "ulysses_device_ms", "ulysses_bound_ms",
+             "ulysses_max_abs_err")
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": (attn_src if name in attention else

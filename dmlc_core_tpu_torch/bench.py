@@ -168,9 +168,11 @@ def _attach_metrics(out):
     """Final-record metrics from the port's registry: the snapshot
     archived where ``--metrics-out`` / ``BENCH_METRICS_OUT`` says, and a
     compact summary inline (phase p50s and counts, rounds, collective and
-    histogram-sync bytes).  The JAX record's retry, fault-injection,
-    spool and recompile fields have no counterpart in the port and are
-    left out.  Never fatal: the headline record must survive."""
+    histogram-sync bytes, retries and injected faults, and the spool's
+    merged process count when this process spools), as JAX's record has
+    them.  JAX's ``recompiles_steady_state`` (under ``DMLC_JITCHECK``)
+    has no counterpart: the port compiles no program.  Never fatal: the
+    headline record must survive."""
     try:
         from dmlc_core_tpu_torch.base.metrics import default_registry
 
@@ -195,6 +197,24 @@ def _attach_metrics(out):
             m = snap.get(name)
             if m and m["series"]:
                 summary[field] = sum(s["value"] for s in m["series"])
+        # resilience evidence rides every final record (zeros included):
+        # a run that degraded into a retry storm, or a chaos run that
+        # injected nothing, shows in the artifact
+        for name, field in (("dmlc_retries_total", "retries_total"),
+                            ("dmlc_faults_injected_total",
+                             "faults_injected")):
+            m = snap.get(name)
+            summary[field] = (sum(s["value"] for s in m["series"])
+                              if m and m["series"] else 0.0)
+        # fleet-wide view: under DMLC_METRICS_SPOOL, how many processes
+        # the merged snapshot covers
+        from dmlc_core_tpu_torch.base import metrics_agg
+
+        sw = metrics_agg.installed_spool()
+        if sw is not None:
+            sw.flush()
+            _, nprocs = metrics_agg.merge_spool(os.path.dirname(sw.path))
+            summary["spool_processes_merged"] = nprocs
         out["metrics_summary"] = summary
     except Exception as e:  # noqa: BLE001
         out["metrics_error"] = f"{type(e).__name__}: {e}"[:200]
@@ -1567,6 +1587,11 @@ if __name__ == "__main__":
                          "ported (the flagship, --serve, --fleet, "
                          "--tenants, --stream and --ps modes only)\n")
         sys.exit(2)
+    # join the metrics spool when one is configured (no-op otherwise), so
+    # that the record's spool_processes_merged counts this process
+    from dmlc_core_tpu_torch.base.metrics_agg import install_spool
+
+    install_spool("bench", 0)
     if "--serve" in sys.argv[1:]:
         _serve_bench()
     elif "--fleet" in sys.argv[1:]:

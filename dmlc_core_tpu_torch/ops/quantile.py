@@ -14,6 +14,14 @@ order XLA's CPU backend uses for ``jnp.cumsum`` (blocks of 16 summed in
 sequence, block totals scanned recursively).  Every step is an elementwise
 IEEE operation, so the result is the same on the CPU and on a GPU.
 
+XLA treats f32 subnormals as zero, on its CPU backend as on the TPU;
+torch keeps them.  So where these functions read a value they first flush
+a subnormal to a zero of its sign (``x · 0``, :func:`flush_subnormals`):
+:func:`local_summary` (behind :func:`compute_cuts` and
+:class:`SketchAccumulator`) and the digitising of :func:`apply_bins`,
+:func:`apply_bins_missing` and every ``predict``.  The host route
+(``gbt_split._host_bin_t``, numpy) keeps them, as JAX's host route does.
+
 ``torch.quantile`` is not used: it refuses inputs over 16M elements, and
 a 10M × 28 matrix is 280M.  Columns are sorted one feature at a time and
 interpolated by hand.
@@ -35,10 +43,19 @@ import torch
 from dmlc_core_tpu_torch.base.logging import CHECK
 
 __all__ = ["local_summary", "merge_summaries", "compute_cuts", "apply_bins",
-           "apply_bins_missing", "xla_cumsum", "SketchAccumulator"]
+           "apply_bins_missing", "xla_cumsum", "flush_subnormals",
+           "SketchAccumulator"]
 
 #: XLA's CPU ReduceWindowRewriter block length for cumulative sums
 _SCAN_BASE = 16
+#: the smallest normal f32
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every f32 subnormal replaced by a zero of its sign
+    (``x · 0``), as XLA reads it; NaN and ±inf pass unchanged."""
+    return torch.where(x.abs() < _F32_TINY, x * 0.0, x)
 
 
 def _seq_scan(x: torch.Tensor) -> torch.Tensor:
@@ -179,7 +196,7 @@ def local_summary(x: torch.Tensor, weight: Optional[torch.Tensor],
     out = torch.empty(F, n_summary, dtype=torch.float32, device=x.device)
     counts = torch.full((1,), float(n), dtype=torch.float32, device=x.device)
     for f in range(F):
-        col = x[:, f].contiguous()
+        col = flush_subnormals(x[:, f])
         w = weight
         if missing:
             nan = torch.isnan(col)
@@ -366,7 +383,7 @@ def _digitise(x: torch.Tensor, cuts: torch.Tensor, nan_bin: int,
     out = torch.empty(F, n, dtype=dtype, device=x.device)
     n_valid = (~torch.isnan(cuts)).sum(1).tolist()
     for f in range(F):
-        col = x[:, f].contiguous()
+        col = flush_subnormals(x[:, f])
         b = torch.searchsorted(cuts[f, :n_valid[f]].contiguous(), col,
                                right=True)
         out[f] = torch.where(torch.isnan(col), nan_bin, b).to(dtype)

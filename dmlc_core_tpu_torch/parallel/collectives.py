@@ -53,6 +53,9 @@ __all__ = [
     "init", "finalize", "rank", "world_size", "is_distributed",
     "allreduce", "broadcast", "allgather", "barrier",
     "device_allreduce", "device_allgather", "device_reduce_scatter",
+    "psum", "replicate_fwd_psum_bwd", "psum_fwd_identity_bwd",
+    "all_to_all", "ppermute", "psum_scatter", "all_gather",
+    "wire_bytes", "reset_wire_bytes",
     "allreduce_device", "record_hist_psum", "set_host_transport",
     "get_host_transport", "get_tree", "find_share_ring", "get_link_map",
 ]
@@ -214,7 +217,7 @@ def is_distributed() -> bool:
 
 
 def _group(mesh):
-    return None if mesh is None else mesh.group
+    return None if mesh is None else mesh.group("data")
 
 
 def _host_device(group=None) -> torch.device:
@@ -270,10 +273,11 @@ def allreduce(x: np.ndarray, op: str = "sum") -> np.ndarray:
     return _REDUCERS[op](_gather(x), axis=0)
 
 
-def broadcast(x: Any, root: int = 0) -> Any:
+def broadcast(x: Any, root: int = 0, mesh=None) -> Any:
     """Broadcast a host value from ``root`` (rabit ``Broadcast``): a
     numpy array (the same shape and dtype on every rank) or any
-    picklable object."""
+    picklable object.  With ``mesh``, over its ``data`` axis only, from
+    the axis position ``root`` (a data axis of one: the identity)."""
     _count("broadcast", getattr(x, "nbytes", 0))
     t = get_host_transport()
     if t is not None:
@@ -281,12 +285,17 @@ def broadcast(x: Any, root: int = 0) -> Any:
     if _single():
         return x
     dist = _dist()
+    group = _group(mesh)
+    if mesh is not None:
+        if mesh.axis_size("data") == 1:
+            return x
+        root = mesh.axis_ranks("data")[root]
     if isinstance(x, np.ndarray):
-        t = torch.from_numpy(np.ascontiguousarray(x)).to(_host_device())
-        dist.broadcast(t, src=root)
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(_host_device(group))
+        dist.broadcast(t, src=root, group=group)
         return t.cpu().numpy()
     box = [x]
-    dist.broadcast_object_list(box, src=root)
+    dist.broadcast_object_list(box, src=root, group=group)
     return box[0]
 
 
@@ -348,12 +357,11 @@ def device_allreduce(x: torch.Tensor, mesh=None,
         _count("device_allreduce", x.numel() * x.element_size())
         x.copy_(_via_transport(t, x, op))
         return x
-    red = _reduce_op(op)
+    _reduce_op(op)
     if not _initialized():
         return x
     _count("device_allreduce", x.numel() * x.element_size())
-    _dist().all_reduce(x, op=red, group=_group(mesh))
-    return x
+    return _reduce_into(x, _group(mesh), op)
 
 
 def device_allgather(x: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -368,20 +376,8 @@ def device_allgather(x: torch.Tensor, mesh=None) -> torch.Tensor:
             (-1,) + tuple(x.shape[1:])).to(x.device)
     if not _initialized():
         return x
-    dist = _dist()
-    group = _group(mesh)
     _count("device_allgather", x.numel() * x.element_size())
-    world = dist.get_world_size(group)
-    if dist.get_backend(group) == "nccl":
-        out = torch.empty((world * x.shape[0],) + tuple(x.shape[1:]),
-                          dtype=x.dtype, device=x.device)
-        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-        return out
-    # gloo gathers host tensors only
-    src = x.detach().cpu().contiguous()
-    parts = [torch.empty_like(src) for _ in range(world)]
-    dist.all_gather(parts, src, group=group)
-    return torch.cat(parts).to(x.device)
+    return _raw_all_gather(x, _group(mesh), 0)
 
 
 def device_reduce_scatter(x: torch.Tensor, mesh=None,
@@ -389,27 +385,328 @@ def device_reduce_scatter(x: torch.Tensor, mesh=None,
     """Reduce ``x`` over the data axis and leave this rank its ``1/k``
     slice of dim 0 (``x.shape[0]`` divisible by the axis size) — the
     bandwidth-optimal half of an allreduce."""
-    red = _reduce_op(op)
+    _reduce_op(op)
     if not _initialized():
         return x
-    dist = _dist()
-    group = _group(mesh)
-    k = dist.get_world_size(group)
-    if x.shape[0] % k:
-        log_fatal(f"reduce_scatter: dim 0 ({x.shape[0]}) not divisible by "
-                  f"the data axis size {k}")
     _count("device_reduce_scatter", x.numel() * x.element_size())
-    piece = x.shape[0] // k
-    if op == "sum" and dist.get_backend(group) == "nccl":
-        out = torch.empty((piece,) + tuple(x.shape[1:]), dtype=x.dtype,
+    return _raw_psum_scatter(x, _group(mesh), 0, op)
+
+
+# ---------------------------------------------------------------------------
+# axis collectives: a mesh axis's process group, inside a model's step
+# ---------------------------------------------------------------------------
+#
+# The JAX package writes these as ``lax`` collectives over a named axis of
+# a ``shard_map``; here each rank is a process and an axis is the process
+# group of its line of the mesh (``Mesh.group(axis)``).  Each is a
+# ``torch.autograd.Function`` whose backward is the transpose JAX's AD
+# gives the collective under ``shard_map(check_vma=False)``:
+#
+# * psum → psum (the cotangents of every rank's copy summed);
+# * all_to_all(split a, concat c) → all_to_all(split c, concat a);
+# * ppermute(perm) → ppermute(the inverse perm);
+# * psum_scatter → all_gather, and all_gather → psum_scatter.
+#
+# Megatron's pair is :func:`replicate_fwd_psum_bwd` (*f*: identity, then
+# psum of the cotangents) and :func:`psum_fwd_identity_bwd` (*g*: psum,
+# then the cotangent as it is — the downstream loss is replicated over the
+# axis, so each rank already holds the whole cotangent).
+#
+# The ``_raw_*`` functions below move the data for these and for the
+# ``device_*`` collectives above (the data axis's group).  NCCL moves
+# CUDA tensors where they lie (``all_reduce``, ``all_gather_into_tensor``,
+# ``reduce_scatter_tensor``).  gloo's CUDA support is narrower than its
+# CPU support, so under gloo a CUDA tensor is staged through host memory
+# explicitly: copied to the CPU, moved, copied back.  Data-moving
+# collectives under gloo (all_to_all, ppermute, all_gather) send the
+# tensor's bytes (a ``uint8`` view), so every dtype travels alike.  An
+# axis of size one is the identity and moves nothing.
+
+_WIRE = {"bytes": 0}
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def wire_bytes() -> int:
+    """Payload bytes this process has put into the device and axis
+    collectives since the last :func:`reset_wire_bytes`."""
+    return _WIRE["bytes"]
+
+
+def reset_wire_bytes() -> None:
+    _WIRE["bytes"] = 0
+
+
+def _gloo(group) -> bool:
+    return _dist().get_backend(group) == "gloo"
+
+
+def _wire(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as the group's backend takes it: under gloo a CUDA tensor is
+    staged into host memory; contiguous either way."""
+    _WIRE["bytes"] += x.numel() * x.element_size()
+    if x.is_cuda and _gloo(group):
+        return x.detach().to("cpu").contiguous()
+    return x.detach().contiguous()
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(t.shape[0], -1).view(torch.uint8) if t.dim() else \
+        t.reshape(1).view(torch.uint8)
+
+
+def _reduce_into(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` (contiguous) reduced over ``group`` IN PLACE, and returned.
+    Under gloo a CUDA tensor, and a 16-bit float (which gloo sums through
+    f32, one rounding at the end), is reduced in a host copy that is
+    then written back."""
+    red = _reduce_op(op)
+    _WIRE["bytes"] += x.numel() * x.element_size()
+    if _gloo(group) and (x.is_cuda or x.dtype in _HALF):
+        w = x.detach().to("cpu", torch.float32 if x.dtype in _HALF
+                          else x.dtype, copy=True)
+        _dist().all_reduce(w, op=red, group=group)
+        x.copy_(w)
+        return x
+    _dist().all_reduce(x, op=red, group=group)
+    return x
+
+
+def _raw_psum(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """The reduction of ``x`` over ``group``, a new tensor."""
+    return _reduce_into(x.detach().clone(
+        memory_format=torch.contiguous_format), group, op)
+
+
+def _raw_all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group order."""
+    dist = _dist()
+    n = dist.get_world_size(group)
+    _WIRE["bytes"] += x.numel() * x.element_size()
+    if not _gloo(group):
+        out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
                           device=x.device)
-        dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
-        return out
-    # gloo (and max/min): reduce, then keep this rank's slice
-    full = x.clone()
-    dist.all_reduce(full, op=red, group=group)
-    r = dist.get_rank(group)
-    return full[r * piece:(r + 1) * piece].clone()
+        dist.all_gather_into_tensor(out.view(-1), x.detach().contiguous()
+                                    .view(-1), group=group)
+        return torch.cat(out.unbind(0), dim=dim)
+    src = x.detach().to("cpu").contiguous()
+    b = _as_bytes(src.unsqueeze(0))
+    parts = [torch.empty_like(b) for _ in range(n)]
+    dist.all_gather(parts, b, group=group)
+    got = [p.view(x.dtype).reshape(x.shape) for p in parts]
+    return torch.cat(got, dim=dim).to(x.device)
+
+
+def _raw_psum_scatter(x: torch.Tensor, group, dim: int,
+                      op: str = "sum") -> torch.Tensor:
+    """The reduction of ``x`` over ``group``, this rank keeping its
+    ``1/n`` block of ``dim``: NCCL's ``reduce_scatter_tensor`` moves
+    each block once; gloo (and max/min) reduce the whole and slice."""
+    dist = _dist()
+    n = dist.get_world_size(group)
+    CHECK(x.shape[dim] % n == 0, f"reduce_scatter: dim {dim} "
+          f"({x.shape[dim]}) not divisible by the axis size {n}")
+    if op == "sum" and not _gloo(group):
+        _WIRE["bytes"] += x.numel() * x.element_size()
+        xs = x.detach().movedim(dim, 0).contiguous()
+        out = torch.empty((xs.shape[0] // n,) + tuple(xs.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, xs, group=group)
+        return out.movedim(0, dim).contiguous()
+    full = _raw_psum(x, group, op)
+    return full.chunk(n, dim=dim)[dist.get_rank(group)].contiguous()
+
+
+def _raw_all_to_all(x: torch.Tensor, group, split_axis: int,
+                    concat_axis: int) -> torch.Tensor:
+    n = _dist().get_world_size(group)
+    CHECK(x.shape[split_axis] % n == 0,
+          f"all_to_all: dim {split_axis} ({x.shape[split_axis]}) not "
+          f"divisible by the axis size {n}")
+    # chunk j goes to axis position j; the received chunks concatenate on
+    # concat_axis in source order (JAX's tiled all_to_all)
+    send = torch.stack(x.chunk(n, dim=split_axis))
+    w = _wire(send, group)
+    b = _as_bytes(w)
+    out = torch.empty_like(b)
+    _dist().all_to_all_single(out, b, group=group)
+    recv = out.view(x.dtype).reshape(send.shape).to(x.device)
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+def _raw_ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    dist = _dist()
+    group = mesh.group(axis)
+    me = mesh.axis_index(axis)
+    ranks = mesh.axis_ranks(axis)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    CHECK(len(dst) <= 1 and len(src) <= 1, "ppermute: not a permutation")
+    if dst == [me] and src == [me]:
+        return x.clone()
+    w = _wire(x, group)
+    out = torch.zeros_like(w)
+    ops = []
+    if dst:
+        ops.append(dist.P2POp(dist.isend, _as_bytes(w.reshape(-1)),
+                              ranks[dst[0]], group))
+    if src:
+        ops.append(dist.P2POp(dist.irecv, _as_bytes(out.reshape(-1)),
+                              ranks[src[0]], group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out.to(x.device)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _raw_psum(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _raw_psum(ct, ctx.group), None
+
+
+class _ReplicateFwdPsumBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _raw_psum(ct, ctx.group), None
+
+
+class _PsumFwdIdentityBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _raw_psum(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, concat_axis, split_axis)
+        return _raw_all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _raw_all_to_all(ct, *ctx.args), None, None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.inv = tuple((d, s) for s, d in perm)
+        return _raw_ppermute(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _raw_ppermute(ct, ctx.mesh, ctx.axis, ctx.inv), None, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return _raw_psum_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _raw_all_gather(ct, *ctx.args), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return _raw_all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _raw_psum_scatter(ct, *ctx.args), None, None
+
+
+def _axes(axis) -> Tuple[str, ...]:
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+def psum(x: torch.Tensor, axis, mesh) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``axis`` of ``mesh`` (a name or a
+    tuple of names, reduced one axis after another) on every rank
+    (``lax.psum``); backward: psum of the cotangents."""
+    for ax in _axes(axis):
+        if mesh.axis_size(ax) > 1:
+            x = _Psum.apply(x, mesh.group(ax))
+    return x
+
+
+def replicate_fwd_psum_bwd(x: torch.Tensor, axis: str,
+                           mesh) -> torch.Tensor:
+    """Identity forward, ``psum`` over ``axis`` backward (Megatron's
+    *f*; JAX ``collectives.replicate_fwd_psum_bwd``).  Marks where a
+    replicated activation enters computation sharded over ``axis``: every
+    shard then holds the COMPLETE gradient of what lies upstream."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _ReplicateFwdPsumBwd.apply(x, mesh.group(axis))
+
+
+def psum_fwd_identity_bwd(x: torch.Tensor, axis: str,
+                          mesh) -> torch.Tensor:
+    """``psum`` over ``axis`` forward, identity backward (Megatron's
+    *g*, the row-parallel join): what follows is replicated over the
+    axis, so each shard's cotangent is already the whole one."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _PsumFwdIdentityBwd.apply(x, mesh.group(axis))
+
+
+def all_to_all(x: torch.Tensor, axis: str, split_axis: int,
+               concat_axis: int, mesh) -> torch.Tensor:
+    """JAX's tiled ``lax.all_to_all``: ``x`` split into ``axis_size``
+    chunks along ``split_axis``, chunk ``j`` sent to axis position
+    ``j``, the received chunks concatenated along ``concat_axis`` in
+    source order.  (JAX's untiled form over a leading dim of the axis's
+    size is this with ``split_axis = concat_axis = 0``.)"""
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _AllToAll.apply(x, mesh.group(axis), split_axis, concat_axis)
+
+
+def ppermute(x: torch.Tensor, axis: str, perm, mesh) -> torch.Tensor:
+    """``lax.ppermute``: axis position ``s`` sends ``x`` to ``d`` for each
+    ``(s, d)`` of ``perm``; a position nothing is sent to gets zeros."""
+    if mesh.axis_size(axis) == 1:
+        return x.clone() if any(s == d for s, d in perm) else \
+            torch.zeros_like(x)
+    return _PPermute.apply(x, mesh, axis, tuple(tuple(p) for p in perm))
+
+
+def psum_scatter(x: torch.Tensor, axis: str, mesh,
+                 dim: int = 0) -> torch.Tensor:
+    """The sum over ``axis``, each rank keeping its ``1/P`` block of
+    ``dim`` (JAX's tiled ``lax.psum_scatter``)."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _PsumScatter.apply(x, mesh.group(axis), dim)
+
+
+def all_gather(x: torch.Tensor, axis: str, mesh,
+               dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in axis order (JAX's
+    tiled ``lax.all_gather``)."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _AllGather.apply(x, mesh.group(axis), dim)
 
 
 # ---------------------------------------------------------------------------

@@ -139,7 +139,11 @@ class KVStore:
                 [np.ascontiguousarray(v).ravel().view(np.uint8)
                  for v in vals]
             ) if any(v.size for v in vals) else np.zeros(0, np.uint8)
-            blob = np.asarray(coll.broadcast(blob, root=0))
+            # over the mesh's data axis when it is a group of its own (the
+            # data axis of a named mesh), else over the world
+            blob = np.asarray(
+                coll.broadcast(blob, root=0) if self._mesh.group("data")
+                is None else coll.broadcast(blob, root=0, mesh=self._mesh))
             off = 0
             for k, v in zip(keys, vals):
                 n = v.nbytes

@@ -34,7 +34,9 @@ Quick start (the JAX package's ``doc/serving.md`` describes the same API)::
 The PyTorch port's serving tier, with the JAX package's exports.  A
 published model predicts on its own device (``ModelRegistry(device=)``
 says where ``load`` puts a checkpoint's model: ``cuda`` by default).
-Not ported yet: ``serve.tenancy`` and ``serve.fleet`` (ROADMAP item 12).
+Multi-tenant paging (``serve.tenancy``) and the replica fleet
+(``serve.fleet``) are ported too, imported from their subpackages as in
+the JAX package.
 """
 
 from dmlc_core_tpu_torch.serve.batcher import (BatcherClosedError,  # noqa: F401

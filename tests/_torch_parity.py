@@ -122,6 +122,23 @@ def assert_level_b(jm, tm, Xv, min_same=0.9, X=None, y=None, weight=None,
     return n_differ, parted
 
 
+def _train_bins(tm, X):
+    """Feature-major bins of the training rows ``X`` as the fit made them:
+    the host route's numpy binning under ``DMLC_TPU_BIN_BACKEND=cpu``
+    (which keeps f32 subnormals, as JAX's host route does; ROADMAP C11),
+    else the device route's (``_bins_of``, which flushes them as XLA
+    does).  Held-out rows are binned as ``predict`` bins them, on the
+    device route."""
+    import torch
+
+    from dmlc_core_tpu_torch.models.gbt_split import _host_bin_t
+
+    X = np.ascontiguousarray(X, np.float32)
+    if os.environ.get("DMLC_TPU_BIN_BACKEND", "") == "cpu":
+        return _host_bin_t(X, tm.cuts.numpy(), missing=tm._missing)
+    return tm._bins_of(torch.from_numpy(X)).numpy()
+
+
 def _assert_level_b_fixed(jm, tm, Xv, min_same, X):
     """The fixed-tolerance checks of :func:`assert_level_b`."""
     assert _same_bits(tm.cuts.numpy(), jm.cuts)
@@ -132,8 +149,7 @@ def _assert_level_b_fixed(jm, tm, Xv, min_same, X):
         np.ascontiguousarray(Xv, np.float32))).numpy()
     parted = None
     if X is not None:
-        bins_tr = tm._bins_of(torch.from_numpy(
-            np.ascontiguousarray(X, np.float32)))
+        bins_tr = torch.from_numpy(_train_bins(tm, X))
         mj = _train_margins_by_tree(jm, bins_tr)
         mt = _train_margins_by_tree(tm, bins_tr)
         for t, (a, b) in enumerate(zip(mj, mt)):
@@ -297,7 +313,8 @@ def f64_supported(tm):
 
 def _score(G, H, lam, alpha):
     t = np.sign(G) * np.maximum(np.abs(G) - alpha, 0.0) if alpha else G
-    return t * t / (H + lam), np.abs(t)
+    with np.errstate(divide="ignore", invalid="ignore"):   # λ = 0, H = 0
+        return t * t / (H + lam), np.abs(t)
 
 
 def _score_err(G, H, eg, eh, lam, alpha):
@@ -414,18 +431,25 @@ def _audit(tree, bins, g, h, p, kind, scales=None, lossguide=False,
     egc = np.stack([egn[:, 0, 0], egr[ii, f, tsel]], 1).reshape(-1)
     ehc = np.stack([ehn[:, 0, 0], ehr[ii, f, tsel]], 1).reshape(-1)
     tg = np.sign(Gc) * np.maximum(np.abs(Gc) - alpha, 0.0) if alpha else Gc
-    leaf64 = -tg / (Hc + lam) * eta
+    # a slot no training row reaches (under a node that took no split)
+    # holds whatever the package's sums leave there: with λ = 0 the port's
+    # exact sums give 0/0 = NaN, JAX's f32 residue ±0.0 or a residue leaf
+    # (ROADMAP C12).  Only then are the slots rows reach the ones held to
+    # float64: with λ > 0 every slot is held (an unreached one to 0).
+    reach = (np.bincount(node, minlength=2 * N) > 0) | (lam > 0)
     with np.errstate(divide="ignore", invalid="ignore"):
+        leaf64 = -tg / (Hc + lam) * eta
         lo_den = Hc + lam - ehc
         hi = np.where(lo_den > 0, (np.abs(tg) + egc) / lo_den, np.inf)
         lo = np.maximum(np.abs(tg) - egc, 0.0) / (Hc + lam + ehc)
-    mag = np.abs(tg) / (Hc + lam)
-    lbound = eta * np.maximum(hi - mag, mag - lo) + 3 * u * np.abs(leaf64)
-    assert np.all(np.abs(leaf.astype(np.float64) - leaf64) <= lbound), \
+        mag = np.abs(tg) / (Hc + lam)
+        lbound = eta * np.maximum(hi - mag, mag - lo) + 3 * u * np.abs(leaf64)
+        off = np.abs(leaf.astype(np.float64) - leaf64)
+    assert np.all(off[reach] <= lbound[reach]), \
         f"{kind} leaves off float64: " \
-        f"{np.abs(leaf - leaf64).max()} (bound {lbound.min()})"
+        f"{off[reach].max()} (bound {lbound[reach].min()})"
     return {"tables": tables, "node": node, "leaf64": leaf64,
-            "lbound": lbound}
+            "lbound": lbound, "reach": reach}
 
 
 def _classify(tj, tp, lvl, i, cj, cp, p):
@@ -518,7 +542,7 @@ def assert_level_b_f64(jm, tm, X, y, Xv, weight=None, qid=None,
         jobj, pobj = jobj(lay._obj.G), pobj(lay._obj.G)
     w = fold_scale_pos_weight(p, y, weight)
     w = np.ones(len(y), np.float32) if w is None else np.asarray(w, np.float32)
-    bins = tm._bins_of(torch.from_numpy(X)).numpy()
+    bins = _train_bins(tm, X)
     bins_v = tm._bins_of(torch.from_numpy(
         np.ascontiguousarray(Xv, np.float32))).numpy()
     lossguide = os.environ.get("DMLC_GROW_POLICY", "depthwise") == "lossguide"
@@ -575,6 +599,16 @@ def assert_level_b_f64(jm, tm, X, y, Xv, weight=None, qid=None,
                 report.append((t, c, int(lvl), int(i), rule))
             if np.any(aj["node"] != ap["node"]):
                 moved = True
+            # a leaf that is no number only where no training row goes
+            for tree, au in ((a, aj), (b, ap)):
+                bad = ~np.isfinite(np.asarray(tree["leaf"])) & au["reach"]
+                assert not bad.any(), \
+                    f"tree {t} class {c}: a non-finite leaf at a slot " \
+                    f"training rows reach ({np.flatnonzero(bad)})"
+            # held-out rows at a slot no training row reaches are not
+            # compared (the packages' leaves there are unconstrained)
+            crosses |= ~aj["reach"][_leaf_of(a, bins_v)]
+            crosses |= ~ap["reach"][_leaf_of(b, bins_v)]
             lj = a["leaf"][aj["node"]]
             lp = b["leaf"][ap["node"]]
             step = (aj["lbound"] + ap["lbound"]

@@ -125,6 +125,26 @@ def test_bench_final_record_on_the_cpu():
     assert rec["metrics_summary"]["rounds_total"] == 4.0
 
 
+def test_bench_record_carries_retries_faults_and_the_spool(tmp_path):
+    """JAX's ``bench.py`` fields: ``retries_total`` and
+    ``faults_injected`` on every record (zeros included), and
+    ``spool_processes_merged`` under ``DMLC_METRICS_SPOOL``."""
+    spool = tmp_path / "spool"
+    res = _bench({"BENCH_FORCE_CPU": "1", "BENCH_ROWS": "20000",
+                  "BENCH_ROUNDS": "2", "BENCH_WARMUP": "1",
+                  "DMLC_METRICS_SPOOL": str(spool)})
+    assert res.returncode == 0, res.stderr[-2000:]
+    summary = json.loads(res.stdout.splitlines()[-1])["metrics_summary"]
+    assert summary["retries_total"] == 0.0
+    assert summary["faults_injected"] == 0.0
+    assert summary["spool_processes_merged"] == 1
+    assert any(p.name.startswith("bench-0-") for p in spool.iterdir())
+    out = {}
+    tbench._attach_metrics(out)          # no spool in this process
+    assert {"retries_total", "faults_injected"} <= set(out["metrics_summary"])
+    assert "spool_processes_merged" not in out["metrics_summary"]
+
+
 def test_bench_needs_a_gpu_unless_forced_to_the_cpu():
     res = _bench({"BENCH_ROWS": "20000", "BENCH_ROUNDS": "4"})
     assert res.returncode != 0

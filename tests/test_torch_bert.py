@@ -214,18 +214,30 @@ class _TwoRanks(Mesh):
     size = 2
 
 
+class _NoDataAxis(_TwoRanks):
+    axis_names = ("model",)
+
+
+# what JAX's BERT refuses at construction: MoE with the KVStore sync
 @pytest.mark.parametrize("kw,match", [
-    ({"ffn_type": "moe"}, "moe"),
-    ({"grad_sync": "kvstore"}, "kvstore"),
+    ({"ffn_type": "moe", "grad_sync": "kvstore"}, "moe"),
+    ({"ffn_type": "moe", "grad_sync": "kvstore", "n_experts": 2},
+     "kvstore"),
 ])
 def test_constructor_refuses_what_waits(kw, match):
     with pytest.raises(Error, match=match):
         _port(**kw)
+    # each part alone is taken
+    for one in kw:
+        if one != "n_experts":
+            _port(**{one: kw[one]})
 
 
 def test_constructor_refuses_a_world_above_one():
-    with pytest.raises(Error, match="world of 2"):
-        BERT(mesh=_TwoRanks(), device="cpu", **TINY)
+    # a world of two is taken on the data axis; a mesh without one is not
+    with pytest.raises(Error, match="needs a 'data' axis"):
+        BERT(mesh=_NoDataAxis(), device="cpu", **TINY)
+    assert BERT(mesh=_TwoRanks(), device="cpu", **TINY).mesh.size == 2
     assert BERT(mesh=Mesh(), device="cpu", **TINY).mesh.size == 1
 
 

@@ -124,13 +124,47 @@ C6 = {
     "n_bins3": (dict(n_bins=3), Y, []),
     "softmax_base0.5": (dict(objective="multi:softmax", num_class=3,
                              base_score=0.5), Y3, None),
+    # ROADMAP C12: reg_lambda = 0 — empty children, 0/0 leaves (the
+    # port's exact sums) and residue leaves (JAX's f32 sums) at slots no
+    # training row reaches, held by the audit's reach rule
+    "lambda0": (dict(reg_lambda=0.0), Y, None),
+    "lambda0_alpha0.5_gamma0.3": (dict(reg_lambda=0.0, reg_alpha=0.5,
+                                       gamma=0.3), Y, None),
+    "lambda0_squarederror": (dict(objective="reg:squarederror",
+                                  reg_lambda=0.0), Z, None),
+    # ROADMAP C12's repro (its own rows, host binning): y None
+    "lambda0_c12_repro": (dict(objective="multi:softmax", num_class=3,
+                               max_depth=5, n_bins=3, reg_lambda=0.0,
+                               reg_alpha=0.5, gamma=0.3,
+                               min_child_weight=5.0, n_trees=3), None, None),
 }
 
 
+def _c12_rows(seed=0):
+    """ROADMAP C12's rows: X 3000 × 4 standard normal, labels the terciles
+    of x0 + 0.5·x1·x2 + N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    Xc = rng.standard_normal((3000, 4)).astype(np.float32)
+    z = Xc[:, 0] + 0.5 * Xc[:, 1] * Xc[:, 2] + rng.standard_normal(3000)
+    yc = np.digitize(z, np.quantile(z, [1 / 3, 2 / 3])).astype(np.float32)
+    return Xc, yc
+
+
 @pytest.mark.parametrize("case", list(C6))
-def test_c6_configurations_meet_level_b(case):
+def test_c6_configurations_meet_level_b(case, monkeypatch):
     extra, y, expect = C6[case]
     kw = dict(dict(n_trees=4, max_depth=4, n_bins=32), **extra)
+    if y is None:
+        monkeypatch.setenv("DMLC_TPU_BIN_BACKEND", "cpu")
+        Xc, y = _c12_rows()
+        jm = JaxHistGBT(mesh=local_mesh(1), **kw).fit(Xc, y)
+        tm = HistGBT(device="cpu", **kw).fit(Xc, y)
+        n_differ, parted, report = assert_level_b_f64(jm, tm, Xc, y, XV[:, :4])
+        assert parted is None and report == []
+        # C12 (a), open by design: the files differ only at slots no
+        # training row reaches (the port's 0/0 NaN, JAX's ±0.0)
+        _assert_leaves_differ_only_unreached(jm, tm, Xc)
+        return
     jm, tm = _fit_both(y, **kw)
     n_differ, parted, report = assert_level_b_f64(jm, tm, X, y, XV)
     assert parted is None
@@ -138,6 +172,41 @@ def test_c6_configurations_meet_level_b(case):
         assert report == expect
     assert all(r[4] == "tie" for r in report), report
     assert len(assert_level_b_through(jm, tm, X, y, XV, fixed=False)) == 1
+
+
+def test_c12_lambda0_gamma0_parts_only_at_ties_and_gamma_boundaries():
+    """λ = 0 with γ = 0: nodes whose best gain is ~0 split in one package
+    and not in the other (a ``gamma`` boundary, the gains within their
+    bounds of 0) or at exact ties; each parting is explained, and the fits
+    continued from the port's trees stay at level (b)."""
+    kw = dict(n_trees=4, max_depth=6, n_bins=3, objective="multi:softmax",
+              num_class=3, reg_lambda=0.0, min_child_weight=5.0)
+    jm, tm = _fit_both(Y3, **kw)
+    _, parted, report = assert_level_b_f64(jm, tm, X, Y3, XV)
+    assert parted == 0
+    assert {r[4] for r in report} <= {"tie", "gamma"}
+    assert any(r[4] == "gamma" for r in report)
+    stages = assert_level_b_through(jm, tm, X, Y3, XV, fixed=False)
+    assert len(stages) >= 2
+
+
+def _assert_leaves_differ_only_unreached(jm, tm, Xc):
+    """Where the two files' leaves are not the same number (bitwise, NaN
+    never is), no training row arrives; and the port's NaN leaves are
+    there too.  The leaves rows reach are the audit's to hold."""
+    bins = tm._bins_of(torch.from_numpy(Xc)).numpy()
+    seen_nan = False
+    for ja, tb in zip(jm.trees, tm.trees):
+        for c in range(tm.param.num_class):
+            a = {k: np.asarray(v)[c] for k, v in ja.items()}
+            b = {k: np.asarray(v)[c] for k, v in tb.items()}
+            reach = np.bincount(_leaf_of(b, bins),
+                                minlength=b["leaf"].shape[0]) > 0
+            nan = np.isnan(b["leaf"])
+            seen_nan |= bool(nan.any())
+            assert not (nan & reach).any()
+            assert not (np.isnan(a["leaf"]) & reach).any()
+    assert seen_nan      # the repro does reach the 0/0 case
 
 
 @pytest.mark.parametrize("what", ["threshold", "leaf"])
@@ -150,6 +219,26 @@ def test_audit_rejects_a_wrong_tree(what):
     else:
         tree["leaf"][3] += np.float32(1e-4)
     tm.trees[1] = tree
+    with pytest.raises(AssertionError):
+        assert_level_b_f64(jm, tm, X, Y, XV)
+
+
+@pytest.mark.parametrize("value", [7.0, np.nan])
+def test_audit_holds_unreached_leaves_when_lambda_positive(value):
+    """With λ > 0 a slot no training row reaches is held to float64 all
+    the same (its leaf is 0), and held-out rows that land there are
+    compared: garbage left at such a slot fails.  Only λ = 0 frees
+    those slots (C12)."""
+    kw = dict(n_trees=2, max_depth=6, n_bins=32, min_child_weight=50.0)
+    jm, tm = _fit_both(Y, **kw)
+    assert_level_b_f64(jm, tm, X, Y, XV)
+    bins = tm._bins_of(torch.from_numpy(X)).numpy()
+    tree = {k: v.copy() for k, v in tm.trees[0].items()}
+    reached = np.bincount(_leaf_of(tree, bins),
+                          minlength=tree["leaf"].shape[0]) > 0
+    assert not reached.all()
+    tree["leaf"][np.flatnonzero(~reached)[0]] = np.float32(value)
+    tm.trees[0] = tree
     with pytest.raises(AssertionError):
         assert_level_b_f64(jm, tm, X, Y, XV)
 
