@@ -278,18 +278,41 @@ and the script exits non-zero without the final ``ok`` line:
     worker's ``ElasticSession`` its thread's host transport), clean,
     then with worker 1 killed after its first commit and a replacement
     rejoining its rank: the same file as the clean run;
+12l. resnet — (a) trainer steps on the card against the same steps on
+    the CPU from the same carried weights: ``resnet-micro`` (basic
+    blocks) and a bottleneck micro model (1×1 projections, strided 3×3
+    convs), each 3 steps at 16 × 32² in f32 with cuDNN's TF32 off
+    (scoped by ``torch.backends.cudnn.flags``; losses and BN statistics
+    within 1e-4 of the CPU's, the update within 1e-3) and in bf16 (2e-3,
+    3e-3, 0.1), and ResNet-50 at its real widths, 2 f32 steps at 8 × 64²
+    (1e-4, 1e-3, and 0.1 for the update: ReLU inputs within rounding of
+    0, ROADMAP C18); (b) ``tools/bench_resnet_feed.py``'s legs at full width
+    (ResNet-50, 224², batch 256, bf16, 1536 synthetic records in 4
+    RecordIO shards): finite losses, the end-to-end epoch's 6 steps with
+    a stall fraction in [0, 1], the step's time beside its bound (6.22
+    TFLOP counted from the model's layers: 6.29 ms), the peak device
+    memory;
+12m. prodsim — ``python -m dmlc_core_tpu_torch.tools.check_prodsim`` as
+    a child process on the card (the production-day drill under the
+    lock-order, race and leak checkers, a fault in every tier, the
+    scorecard ``tools/slo/prodsim.json``): every check green; its
+    availability, tiers faulted, scorecard and the kernels' launches of
+    the drill process and of the replicas alive at its end;
 13. bench — ``python -m dmlc_core_tpu_torch.bench`` as a child process at
     its defaults (10M × 28, 100 rounds after 10 warmup rounds, the
     flagship's levers, host binning), with a time limit: its last line
     must be the final ``histgbt_rounds_per_sec_per_chip`` record of 100
-    rounds, with kernel launches and a ``kvstore_sync_ms``, and its
+    rounds, with kernel launches, a ``kvstore_sync_ms`` and the scaling
+    probe's ``scaling_efficiency`` (8 gloo ranks of the host at
+    ``BENCH_PROBE_ROWS``; or the budget note that skipped it), and its
     headline fields are emitted;
 14. the ``kernels`` line (launches summed over phases 3b-6h and 8, phases
     11 and 11b's Ulysses run for attention — each beside its part and the
     kernels' times at the Ulysses shard —, phase 12's timing pass for the
     B5 variants, phases
-    12f-12h's HTTP runs for ``descend``, and phase 12i's refreshes for
-    ``hist``, ``fused_round`` and ``descend``; ``descend_dir`` is
+    12f-12h's HTTP runs for ``descend``, phase 12i's refreshes for
+    ``hist``, ``fused_round`` and ``descend``, and phase 12m's drill for
+    the same three; ``descend_dir`` is
     ``descend_kernel``'s direction mode, B2's descend on the missing
     path, ``descend`` its plain mode, a served batch's and a refresh's
     margin replay), then the card's name and power limit, then the
@@ -308,6 +331,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -586,6 +610,46 @@ PS_TIMEOUT = 240
 ELASTIC_ROWS = 200_000
 ELASTIC_KW = dict(n_trees=6, max_depth=4, n_bins=32, learning_rate=0.3)
 ELASTIC_TIMEOUT = 300
+# resnet: (a) trainer steps on the card against the CPU from the same
+# carried weights: the losses (relative), and the change of the
+# parameters and of the BN running statistics over the steps (global
+# norm of card − CPU over the CPU's change).  f32 (TF32 off): cuDNN's
+# and the CPU's convolutions sum in other orders (1e-6 a layer), so
+# losses and statistics to 1e-4, the micro models' updates to 1e-3.  A
+# ReLU input within that rounding of 0 takes the other side of the mask
+# on the other device: continuous in the forward, a whole gradient
+# element in the backward.  ResNet-50's 6.3M ReLU inputs a step at
+# 8 × 64² hold a few such elements, so its update is held to 0.1
+# (measured 0.023 after two steps on the H100).  ``relu_sensitivity``
+# prints the evidence beside the check: one step's gradients on the card
+# with cuDNN and without, and on the CPU under a 1e-7 relative nudge of
+# the weights, each against the CPU's, with the flipped ReLU inputs
+# (ROADMAP C18).  Its statistics, which take in the second step's
+# forward on those weights, to 1e-3 (measured 7.7e-5).
+# bf16 rounds at other places in cuDNN and on the CPU, with more such
+# flips: losses 2e-3, statistics 3e-3, updates 0.1 (measured 7.5e-5 /
+# 3.9e-4, 8.8e-5 / 3.1e-4 and 0.013 / 0.043).  A
+# wrong stride, pad or layout moves the first loss; a wrong backward
+# moves the update by O(1) (at the first step all gradient runs through
+# the shortcuts: each block's last BN starts at scale 0).  Each case:
+# name, stage sizes, bottleneck, filters, side, batch, steps, and per
+# dtype (loss rtol, statistics, update).  ResNet-50 runs f32 alone (the
+# CPU's bf16 convolutions at its widths would outlast the phase).
+RESNET_SEED = 5
+RESNET_MICRO_CLASSES = 10
+#: the relative nudge of the weights in ``relu_sensitivity``
+RESNET_NUDGE = 1e-7
+_MICRO_TOL = {"f32": (1e-4, 1e-4, 1e-3), "bf16": (2e-3, 3e-3, 0.1)}
+RESNET_CROSS = (
+    ("resnet-micro", (1, 1), False, 8, 32, 16, 3, _MICRO_TOL),
+    ("bottleneck-micro", (1, 1), True, 8, 32, 16, 3, _MICRO_TOL),
+    ("resnet50", (3, 4, 6, 3), True, 64, 64, 8, 2,
+     {"f32": (1e-4, 1e-3, 0.1)}),
+)
+# prodsim: the drill at its defaults (DMLC_PRODSIM_SECONDS 24)
+PRODSIM_TIMEOUT = 600
+# bench: the scaling probe's rows (its fits run on the host's CPU)
+BENCH_PROBE_ROWS = 200_000
 
 
 def emit(obj) -> None:
@@ -3152,13 +3216,16 @@ def phase_hist_floor(torch, np, H, rates, tc_rate):
 def phase_bench(np):
     """``python -m dmlc_core_tpu_torch.bench`` at its defaults as a child
     process; its last line must be the final record of ``BENCH_ROUNDS``
-    rounds that went through the kernels."""
+    rounds that went through the kernels, with the scaling probe's
+    ``scaling`` (8 gloo ranks of the host at ``BENCH_PROBE_ROWS`` rows)
+    or the budget note that skipped it."""
     drop = set(LEVER_NAMES) | {"DMLC_TPU_ROUNDS_PER_DISPATCH",
                                "DMLC_TPU_BIN_BACKEND", "BENCH_FORCE_CPU"}
     env = {k: v for k, v in os.environ.items()
            if k not in drop and not k.startswith("BENCH_")}
     # the flagship size or a failure: no quiet drop to fewer rows
     env["BENCH_NO_FALLBACK"] = "1"
+    env["BENCH_PROBE_ROWS"] = str(BENCH_PROBE_ROWS)
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.bench"],
                          cwd=ROOT, env=env, capture_output=True, text=True,
@@ -3190,6 +3257,12 @@ def phase_bench(np):
     kvs = rec.get("kvstore_sync_ms") or {}
     require(isinstance(kvs.get("value"), float) and kvs["value"] > 0,
             f"bench: kvstore_sync_ms {rec.get('kvstore_sync_ms')}")
+    scaling = rec.get("scaling") or {}
+    require(scaling.get("scaling_efficiency", 0) > 0
+            or any("scaling probe skipped" in n
+                   for n in rec.get("notes", [])),
+            f"bench: no scaling probe ({rec.get('scaling')}, "
+            f"{rec.get('notes')})")
     phases = {}
     for ln in lines:
         r = json.loads(ln)
@@ -3201,7 +3274,7 @@ def phase_bench(np):
             "warmup_breakdown", "compile_seconds", "compile_cache",
             "bin_seconds", "time_to_first_tree", "kernel", "rows",
             "features", "rounds", "levers", "device_kind", "nvidia_smi",
-            "hbm_gbps", "notes")
+            "hbm_gbps", "scaling", "notes")
     emit({"phase": "bench", **{k: rec.get(k) for k in keys},
           "phase_elapsed_s": phases, "child_wall_seconds": wall})
     return rec
@@ -4588,6 +4661,293 @@ def phase_recovery(torch, np, H, smi, X, y, lossguide_bytes):
           "phase_seconds": time.perf_counter() - t_phase})
 
 
+# ---------------------------------------------------------------------------
+# ResNet over RecordIO image records, and the production-day drill
+# ---------------------------------------------------------------------------
+
+def resnet_steps(torch, np, device, dtype, arch, params, stats, batches):
+    """Trainer steps of the ``arch`` model (stage sizes, bottleneck,
+    filters) on ``device`` from the carried weights: the losses, and the
+    weights and BN running statistics after them."""
+    from dmlc_core_tpu_torch.models.resnet import ResNet, ResNetTrainer
+
+    tr = ResNetTrainer(device=device, dtype=dtype, variant="resnet-micro",
+                       num_classes=RESNET_MICRO_CLASSES, learning_rate=0.05)
+    stages, bottleneck, filters = arch
+    tr.model = ResNet(stages, bottleneck, RESNET_MICRO_CLASSES, filters,
+                      dtype).to(tr.device)
+    tr.params_from_numpy(params, stats)
+    losses = []
+    for x, y in batches:
+        loss, _acc = tr.train_step(torch.from_numpy(x), torch.from_numpy(y))
+        losses.append(float(loss))
+    return (np.array(losses), *tr.numpy_params())
+
+
+class _ReluMasks:
+    """Stands in for ``torch.nn.functional`` inside ``models.resnet``:
+    records each ``relu``'s input sign, in call order."""
+
+    def __init__(self, F):
+        self._F = F
+        self.masks = []
+
+    def __getattr__(self, name):
+        return getattr(self._F, name)
+
+    def relu(self, x, *a, **kw):
+        self.masks.append((x.detach() > 0).cpu())
+        return self._F.relu(x, *a, **kw)
+
+
+def relu_step(torch, np, device, hw, batch, cudnn=True, nudge=0.0):
+    """One f32 ResNet-50 forward and backward of the training loss on
+    ``device`` (weights of ``RESNET_SEED``, each scaled by ``1 +
+    nudge·N(0, 1)``): the parameter gradients and the ReLU input signs."""
+    import torch.nn.functional as F
+
+    from dmlc_core_tpu_torch.models import resnet
+
+    model = resnet.ResNet((3, 4, 6, 3), True, RESNET_MICRO_CLASSES, 64,
+                          torch.float32, generator=torch.Generator()
+                          .manual_seed(RESNET_SEED))
+    if nudge:
+        g = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + nudge * torch.randn(p.shape, generator=g))
+    model.to(device)
+    rng = np.random.default_rng(RESNET_SEED)
+    x = torch.from_numpy(rng.integers(0, 256, size=(batch, hw, hw, 3),
+                                      dtype=np.uint8)).to(device)
+    y = torch.from_numpy(rng.integers(0, RESNET_MICRO_CLASSES, size=batch)
+                         ).long().to(device)
+    rec = _ReluMasks(F)
+    resnet.F = rec
+    try:
+        with torch.backends.cudnn.flags(enabled=cudnn, benchmark=False,
+                                        deterministic=False,
+                                        allow_tf32=False):
+            F.cross_entropy(model(x, train=True), y).backward()
+    finally:
+        resnet.F = F
+    return ([p.grad.detach().double().cpu() for p in model.parameters()],
+            rec.masks)
+
+
+def relu_sensitivity(torch, np, hw, batch):
+    """Why ResNet-50's update parts card from CPU (ROADMAP C18): one
+    step's gradients on the card with cuDNN and without, and on the CPU
+    under a ``RESNET_NUDGE`` relative nudge of the weights, each against
+    the CPU's (global norm of the difference over the CPU's), with the
+    ReLU inputs that land on the other side of 0."""
+    def rel(got, want):
+        num = sum(float((a - b).norm() ** 2) for a, b in zip(got, want))
+        return (num / sum(float(b.norm() ** 2) for b in want)) ** 0.5
+
+    def flips(got, want):
+        return sum(int((a != b).sum()) for a, b in zip(got, want))
+
+    cg, cm = relu_step(torch, np, "cpu", hw, batch)
+    out = {"relu_inputs": sum(int(m.numel()) for m in cm)}
+    for name, device, cudnn, nudge in (
+            ("cudnn", DEVICE, True, 0.0), ("native", DEVICE, False, 0.0),
+            ("cpu_nudged", "cpu", True, RESNET_NUDGE)):
+        g, m = relu_step(torch, np, device, hw, batch, cudnn, nudge)
+        out[name] = {"grad_rel": rel(g, cg), "relu_flips": flips(m, cm)}
+    return out
+
+
+def leaves(tree):
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += leaves(v) if isinstance(v, dict) else [v]
+    return out
+
+
+def resnet_cross_device(torch, np, smi):
+    """(a) of ``resnet``: each ``RESNET_CROSS`` model's trainer steps on
+    the card against the same steps on the CPU from the same carried
+    weights — f32 with TF32 off for cuDNN (scoped:
+    ``torch.backends.cudnn.flags``), then bf16 where the case has it."""
+    from dmlc_core_tpu_torch.models.resnet import ResNet, ResNetTrainer
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    def rel_change(got, want, start):
+        num = sum(float(np.sum((a - b) ** 2)) for a, b in
+                  zip(leaves(got), leaves(want)))
+        den = sum(float(np.sum((b - c) ** 2)) for b, c in
+                  zip(leaves(want), leaves(start)))
+        return (num / den) ** 0.5
+
+    cross = {}
+    for (model, stages, bottleneck, filters, hw, batch, steps,
+         tols) in RESNET_CROSS:
+        rng = np.random.default_rng(RESNET_SEED)
+        batches = [(rng.integers(0, 256, size=(batch, hw, hw, 3),
+                                 dtype=np.uint8),
+                    rng.integers(0, RESNET_MICRO_CLASSES,
+                                 size=batch).astype(np.int32))
+                   for _ in range(steps)]
+        arch = (stages, bottleneck, filters)
+        ref = ResNetTrainer(device="cpu", dtype=torch.float32,
+                            variant="resnet-micro",
+                            num_classes=RESNET_MICRO_CLASSES)
+        ref.model = ResNet(stages, bottleneck, RESNET_MICRO_CLASSES,
+                           filters, torch.float32,
+                           generator=torch.Generator().manual_seed(
+                               RESNET_SEED))
+        params, stats = ref.numpy_params()
+        case = {"shape": [batch, hw, hw, 3], "steps": steps}
+        for name, (loss_rtol, stats_tol, upd_tol) in tols.items():
+            t0 = time.perf_counter()
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                            deterministic=False,
+                                            allow_tf32=False):
+                got_l, got_p, got_s = resnet_steps(
+                    torch, np, DEVICE, dtypes[name], arch, params, stats,
+                    batches)
+            want_l, want_p, want_s = resnet_steps(
+                torch, np, "cpu", dtypes[name], arch, params, stats,
+                batches)
+            upd = rel_change(got_p, want_p, params)
+            st = rel_change(got_s, want_s, stats)
+            loss_err = float(np.max(np.abs(got_l - want_l)
+                                    / np.abs(want_l)))
+            require(np.all(np.isfinite(got_l)) and loss_err <= loss_rtol
+                    and st <= stats_tol and upd <= upd_tol,
+                    f"resnet {model} {name}: card vs CPU losses {got_l} / "
+                    f"{want_l} (rel {loss_err:.3g} > {loss_rtol}?), "
+                    f"statistics rel {st:.3g} (> {stats_tol}?), update "
+                    f"rel {upd:.3g} (> {upd_tol}?)")
+            case[name] = {"loss_rel_err": loss_err, "loss_rtol": loss_rtol,
+                          "stats_rel_err": st, "stats_tol": stats_tol,
+                          "update_rel_err": upd, "update_tol": upd_tol,
+                          "losses": got_l.tolist(),
+                          "seconds": time.perf_counter() - t0}
+        if model == "resnet50":
+            case["relu_sensitivity"] = relu_sensitivity(torch, np, hw,
+                                                         batch)
+        cross[model] = case
+    require(torch.backends.cudnn.allow_tf32,
+            "resnet: the TF32 setting leaked out of its scope")
+    emit({"phase": "resnet", "part": "cross_device", **cross,
+          "nvidia_smi": smi})
+
+
+def phase_resnet(torch, np, smi):
+    """(a) :func:`resnet_cross_device`; (b) ``tools/bench_resnet_feed.py``'s
+    legs at full width (ResNet-50, 224², batch 256, 1536 synthetic
+    records in 4 shards)."""
+    from dmlc_core_tpu_torch.tools import bench_resnet_feed
+
+    t_phase = time.perf_counter()
+    resnet_cross_device(torch, np, smi)
+    gc_cuda(torch)
+    rec = bench_resnet_feed.run(device=DEVICE)
+    require(rec["variant"] == "resnet50" and rec["hw"] == 224
+            and rec["batch"] == 256 and rec["records"] == 1536,
+            f"resnet feed: ran {rec['variant']} at {rec['hw']}², batch "
+            f"{rec['batch']}, {rec['records']} records")
+    require(all(math.isfinite(v) for v in rec["losses"])
+            and math.isfinite(rec["e2e_last_loss"]),
+            f"resnet feed: losses {rec['losses']} / {rec['e2e_last_loss']}")
+    require(0.0 <= rec["e2e_stall_fraction"] <= 1.0
+            and rec["e2e_steps"] == rec["records"] // rec["batch"],
+            f"resnet feed: stall {rec['e2e_stall_fraction']}, "
+            f"{rec['e2e_steps']} steps")
+    require(rec["peak_mem_bytes"] and rec["peak_mem_bytes"] > 0,
+            "resnet feed: no peak memory")
+    emit({"phase": "resnet", "part": "feed", **rec,
+          "phase_seconds": time.perf_counter() - t_phase})
+    gc_cuda(torch)
+
+
+def phase_prodsim(np, smi):
+    """``python -m dmlc_core_tpu_torch.tools.check_prodsim`` as a child
+    process on the card (the drill under the lock-order, race and leak
+    checkers, gated on ``tools/slo/prodsim.json``): every check green.
+    Returns the kernels' launches of its run — the drill process's
+    (tenant fits, the stream lane's refreshes, the oracle's predicts)
+    and the replicas' alive at its end (``descend``)."""
+    t0 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="chip_prodsim_")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "PRODSIM_", "FLEET_"))
+           and k not in ("DMLC_TPU_ROUNDS_PER_DISPATCH", "DMLC_METRICS_SPOOL")}
+    if DEVICE == "cpu":            # a rehearsal of the script on the host
+        env["BENCH_FORCE_CPU"] = "1"
+    env.update({f"PRODSIM_{k}_OUT": os.path.join(out, f"{k.lower()}.json")
+                for k in ("METRICS", "TRACE", "RACECHECK", "LEAKCHECK",
+                          "SLO")})
+    env["PRODSIM_OUT"] = os.path.join(out, "drill.json")
+    env["DMLC_METRICS_SPOOL"] = os.path.join(out, "spool")
+    logs = {k: os.path.join(out, f"drill.{k}") for k in ("out", "err")}
+    with open(logs["out"], "w") as fo, open(logs["err"], "w") as fe:
+        proc = subprocess.Popen([sys.executable, "-m",
+                                 "dmlc_core_tpu_torch.tools.check_prodsim"],
+                                cwd=ROOT, env=env, stdout=fo, stderr=fe,
+                                text=True, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=PRODSIM_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            # the drill and every process it started (one session)
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = None
+    wall = time.perf_counter() - t0
+    with open(logs["out"]) as f:
+        stdout = f.read()
+    with open(logs["err"]) as f:
+        stderr = f.read()
+    checks = [ln for ln in stdout.splitlines()
+              if ln.startswith(("ok:", "FAIL:"))]
+    require(rc == 0 and "PRODSIM DRILL GREEN" in stdout,
+            f"prodsim exited {rc} after {wall:.0f} s (None: killed at "
+            f"{PRODSIM_TIMEOUT} s): {checks[-3:]} stdout "
+            f"{stdout[-1500:]} stderr {stderr[-6000:]}")
+    with open(env["PRODSIM_OUT"]) as f:
+        drill = json.load(f)
+    rec = drill["record"]
+    platform = "cpu" if DEVICE == "cpu" else "gpu"
+    require(rec["platform"] == platform,
+            f"prodsim ran on {rec['platform']}, not {platform}")
+    parent = rec["kernel_launches"]["parent"]
+    replicas = rec["kernel_launches"]["replicas"]
+    served = sum((d or {}).get("descend", 0) for d in replicas.values())
+    launches = {"hist": parent["hist"], "fused_round": parent["fused_round"],
+                "descend": parent["descend"] + served}
+    if platform == "gpu":
+        for k, v in launches.items():
+            require(v > 0, f"{k} was never launched on the prodsim path "
+                           f"({parent}, replicas {replicas})")
+    score = drill["slo"]
+    emit({"phase": "prodsim", "availability": rec["availability"],
+          "dropped": rec["dropped"], "wrong": rec["wrong"],
+          "tiers_faulted": rec["chaos"]["tiers_faulted"],
+          "chaos_log": rec["chaos"]["log"],
+          "launch": rec["launch"], "ps_restored_version":
+          rec["ps"]["restored_version"],
+          "stream": {k: rec["stream"][k] for k in
+                     ("refreshes", "activated", "resyncs",
+                      "staleness_seconds", "live_verified")},
+          "rollback": rec["rollback"], "jitcheck": rec["jitcheck"],
+          "observability": drill["observability"],
+          "scorecard": {"pass": score["pass"],
+                        "objectives": {o["name"]: [o["observed"], o["op"],
+                                                   o["threshold"]]
+                                       for o in score["objectives"]}},
+          "checks": len(checks), "kernel_launches": rec["kernel_launches"],
+          "loadgen": {k: rec["loadgen"][k] for k in
+                      ("count", "throughput_rps", "latency_p50_ms",
+                       "latency_p99_ms")},
+          "drill_elapsed_s": rec["elapsed_s"], "child_wall_seconds": wall,
+          "nvidia_smi": smi})
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -4715,6 +5075,9 @@ def main() -> int:
     phase_ps(torch, np, smi)
     phase_recovery(torch, np, H, smi, X, y, lossguide_fit[1])
     del X, y
+    phase_resnet(torch, np, smi)
+    for k, v in phase_prodsim(np, smi).items():
+        launches[k] += v
     phase_bench(np)
     for k, v in floor.items():
         launches[k] = v.pop("launches")

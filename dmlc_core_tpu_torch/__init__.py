@@ -23,13 +23,42 @@ learning (``stream``: the tailer, the online trainer, the publisher);
 distributed state (``parallel.kvstore``, the parameter server
 ``parallel.ps`` behind ``fit_ps``, sharded checkpoints, the host
 transport and the elastic recovery layer ``parallel.recovery``); the
-flagship, serve, fleet, tenants, stream and ps benches (``python -m
-dmlc_core_tpu_torch.bench [--serve | --fleet | --tenants | --stream |
---ps]``); and the one-hot product histogram spike
-(``tools/spike_hist_floor.py``).
+flagship, serve, fleet, tenants, stream, ps, prodsim and scaling-probe
+benches (``python -m dmlc_core_tpu_torch.bench [--serve | --fleet |
+--tenants | --stream | --ps | --prodsim | --scaling-probe]``); the
+``ResNetTrainer`` over RecordIO image records (``models.resnet``,
+``data.image_record``); the SLO scorecard and the lock-order, race and
+leak checkers (``base.slo``, ``base.lockcheck``, ``base.racecheck``,
+``base.leakcheck``, installed at import under ``DMLC_LOCKCHECK``,
+``DMLC_RACECHECK`` and ``DMLC_LEAKCHECK``); and the one-hot product
+histogram spike (``tools/spike_hist_floor.py``).
 """
 
-from dmlc_core_tpu_torch.models.histgbt import HistGBT, HistGBTParam
+from dmlc_core_tpu_torch.base import lockcheck as _lockcheck
+
+if _lockcheck.env_enabled():
+    # DMLC_LOCKCHECK=1: every threading.Lock/RLock created after this
+    # point participates in the cross-thread lock-order graph; cycles
+    # are reported via base.lockcheck.violations()/check().
+    _lockcheck.install()
+
+from dmlc_core_tpu_torch.base import racecheck as _racecheck  # noqa: E402
+
+if _racecheck.env_enabled():
+    # DMLC_RACECHECK=1: vector-clock happens-before race detection over
+    # the opt-in classes (batcher, registries, ConcurrentBlockingQueue);
+    # implies lockcheck (traced locks are the HB vocabulary).
+    _racecheck.install()
+
+from dmlc_core_tpu_torch.base import leakcheck as _leakcheck  # noqa: E402
+
+if _leakcheck.env_enabled():
+    # DMLC_LEAKCHECK=1: every socket/thread/subprocess/tempfile created
+    # through repo code after this point is traced with its creation
+    # stack.  Installed AFTER racecheck so the Thread.start hooks chain.
+    _leakcheck.install()
+
+from dmlc_core_tpu_torch.models.histgbt import HistGBT, HistGBTParam  # noqa: E402
 
 __all__ = ["HistGBT", "HistGBTParam"]
 __version__ = "0.1.0"

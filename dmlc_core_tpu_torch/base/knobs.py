@@ -4,7 +4,9 @@ state modules, with their defaults.
 This package's own copy of the part of ``dmlc_core_tpu/base/knobs.py``
 that the streaming (``stream/``), key-value store (``parallel/kvstore``),
 parameter server (``parallel/ps``) and elastic recovery
-(``parallel/recovery``) modules read: the same names, defaults and
+(``parallel/recovery``) modules, the dynamic checkers (``base/lockcheck``,
+``base/racecheck``, ``base/leakcheck``) and the bench's ``--prodsim``
+read: the same names, defaults and
 meanings.  :func:`value` reads a knob from the environment with its
 declared default applied, the type taken from the default.  Reads happen
 at the call (no caching), so a test or a worker thread sees the
@@ -108,3 +110,30 @@ declare("DMLC_PS_SERVER_ID", -1,
 declare("DMLC_PS_SERVER_URI", "127.0.0.1",
         "Host/interface a DMLC_ROLE=server process binds its data plane "
         "to.")
+
+# -- dynamic checkers (installed at import by dmlc_core_tpu_torch/__init__) ---
+declare("DMLC_LOCKCHECK", "0",
+        "1 installs the dynamic lock-order verifier at import: lock "
+        "acquisitions build a cross-thread order graph and cycles are "
+        "reported (base/lockcheck).")
+declare("DMLC_RACECHECK", "0",
+        "1 installs the vector-clock happens-before race detector at "
+        "import (implies lock tracing): shared-attribute accesses on "
+        "the instrumented serving/tracker classes are checked for "
+        "unordered cross-thread pairs (base/racecheck).")
+declare("DMLC_LEAKCHECK", "0",
+        "1 installs the resource-leak tracer at import: every "
+        "socket/thread/subprocess/tempfile created through repo code "
+        "is recorded with its creation stack, and whatever is still "
+        "live at drill exit is reported (base/leakcheck).")
+
+# -- the production-day drill (bench --prodsim) --------------------------------
+declare("DMLC_FAULT_SEED", 1234,
+        "Seed for the per-rule fault-injection RNG streams.")
+declare("DMLC_PRODSIM_SECONDS", 24.0,
+        "Duration of the bench --prodsim production-day simulation "
+        "load window in seconds (the chaos schedule scales with it).")
+declare("DMLC_PRODSIM_CHAOS", "",
+        "Override chaos schedule for bench --prodsim (faultinject "
+        "grammar with at=/every= wall-clock triggers); empty derives "
+        "the default all-tier schedule from DMLC_PRODSIM_SECONDS.")

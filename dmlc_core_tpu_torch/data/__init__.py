@@ -11,3 +11,5 @@ from dmlc_core_tpu_torch.data.row_block import Row, RowBlock, RowBlockContainer 
 from dmlc_core_tpu_torch.data.parsers import Parser  # noqa: F401
 from dmlc_core_tpu_torch.data.iter import RowBlockIter  # noqa: F401
 from dmlc_core_tpu_torch.data.device_feed import DeviceFeed, FeedStats  # noqa: F401
+from dmlc_core_tpu_torch.data.image_record import (  # noqa: F401
+    batch_iterator, pack_image_record, unpack_image_record)

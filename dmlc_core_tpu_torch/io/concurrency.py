@@ -8,9 +8,9 @@ condvar queue (matching the semantics the reference's own
 ConcurrentBlockingQueue provides) is the whole story — true lock-free
 paths live in the C++ hot loop (cpp/), not here.
 
-This package's own copy of ``dmlc_core_tpu.io.concurrency``, without the
-JAX package's race-checker instrumentation (``base/racecheck.py`` is not
-copied).
+This package's own copy of ``dmlc_core_tpu.io.concurrency``, with the
+JAX class's race-checker instrumentation (``base/racecheck.py``): under
+``DMLC_RACECHECK=1`` a push → pop handoff is a happens-before edge.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ import heapq
 import threading
 import time
 from typing import Any, Generic, List, Optional, Tuple, TypeVar
+
+from dmlc_core_tpu_torch.base.racecheck import instrument_class
 
 __all__ = ["ConcurrentBlockingQueue", "QueueKilled"]
 
@@ -29,6 +31,7 @@ class QueueKilled(Exception):
     """Raised to a blocked producer/consumer after signal_for_kill()."""
 
 
+@instrument_class
 class ConcurrentBlockingQueue(Generic[T]):
     """Bounded blocking MPMC queue.
 

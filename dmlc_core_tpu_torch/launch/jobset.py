@@ -50,6 +50,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 from dmlc_core_tpu_torch.base import metrics as _metrics
+from dmlc_core_tpu_torch.base.racecheck import instrument_class
 from dmlc_core_tpu_torch.base import tracectx as _tracectx
 from dmlc_core_tpu_torch.base.logging import CHECK, LOG
 from dmlc_core_tpu_torch.base.resilience import RetryPolicy
@@ -100,6 +101,7 @@ class _Rank:
         self.lost_cycles = 0
 
 
+@instrument_class
 class JobSet:
     """Launch + supervise ``nworker`` ranked processes over a transport.
 

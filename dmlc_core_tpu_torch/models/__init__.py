@@ -1,5 +1,6 @@
 """Models: histogram gradient-boosted trees (dense and sparse), the
-linear booster, factorization machines, the BERT masked-LM trainer, and
+linear booster, factorization machines, the BERT masked-LM trainer, the
+ResNet image trainer over RecordIO image records, and
 the sklearn-style wrappers (``GBTClassifier``, ``GBTRegressor``,
 ``GBTRanker``; loaded on first use, as in the JAX package)."""
 
@@ -8,9 +9,11 @@ from dmlc_core_tpu_torch.models.fm import FM, FMParam
 from dmlc_core_tpu_torch.models.histgbt import HistGBT, HistGBTParam
 from dmlc_core_tpu_torch.models.histgbt_sparse import SparseHistGBT
 from dmlc_core_tpu_torch.models.linear import GBLinear, GBLinearParam
+from dmlc_core_tpu_torch.models.resnet import ResNet, ResNetParam, ResNetTrainer
 
 __all__ = ["BERT", "BERTParam", "FM", "FMParam", "GBLinear",
-           "GBLinearParam", "HistGBT", "HistGBTParam", "SparseHistGBT"]
+           "GBLinearParam", "HistGBT", "HistGBTParam", "ResNet", "ResNetParam",
+           "ResNetTrainer", "SparseHistGBT"]
 
 _SKLEARN_WRAPPERS = ("GBTClassifier", "GBTRegressor", "GBTRanker")
 

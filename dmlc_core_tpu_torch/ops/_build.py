@@ -25,8 +25,8 @@ from typing import Dict, Iterable, Optional, Tuple
 
 from dmlc_core_tpu_torch.base.logging import LOG, log_fatal
 
-__all__ = ["load_library", "build_all", "is_built", "BUILD_DIR",
-           "CSRC_DIR"]
+__all__ = ["load_library", "build_all", "is_built", "build_events",
+           "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -95,6 +95,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: nvcc builds and library loads this process has made: the port's
+#: counterpart of the JAX package's XLA compile count (``--prodsim``'s
+#: steady-window gate)
+_EVENTS = {"builds": 0, "loads": 0}
 
 
 def _nvcc() -> str:
@@ -144,6 +148,7 @@ def _finish(name: str, job) -> Path:
         log_fatal(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
                   f"{stderr[-4000:]}")
     os.replace(tmp, out)       # atomic: concurrent builds agree
+    _EVENTS["builds"] += 1
     LOG("INFO", "built %s in %.1f s", out.name, time.perf_counter() - t0)
     return out
 
@@ -178,4 +183,11 @@ def load_library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).argtypes = list(argtypes)
                 getattr(lib, fn).restype = ctypes.c_int
             _LIBS[name] = lib
+            _EVENTS["loads"] += 1
         return lib
+
+
+def build_events() -> Dict[str, int]:
+    """``{"builds", "loads"}``: the ``nvcc`` builds and the library loads
+    this process has made so far."""
+    return dict(_EVENTS)

@@ -37,9 +37,9 @@ extra channel to report which model version served the batch.
 
 This package's own copy of ``dmlc_core_tpu.serve.batcher``, over the
 port's ``io/concurrency.py``: the same flush, deadline, backpressure,
-timeout, cancel and drain contracts.  The JAX package's race-checker
-instrumentation (``@instrument_class``) is dropped, as the port's
-``io/concurrency.py`` drops it (``base/racecheck.py`` is not copied).
+timeout, cancel and drain contracts, and the JAX class's race-checker
+instrumentation (``@instrument_class`` of ``base/racecheck.py``, live
+under ``DMLC_RACECHECK=1``).
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ import numpy as np
 
 from dmlc_core_tpu_torch.base import metrics as _metrics
 from dmlc_core_tpu_torch.base.logging import CHECK
+from dmlc_core_tpu_torch.base.racecheck import instrument_class
 from dmlc_core_tpu_torch.base.timer import get_time
 from dmlc_core_tpu_torch.io.concurrency import ConcurrentBlockingQueue, QueueKilled
 from dmlc_core_tpu_torch.serve.instruments import serve_metrics
@@ -83,6 +84,7 @@ class _Request:
         self.deadline = None if timeout is None else self.t_enq + timeout
 
 
+@instrument_class
 class DynamicBatcher:
     """Coalesce concurrent predict requests into bounded batches.
 
@@ -106,6 +108,7 @@ class DynamicBatcher:
         # an Event, not a bool: the closed flag is written by the
         # closing thread and read by submitters AND the flush thread —
         # set()/is_set() gives that handoff a real happens-before edge
+        # (a bare bool was racecheck's first confirmed finding)
         self._closed = threading.Event()
         self._thread = threading.Thread(
             target=self._flush_loop, daemon=True,

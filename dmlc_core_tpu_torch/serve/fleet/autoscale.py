@@ -38,6 +38,7 @@ import threading
 from typing import Any, Callable, Dict, List, Optional
 
 from dmlc_core_tpu_torch.base import metrics as _metrics
+from dmlc_core_tpu_torch.base.racecheck import instrument_class
 from dmlc_core_tpu_torch.base.logging import CHECK, LOG
 from dmlc_core_tpu_torch.base.resilience import RetryPolicy
 from dmlc_core_tpu_torch.io.http_util import http_request
@@ -256,6 +257,7 @@ def fleet_queue_wait_p99(tracker: FleetTracker) -> Optional[float]:
     return max(values) if values else None
 
 
+@instrument_class
 class AutoscaleLoop:
     """Wire signal → policy → metrics/callback/backend on a timer.
 

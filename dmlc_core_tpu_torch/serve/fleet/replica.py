@@ -181,6 +181,11 @@ class ReplicaFrontend(ServeFrontend):
             p99 = serve_metrics()["queue_wait"].quantile(
                 0.99, batcher=self.registry.name)
         doc["queue_wait_p99_s"] = p99
+        # every served HistGBT batch is descend_kernel launches on a card
+        # (0 on the CPU): a drill reads them from the health doc
+        from dmlc_core_tpu_torch.ops.histogram import descend_kernel
+
+        doc["kernel_launches"] = {"descend": descend_kernel.launches}
         return doc
 
     def _route(self, method: str, path: str, body: bytes,

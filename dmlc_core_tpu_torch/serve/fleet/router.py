@@ -48,6 +48,7 @@ import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from dmlc_core_tpu_torch.base import metrics as _metrics
+from dmlc_core_tpu_torch.base.racecheck import instrument_class
 from dmlc_core_tpu_torch.base import tracectx as _tracectx
 from dmlc_core_tpu_torch.base.logging import CHECK, LOG
 from dmlc_core_tpu_torch.base.resilience import CircuitBreaker, RetryPolicy
@@ -137,6 +138,7 @@ class _ReplicaState:
                 "version": self.version, "breaker": self.breaker.state}
 
 
+@instrument_class
 class FleetRouter(HttpServer):
     """HTTP router/load-balancer over a :class:`FleetTracker`'s fleet.
 
@@ -390,6 +392,8 @@ class FleetRouter(HttpServer):
                  ) -> Tuple[str, Any]:
         """One forward to one replica with the breaker discipline →
         ``("ok", data)`` / ``("shed", HttpError)`` (alive, 503) /
+        ``("missing", HttpError)`` (a tenant request's 404: this replica
+        does not hold the tenant yet) /
         ``("client", HttpError)`` (the request's own fault) /
         ``("skip", None)`` (breaker open) / ``("fail", None)``."""
         m = fleet_metrics() if _metrics.enabled() else None
@@ -417,6 +421,13 @@ class FleetRouter(HttpServer):
                 if m:
                     m["failover"].inc(1, reason="shed")
                 return "shed", e
+            if tenant and e.status == 404:
+                # a replica respawned mid-run registers before its
+                # tenants are loaded back: another replica may hold it
+                breaker.record_success()
+                if m:
+                    m["failover"].inc(1, reason="tenant_missing")
+                return "missing", e
             if 400 <= e.status < 500 and e.status not in (408, 429):
                 # the request's own fault — identical everywhere,
                 # pass the replica's verdict through
@@ -438,10 +449,12 @@ class FleetRouter(HttpServer):
 
     def _walk(self, candidates: List[Tuple[int, str, CircuitBreaker]],
               body: bytes, tenant: Optional[str] = None,
-              last_shed: Optional[HttpError] = None
+              last_shed: Optional[HttpError] = None,
+              last_missing: Optional[HttpError] = None
               ) -> Tuple[int, Any, str, Dict[str, str]]:
         """Sequential failover walk over ``candidates`` — the router's
-        retry loop (one physical attempt per replica)."""
+        retry loop (one physical attempt per replica).  A tenant that no
+        candidate holds answers the last replica's 404."""
         for rank, url, breaker in candidates:
             kind, payload = self._attempt(rank, url, breaker, body,
                                           tenant=tenant)
@@ -449,8 +462,13 @@ class FleetRouter(HttpServer):
                 return 200, payload, "application/json", {}
             if kind == "shed":
                 last_shed = payload
+            elif kind == "missing":
+                last_missing = payload
             elif kind == "client":
                 return payload.status, payload.body, "application/json", {}
+        if last_missing is not None and last_shed is None:
+            return (last_missing.status, last_missing.body,
+                    "application/json", {})
         if last_shed is not None:
             retry_after = last_shed.retry_after
             hdrs = {"Retry-After": str(retry_after if retry_after
@@ -519,8 +537,10 @@ class FleetRouter(HttpServer):
         for which, kind, payload in snapshot:
             if kind == "client":
                 return payload.status, payload.body, "application/json", {}
+        last_missing = next((p for _, k, p in snapshot if k == "missing"),
+                            None)
         return self._walk(candidates[launched:], body, tenant=tenant,
-                          last_shed=last_shed)
+                          last_shed=last_shed, last_missing=last_missing)
 
     def _mark_unhealthy(self, rank: int) -> None:
         """Drop a replica from the ring immediately after a transport

@@ -28,8 +28,8 @@ The magic loaders name the port's four families (``HistGBT``,
 package's, so a serving checkpoint written by either package loads in
 the other.  Loaders take ``device=`` (``None``: ``cuda``, as every entry
 point of the port); :class:`ModelRegistry` passes its own ``device`` to
-:meth:`ModelRegistry.load`.  The race-checker exemption of the JAX
-class has no counterpart (``base/racecheck.py`` is not copied).
+:meth:`ModelRegistry.load`.  The class carries the JAX class's
+race-checker instrumentation and exemption (``base/racecheck.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ import numpy as np
 
 from dmlc_core_tpu_torch.base import metrics as _metrics
 from dmlc_core_tpu_torch.base.logging import CHECK, LOG
+from dmlc_core_tpu_torch.base.racecheck import instrument_class
 from dmlc_core_tpu_torch.io.stream import Stream
 from dmlc_core_tpu_torch.parallel.checkpoint import checkpoint, load_checkpoint
 from dmlc_core_tpu_torch.serve.instruments import serve_metrics
@@ -156,6 +157,7 @@ def load_model_checkpoint(uri: str, device: Any = None
                                       device)
 
 
+@instrument_class
 class ModelRegistry:
     """Versioned runners with an atomically swappable current pointer.
 
@@ -164,6 +166,12 @@ class ModelRegistry:
     hot-swap must not change which shapes the batcher produces.
     ``device`` is where :meth:`load` puts a checkpoint's model
     (``None``: ``cuda``); a published model stays where it is."""
+
+    #: ``_current`` is read lock-free BY DESIGN (one atomic reference
+    #: fetch of an immutable tuple — see current()); the same rationale
+    #: as its ``# dmlcheck: off:lock-discipline`` suppressions, spelled
+    #: in racecheck's vocabulary
+    _racecheck_exempt = frozenset({"_current"})
 
     def __init__(self, name: str = "default", device: Any = None,
                  **runner_opts: Any):

@@ -48,6 +48,7 @@ import numpy as np
 from dmlc_core_tpu_torch.base import metrics as _metrics
 from dmlc_core_tpu_torch.base.logging import CHECK, LOG
 from dmlc_core_tpu_torch.base.parameter import get_env
+from dmlc_core_tpu_torch.base.racecheck import instrument_class
 from dmlc_core_tpu_torch.base.timer import get_time
 from dmlc_core_tpu_torch.parallel.checkpoint import checkpoint, load_checkpoint
 from dmlc_core_tpu_torch.serve.registry import model_from_bytes, model_to_bytes
@@ -111,6 +112,7 @@ class _Tenant:
         self.restore_lock = threading.Lock()
 
 
+@instrument_class
 class TenantRegistry:
     """Per-tenant versioned models behind one residency budget.
 
@@ -119,6 +121,12 @@ class TenantRegistry:
     set of executed shapes stays bounded by the ladder, not by the
     tenant count.  ``device`` is where every model rebuilt from bytes
     lives (``None``: ``cuda``)."""
+
+    #: per-tenant ``current`` tuples are read lock-free BY DESIGN (the
+    #: ModelRegistry ``_current`` idiom applied per namespace); the
+    #: ``_Tenant`` record itself is plain data, so the exemption is on
+    #: the map that reaches it
+    _racecheck_exempt = frozenset({"_tenants"})
 
     def __init__(self, resident_cap: Optional[int] = None,
                  device: Any = None, **runner_opts: Any):

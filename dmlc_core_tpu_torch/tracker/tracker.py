@@ -31,6 +31,7 @@ import threading
 from typing import Any, Callable, Dict, List, Optional
 
 from dmlc_core_tpu_torch.base import metrics as _metrics
+from dmlc_core_tpu_torch.base.racecheck import instrument_class
 from dmlc_core_tpu_torch.base import tracectx as _tracectx
 from dmlc_core_tpu_torch.base.logging import CHECK, LOG, log_fatal
 from dmlc_core_tpu_torch.base.timer import get_time
@@ -75,6 +76,7 @@ def _worker_event(event: str, rank: int = -1) -> None:
         global_tracer().instant(f"tracker.{event}", rank=rank)
 
 
+@instrument_class
 class RabitTracker:
     """Rank-assignment + topology service over TCP/JSON lines."""
 

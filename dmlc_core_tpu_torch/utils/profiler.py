@@ -6,6 +6,11 @@ owes more: step time vs infeed stall is THE number that decides whether
 the host pipeline (ThreadedIter → device_put) keeps the chip busy.  This
 module provides
 
+* :func:`device_trace` — context manager around ``torch.profiler``: the
+  host's and (on a card) the device's activity into a Chrome trace in a
+  logdir (the JAX package's capture of an XLA profile);
+* :func:`annotate` / :func:`step_annotation` — named regions that show up
+  inside the device trace (``torch.profiler.record_function``);
 * :class:`Tracer` — a dependency-free host-side event tracer writing
   Chrome ``chrome://tracing`` / Perfetto JSON, so host pipeline phases
   (read, parse, device_put, step) can be eyeballed against each other
@@ -23,11 +28,10 @@ metrics layer (``base.metrics``) it defaults OFF.  The Tracer buffer is
 capped (``max_events``) so a scope left enabled for a long run degrades
 to dropped events, never to unbounded host memory.
 
-This package's own copy of the host side of ``dmlc_core_tpu.utils.profiler``
-(:class:`Tracer`, :func:`global_tracer`, the tracing switch), which the
-data plane's copies emit into; the JAX package's device-trace helpers
-(``device_trace``, ``annotate``, ``step_annotation``, over
-``jax.profiler``) have no counterpart here yet.
+This package's own copy of ``dmlc_core_tpu.utils.profiler``: the host
+side (:class:`Tracer`, :func:`global_tracer`, the tracing switch), which
+the data plane's copies emit into, and the device-trace helpers over
+``torch.profiler`` in place of ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ from typing import Any, Dict, Iterator, List, Optional
 
 from dmlc_core_tpu_torch.base.timer import get_time
 
-__all__ = ["Tracer", "global_tracer", "tracing_enabled", "set_tracing"]
+__all__ = ["device_trace", "annotate", "step_annotation", "Tracer",
+           "global_tracer", "tracing_enabled", "set_tracing"]
 
 _TRACING = os.environ.get("DMLC_TRACE", "0").lower() in ("1", "true", "on",
                                                          "yes")
@@ -58,6 +63,61 @@ def set_tracing(on: bool) -> None:
     ``DMLC_TRACE=1``)."""
     global _TRACING
     _TRACING = bool(on)
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str) -> Iterator[Any]:
+    """Profile the block with ``torch.profiler`` (CPU activity, and CUDA
+    activity when a card is present) and write its Chrome trace to
+    ``logdir/trace.json`` (view in ``chrome://tracing`` or Perfetto).
+
+    Yields the ``torch.profiler.profile`` (its ``key_averages()`` give
+    the time by operator and kernel after the block), or None when the
+    profiler cannot start (e.g. another profile is active): profiling
+    must never break training."""
+    prof = None
+    try:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(logdir, exist_ok=True)
+        prof = profile(activities=acts)
+        prof.__enter__()
+    except Exception:  # noqa: BLE001 — profiling must never break training
+        prof = None
+    try:
+        yield prof
+    finally:
+        if prof is not None:
+            try:
+                prof.__exit__(None, None, None)
+                prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+            except Exception:  # noqa: BLE001
+                pass
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """Named region visible in the device trace (``record_function``)."""
+    try:
+        from torch.profiler import record_function
+
+        ctx: Any = record_function(name)
+    except Exception:  # noqa: BLE001
+        ctx = contextlib.nullcontext()
+    with ctx:
+        yield
+
+
+@contextlib.contextmanager
+def step_annotation(step: int, name: str = "train") -> Iterator[None]:
+    """Step marker (``<name>#<step>``) so the trace viewer groups
+    per-step activity."""
+    with annotate(f"{name}#{step}"):
+        yield
 
 
 class Tracer:

@@ -8,13 +8,27 @@ rounds, the host binning route, the boosting metrics.
   with a final record carrying ``bench.py``'s flagship fields, the
   kvstore smoke's ``kvstore_sync_ms`` among them; without a GPU and
   without ``BENCH_FORCE_CPU`` it fails (the flagship, ``--fleet``,
-  ``--tenants`` and ``--stream``); a mode it does not have
-  (``--prodsim``) is refused;
+  ``--tenants``, ``--stream``, ``--prodsim`` and ``--scaling-probe``);
+  the flagship's record carries the scaling probe's ``scaling``;
+* ``--scaling-probe`` prints one JSON line: ``scaling_summary`` over 8
+  gloo ranks of the host against 1 process, with its ``basis``;
+* ``--prodsim``: the default chaos schedule is JAX's, and a recorded
+  green record (``tests/torch_prodsim_record.json``, a CPU run of
+  ``tools/check_prodsim.py``) passes the port's copy of the scorecard
+  while a dropped request, a race or a steady-window kernel build fails
+  it; and the whole drill on the CPU, a 12 s schedule under
+  ``tools/check_prodsim.py`` (ten processes, ~35 s alone on 8 cores),
+  passes the scorecard;
 * any chunk size (``DMLC_TPU_ROUNDS_PER_DISPATCH``) and any number of
   warmup rounds write the model file of ``fit``, byte for byte, and
   ``chunk_callback`` fires once per chunk;
 * ``_host_bin_t`` is bit-equal to the JAX package's and to
   ``apply_bins``, and the host route's model file is the device route's.
+
+``tests/test_bench_kill.py`` is loaded against ``python -m
+dmlc_core_tpu_torch.bench`` (``*_port``; slow, as in JAX): SIGTERM and
+SIGKILL mid-fit, the budget watchdog and a clean run each leave a
+complete last line.
 """
 
 import json
@@ -28,20 +42,30 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import bench as jbench  # noqa: E402
 from dmlc_core_tpu.models import gbt_split as jsplit  # noqa: E402
 from dmlc_core_tpu.models import histgbt as jgbt  # noqa: E402
+from dmlc_core_tpu.ops.histogram import \
+    hist_psum_bytes_per_round as jax_psum_bytes  # noqa: E402
 from dmlc_core_tpu_torch import bench as tbench  # noqa: E402
 from dmlc_core_tpu_torch.base import metrics as tmetrics  # noqa: E402
 from dmlc_core_tpu_torch.base.logging import Error  # noqa: E402
 from dmlc_core_tpu_torch.models import gbt_split as tsplit  # noqa: E402
 from dmlc_core_tpu_torch.models import histgbt as tgbt  # noqa: E402
 from dmlc_core_tpu_torch.ops.quantile import apply_bins  # noqa: E402
+from _torch_suites import export, load_port  # noqa: E402
 
 # a few intra-op threads per test process: the suite runs several
 # processes on the host's cores
 torch.set_num_threads(2)
+
+# JAX's survivability tests (slow, as in JAX) against the port's bench
+_KILL = load_port("test_bench_kill.py", [
+    ("[sys.executable, _BENCH]",
+     '[sys.executable, "-m", "dmlc_core_tpu_torch.bench"]')])
+export(globals(), _KILL, ["TestBenchSurvivesKill"])
 
 CHUNKS = [
     [(25, 3.0), (50, 6.1), (75, 9.1), (100, 12.2)],
@@ -123,6 +147,9 @@ def test_bench_final_record_on_the_cpu():
     assert 0.0 <= rec["infeed_stall_frac"]["value"] <= 1.0
     assert rec["kvstore_sync_ms"]["value"] > 0
     assert rec["metrics_summary"]["rounds_total"] == 4.0
+    scaling = rec["scaling"]
+    assert scaling["chips"] == 8 and scaling["scaling_efficiency"] > 0
+    assert "gloo" in scaling["basis"]
 
 
 def test_bench_record_carries_retries_faults_and_the_spool(tmp_path):
@@ -153,11 +180,103 @@ def test_bench_needs_a_gpu_unless_forced_to_the_cpu():
     assert rec["provisional"] is False and "no CUDA GPU" in rec["error"]
 
 
-def test_bench_refuses_the_modes_it_does_not_have():
-    res = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.bench",
-                          "--prodsim"], cwd=ROOT, capture_output=True,
-                         text=True, timeout=120)
-    assert res.returncode == 2 and "not ported" in res.stderr
+def test_scaling_probe_prints_one_json_line():
+    res = subprocess.run(
+        [sys.executable, "-m", "dmlc_core_tpu_torch.bench",
+         "--scaling-probe"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "BENCH_FORCE_CPU": "1",
+                          "BENCH_PROBE_ROWS": "20000",
+                          "BENCH_PROBE_ROUNDS": "3",
+                          "DMLC_GROW_POLICY": "depthwise"})
+    assert res.returncode == 0, res.stderr[-2000:]
+    lines = res.stdout.splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    assert rec["chips"] == 8 and rec["baseline_chips"] == 1
+    assert rec["scaling_efficiency"] > 0
+    assert rec["hist_psum_bytes_per_round"] == jax_psum_bytes(
+        6, 28, 256, grow_policy="depthwise")
+    assert "gloo" in rec["basis"] and "not NVLink" in rec["basis"]
+
+
+def test_scaling_probe_and_prodsim_need_a_gpu():
+    env = {k: v for k, v in os.environ.items() if k != "BENCH_FORCE_CPU"}
+    env.update(CUDA_VISIBLE_DEVICES="")
+    for mode in ("--scaling-probe", "--prodsim"):
+        res = subprocess.run([sys.executable, "-m",
+                              "dmlc_core_tpu_torch.bench", mode], cwd=ROOT,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert res.returncode != 0 and "no CUDA GPU" in res.stderr, mode
+    rec = json.loads(res.stdout.splitlines()[-1])
+    assert rec["metric"] == "prodsim_availability"
+    assert rec["provisional"] is False and "no CUDA GPU" in rec["error"]
+
+
+def test_prodsim_default_chaos_is_jaxs():
+    for duration in (24.0, 12.0, 7.5):
+        want = ",".join([
+            f"prodsim_replica:kill:at={0.25 * duration:.3f}:n=1",
+            f"prodsim_ps:kill:at={0.35 * duration:.3f}:n=1",
+            f"launch_host:wave=0.3:at={0.5 * duration:.3f}:n=1",
+            f"prodsim_shard:corrupt:at={0.6 * duration:.3f}:n=1",
+            f"prodsim_publish:poison:at={0.7 * duration:.3f}:n=1"])
+        assert tbench._prodsim_chaos(duration) == want
+    from dmlc_core_tpu_torch.base import knobs
+
+    assert knobs.value("DMLC_PRODSIM_SECONDS") == 24.0
+    assert knobs.value("DMLC_FAULT_SEED") == 1234
+
+
+def _scorecard(record, snapshot, racecheck, leakcheck):
+    from dmlc_core_tpu_torch.base import slo
+
+    spec = slo.SLOSpec.load(os.path.join(
+        ROOT, "dmlc_core_tpu_torch", "tools", "slo", "prodsim.json"))
+    evidence = dict(record, racecheck=racecheck, leakcheck=leakcheck)
+    return slo.evaluate(spec, snapshot, evidence)
+
+
+def test_prodsim_scorecard_on_a_recorded_record():
+    with open(os.path.join(ROOT, "tests", "torch_prodsim_record.json")) as f:
+        fx = json.load(f)
+    rec = fx["record"]
+    card = _scorecard(rec, fx["snapshot"], fx["racecheck"], fx["leakcheck"])
+    assert card["pass"], [o for o in card["objectives"] if not o["pass"]]
+    assert len(card["objectives"]) == 17
+    assert rec["chaos"]["tiers_faulted"] == 5
+    assert rec["jitcheck"]["recompiles_steady"] == 0
+    # each gate bites: a drop, a race, a steady-window kernel build
+    for record, races in (
+            (dict(rec, loadgen=dict(rec["loadgen"], dropped=1)), 0),
+            (rec, 1),
+            (dict(rec, jitcheck=dict(rec["jitcheck"],
+                                     recompiles_steady=1)), 0)):
+        card = _scorecard(record, fx["snapshot"], {"races": races},
+                          fx["leakcheck"])
+        assert not card["pass"]
+
+
+def test_prodsim_drill_is_green_on_the_cpu(tmp_path):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "DMLC_", "PRODSIM_"))}
+    env.update(BENCH_FORCE_CPU="1", DMLC_PRODSIM_SECONDS="12",
+               PRODSIM_OUT=str(tmp_path / "drill.json"),
+               PRODSIM_METRICS_OUT=str(tmp_path / "metrics.json"),
+               PRODSIM_TRACE_OUT=str(tmp_path / "trace.json"),
+               PRODSIM_RACECHECK_OUT=str(tmp_path / "race.json"),
+               PRODSIM_LEAKCHECK_OUT=str(tmp_path / "leak.json"),
+               PRODSIM_SLO_OUT=str(tmp_path / "slo.json"),
+               DMLC_METRICS_SPOOL=str(tmp_path / "spool"))
+    res = subprocess.run([sys.executable, "-m",
+                          "dmlc_core_tpu_torch.tools.check_prodsim"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, (res.stdout[-3000:], res.stderr[-2000:])
+    assert "PRODSIM DRILL GREEN" in res.stdout
+    drill = json.loads((tmp_path / "drill.json").read_text())
+    assert drill["slo"]["pass"]
+    assert drill["record"]["availability"] >= 0.99
 
 
 @pytest.mark.parametrize("mode,metric", [

@@ -23,7 +23,9 @@ on the same replica, also after a membership change; a JAX-fit model's
 serving checkpoint served by port ``Replica(device="cpu")``s behind a
 port ``FleetRouter`` answers what JAX's ``predict`` answers (rtol 1e-5,
 atol 1e-6, the tolerance ``test_torch_serve.py`` holds a registry to);
-``replica_env`` returns the JAX package's env; a replica subprocess
+``replica_env`` returns the JAX package's env; a tenant request that
+reaches a replica without the tenant fails over to one that holds it
+(ROADMAP C16); a replica subprocess
 without ``FLEET_DEVICE`` on a host with no GPU exits non-zero and never
 registers; the HTTP round trip builds its opener once; the port bench's
 ``--fleet`` record.
@@ -160,6 +162,42 @@ def test_routed_predict_of_jax_model_matches_jax(tmp_path):
                 r.close()
             except Exception:
                 pass
+        tracker.stop()
+
+
+def test_tenant_404_fails_over_to_a_replica_holding_it():
+    """C16: a replica that does not hold a tenant yet (respawned, its
+    tenants not reloaded) answers 404; the router walks to a replica
+    that holds it, and answers 404 only when none does."""
+    from dmlc_core_tpu_torch.io.http_util import HttpError
+    from dmlc_core_tpu_torch.models import HistGBT
+
+    X, y = _data()
+    model = HistGBT(n_trees=3, max_depth=3, n_bins=16,
+                    device="cpu").fit(X, y)
+    want = model.predict(X)
+    tracker = FleetTracker(nworker=4)
+    tracker.start()
+    replicas = [Replica("127.0.0.1", tracker.port, max_batch=32,
+                        heartbeat_s=0.1, tenancy=True, device="cpu")
+                for _ in range(2)]
+    replicas[0].tenants.publish("a", model)
+    replicas[1].tenants.publish("b", model)    # routable, without "a"
+    router = FleetRouter(tracker, probe_s=0.1).start()
+    try:
+        router.probe_now()
+        client = ResilientClient(router.url, policy=RetryPolicy(
+            max_attempts=2, base_backoff_s=0.01))
+        for lo in range(0, 240, 8):            # bodies hash to both
+            got, _ = client.predict(X[lo:lo + 3], tenant="a")
+            np.testing.assert_array_equal(got, want[lo:lo + 3])
+        with pytest.raises(HttpError) as err:
+            client.predict(X[:2], tenant="nobody")
+        assert err.value.status == 404
+    finally:
+        router.close()
+        for r in replicas:
+            r.close()
         tracker.stop()
 
 

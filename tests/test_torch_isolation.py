@@ -115,6 +115,29 @@ def test_fleet_tenancy_launch_modules_load_no_jax(module):
 
 
 @pytest.mark.parametrize("module", [
+    "dmlc_core_tpu_torch.models.resnet",
+    "dmlc_core_tpu_torch.data.image_record",
+    "dmlc_core_tpu_torch.tools.bench_resnet_feed",
+    "dmlc_core_tpu_torch.tools.check_prodsim",
+    "dmlc_core_tpu_torch.tools.profile_resnet",
+    "dmlc_core_tpu_torch.base.slo", "dmlc_core_tpu_torch.base.lockcheck",
+    "dmlc_core_tpu_torch.base.racecheck",
+    "dmlc_core_tpu_torch.base.leakcheck",
+    "dmlc_core_tpu_torch.utils.profiler"])
+def test_resnet_checker_and_drill_modules_load_no_jax(module):
+    # the ResNet slice, the checkers and the prodsim drill stand alone
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}\n"
+        "             or m.startswith('jax'))\n"
+        "print('LOADED', bad)\n")
+    res = _run_clean(code)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("module", [
     "dmlc_core_tpu_torch.serve", "dmlc_core_tpu_torch.models.sklearn",
     "dmlc_core_tpu_torch.models.linear", "dmlc_core_tpu_torch.models.fm",
     "dmlc_core_tpu_torch.parallel.checkpoint"])
@@ -191,6 +214,10 @@ def test_default_device_needs_a_gpu(monkeypatch):
     with pytest.raises(Error, match="no CUDA GPU"):
         HistGBT(device="cuda")
     assert HistGBT(device="cpu").device.type == "cpu"
+    from dmlc_core_tpu_torch.models import ResNetTrainer
+
+    with pytest.raises(Error, match="no CUDA GPU"):
+        ResNetTrainer(variant="resnet-micro")
 
 
 def test_kernel_modules_import_without_nvcc():

@@ -20,7 +20,9 @@ either package restore in the other; ``GBLinear.fit_ps`` and
 ``FM.fit_ps`` on one worker and one server write the JAX package's
 weights bit for bit, and the finalized models predict on their device as
 numpy does on the same weights; ``PSTracker.start`` hosts the port's
-scheduler.
+scheduler; ``flush`` raises on a connection that died with pushes in
+flight and the next request re-dials, and the ``--prodsim`` drill's
+worker loop runs such a pass again (ROADMAP C17).
 """
 
 import os
@@ -119,6 +121,61 @@ def test_one_wire_format(server, client):
     c.init("v", n_keys=20, width=(3,), init_scale=0.01, seed=9)
     assert c.pull_dense("v").tobytes() == v.tobytes()
     c.close()
+    fleet.join()
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_flush_raises_on_a_dead_connection_then_redials(pkg):
+    """``flush`` raises ``ConnectionError`` on a connection that died with
+    pushes in flight, in both packages; the next request re-resolves the
+    server and goes through."""
+    fleet = _Fleet(PACKAGES[pkg], nserver=2)
+    c = PACKAGES[pkg].PSClient(root_uri="127.0.0.1",
+                               root_port=fleet.sched.port, rank=0)
+    c.init("w", n_keys=40, lr=1.0)
+    c.push("w", np.arange(40), np.ones(40, np.float32))
+    c.flush()
+    dead = c._conns[1]
+    with dead._lock:
+        dead._dead = "connection reset by peer"
+    with pytest.raises(ConnectionError):
+        c.flush()
+    np.testing.assert_array_equal(c.pull("w", np.arange(40)),
+                                  np.full(40, -1.0, np.float32))
+    assert c._conns[1] is not dead
+    c.close()
+    fleet.join()
+
+
+def test_prodsim_worker_reruns_a_pass_that_lost_its_server(tmp_path):
+    """C17: the drill's PS worker loop runs a ``fit_ps`` pass again when
+    its closing flush finds a server connection dead, instead of exiting
+    (the JAX drill's worker exits, and its peer then waits at the
+    respawned server's staleness gate)."""
+    from dmlc_core_tpu_torch import bench
+    fleet = _Fleet(port_ps, nserver=2)
+    c = port_ps.PSClient(root_uri="127.0.0.1", root_port=fleet.sched.port,
+                         rank=0)
+    kv = DistAsyncKVStore(c, learning_rate=0.5, device="cpu")
+    flush, calls = c.flush, []
+
+    def flush_losing_server_1_once():
+        calls.append(1)
+        if len(calls) == 1:
+            with c._conns[1]._lock:
+                c._conns[1]._dead = "connection reset by peer"
+        flush()
+
+    c.flush = flush_losing_server_1_once
+    stop = tmp_path / "stop"
+    stop.write_text("")
+    blocks = bench._prodsim_ps_blocks(0, 200, 300)
+    model, passes, reruns = bench._prodsim_ps_passes(kv, blocks, 200,
+                                                     str(stop))
+    assert (passes, reruns, len(calls)) == (1, 1, 2)
+    assert model.weights.shape == (200,)
+    assert np.isfinite(model.weights).all() and np.abs(model.weights).sum()
+    kv.close()
     fleet.join()
 
 

@@ -6,12 +6,10 @@ The JAX package's own tests are loaded against the port (``*_port``):
 ``tests/test_serve.py``, ``tests/test_serve_http.py`` (with the port
 bench as ``python -m dmlc_core_tpu_torch.bench``),
 ``tests/test_resilience.py`` and ``tests/test_tracectx.py``.  Left out,
-each for what the port does not have yet:
+each for what the port does not have yet (the chaos soak of
+``test_resilience.py``, slow, runs under the port's lock-order, race and
+leak checkers):
 
-* ``test_resilience.py``: ``test_chaos_soak_train_and_serve`` (it
-  installs the lock-order, race and leak checkers,
-  ``base/lockcheck.py``, ``racecheck.py``, ``leakcheck.py``, not
-  ported);
 * ``test_tracectx.py``: ``TestTraceCollect`` (``scripts/trace_collect.py``
   is a script of the repository, not a module of either package; its
   own file runs it).
@@ -67,7 +65,8 @@ _RES = load_port("test_resilience.py")
 export(globals(), _RES, ["TestRetryPolicy", "TestCircuitBreaker",
                          "TestFaultInject", "TestChaosSchedule",
                          "TestProducerRestart", "TestCheckpointDurability",
-                         "TestTrackerGrace"])
+                         "TestTrackerGrace"],
+       funcs=["test_chaos_soak_train_and_serve"])
 _TRACE = load_port("test_tracectx.py")
 export(globals(), _TRACE, ["TestEncoding", "TestDisabledDiscipline",
                            "TestSpanParenting", "TestTracerMetadata"])
