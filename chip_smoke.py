@@ -278,6 +278,23 @@ and the script exits non-zero without the final ``ok`` line:
     worker's ``ElasticSession`` its thread's host transport), clean,
     then with worker 1 killed after its first commit and a replacement
     rejoining its rank: the same file as the clean run;
+12k2. submit — ``dmlc-submit``'s local cluster on the card, workers
+    that read from an object store: the first 1M of configuration 1's
+    HIGGS-like rows (seed 7) as ``%.9g`` libsvm text in 4 shards
+    (~0.4 GB) on local disk and behind an S3 fake in this process
+    (:func:`s3_fake`, reached through ``S3_ENDPOINT``); configuration 1's
+    widths grown depth-wise (the external engine's chunked route is
+    depth-wise, as the JAX package's), one set of cuts.  (iii) the
+    in-core fit on the card on the rows the native parser reads back
+    (the count of values differing from the generator's f32 rows
+    printed); (i) ``python -m dmlc_core_tpu_torch.tracker.submit
+    --cluster local --num-workers 2`` from ``s3://``, gloo ranks sharing
+    the card, each parsing its ``InputSplit`` part natively and fitting
+    by ``fit_external``; (ii) ``--num-workers 1`` from the local shards,
+    a NCCL group of one, through the native chunk reader, started
+    beside (i): (i)'s and
+    (ii)'s files byte-identical to (iii)'s, every rank's native parse
+    calls (and (ii)'s native chunk reads) above 0;
 12l. resnet — (a) trainer steps on the card against the same steps on
     the CPU from the same carried weights: ``resnet-micro`` (basic
     blocks) and a bottleneck micro model (1×1 projections, strided 3×3
@@ -291,7 +308,9 @@ and the script exits non-zero without the final ``ok`` line:
     RecordIO shards): finite losses, the end-to-end epoch's 6 steps with
     a stall fraction in [0, 1], the step's time beside its bound (6.22
     TFLOP counted from the model's layers: 6.29 ms), the peak device
-    memory;
+    memory; the records decoded by the native RecordIO codec (its call
+    count above 0), and the host leg's records/s with the native and with
+    the Python decode in turns (:func:`codec_ab`);
 12m. prodsim — ``python -m dmlc_core_tpu_torch.tools.check_prodsim`` as
     a child process on the card (the production-day drill under the
     lock-order, race and leak checkers, a fault in every tier, the
@@ -311,7 +330,8 @@ and the script exits non-zero without the final ``ok`` line:
     kernels' times at the Ulysses shard —, phase 12's timing pass for the
     B5 variants, phases
     12f-12h's HTTP runs for ``descend``, phase 12i's refreshes for
-    ``hist``, ``fused_round`` and ``descend``, and phase 12m's drill for
+    ``hist``, ``fused_round`` and ``descend``, phase 12k2's three runs
+    for the same three (``launches_submit``) and phase 12m's drill for
     the same three; ``descend_dir`` is
     ``descend_kernel``'s direction mode, B2's descend on the missing
     path, ``descend`` its plain mode, a served batch's and a refresh's
@@ -646,6 +666,17 @@ RESNET_CROSS = (
     ("resnet50", (3, 4, 6, 3), True, 64, 64, 8, 2,
      {"f32": (1e-4, 1e-3, 0.1)}),
 )
+# submit: dmlc-submit's local cluster on the card.  The first 1M of
+# configuration 1's HIGGS-like rows (seed 7) as %.9g libsvm text in 4
+# shards (~0.4 GB), served from an S3 fake in this process (and on local
+# disk); configuration 1's widths grown depth-wise (the external engine's
+# chunked route, which several ranks take, is depth-wise whatever
+# DMLC_GROW_POLICY says, as the JAX package's is); one set of cuts.
+SUBMIT_ROWS = 1_000_000
+SUBMIT_SHARDS = 4
+SUBMIT_RANKS = 2
+SUBMIT_LEVERS = {"DMLC_BIN_PACK": "1", "DMLC_FEATURE_BUNDLE": "1"}
+SUBMIT_TIMEOUT = 600
 # prodsim: the drill at its defaults (DMLC_PRODSIM_SECONDS 24)
 PRODSIM_TIMEOUT = 600
 # bench: the scaling probe's rows (its fits run on the host's CPU)
@@ -4837,16 +4868,336 @@ def resnet_cross_device(torch, np, smi):
           "nvidia_smi": smi})
 
 
+
+def _libsvm_text(rows) -> bytes:
+    """``%.9g`` libsvm text of ``[label, features...]`` rows (float64 of
+    the f32 values), every feature written."""
+    tmpl = ("%.9g " + " ".join(f"{j}:%.9g" for j in range(rows.shape[1] - 1))
+            + "\n")
+    return "".join(tmpl % tuple(r) for r in rows.tolist()).encode()
+
+
+def libsvm_shard_texts(np, X, y, shards):
+    """The rows as ``shards`` consecutive pieces of libsvm text (bytes),
+    one process a piece."""
+    import multiprocessing
+
+    parts = [np.concatenate([y[p, None], X[p]], axis=1).astype(np.float64)
+             for p in np.array_split(np.arange(len(y)), shards)]
+    with multiprocessing.get_context("spawn").Pool(shards) as pool:
+        return pool.map(_libsvm_text, parts)
+
+
+def s3_fake(store):
+    """A ``ThreadingHTTPServer`` on 127.0.0.1 answering the S3 requests
+    the port's ``s3://`` backend makes of a path-style endpoint (HEAD, a
+    ranged GET, ListObjectsV2) from ``store`` (``"bucket/key"`` → bytes).
+    Returns ``(server, endpoint)``; the caller shuts it down."""
+    import threading
+    import urllib.parse
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, *a):
+            pass
+
+        def _send(self, status, body=b"", length=None):
+            self.send_response(status)
+            self.send_header("Content-Length",
+                             str(len(body) if length is None else length))
+            self.end_headers()
+            if body:
+                self.wfile.write(body)
+
+        def do_HEAD(self):
+            key = urllib.parse.unquote(self.path.lstrip("/").split("?")[0])
+            if key in store:
+                self._send(200, length=len(store[key]))
+            else:
+                self._send(404)
+
+        def do_GET(self):
+            parsed = urllib.parse.urlsplit(self.path)
+            q = dict(urllib.parse.parse_qsl(parsed.query,
+                                            keep_blank_values=True))
+            key = urllib.parse.unquote(parsed.path.lstrip("/"))
+            if "list-type" in q:
+                bucket = key.split("/")[0]
+                prefix = f"{bucket}/{q.get('prefix', '')}"
+                items = "".join(
+                    f"<Contents><Key>{k[len(bucket) + 1:]}</Key>"
+                    f"<Size>{len(v)}</Size></Contents>"
+                    for k, v in sorted(store.items()) if k.startswith(prefix))
+                self._send(200, (f"<ListBucketResult>{items}"
+                                 "</ListBucketResult>").encode())
+                return
+            if key not in store:
+                self._send(404)
+                return
+            blob = store[key]
+            rng = self.headers.get("Range")
+            if not rng:
+                self._send(200, blob)
+                return
+            lo, _, hi = rng.split("=")[1].partition("-")
+            lo, hi = int(lo), (int(hi) if hi else len(blob) - 1)
+            self._send(206, blob[lo:hi + 1])
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    srv.daemon_threads = True
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def run_submits(jobs, env, log_dir):
+    """Every ``{name: (job, world)}`` at once: ``python -m
+    dmlc_core_tpu_torch.tracker.submit --cluster local`` with ``world``
+    workers running ``parallel.launch --worker job.json``, each its own
+    process group, under one time limit.  Returns each one's wall
+    seconds; a failure or the time limit raises after every group is
+    stopped."""
+    runs = {}
+    try:
+        for name, (job, world) in jobs.items():
+            job_path = os.path.join(log_dir, f"job_{name}.json")
+            with open(job_path, "w") as f:
+                json.dump(job, f)
+            log = open(os.path.join(log_dir, f"submit_{name}.log"), "w+")
+            runs[name] = [None, log, time.perf_counter(), None]
+            runs[name][0] = subprocess.Popen(
+                [sys.executable, "-m", "dmlc_core_tpu_torch.tracker.submit",
+                 "--cluster", "local", "--num-workers", str(world),
+                 "--max-attempts", "1", "--log-level", "WARNING", "--",
+                 sys.executable, "-m", "dmlc_core_tpu_torch.parallel.launch",
+                 "--worker", job_path],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        deadline = time.perf_counter() + SUBMIT_TIMEOUT
+        while (any(r[3] is None for r in runs.values())
+               and time.perf_counter() < deadline):
+            for r in runs.values():
+                if r[3] is None and r[0].poll() is not None:
+                    r[3] = time.perf_counter()
+            time.sleep(0.05)
+    finally:
+        for proc, log, _, _ in runs.values():
+            if proc is not None and proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            log.close()
+    for name, (proc, log, t0, t1) in runs.items():
+        with open(log.name) as f:
+            text = f.read()
+        require(t1 is not None and proc.returncode == 0,
+                f"submit {name} exited {proc.returncode} (killed at "
+                f"{SUBMIT_TIMEOUT} s if it had not ended): {text[-6000:]}")
+    return {name: r[3] - r[2] for name, r in runs.items()}
+
+
+def phase_submit(torch, np, H, smi):
+    """dmlc-submit's local cluster, workers that read from an object
+    store, the native parse and the data-parallel ``HistGBT`` on the card.
+    The first 1M of configuration 1's rows as ``%.9g`` libsvm text in 4
+    shards, served by :func:`s3_fake` through ``S3_ENDPOINT`` and kept on
+    local disk; (iii) the in-core ``fit`` on the card on the rows the
+    native parser reads back from the local shards (its cuts are every
+    run's); (i) ``--num-workers 2`` from ``s3://``, gloo ranks sharing the
+    card, each parsing its ``InputSplit`` part and fitting by
+    ``fit_external`` (the chunked route); (ii) ``--num-workers 1`` from
+    the local shards, a NCCL group of one (the native chunk reader, the
+    cached route), started together with (i).  Held: (i)'s and (ii)'s files byte-identical to
+    (iii)'s, every rank's native parse calls (and (ii)'s native chunk
+    reads) above 0; printed: the parse's values that differ from the
+    generator's f32 rows.  Returns the phase's launches of ``hist``,
+    ``fused_round`` and ``descend``."""
+    from dmlc_core_tpu_torch import HistGBT
+    from dmlc_core_tpu_torch.data import _native
+    from dmlc_core_tpu_torch.data.iter import RowBlockIter
+    from dmlc_core_tpu_torch.io import _native_io
+
+    t_phase = time.perf_counter()
+    X, y = higgs_like(np, SUBMIT_ROWS, FEATURES, 7)
+    t0 = time.perf_counter()
+    texts = libsvm_shard_texts(np, X, y, SUBMIT_SHARDS)
+    text_s = time.perf_counter() - t0
+    d = tempfile.mkdtemp(prefix="chip_submit_")
+    srv = None
+    try:
+        local = os.path.join(d, "shards")
+        os.mkdir(local)
+        for k, blob in enumerate(texts):
+            with open(os.path.join(local, f"part-{k}.libsvm"), "wb") as f:
+                f.write(blob)
+        store = {f"bkt/higgs/part-{k}.libsvm": blob
+                 for k, blob in enumerate(texts)}
+        text_bytes = sum(len(b) for b in texts)
+        del texts
+        srv, endpoint = s3_fake(store)
+
+        # the native parse of the local shards, against the generator's
+        _native.reset_calls()
+        _native_io.reset_calls()
+        t0 = time.perf_counter()
+        it = RowBlockIter.create(local, 0, 1, "libsvm")
+        block = it.value
+        Xp = block.to_dense(FEATURES)
+        yp = np.asarray(block.label, np.float32)
+        it.close()
+        parse_s = time.perf_counter() - t0
+        parse_calls = {**_native.calls(), **_native_io.calls()}
+        require(parse_calls["parse_libsvm"] > 0
+                and parse_calls["prefetch_chunks"] > 0,
+                f"submit: the local parse did not run natively "
+                f"({parse_calls})")
+        require(Xp.shape == X.shape and yp.shape == y.shape,
+                f"submit: parsed {Xp.shape}, {yp.shape}")
+        x_differ = int((Xp.view(np.uint32) != X.view(np.uint32)).sum())
+        y_differ = int((yp.view(np.uint32) != y.view(np.uint32)).sum())
+        del X, y, block
+
+        # (iii) the in-core fit on the card, on the parsed rows
+        with levers(SUBMIT_LEVERS):
+            zero_counts(H)
+            model = HistGBT(device=DEVICE, n_trees=TREES,
+                            max_depth=MAX_DEPTH, n_bins=N_BINS)
+            model.fit(Xp, yp)
+            if DEVICE != "cpu":
+                torch.cuda.synchronize()
+            incore = {**read_counts(H),
+                      "descend": H.descend_kernel.launches}
+        require(model._bin_layout is None, "submit: a bin layout fired")
+        want = model_bytes_of(model)
+        cuts = os.path.join(d, "cuts.npy")
+        np.save(cuts, model.cuts.cpu().numpy())
+        incore_fit_s = model.last_fit_seconds
+        del model, Xp, yp
+        gc_cuda(torch)
+
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("DMLC_", "AWS_", "S3_"))}
+        env.update(PYTHONPATH=ROOT, S3_ENDPOINT=endpoint,
+                   AWS_ACCESS_KEY_ID="AKIDEXAMPLE",
+                   AWS_SECRET_ACCESS_KEY="chip-smoke-secret",
+                   DMLC_TPU_ROUNDS_PER_DISPATCH="1")
+        params = {"n_trees": TREES, "max_depth": MAX_DEPTH,
+                  "n_bins": N_BINS}
+        # a CPU rehearsal of the script runs the ranks on the host
+        card = "cuda:0" if DEVICE == "cuda" else DEVICE
+        runs = {"s3": (SUBMIT_RANKS, "gloo", "s3://bkt/higgs/"),
+                "local": (1, "nccl" if DEVICE == "cuda" else "gloo", local)}
+        totals = {"hist": incore["hist"],
+                  "fused_round": incore["fused_round"],
+                  "descend": incore["descend"]}
+        # both clusters at once, sharing the card
+        walls = run_submits({name: (
+            {"cuts": cuts, "backend": backend, "device": card, "threads": 2,
+             "params": params,
+             "runs": [{"name": name, "env": SUBMIT_LEVERS,
+                       "external": {"uri": uri, "num_col": FEATURES}}],
+             "out": os.path.join(d, "out")}, world)
+            for name, (world, backend, uri) in runs.items()}, env, d)
+        per_run = {}
+        for name, (world, backend, uri) in runs.items():
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(d, "out", f"{name}.{r}.json")) as f:
+                    st = json.load(f)
+                with open(os.path.join(d, "out", f"{name}.{r}.model"),
+                          "rb") as f:
+                    require(f.read() == want, f"submit {name}: rank {r}'s "
+                            "model file differs from the in-core fit's")
+                require(st["world"] == world,
+                        f"submit {name}: rank {r} saw world {st['world']}")
+                require(st["native"]["parse_libsvm"] > 0,
+                        f"submit {name}: rank {r} did not parse natively "
+                        f"({st['native']})")
+                if name == "local":
+                    require(st["native"]["prefetch_chunks"] > 0,
+                            f"submit local: no native chunk read "
+                            f"({st['native']})")
+                for k in ("hist", "fused_round"):
+                    totals[k] += st["launches"][k]
+                totals["descend"] += st["descend_launches"]
+                ranks.append({"native": st["native"],
+                              "launches": {**st["launches"], "descend":
+                                           st["descend_launches"]},
+                              "fit_seconds": st["fit_seconds"],
+                              "bin_seconds": st["bin_seconds"],
+                              "hist_sync_bytes": st["hist_sync_bytes"]})
+            per_run[name] = {"world": world, "backend": backend,
+                             "wall_seconds": walls[name], "ranks": ranks}
+        for k, v in totals.items():
+            require(v > 0, f"{k} was never launched on the submit path")
+        emit({"phase": "submit", "rows": SUBMIT_ROWS, "features": FEATURES,
+              "shards": SUBMIT_SHARDS, "text_bytes": text_bytes,
+              "text_seconds": text_s, "parse_seconds": parse_s,
+              "parse_native_calls": parse_calls,
+              "parse_threads": _native.num_threads(),
+              "parse_values_differing": x_differ,
+              "parse_labels_differing": y_differ,
+              "incore_fit_seconds": incore_fit_s,
+              "incore_launches": incore, "runs": per_run,
+              "same_model_file_as_incore": True, "launches": totals,
+              "phase_seconds": time.perf_counter() - t_phase,
+              "nvidia_smi": smi})
+        return totals
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(d, ignore_errors=True)
+
+def codec_ab(np):
+    """The resnet feed's host leg (``batch_iterator`` over the bench's
+    1536 synthetic 224² records in 4 shards, batch 256) with the native
+    RecordIO decode and with the Python one, in turns (native, Python,
+    Python, native) in this process: ``{"native": [rec/s, rec/s],
+    "python": [...]}``."""
+    from dmlc_core_tpu_torch.data.image_record import batch_iterator
+    from dmlc_core_tpu_torch.io import _native_io
+    from dmlc_core_tpu_torch.tools.bench_resnet_feed import write_shards
+
+    root = tempfile.mkdtemp(prefix="chip_codec_")
+    out = {"native": [], "python": []}
+    try:
+        write_shards(root, 1536, 224)
+        for route in ("native", "python", "python", "native"):
+            # the Python route: the binding reports the library absent
+            _native_io._lib, _native_io._load_failed = None, route == "python"
+            _native_io.reset_calls()
+            t0 = time.perf_counter()
+            n = sum(len(labels) for _, labels in batch_iterator(
+                os.path.join(root, "part-*.rec"), 0, 1, 256, (224, 224, 3)))
+            rate = n / (time.perf_counter() - t0)
+            decoded = _native_io.calls()["recordio_decode"]
+            require(n == 1536 and (decoded > 0) == (route == "native"),
+                    f"codec A/B: {route} read {n} records, {decoded} "
+                    "native decodes")
+            out[route].append(rate)
+    finally:
+        _native_io._lib, _native_io._load_failed = None, False
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def phase_resnet(torch, np, smi):
     """(a) :func:`resnet_cross_device`; (b) ``tools/bench_resnet_feed.py``'s
     legs at full width (ResNet-50, 224², batch 256, 1536 synthetic
     records in 4 shards)."""
+    from dmlc_core_tpu_torch.io import _native_io
     from dmlc_core_tpu_torch.tools import bench_resnet_feed
 
     t_phase = time.perf_counter()
     resnet_cross_device(torch, np, smi)
     gc_cuda(torch)
+    _native_io.reset_calls()
     rec = bench_resnet_feed.run(device=DEVICE)
+    codec = _native_io.calls()
+    require(codec["recordio_decode"] > 0,
+            f"resnet feed: the records were not decoded by the native "
+            f"RecordIO codec ({codec})")
     require(rec["variant"] == "resnet50" and rec["hw"] == 224
             and rec["batch"] == 256 and rec["records"] == 1536,
             f"resnet feed: ran {rec['variant']} at {rec['hw']}², batch "
@@ -4861,6 +5212,8 @@ def phase_resnet(torch, np, smi):
     require(rec["peak_mem_bytes"] and rec["peak_mem_bytes"] > 0,
             "resnet feed: no peak memory")
     emit({"phase": "resnet", "part": "feed", **rec,
+          "native_codec_calls": codec,
+          "host_pipeline_records_per_sec_by_codec": codec_ab(np),
           "phase_seconds": time.perf_counter() - t_phase})
     gc_cuda(torch)
 
@@ -5075,6 +5428,9 @@ def main() -> int:
     phase_ps(torch, np, smi)
     phase_recovery(torch, np, H, smi, X, y, lossguide_fit[1])
     del X, y
+    for k, v in phase_submit(torch, np, H, smi).items():
+        launches[k] += v
+        kernels[k]["launches_submit"] = v
     phase_resnet(torch, np, smi)
     for k, v in phase_prodsim(np, smi).items():
         launches[k] += v
@@ -5103,7 +5459,8 @@ def main() -> int:
                 **{k: "scripts/spike_hist_floor.py:55" for k in floor}}
     extra = ("unfused_chain_ms", "chain_device_ms", "device_ms",
              "library_call", "library_device_ms", "by_n_build",
-             "launches_bert", "launches_ulysses", "ulysses_B_S_H_D",
+             "launches_bert", "launches_ulysses", "launches_submit",
+             "ulysses_B_S_H_D",
              "ulysses_ms", "ulysses_device_ms", "ulysses_bound_ms",
              "ulysses_max_abs_err")
     emit({"kernels": [

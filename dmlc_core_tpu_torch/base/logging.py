@@ -1,10 +1,10 @@
 """Logging and assertion layer.
 
-Reference parity: ``include/dmlc/logging.h :: LOG(severity), CHECK,
-CHECK_EQ, dmlc::Error, LogMessageFatal`` (SURVEY.md §2a).
+Reference parity: ``include/dmlc/logging.h :: LOG(severity), CHECK*,
+CHECK_NOTNULL, dmlc::Error, LogMessage/LogMessageFatal`` (SURVEY.md §2a).
 
-This package's own copy of the part of ``dmlc_core_tpu.base.logging``
-it uses (the PyTorch port imports nothing of the JAX package).
+This package's own copy of ``dmlc_core_tpu.base.logging`` (the PyTorch
+port imports nothing of the JAX package).
 
 Design notes:
 
@@ -25,10 +25,26 @@ from __future__ import annotations
 import logging as _pylogging
 import sys
 import traceback
-from typing import Any, NoReturn, Optional
+from typing import Any, NoReturn, Optional, TypeVar
 
-__all__ = ["Error", "LOG", "CHECK", "CHECK_EQ", "CHECK_LT", "CHECK_LE",
-           "CHECK_GE", "log_fatal"]
+__all__ = [
+    "Error",
+    "LOG",
+    "LogMessage",
+    "CHECK",
+    "CHECK_EQ",
+    "CHECK_NE",
+    "CHECK_LT",
+    "CHECK_GT",
+    "CHECK_LE",
+    "CHECK_GE",
+    "CHECK_NOTNULL",
+    "log_fatal",
+    "set_log_level",
+    "get_logger",
+]
+
+T = TypeVar("T")
 
 
 class Error(RuntimeError):
@@ -61,6 +77,16 @@ _LEVELS = {
 }
 
 
+def get_logger() -> _pylogging.Logger:
+    """Return the shared ``"dmlc"`` logger (the DMLC_LOG_CUSTOMIZE hook)."""
+    return _logger
+
+
+def set_log_level(level: str) -> None:
+    """Set the minimum severity, one of DEBUG/INFO/WARNING/ERROR/FATAL."""
+    _logger.setLevel(_LEVELS[level.upper()])
+
+
 def _capture_stack(skip: int = 2) -> str:
     return "".join(traceback.format_stack()[: -skip or None])
 
@@ -85,6 +111,29 @@ def LOG(severity: str, message: str, *args: Any) -> None:
     _logger.log(_LEVELS[severity], message, *args, stacklevel=2)
 
 
+class LogMessage:
+    """Stream-style log message, for code that prefers the C++ idiom::
+
+        with LogMessage("INFO") as log:
+            log << "read " << n << " records"
+    """
+
+    def __init__(self, severity: str = "INFO"):
+        self._severity = severity.upper()
+        self._parts: list[str] = []
+
+    def __lshift__(self, other: Any) -> "LogMessage":
+        self._parts.append(str(other))
+        return self
+
+    def __enter__(self) -> "LogMessage":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None:
+            LOG(self._severity, "".join(self._parts))
+
+
 def _fail(op: str, lhs: Any, rhs: Any, msg: str) -> NoReturn:
     detail = f"Check failed: {lhs!r} {op} {rhs!r}"
     if msg:
@@ -105,10 +154,22 @@ def CHECK_EQ(lhs: Any, rhs: Any, msg: str = "") -> None:
         _fail("==", lhs, rhs, msg)
 
 
+def CHECK_NE(lhs: Any, rhs: Any, msg: str = "") -> None:
+    """Fatal unless ``lhs != rhs`` (reference ``CHECK_NE``)."""
+    if not (lhs != rhs):
+        _fail("!=", lhs, rhs, msg)
+
+
 def CHECK_LT(lhs: Any, rhs: Any, msg: str = "") -> None:
     """Fatal unless ``lhs < rhs`` (reference ``CHECK_LT``)."""
     if not (lhs < rhs):
         _fail("<", lhs, rhs, msg)
+
+
+def CHECK_GT(lhs: Any, rhs: Any, msg: str = "") -> None:
+    """Fatal unless ``lhs > rhs`` (reference ``CHECK_GT``)."""
+    if not (lhs > rhs):
+        _fail(">", lhs, rhs, msg)
 
 
 def CHECK_LE(lhs: Any, rhs: Any, msg: str = "") -> None:
@@ -121,3 +182,10 @@ def CHECK_GE(lhs: Any, rhs: Any, msg: str = "") -> None:
     """Fatal unless ``lhs >= rhs`` (reference ``CHECK_GE``)."""
     if not (lhs >= rhs):
         _fail(">=", lhs, rhs, msg)
+
+
+def CHECK_NOTNULL(value: Optional[T], msg: str = "") -> T:
+    """Fatal if ``value`` is None; returns it otherwise (chainable like C++)."""
+    if value is None:
+        log_fatal(f"Check notnull failed: {msg}")
+    return value

@@ -2,7 +2,10 @@
 
 This package's own copy of ``dmlc_core_tpu/data/image_record.py``: the
 same header, the same bytes and the same batches for the same shard,
-``part``, ``nparts``, ``shuffle_buffer`` and ``seed``.
+``part``, ``nparts``, ``shuffle_buffer`` and ``seed``.  Its records come
+out of the ``recordio`` input split, which decodes each chunk with the
+native RecordIO codec (``io/_native_io.recordio_decode``) where the
+native library is present.
 
 Reference parity: MXNet's ``.rec`` image pipeline is RecordIO records of
 ``IRHeader + payload`` consumed through ``InputSplit::Create(uri, part,

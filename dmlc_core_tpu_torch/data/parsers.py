@@ -6,15 +6,16 @@ Reference parity: ``src/data/parser.h :: ParserImpl (FillData, BytesRead)``,
 and ``src/data.cc``'s parser factory registry / ``src/io/uri_spec.h``'s
 URI-embedded kwargs (SURVEY.md §2b).
 
-Parsers pull chunks from a (threaded) InputSplit, so storage read, parse,
-and device staging pipeline into each other exactly like the reference's
-two thread boundaries (SURVEY.md §3.1).
+Engine split: the hot loop lives in ``cpp/fastparse.cc`` (OpenMP over line
+ranges, from_chars number parsing) reached via ctypes; a pure-numpy fallback
+keeps the package dependency-free.  Parsers pull chunks from a (threaded)
+InputSplit, so storage read, parse, and device staging pipeline into each
+other exactly like the reference's two thread boundaries (SURVEY.md §3.1).
 
-This package's own copy of ``dmlc_core_tpu.data.parsers`` with the
-pure-Python parse route only: the JAX package's native ``cpp/fastparse.cc``
-engine (``data/_native.py``) is not ported, so the copy parses every chunk
-with the ``_py_parse_*`` functions, the JAX package's correctness reference
-for that engine.
+This package's own copy of ``dmlc_core_tpu.data.parsers``: the native
+engine is ``data/_native.py`` over ``cpp/fastparse.cc``, built on first use
+(``base/_native_build.py``); the ``_py_parse_*`` functions are its
+correctness reference and the route where the library is absent.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from dmlc_core_tpu_torch.base.logging import Error, log_fatal
 from dmlc_core_tpu_torch.base.parameter import Parameter, field
 from dmlc_core_tpu_torch.base.registry import Registry
 from dmlc_core_tpu_torch.base.timer import get_time
+from dmlc_core_tpu_torch.data import _native
 from dmlc_core_tpu_torch.data.row_block import RowBlock
 from dmlc_core_tpu_torch.io.input_split import InputSplit
 from dmlc_core_tpu_torch.utils.profiler import global_tracer, tracing_enabled
@@ -178,6 +180,8 @@ class LibSVMParser(Parser):
         super().__init__(InputSplit.create(path, part, nparts, "text"), nthread)
 
     def _parse_chunk(self, chunk: bytes) -> Optional[RowBlock]:
+        if _native.native_available():
+            return self._from_arrays(_native.parse_libsvm(chunk, self._nthread))
         return self._from_arrays(_py_parse_libsvm(chunk))
 
 
@@ -196,6 +200,11 @@ class CSVParser(Parser):
 
     def _parse_chunk(self, chunk: bytes) -> Optional[RowBlock]:
         p = self.param
+        if _native.native_available():
+            return self._from_arrays(
+                _native.parse_csv(chunk, p.delimiter, p.label_column,
+                                  p.weight_column, self._nthread)
+            )
         return self._from_arrays(
             _py_parse_csv(chunk, p.delimiter, p.label_column, p.weight_column)
         )
@@ -212,10 +221,12 @@ class LibFMParser(Parser):
         super().__init__(InputSplit.create(path, part, nparts, "text"), nthread)
 
     def _parse_chunk(self, chunk: bytes) -> Optional[RowBlock]:
+        if _native.native_available():
+            return self._from_arrays(_native.parse_libfm(chunk, self._nthread))
         return self._from_arrays(_py_parse_libfm(chunk))
 
 
-# -- the pure-python parse route --
+# -- pure-python fallbacks (correctness reference for the native engine) --
 
 def _py_parse_libsvm(chunk: bytes) -> dict:
     offsets = [0]

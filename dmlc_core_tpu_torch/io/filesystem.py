@@ -12,7 +12,8 @@ plug in behind the same interface — the URI routing, sharding math and
 checkpoint layers above never change.
 
 This package's own copy of ``dmlc_core_tpu.io.filesystem``: local files and
-the in-process ``mem://`` filesystem (the remote ones are not ported).
+the in-process ``mem://`` filesystem; the remote ones (``io/*_filesys.py``)
+register their protocols here when ``io`` is imported.
 """
 
 from __future__ import annotations

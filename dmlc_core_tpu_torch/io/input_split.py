@@ -18,9 +18,10 @@ same function, so ranges tile exactly.
 reads for its local devices, and the global batch is assembled by the data
 axis, not the I/O layer (SURVEY.md §2e).
 
-This package's own copy of ``dmlc_core_tpu.io.input_split``, reading
-through Python file I/O only: the JAX package's native threaded chunk
-reader (``io/_native_io.py`` over ``cpp/``) is not ported.
+This package's own copy of ``dmlc_core_tpu.io.input_split``.  Local files
+are read by the native threaded chunk reader (``io/_native_io.py`` over
+``cpp/prefetch.cc``) where the native library is present, through Python
+file I/O elsewhere and for every other filesystem.
 """
 
 from __future__ import annotations
@@ -208,6 +209,46 @@ class InputSplitBase(InputSplit):
         self._pos = self._begin
         self._carry = b""
         self._pending: _deque = _deque()
+        self._stop_native_reader()
+
+    # -- native prefetch fast path ---------------------------------------
+    def _stop_native_reader(self) -> None:
+        old = getattr(self, "_native", None)
+        if old is not None:
+            old.close()
+        self._native = None
+        self._native_started = False
+
+    def _ensure_native_reader(self) -> None:
+        """Lazily start the native threaded chunk reader (cpp/prefetch.cc)
+        on the first real read — the C++ counterpart of the reference's
+        ``ThreadedInputSplit`` storage-read thread.  Lazy start (like
+        ``ThreadedInputSplit``) so ``hint_chunk_size`` lands before the
+        producer begins and unconsumed splits never spawn a thread.
+        Produces the identical chunk sequence to the Python ``_read_at``
+        loop in :meth:`next_chunk`."""
+        if self._native_started:
+            return
+        self._native_started = True
+        self._native_fidx: List[int] = []
+        from dmlc_core_tpu_torch.io import _native_io
+        from dmlc_core_tpu_torch.io.filesystem import LocalFileSystem
+
+        if (not isinstance(self._fs, LocalFileSystem)
+                or not _native_io.native_io_available()
+                or self._pos != self._begin  # mid-range: stay on Python path
+                or self._begin >= self._end):
+            return
+        segments = []
+        for fidx in range(len(self._files)):
+            lo = max(self._begin, self._cum[fidx])
+            hi = min(self._end, self._cum[fidx + 1])
+            if lo < hi:
+                segments.append((URI(self._files[fidx].path).name,
+                                 lo - self._cum[fidx], hi - self._cum[fidx]))
+                self._native_fidx.append(fidx)
+        if segments:
+            self._native = _native_io.NativeChunkReader(segments, self._chunk_size)
 
     def hint_chunk_size(self, nbytes: int) -> None:
         self._chunk_size = max(nbytes, 4096)
@@ -277,11 +318,19 @@ class InputSplitBase(InputSplit):
                     log_fatal("InputSplit: partial record at aligned range end "
                               "(corrupt input?)")
                 return None
-            fidx = self._find_file(self._pos)
-            want = min(self._chunk_size, self._end - self._pos)
-            data = self._read_at(self._pos, want)
-            if not data:
-                log_fatal("InputSplit: short read inside assigned range")
+            self._ensure_native_reader()
+            if self._native is not None:
+                item = self._native.next()
+                if item is None:
+                    log_fatal("InputSplit: short read inside assigned range")
+                fidx = self._native_fidx[item[0]]
+                data = item[1]
+            else:
+                fidx = self._find_file(self._pos)
+                want = min(self._chunk_size, self._end - self._pos)
+                data = self._read_at(self._pos, want)
+                if not data:
+                    log_fatal("InputSplit: short read inside assigned range")
             self._pos += len(data)
             if self._carry:
                 data = self._carry + data
@@ -314,6 +363,7 @@ class InputSplitBase(InputSplit):
         raise NotImplementedError
 
     def close(self) -> None:
+        self._stop_native_reader()
         if self._stream is not None:
             self._stream.close()
             self._stream = None

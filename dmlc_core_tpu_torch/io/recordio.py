@@ -19,9 +19,10 @@ Unbounded record size via cflag continuation means arbitrarily long
 sequence records stream through fixed-size chunks — the property the TPU
 data plane inherits for long-context workloads (SURVEY.md §5).
 
-This package's own copy of ``dmlc_core_tpu.io.recordio`` (the same bytes),
-encoding and decoding in Python: the JAX package's native codec
-(``io/_native_io.py``) is not ported.
+This package's own copy of ``dmlc_core_tpu.io.recordio`` (the same bytes).
+:func:`encode_records` and :func:`decode_chunk` take the native codec
+(``io/_native_io.py`` over ``cpp/recordio.cc``) where the native library
+is present, the Python writer and chunk reader elsewhere.
 """
 
 from __future__ import annotations
@@ -274,15 +275,28 @@ class RecordIOReader:
 def decode_chunk(chunk: bytes) -> list:
     """All records in a chunk of complete parts — the infeed hot path.
 
+    Dispatches to the native decoder (``cpp/recordio.cc``) when built,
+    falling back to :class:`RecordIOChunkReader`.
     """
+    from dmlc_core_tpu_torch.io import _native_io
+
+    if _native_io.native_io_available():
+        try:
+            return _native_io.recordio_decode(chunk)
+        except ValueError as e:
+            log_fatal(str(e))
     return list(RecordIOChunkReader(chunk))
 
 
 def encode_records(records: list) -> bytes:
     """Frame a batch of records into one RecordIO byte stream.
 
-    Byte-identical to ``RecordIOWriter``.
+    Native fast path when built; byte-identical to ``RecordIOWriter``.
     """
+    from dmlc_core_tpu_torch.io import _native_io
+
+    if _native_io.native_io_available():
+        return _native_io.recordio_encode(records)
     from dmlc_core_tpu_torch.io.memory_io import MemoryStringStream
 
     buf = MemoryStringStream()

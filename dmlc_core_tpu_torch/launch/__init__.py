@@ -13,23 +13,27 @@ Kubernetes cluster).  This package is that layer:
   :class:`FakeTransport` (a deterministic in-process cluster whose host
   failures are scripted through the ``base/faultinject`` grammar — the
   CI story).
+* :mod:`k8s` — :class:`K8sTransport`: one indexed-Job manifest per
+  worker, dry-run by default, ``kubectl`` exec optional.
 * :mod:`jobset` — :class:`JobSet`: the supervisor.  DMLC env ABI
   injection, liveness poll + tracker-heartbeat cross-check,
   restart-with-backoff under ``DMLC_LAUNCH_RESTART_LIMIT``, targeted
   kill, graceful teardown, ``dmlc_launch_*`` metrics + lifecycle
   events.
+* :mod:`config` — dmlc-submit options → JobSet configurations (the
+  ``tracker/submit.py`` local/ssh/kubernetes backends).
 
-The PyTorch port's copy: ``transport``, ``jobset`` and ``instruments``.
-The JAX package's ``k8s`` (:class:`K8sTransport`) and ``config``
-(dmlc-submit options → JobSet) import its launcher backends
-(``tracker/kubernetes.py``, ``tracker/ssh.py``), which are not ported
-yet: both wait for ROADMAP item 18, so this package exports only
-what exists.  Spawn sites routed through here: ``serve/fleet`` replica
-spawning and the ``LauncherScaler`` autoscale backend.
+The PyTorch port's copy of the JAX package's ``launch``.  Spawn sites
+routed through here: ``tracker/local.py`` + ``tracker/ssh.py`` (thin
+shims), ``serve/fleet`` replica spawning and the ``LauncherScaler``
+autoscale backend.
 """
 
+from dmlc_core_tpu_torch.launch.config import (jobset_from_opts,  # noqa: F401
+                                               transport_from_opts)
 from dmlc_core_tpu_torch.launch.instruments import launch_metrics  # noqa: F401
 from dmlc_core_tpu_torch.launch.jobset import JobSet, LaunchTimeout  # noqa: F401
+from dmlc_core_tpu_torch.launch.k8s import K8sTransport  # noqa: F401
 from dmlc_core_tpu_torch.launch.transport import (FakeTransport,  # noqa: F401
                                                   LocalTransport,
                                                   SSHTransport, Transport,
@@ -38,6 +42,7 @@ from dmlc_core_tpu_torch.launch.transport import (FakeTransport,  # noqa: F401
 
 __all__ = [
     "Transport", "TransportError", "WorkerHandle",
-    "LocalTransport", "SSHTransport", "FakeTransport",
-    "JobSet", "LaunchTimeout", "launch_metrics",
+    "LocalTransport", "SSHTransport", "FakeTransport", "K8sTransport",
+    "JobSet", "LaunchTimeout",
+    "jobset_from_opts", "transport_from_opts", "launch_metrics",
 ]

@@ -26,8 +26,9 @@ the JobSet — a transport knows processes and hosts, nothing else.
 The PyTorch port's counterpart of ``dmlc_core_tpu/launch/transport.py``:
 the same transports, fault-injection points (the port's
 ``base/faultinject.py``) and ``DMLC_LAUNCH_LOG_DIR``, read from the
-environment directly.  The JAX package's Kubernetes transport
-(``launch/k8s.py``) is not ported (ROADMAP item 18).
+environment directly.  The Kubernetes transport lives in
+:mod:`dmlc_core_tpu_torch.launch.k8s` (it renders indexed-Job manifests
+rather than holding a process handle).
 """
 
 from __future__ import annotations
@@ -244,8 +245,8 @@ _SSH_CONNECT_ERRORS = (
 class SSHTransport(LocalTransport):
     """One worker per ``ssh`` child; the remote command carries the env.
 
-    ``hosts`` is the slot-expanded list from ``tracker/ssh.py``'s
-    ``read_host_file`` (the JAX package's; ROADMAP item 18).  ``-tt``
+    ``hosts`` is the slot-expanded list from
+    :func:`~dmlc_core_tpu_torch.tracker.ssh.read_host_file`.  ``-tt``
     forces a remote tty so killing the local ssh process (targeted kill,
     teardown, pdeathsig) hangs up the remote side too instead of
     orphaning it — the supervised replacement for the fire-and-forget

@@ -27,7 +27,12 @@ fits with that ``eval_set`` and writes ``eval_history``,
 ``best_iteration`` and ``best_score`` into the run's ``.json``, or an
 ``external`` dict, ``{"page_rows", "cache_device"}`` (the latter
 optional), which trains by ``fit_external`` over this rank's rows,
-``shard_row_ranges(n, world)[rank]``, as ``ArrayRowIter`` pages, or a
+``shard_row_ranges(n, world)[rank]``, as ``ArrayRowIter`` pages — or,
+with a ``"uri"`` (and optional ``"format"``, default ``libsvm``, and
+``"num_col"``), over this rank's ``InputSplit`` part of that file,
+directory or remote prefix, ``RowBlockIter.create(uri, rank, world,
+format)``, parsed by the rank itself (no ``X``/``y`` then; the run's
+``.json`` adds the native parse and I/O call counts) — or a
 ``sparse`` dict, ``{"csr", "n_features", "cuts"}`` (``.npz`` paths: the
 global CSR rows ``offset``/``index``/``value``/``y``, and optional
 injected cuts ``cut_vals``/``cut_ptr``), which fits a ``SparseHistGBT``
@@ -175,6 +180,8 @@ def run_worker(job: Dict[str, Any]) -> None:
     import torch
 
     from dmlc_core_tpu_torch import HistGBT
+    from dmlc_core_tpu_torch.data import _native
+    from dmlc_core_tpu_torch.io import _native_io
     from dmlc_core_tpu_torch.ops import histogram as H
     from dmlc_core_tpu_torch.parallel import collectives as coll
 
@@ -187,6 +194,7 @@ def run_worker(job: Dict[str, Any]) -> None:
         torch.cuda.set_device(torch.device(device))
     coll.init(backend=job["backend"])
     out = Path(job["out"])
+    out.mkdir(parents=True, exist_ok=True)    # a worker dmlc-submit started
     kernels = (H.hist_kernel, H.fused_round_kernel, H.fused_descend_kernel,
                H.descend_kernel)
     for run in job["runs"]:
@@ -198,8 +206,10 @@ def run_worker(job: Dict[str, Any]) -> None:
         if data.get("model"):
             _model_run(data, name, rank, device, out)
             continue
-        X = np.load(data["X"], mmap_mode="r")
-        y = np.load(data["y"])
+        ext = data.get("external")
+        from_uri = bool(ext and ext.get("uri"))
+        X = None if from_uri else np.load(data["X"], mmap_mode="r")
+        y = None if from_uri else np.load(data["y"])
         cuts = np.load(data["cuts"]) if data.get("cuts") else None
         Xv = np.load(data["Xv"]) if data.get("Xv") else None
         qid = np.load(data["qid"]) if data.get("qid") else None
@@ -214,8 +224,21 @@ def run_worker(job: Dict[str, Any]) -> None:
             model = HistGBT(device=device,
                             **{**job["params"], **run.get("params", {})})
             ev = data.get("eval")
-            ext = data.get("external")
-            if ext:
+            _native.reset_calls()
+            _native_io.reset_calls()
+            if from_uri:
+                from dmlc_core_tpu_torch.data.iter import RowBlockIter
+
+                rows = RowBlockIter.create(ext["uri"], rank, coll.world_size(),
+                                           ext.get("format", "libsvm"))
+                try:
+                    model.fit_external(rows, num_col=ext.get("num_col"),
+                                       cuts=cuts,
+                                       cache_device=ext.get("cache_device",
+                                                            False))
+                finally:
+                    rows.close()
+            elif ext:
                 from dmlc_core_tpu_torch.data.iter import ArrayRowIter
                 from dmlc_core_tpu_torch.parallel.mesh import shard_row_ranges
 
@@ -254,7 +277,9 @@ def run_worker(job: Dict[str, Any]) -> None:
                 "missing": model._missing,
                 "eval_history": model.eval_history,
                 "best_iteration": model.best_iteration,
-                "best_score": model.best_score}
+                "best_score": model.best_score,
+                "descend_launches": H.descend_kernel.launches,
+                "native": {**_native.calls(), **_native_io.calls()}}
         margins = (model.train_margins() if model._train_preds is not None
                    else None)
         model.save_model(str(out / f"{name}.{rank}.model"))

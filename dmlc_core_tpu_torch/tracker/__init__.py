@@ -11,10 +11,10 @@ for rabit-protocol workers, for the serving fleet's control plane
 (``serve/fleet/replica.py``) and as the tested home of the tree/ring
 topology math.
 
-The port's copy holds the coordination service alone
-(``tracker/tracker.py``); the launcher backends (``local``, ``ssh``,
-``mpi``, ``slurm``, ``sge``, ``yarn``, ``mesos``, ``kubernetes``,
-``submit``, ``opts``, ``launcher``) are ROADMAP item 18.
+The launcher backends (``local``, ``ssh``, ``mpi``, ``slurm``, ``sge``,
+``yarn``, ``mesos``, ``kubernetes``) sit under the ``dmlc-submit`` CLI,
+``python -m dmlc_core_tpu_torch.tracker.submit`` (``submit``, ``opts``);
+``launcher`` is the per-worker shim that fills the env ABI.
 """
 
 from dmlc_core_tpu_torch.tracker.tracker import RabitTracker, PSTracker, submit  # noqa: F401

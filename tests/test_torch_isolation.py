@@ -154,6 +154,63 @@ def test_serving_and_booster_modules_load_no_jax(module):
     assert "LOADED []" in res.stdout, res.stdout
 
 
+#: the last host modules (ROADMAP item 18), by group; the native group
+#: also builds (where a compiler is found), loads and calls the library
+_HOST_GROUPS = {
+    "base": ["dmlc_core_tpu_torch.base.common",
+             "dmlc_core_tpu_torch.base.config",
+             "dmlc_core_tpu_torch.base.thread_local",
+             "dmlc_core_tpu_torch.base.wire_schemas",
+             "dmlc_core_tpu_torch.utils.memory"],
+    "io": ["dmlc_core_tpu_torch.io.json_io",
+           "dmlc_core_tpu_torch.io.thread_group",
+           "dmlc_core_tpu_torch.io.http_filesys",
+           "dmlc_core_tpu_torch.io.s3_filesys",
+           "dmlc_core_tpu_torch.io.gcs_filesys",
+           "dmlc_core_tpu_torch.io.azure_filesys",
+           "dmlc_core_tpu_torch.io.hdfs_filesys"],
+    "native": ["dmlc_core_tpu_torch.base._native_build",
+               "dmlc_core_tpu_torch.data._native",
+               "dmlc_core_tpu_torch.io._native_io",
+               "dmlc_core_tpu_torch.io.lockfree"],
+    "launchers": ["dmlc_core_tpu_torch.tracker.opts",
+                  "dmlc_core_tpu_torch.tracker.launcher",
+                  "dmlc_core_tpu_torch.tracker.local",
+                  "dmlc_core_tpu_torch.tracker.ssh",
+                  "dmlc_core_tpu_torch.tracker.mpi",
+                  "dmlc_core_tpu_torch.tracker.slurm",
+                  "dmlc_core_tpu_torch.tracker.sge",
+                  "dmlc_core_tpu_torch.tracker.yarn",
+                  "dmlc_core_tpu_torch.tracker.mesos",
+                  "dmlc_core_tpu_torch.tracker.kubernetes",
+                  "dmlc_core_tpu_torch.tracker.submit",
+                  "dmlc_core_tpu_torch.launch.k8s",
+                  "dmlc_core_tpu_torch.launch.config"],
+}
+
+
+@pytest.mark.parametrize("group", sorted(_HOST_GROUPS))
+def test_last_host_modules_load_no_jax(group):
+    # the native parse and RecordIO library, the remote filesystems, the
+    # small base and io modules and the dmlc-submit launchers stand alone
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in _HOST_GROUPS[group]))
+    if group == "native":
+        code += ("from dmlc_core_tpu_torch.data import _native\n"
+                 "from dmlc_core_tpu_torch.io import _native_io, lockfree\n"
+                 "if _native.native_available():\n"
+                 "    _native.parse_libsvm(b'1 0:1.5\\n')\n"
+                 "    _native_io.recordio_decode("
+                 "_native_io.recordio_encode([b'x']))\n"
+                 "    lockfree.Spinlock()\n")
+    code += (f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}\n"
+             "             or m.startswith('jax'))\n"
+             "print('LOADED', bad)\n")
+    res = _run_clean(code)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
+
+
 def test_no_finished_kernel_in_source():
     # the port's kernels are its own: no fused attention operator, no
     # torch.compile, no package of finished kernels anywhere in it

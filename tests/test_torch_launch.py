@@ -1,21 +1,15 @@
-"""The launch tier of the port (``launch/*``: transports and the JobSet
-supervisor) on the CPU.
+"""The launch tier of the port (``launch/*``: transports, the JobSet
+supervisor, the Kubernetes transport and dmlc-submit options → JobSet)
+on the CPU.
 
 The JAX package's own tests are loaded against the port (``*_port``):
 ``tests/test_launch.py``'s ``TestLocalTransport``, ``TestSSHTransport``,
-``TestFakeTransport``, ``TestJobSet`` and ``TestSlotAwarePlacement``.
-Left out, for what the port does not have yet (ROADMAP item 18):
+``TestFakeTransport``, ``TestK8sTransport``, ``TestJobSet``,
+``TestSubmitConfigs`` and ``TestSlotAwarePlacement`` — the whole file.
 
-* ``TestK8sTransport``: the Kubernetes transport (``launch/k8s.py``)
-  imports the launcher backend ``tracker/kubernetes.py``;
-* ``TestSubmitConfigs``: dmlc-submit options → JobSet
-  (``launch/config.py``, ``tracker/opts.py``) import the launcher
-  backends ``tracker/ssh.py`` and ``tracker/kubernetes.py``.
-
-The loaded file's imports of those modules are dropped; no assertion
-changes.  The port's own check: its ``launch`` package exports the JAX
-package's names less those two modules', and a JobSet's worker env is
-the JAX package's for the same arguments.
+The port's own check: its ``launch`` package exports the JAX package's
+names, and a JobSet's worker env is the JAX package's for the same
+arguments.
 """
 
 import os
@@ -29,25 +23,17 @@ import dmlc_core_tpu.launch as jax_launch  # noqa: E402
 import dmlc_core_tpu_torch.launch as port_launch  # noqa: E402
 from _torch_suites import export, load_port  # noqa: E402
 
-_LAUNCH = load_port("test_launch.py", [
-    ("from dmlc_core_tpu.launch import (FakeTransport, JobSet, K8sTransport,\n"
-     "                                  LaunchTimeout, LocalTransport,\n"
-     "                                  SSHTransport, TransportError,\n"
-     "                                  jobset_from_opts, transport_from_opts)\n",
-     "from dmlc_core_tpu.launch import (FakeTransport, JobSet,\n"
-     "                                  LaunchTimeout, LocalTransport,\n"
-     "                                  SSHTransport, TransportError)\n"),
-    ("from dmlc_core_tpu.tracker.opts import get_opts\n", "")])
+_LAUNCH = load_port("test_launch.py")
 export(globals(), _LAUNCH, ["TestLocalTransport", "TestSSHTransport",
-                            "TestFakeTransport", "TestJobSet",
+                            "TestFakeTransport", "TestK8sTransport",
+                            "TestJobSet", "TestSubmitConfigs",
                             "TestSlotAwarePlacement"])
-
-#: the JAX package's launch names that wait for ROADMAP item 18
-_ITEM_18 = {"K8sTransport", "jobset_from_opts", "transport_from_opts"}
 
 
 def test_exports_are_jax_less_item_18():
-    assert set(port_launch.__all__) == set(jax_launch.__all__) - _ITEM_18
+    # item 18's launch names (K8sTransport, jobset_from_opts,
+    # transport_from_opts) are ported: nothing is left out any more
+    assert set(port_launch.__all__) == set(jax_launch.__all__)
     for name in port_launch.__all__:
         assert getattr(port_launch, name).__module__.startswith(
             "dmlc_core_tpu_torch.launch")
