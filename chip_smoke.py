@@ -312,7 +312,8 @@ and the script exits non-zero without the final ``ok`` line:
     count above 0), and the host leg's records/s with the native and with
     the Python decode in turns (:func:`codec_ab`);
 12m. prodsim — ``python -m dmlc_core_tpu_torch.tools.check_prodsim`` as
-    a child process on the card (the production-day drill under the
+    a child process on the card, its load window 12 s (the production-day
+    drill under the
     lock-order, race and leak checkers, a fault in every tier, the
     scorecard ``tools/slo/prodsim.json``): every check green; its
     availability, tiers faulted, scorecard and the kernels' launches of
@@ -325,14 +326,27 @@ and the script exits non-zero without the final ``ok`` line:
     probe's ``scaling_efficiency`` (8 gloo ranks of the host at
     ``BENCH_PROBE_ROWS``; or the budget note that skipped it), and its
     headline fields are emitted;
+13b. examples and drills (started before phase 11b's gloo ranks and run
+    beside 11b, 7 and 8, which run after 11b and time nothing, checked
+    after 8) — ``python -m
+    dmlc_core_tpu_torch.examples --device cuda --jobs 2`` (the runner:
+    all 11 examples at the JAX examples' sizes, each a child with a 300 s
+    limit; each one's seconds and last line) and the chaos drills
+    ``python -m dmlc_core_tpu_torch.tools.check_<name> --device cuda`` for
+    elastic, tenancy and ps in one line and launch and fleet in another
+    (every check green, the JSON verdicts and scorecards printed, each
+    worker's and replica's device ``cuda``); every process of both leaves
+    its kernel launches in a ``DMLC_LAUNCH_SPOOL`` directory at exit,
+    summed per part;
 14. the ``kernels`` line (launches summed over phases 3b-6h and 8, phases
     11 and 11b's Ulysses run for attention — each beside its part and the
     kernels' times at the Ulysses shard —, phase 12's timing pass for the
     B5 variants, phases
     12f-12h's HTTP runs for ``descend``, phase 12i's refreshes for
     ``hist``, ``fused_round`` and ``descend``, phase 12k2's three runs
-    for the same three (``launches_submit``) and phase 12m's drill for
-    the same three; ``descend_dir`` is
+    for the same three (``launches_submit``), phase 12m's drill for
+    the same three and phase 13b's examples and drills for the same
+    three (``launches_examples``, ``launches_drills``); ``descend_dir`` is
     ``descend_kernel``'s direction mode, B2's descend on the missing
     path, ``descend`` its plain mode, a served batch's and a refresh's
     margin replay), then the card's name and power limit, then the
@@ -677,8 +691,28 @@ SUBMIT_SHARDS = 4
 SUBMIT_RANKS = 2
 SUBMIT_LEVERS = {"DMLC_BIN_PACK": "1", "DMLC_FEATURE_BUNDLE": "1"}
 SUBMIT_TIMEOUT = 600
-# prodsim: the drill at its defaults (DMLC_PRODSIM_SECONDS 24)
+# prodsim: the drill with a 12 s load window (its default is 24 s; the
+# tests run 12), the faults at their shares of the window
+PRODSIM_SECONDS = "12"
 PRODSIM_TIMEOUT = 600
+# phase 13b: the examples' runner and the drills (each its own child)
+EXAMPLES_TIMEOUT = 900
+EXAMPLES_JOBS = 2
+DRILLS = ("elastic", "launch", "fleet", "tenancy", "ps")
+# two lines of drills, one drill at a time in each (three lines load the
+# host's 8 cores past what the third line saves)
+DRILL_LINES = (("elastic", "tenancy", "ps"), ("launch", "fleet"))
+DRILL_TIMEOUT = 420
+DRILL_SLO = {"fleet": "FLEET_SLO_OUT", "tenancy": "TENANCY_SLO_OUT",
+             "ps": "PS_SLO_OUT"}
+# the PS drill's workers make one pass over their shards (the JAX drill's
+# three, as the tests run it)
+DRILL_ENV = {"ps": {"PS_DRILL_EPOCHS": "1"}}
+# each drill's JSON report, by its own variable (ELASTIC_OUT and
+# LAUNCH_OUT name their workers' directories there)
+DRILL_REPORT = {"elastic": "ELASTIC_REPORT_OUT",
+                "launch": "LAUNCH_REPORT_OUT", "fleet": "FLEET_OUT",
+                "tenancy": "TENANCY_OUT", "ps": "PS_DRILL_OUT"}
 # bench: the scaling probe's rows (its fits run on the host's CPU)
 BENCH_PROBE_ROWS = 200_000
 
@@ -2221,6 +2255,26 @@ def phase_external(torch, np, H, smi, X, y, pages):
     page_rows = [b.size for b in pages]
     chunk_budget = n * 24 + F * -(-n // EXT_CHUNKS)
     routes, models = {}, {}
+    # the sketch on the CPU, over the same pages, on a thread beside the
+    # card's routes (host work the card does not wait on; the routes'
+    # times are taken beside it)
+    cpu = {}
+    blocks = list(pages)          # the thread's own list: the iterator
+                                  # has one cursor, the routes' to move
+
+    def cpu_sketch():
+        t0 = time.perf_counter()
+        sk = SketchAccumulator(F, n_summary=max(8 * N_BINS, 64),
+                               device="cpu")
+        for b in blocks:
+            sk.add(b.to_dense(F))
+        cpu["cuts"] = sk.finalize(N_BINS)
+        cpu["seconds"] = time.perf_counter() - t0
+
+    import threading
+
+    sketch_thread = threading.Thread(target=cpu_sketch, daemon=True)
+    sketch_thread.start()
     for name, budget, extra in (("a", None, {}), ("b", chunk_budget, {}),
                                 ("c", chunk_budget, EXT_SAMPLING)):
         model = HistGBT(device=DEVICE, **kw, **extra)
@@ -2265,13 +2319,9 @@ def phase_external(torch, np, H, smi, X, y, pages):
                 model.last_tree_times),
             "upload_bytes_per_tree": (None if name == "a" else
                                       model.last_upload_bytes / TREES)}
-    # the sketch on the CPU, over the same pages
-    t0 = time.perf_counter()
-    sk = SketchAccumulator(F, n_summary=max(8 * N_BINS, 64), device="cpu")
-    for b in pages:
-        sk.add(b.to_dense(F))
-    cpu_cuts = sk.finalize(N_BINS)
-    cpu_sketch_s = time.perf_counter() - t0
+    sketch_thread.join()
+    require("cuts" in cpu, "external: the CPU sketch failed")
+    cpu_cuts, cpu_sketch_s = cpu["cuts"], cpu["seconds"]
     require(cpu_cuts.numpy().tobytes() ==
             models["a"].cuts.cpu().numpy().tobytes(),
             "external: the card's sketch cuts differ from the CPU's")
@@ -5232,6 +5282,7 @@ def phase_prodsim(np, smi):
            and k not in ("DMLC_TPU_ROUNDS_PER_DISPATCH", "DMLC_METRICS_SPOOL")}
     if DEVICE == "cpu":            # a rehearsal of the script on the host
         env["BENCH_FORCE_CPU"] = "1"
+    env["DMLC_PRODSIM_SECONDS"] = PRODSIM_SECONDS
     env.update({f"PRODSIM_{k}_OUT": os.path.join(out, f"{k.lower()}.json")
                 for k in ("METRICS", "TRACE", "RACECHECK", "LEAKCHECK",
                           "SLO")})
@@ -5246,10 +5297,12 @@ def phase_prodsim(np, smi):
         try:
             rc = proc.wait(timeout=PRODSIM_TIMEOUT)
         except subprocess.TimeoutExpired:
-            # the drill and every process it started (one session)
-            os.killpg(proc.pid, signal.SIGKILL)
+            proc.kill()
             proc.wait()
             rc = None
+        finally:
+            # every process the drill started (its session), ended or not
+            kill_session(proc)
     wall = time.perf_counter() - t0
     with open(logs["out"]) as f:
         stdout = f.read()
@@ -5300,6 +5353,173 @@ def phase_prodsim(np, smi):
           "nvidia_smi": smi})
     shutil.rmtree(out, ignore_errors=True)
     return launches
+
+#: children of :func:`run_child` still running (killed with their
+#: sessions if the script ends before they do)
+LIVE_CHILDREN = set()
+
+
+def kill_session(proc) -> None:
+    """SIGKILL every process left in the session of ``proc`` (a child
+    started with ``start_new_session``)."""
+    with contextlib.suppress(ProcessLookupError, PermissionError):
+        os.killpg(proc.pid, signal.SIGKILL)
+
+
+def run_child(cmd, env, timeout, log_base):
+    """``cmd`` as a child of its own session with its output in
+    ``log_base.out`` / ``.err``; killed with everything it started at
+    ``timeout``.  Returns ``(rc or None when killed, seconds, stdout,
+    stderr)``."""
+    t0 = time.perf_counter()
+    with open(log_base + ".out", "w") as fo, \
+            open(log_base + ".err", "w") as fe:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=fo, stderr=fe,
+                                text=True, start_new_session=True)
+        LIVE_CHILDREN.add(proc)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = None
+        finally:
+            # what the child left running in its session goes with it
+            kill_session(proc)
+            LIVE_CHILDREN.discard(proc)
+    wall = time.perf_counter() - t0
+    with open(log_base + ".out") as f:
+        out = f.read()
+    with open(log_base + ".err") as f:
+        err = f.read()
+    return rc, wall, out, err
+
+
+def spooled_launches(directory):
+    """The kernel launches every process that used ``directory`` as its
+    ``DMLC_LAUNCH_SPOOL`` left there, summed."""
+    total = {}
+    for name in sorted(os.listdir(directory)):
+        if name.startswith("launches-") and name.endswith(".json"):
+            with open(os.path.join(directory, name)) as f:
+                for k, v in json.load(f).items():
+                    total[k] = total.get(k, 0) + v
+    return total
+
+
+def start_entry_points():
+    """Phase 13b's start: the examples' runner (``--jobs 2``) and the five
+    drills in ``DRILL_LINES`` of children, all on threads of this process.  It
+    runs beside phase 11b (two gloo ranks of BERT on the card, checked by
+    their losses alone), 7 and 8 (checked by their model files);
+    :func:`finish_entry_points` joins it."""
+    import threading
+
+    out = tempfile.mkdtemp(prefix="chip_entry_")
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("BENCH_", "PRODSIM_", "FLEET_", "DRILL_",
+                                 "ELASTIC_", "LAUNCH_", "TENANCY_", "PS_"))
+            and k not in ("DMLC_TPU_ROUNDS_PER_DISPATCH", "DMLC_METRICS_SPOOL",
+                          "DMLC_LAUNCH_SPOOL")}
+    base["PYTHONPATH"] = ROOT
+    spools = {k: os.path.join(out, f"launches_{k}")
+              for k in ("examples", "drills")}
+    for d in spools.values():
+        os.makedirs(d)
+    state = {"out": out, "spools": spools, "drills": {}, "t0": None}
+
+    def run_drills(names):
+        for name in names:
+            env = dict(base, DMLC_LAUNCH_SPOOL=spools["drills"],
+                       TMPDIR=os.path.join(out, name),
+                       DMLC_METRICS_SPOOL=os.path.join(out, name, "spool"))
+            os.makedirs(env["TMPDIR"])
+            env[DRILL_REPORT[name]] = os.path.join(out, name, "report.json")
+            env.update(DRILL_ENV.get(name, {}))
+            if name in DRILL_SLO:
+                env[DRILL_SLO[name]] = os.path.join(out, name, "slo.json")
+            state["drills"][name] = run_child(
+                [sys.executable, "-m", f"dmlc_core_tpu_torch.tools.check_{name}",
+                 "--device", DEVICE], env, DRILL_TIMEOUT,
+                os.path.join(out, f"drill_{name}"))
+
+    def run_examples():
+        state["examples"] = run_child(
+            [sys.executable, "-m", "dmlc_core_tpu_torch.examples", "--device",
+             DEVICE, "--jobs", str(EXAMPLES_JOBS)],
+            dict(base, DMLC_LAUNCH_SPOOL=spools["examples"]),
+            EXAMPLES_TIMEOUT, os.path.join(out, "examples"))
+
+    state["t0"] = time.perf_counter()
+    state["threads"] = [threading.Thread(target=run_examples, daemon=True)] + [
+        threading.Thread(target=run_drills, args=(line,), daemon=True)
+        for line in DRILL_LINES]
+    for t in state["threads"]:
+        t.start()
+    return state
+
+
+def finish_entry_points(state, smi):
+    """Phase 13b's end: join its children, check and emit them.  Returns
+    ``(examples' launches, drills' launches)``."""
+    for t in state["threads"]:
+        t.join()
+    wall_all = time.perf_counter() - state["t0"]
+    out, spools, drills = state["out"], state["spools"], state["drills"]
+    rc, wall, stdout, stderr = state["examples"]
+    lines = stdout.splitlines()
+    summary = None
+    if lines and lines[-1].startswith('{"examples"'):
+        summary = json.loads(lines[-1])["examples"]
+    require(rc == 0 and summary is not None,
+            f"the examples' runner exited {rc} after {wall:.0f} s (None: "
+            f"killed at {EXAMPLES_TIMEOUT} s): {stdout[-4000:]} "
+            f"{stderr[-3000:]}")
+    launches = {k: spooled_launches(d) for k, d in spools.items()}
+    emit({"phase": "examples", "device": DEVICE, "jobs": EXAMPLES_JOBS,
+          "examples": [{k: r[k] for k in ("name", "rc", "seconds", "last")}
+                       for r in summary],
+          "launches": launches["examples"], "seconds": wall,
+          "nvidia_smi": smi})
+    cuda = DEVICE != "cpu"
+    for name in DRILLS:
+        rc, wall, stdout, stderr = drills[name]
+        checks = [ln for ln in stdout.splitlines()
+                  if ln.startswith(("ok:", "FAIL:"))]
+        require(rc == 0 and stdout.splitlines()
+                and "GREEN" in stdout.splitlines()[-1],
+                f"drill {name} exited {rc} after {wall:.0f} s (None: killed "
+                f"at {DRILL_TIMEOUT} s): {checks[-3:]} stdout "
+                f"{stdout[-2000:]} stderr {stderr[-5000:]}")
+        with open(os.path.join(out, name, "report.json")) as f:
+            report = json.load(f)
+        devs = report["devices"]
+        devs = sorted(set(devs.values() if isinstance(devs, dict) else devs))
+        require(devs and all(d.startswith("cuda") == cuda for d in devs),
+                f"drill {name}: its children ran on {devs}, not {DEVICE}")
+        slo = None
+        if name in DRILL_SLO:
+            with open(os.path.join(out, name, "slo.json")) as f:
+                slo = json.load(f)["pass"]
+            require(slo, f"drill {name}: its scorecard failed")
+        emit({"phase": "drill", "drill": name, "checks": len(checks),
+              "verdicts": checks, "devices": devs, "slo_pass": slo,
+              "seconds": wall})
+    if cuda:
+        for part, counts in launches.items():
+            for k in ("hist", "fused_round", "descend"):
+                require(counts.get(k, 0) > 0,
+                        f"{k} was never launched by the {part} ({counts})")
+    emit({"phase": "drills", "drills": list(DRILLS),
+          "lines": [list(line) for line in DRILL_LINES],
+          "launches": launches["drills"],
+          "line_seconds": [sum(drills[n][1] for n in line)
+                           for line in DRILL_LINES],
+          "examples_seconds": state["examples"][1],
+          "phase_seconds": wall_all, "nvidia_smi": smi})
+    shutil.rmtree(out, ignore_errors=True)
+    return launches["examples"], launches["drills"]
+
 
 def main() -> int:
     sys.path.insert(0, ROOT)
@@ -5371,6 +5591,15 @@ def main() -> int:
     phase_infeed(torch, smi)
     phase_introspect(np, H, smi, {"main": (main_fit[2], Xv),
                                   "softmax": (softmax_model, Cv)})
+    phase_deep_kernels(torch, H, rates, mats)
+    floor = phase_hist_floor(torch, np, H, rates, tc_rate)
+    attention, ulysses_shape = phase_attention_kernels(torch, A, rates,
+                                                       tc_rate)
+    bert_launches, first_loss = phase_bert(torch, np, A, rates)
+    # phase 13b beside the phases that time nothing (11b, 7, 8): their
+    # checks are bytes and losses, which the side-by-side load leaves be
+    entry_state = start_entry_points()
+    ulysses_launches = phase_bert_parallel(torch, np, A, smi, first_loss)
     s = slice(0, CROSS_ROWS)
     files = phase_cross_device(np, {
         "depthwise": (X[s], y[s], {}),
@@ -5387,12 +5616,7 @@ def main() -> int:
     del Xm, Xmv
     for k, v in launches.items():
         require(v > 0, f"{k} was never launched on the main paths")
-    phase_deep_kernels(torch, H, rates, mats)
-    floor = phase_hist_floor(torch, np, H, rates, tc_rate)
-    attention, ulysses_shape = phase_attention_kernels(torch, A, rates,
-                                                       tc_rate)
-    bert_launches, first_loss = phase_bert(torch, np, A, rates)
-    ulysses_launches = phase_bert_parallel(torch, np, A, smi, first_loss)
+    entry = finish_entry_points(entry_state, smi)
     for k, v in bert_launches.items():
         require(v > 0, f"{k} was never launched on the BERT path")
         require(ulysses_launches[k] > 0,
@@ -5435,6 +5659,10 @@ def main() -> int:
     for k, v in phase_prodsim(np, smi).items():
         launches[k] += v
     phase_bench(np)
+    for part, counts in zip(("examples", "drills"), entry):
+        for k in ("hist", "fused_round", "descend"):
+            launches[k] += counts.get(k, 0)
+            kernels[k][f"launches_{part}"] = counts.get(k, 0)
     for k, v in floor.items():
         launches[k] = v.pop("launches")
     kernels.update(floor)
@@ -5460,6 +5688,7 @@ def main() -> int:
     extra = ("unfused_chain_ms", "chain_device_ms", "device_ms",
              "library_call", "library_device_ms", "by_n_build",
              "launches_bert", "launches_ulysses", "launches_submit",
+             "launches_examples", "launches_drills",
              "ulysses_B_S_H_D",
              "ulysses_ms", "ulysses_device_ms", "ulysses_bound_ms",
              "ulysses_max_abs_err")
@@ -5483,4 +5712,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for child in list(LIVE_CHILDREN):
+            kill_session(child)
+    sys.exit(code)

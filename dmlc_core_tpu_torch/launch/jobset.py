@@ -84,7 +84,7 @@ class _Rank:
 
     __slots__ = ("rank", "handle", "last_handle", "attempt", "crashes",
                  "spawn_errors", "code", "done", "stopping", "retry_at",
-                 "spawning", "lost_cycles")
+                 "spawning", "lost_cycles", "seen_live")
 
     def __init__(self, rank: int):
         self.rank = rank
@@ -99,6 +99,12 @@ class _Rank:
         self.retry_at: Optional[float] = None
         self.spawning = False
         self.lost_cycles = 0
+        #: the tracker has held this attempt's rank as live at least once
+        self.seen_live = False
+
+
+#: how long :meth:`JobSet.shutdown` waits for the supervisor's last step
+_SUPERVISOR_JOIN_S = 60.0
 
 
 @instrument_class
@@ -314,6 +320,7 @@ class JobSet:
             st.code = None
             st.retry_at = None
             st.lost_cycles = 0
+            st.seen_live = False
             self._spawn_ms.append(dt * 1e3)
             if attempt > 0:
                 self._respawns += 1
@@ -459,7 +466,10 @@ class JobSet:
     def _cross_check(self) -> None:
         """Heartbeat cross-check: a rank the tracker holds as LOST whose
         process still polls alive is wedged — kill it so the normal
-        respawn path replaces it."""
+        respawn path replaces it.  Only an attempt the tracker has held
+        as live counts (ROADMAP C21): a respawn starts while the tracker
+        still holds its predecessor as lost, and must not be killed for
+        taking longer than the wedge window to reconnect."""
         if self._tracker is None:
             return
         try:
@@ -471,15 +481,16 @@ class JobSet:
             for st in self._ranks.values():
                 if st.done or st.spawning or st.handle is None:
                     continue
-                if st.rank in lost:
+                if st.rank not in lost:
+                    st.seen_live = True
+                    st.lost_cycles = 0
+                elif st.seen_live:
                     st.lost_cycles += 1
                     if st.lost_cycles >= self._wedge_cycles:
                         st.lost_cycles = 0
                         self._event_locked("wedged", st.rank,
                                            st.handle.host)
                         wedged.append(st.handle)
-                else:
-                    st.lost_cycles = 0
         for handle in wedged:
             LOG("WARNING", "jobset %s: killing wedged worker %r "
                 "(process alive, tracker lost it)", self.name, handle)
@@ -545,7 +556,13 @@ class JobSet:
         self._stop.set()
         thread = self._thread
         if thread is not None and thread.is_alive():
-            thread.join(timeout=max(1.0, 5 * self._monitor_s))
+            # the supervisor ends with its current step, which may be a
+            # respawn's fork of a large parent (seconds on a loaded host):
+            # wait for it (ROADMAP C23), or its worker outlives teardown
+            thread.join(timeout=max(_SUPERVISOR_JOIN_S, 5 * self._monitor_s))
+            if thread.is_alive():
+                LOG("WARNING", "jobset %s: supervisor still in a step "
+                    "after %.0f s", self.name, _SUPERVISOR_JOIN_S)
         with self._lock:
             pending = []
             for st in self._ranks.values():

@@ -62,11 +62,13 @@ the plain version.  Nothing falls back from one to the other.
 
 from __future__ import annotations
 
+import atexit as _atexit
 import ctypes
 import functools
 import math
+import os as _os
 import threading
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -825,6 +827,36 @@ def fused_descend_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
 
 
 fused_descend_kernel.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every wrapper's launches in this process so far, by the names of
+    ``chip_smoke.py``'s kernels line."""
+    return {"hist": hist_kernel.launches,
+            "fused_round": fused_round_kernel.launches,
+            "hist_layout": hist_kernel.layout_launches,
+            "fused_round_layout": fused_round_kernel.layout_launches,
+            "fused_descend": fused_descend_kernel.launches,
+            "descend": descend_kernel.launches,
+            "descend_dir": descend_kernel.dir_launches}
+
+
+def _spool_launches(directory: str) -> None:
+    """At exit: this process's :func:`launch_counts` to
+    ``directory/launches-<pid>.json``."""
+    import json
+
+    path = _os.path.join(directory, f"launches-{_os.getpid()}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(launch_counts(), f)
+    _os.replace(path + ".tmp", path)
+
+
+# DMLC_LAUNCH_SPOOL=<dir>: each process that exits cleanly leaves its
+# launch counts there — how a parent counts the kernels its children
+# (examples, drill workers, replicas) launched
+if _os.environ.get("DMLC_LAUNCH_SPOOL"):
+    _atexit.register(_spool_launches, _os.environ["DMLC_LAUNCH_SPOOL"])
 
 
 # ---------------------------------------------------------------------------

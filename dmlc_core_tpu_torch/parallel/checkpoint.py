@@ -258,6 +258,17 @@ def _copy_blob(src: str, dst: str) -> bool:
     return True
 
 
+def _remove_local(uri: str) -> None:
+    """Remove a local file if it exists (other backends: nothing; their
+    retention copies, so the primary keeps its own sidecar)."""
+    path = _local_path(uri)
+    if path is not None:
+        try:
+            os.unlink(path)
+        except FileNotFoundError:
+            pass
+
+
 def _read_sidecar(uri: str) -> Optional[List[int]]:
     """Leaf CRCs from ``<uri>.crc`` — ``None`` when absent (pre-sidecar
     checkpoint: skip validation); raises on a garbled sidecar (treated
@@ -325,9 +336,18 @@ def checkpoint(uri: str, state: Any, version: int = 0, sharded: bool = False,
 
     if _keep_prev(uri):
         # the current version becomes the fallback BEFORE anything is
-        # replaced; its sidecar must travel with it
-        if _copy_blob(uri, uri + _PREV_SUFFIX):
-            _copy_blob(uri + _CRC_SUFFIX, uri + _PREV_SUFFIX + _CRC_SUFFIX)
+        # replaced; its sidecar travels with it, and FIRST (ROADMAP C19):
+        # a kill between the two moves leaves the primary's complete body
+        # without a sidecar (loaded unvalidated), where moving the body
+        # first left no primary and a fallback body beside the older
+        # version's sidecar — no loadable version at all
+        if not _copy_blob(uri + _CRC_SUFFIX,
+                          uri + _PREV_SUFFIX + _CRC_SUFFIX):
+            _remove_local(uri + _PREV_SUFFIX + _CRC_SUFFIX)
+        _copy_blob(uri, uri + _PREV_SUFFIX)
+    else:
+        # nothing retained: a stale sidecar must not outlive its body
+        _remove_local(uri + _CRC_SUFFIX)
 
     crcs: List[int] = []
 

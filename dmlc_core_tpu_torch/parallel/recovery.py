@@ -59,6 +59,7 @@ import os
 import signal
 import socket
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -344,9 +345,14 @@ class ElasticTracker(RabitTracker):
         self._colls: Dict[Tuple[int, int], Dict[str, Any]] = {}
         self._prev_world = nworker
         self._broken_reason = ""
+        #: ranks whose session ended with a clean ``shutdown``: a rank
+        #: shuts down only once its training returned at the job's end
+        self._finished: set = set()
 
     # -- membership → epoch lifecycle -----------------------------------
     def _membership_event_locked(self, kind: str, rank: int) -> None:
+        if kind == "shutdown":
+            self._finished.add(rank)
         if kind in ("lost", "death", "shutdown"):
             self._joined.discard(rank)
         if kind in ("lost", "death"):
@@ -424,10 +430,11 @@ class ElasticTracker(RabitTracker):
     def _handle_join(self, msg: Dict[str, Any]) -> Dict[str, Any]:
         rank = int(msg.get("rank", -1))
         timeout_s = float(msg.get("timeout_s", self._WAIT_S))
+        deadline = time.monotonic() + timeout_s
         with self._cv:
             self._joined.add(rank)
+            self._finished.discard(rank)
             self._try_form_locked()
-            waited = 0.0
             while True:
                 if self._done.is_set():
                     return {"error": "tracker stopped"}
@@ -437,11 +444,23 @@ class ElasticTracker(RabitTracker):
                     self._joined.discard(rank)
                     return {"error": "evicted: epoch formed without "
                             f"rank {rank}"}
-                if timeout_s > 0 and waited >= timeout_s:
+                if (self._floor > 0 and set(range(self.nworker)) - {rank}
+                        <= self._finished):
+                    # every other rank finished the job (ROADMAP C22): a
+                    # rank respawned after its last commit restores the
+                    # floor alone instead of waiting for a world that is
+                    # gone
+                    self._joined.discard(rank)
+                    return {"epoch": self._epoch, "world": 1, "wrank": 0,
+                            "members": [rank], "floor": self._floor,
+                            "done": True}
+                left = deadline - time.monotonic()
+                if timeout_s > 0 and left <= 0:
                     self._joined.discard(rank)
                     return {"error": "join timeout"}
-                self._cv.wait(timeout=1.0)
-                waited += 1.0
+                # the deadline is wall time: every notify wakes this wait
+                self._cv.wait(timeout=min(1.0, left) if timeout_s > 0
+                              else 1.0)
             return {"epoch": self._epoch, "world": len(self._members),
                     "wrank": self._members.index(rank),
                     "members": list(self._members), "floor": self._floor}
@@ -662,6 +681,7 @@ class ElasticSession:
         self.wrank = -1
         self.members: List[int] = []
         self.floor = 0
+        self.done = False
         self._seq = 0
 
     # transport duck-type: epoch-relative identity
@@ -694,6 +714,8 @@ class ElasticSession:
         self.wrank = int(reply["wrank"])
         self.members = list(reply["members"])
         self.floor = int(reply["floor"])
+        #: the job finished without this rank: restore the floor, stop
+        self.done = bool(reply.get("done"))
         self._seq = 0
         return reply
 
@@ -903,6 +925,9 @@ class ElasticTrainer:
             session.join(timeout_s=join_timeout_s)
             committed = self._sync_to_floor(ck, session.floor)
             self._committed = self.rounds_trained = committed
+            CHECK(not session.done or committed >= self.total,
+                  f"recovery: the job finished at round {committed}, "
+                  f"short of {self.total}")
             if committed >= self.total:
                 break
             lo, hi = shard_row_ranges(n_rows, session.world)[session.wrank]

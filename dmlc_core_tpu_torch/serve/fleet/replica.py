@@ -182,10 +182,14 @@ class ReplicaFrontend(ServeFrontend):
                 0.99, batcher=self.registry.name)
         doc["queue_wait_p99_s"] = p99
         # every served HistGBT batch is descend_kernel launches on a card
-        # (0 on the CPU): a drill reads them from the health doc
+        # (0 on the CPU): a drill reads them, the kernel builds and
+        # library loads, and the device from the health doc
+        from dmlc_core_tpu_torch.ops import _build
         from dmlc_core_tpu_torch.ops.histogram import descend_kernel
 
         doc["kernel_launches"] = {"descend": descend_kernel.launches}
+        doc["kernel_builds"] = _build.build_events()
+        doc["device"] = str(self.registry.device)
         return doc
 
     def _route(self, method: str, path: str, body: bytes,

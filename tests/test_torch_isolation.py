@@ -154,6 +154,35 @@ def test_serving_and_booster_modules_load_no_jax(module):
     assert "LOADED []" in res.stdout, res.stdout
 
 
+#: the examples and their runner, and the chaos drills (ROADMAP item 19)
+_ENTRY_GROUPS = {
+    "examples": ["dmlc_core_tpu_torch.examples._cli",
+                 "dmlc_core_tpu_torch.examples.__main__"]
+    + [f"dmlc_core_tpu_torch.examples.{n}" for n in (
+        "train_gbt", "rank_pairwise", "sklearn_pipeline",
+        "external_memory_gbt", "sparse_highdim_gbt", "fm_libfm",
+        "serve_gbt", "stream_gbt", "resnet_recordio", "distributed_local",
+        "elastic_recovery")],
+    "drills": ["dmlc_core_tpu_torch.tools._drill"]
+    + [f"dmlc_core_tpu_torch.tools.check_{n}" for n in (
+        "resilience", "elastic", "launch", "fleet", "tenancy", "ps")],
+}
+
+
+@pytest.mark.parametrize("group", sorted(_ENTRY_GROUPS))
+def test_example_and_drill_modules_load_no_jax(group):
+    # the examples, their runner and the drills stand alone too
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in _ENTRY_GROUPS[group])
+            + f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              f"{FORBIDDEN!r}\n"
+              "             or m.startswith('jax'))\n"
+              "print('LOADED', bad)\n")
+    res = _run_clean(code)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
+
+
 #: the last host modules (ROADMAP item 18), by group; the native group
 #: also builds (where a compiler is found), loads and calls the library
 _HOST_GROUPS = {
