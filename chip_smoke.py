@@ -157,6 +157,13 @@ and the script exits non-zero without the final ``ok`` line:
     next loss; and a two-layer BERT (head dim 64) trained three steps on
     the card and on the CPU from one seed: losses within 2e-3, weights
     within 1e-3;
+11a. bench_transformer — ``tools/bench_transformer.py``'s three models at
+    the JAX script's shapes (BERT-base at 8 × 512, the 6-layer Switch-MoE
+    at capacity factor 1.0, the 12-layer ``PipelineLM`` at 16 × 512 in 8
+    microbatches), ``TRANSFORMER_STEPS`` steps each after a warmup chunk,
+    in this process: finite losses, and BERT's and the MoE's attention
+    through the three flash kernels (their launches on the ``kernels``
+    line, ``launches_bench_transformer``);
 11b. bert_parallel — BERT's parallel axes at BERT-base width: (a) one
     rank on ``create_mesh(MeshSpec(data=1))`` (every axis named at size
     1; its ``seq`` axis takes ring attention, as JAX's does), its first
@@ -325,7 +332,17 @@ and the script exits non-zero without the final ``ok`` line:
     rounds, with kernel launches, a ``kvstore_sync_ms`` and the scaling
     probe's ``scaling_efficiency`` (8 gloo ranks of the host at
     ``BENCH_PROBE_ROWS``; or the budget note that skipped it), and its
-    headline fields are emitted;
+    headline fields are emitted.  It runs with ``BENCH_CHIPS=2``: on one
+    card ``config.chips`` must be 1 with the clamp note; on two cards or
+    more 2, with the histogram-sync ``psum_probe`` (exact sums) and the
+    1-card refit's ``scaling``;
+13a. multichip (started before 12b and run beside 12b-12e, which check
+    results, not times) — ``python -m
+    dmlc_core_tpu_torch.tools.check_multichip --device cuda:0`` with
+    ``MULTICHIP_RANKS`` gloo ranks sharing the card and, on a machine with
+    two cards or more, ``--device cuda`` (one rank a card over NCCL):
+    exit 0, the three parities and the ranks' cut bytes true, B1 launched
+    on every rank (``launches_multichip``);
 13b. examples and drills (started before phase 11b's gloo ranks and run
     beside 11b, 7 and 8, which run after 11b and time nothing, checked
     after 8) — ``python -m
@@ -339,14 +356,16 @@ and the script exits non-zero without the final ``ok`` line:
     its kernel launches in a ``DMLC_LAUNCH_SPOOL`` directory at exit,
     summed per part;
 14. the ``kernels`` line (launches summed over phases 3b-6h and 8, phases
-    11 and 11b's Ulysses run for attention — each beside its part and the
-    kernels' times at the Ulysses shard —, phase 12's timing pass for the
+    11, 11a and 11b's Ulysses run for attention — each beside its part and
+    the kernels' times at the Ulysses shard —, phase 12's timing pass for the
     B5 variants, phases
     12f-12h's HTTP runs for ``descend``, phase 12i's refreshes for
     ``hist``, ``fused_round`` and ``descend``, phase 12k2's three runs
     for the same three (``launches_submit``), phase 12m's drill for
-    the same three and phase 13b's examples and drills for the same
-    three (``launches_examples``, ``launches_drills``); ``descend_dir`` is
+    the same three, phase 13a's ranks for ``hist``, ``fused_round``,
+    ``fused_descend`` and ``descend`` (``launches_multichip``) and phase
+    13b's examples and drills for the same three
+    (``launches_examples``, ``launches_drills``); ``descend_dir`` is
     ``descend_kernel``'s direction mode, B2's descend on the missing
     path, ``descend`` its plain mode, a served batch's and a refresh's
     margin replay), then the card's name and power limit, then the
@@ -715,6 +734,14 @@ DRILL_REPORT = {"elastic": "ELASTIC_REPORT_OUT",
                 "tenancy": "TENANCY_OUT", "ps": "PS_DRILL_OUT"}
 # bench: the scaling probe's rows (its fits run on the host's CPU)
 BENCH_PROBE_ROWS = 200_000
+# bench: the chips mode asked for (clamped to the visible cards)
+BENCH_CHIPS = 2
+# multichip: tools/check_multichip.py's gloo ranks sharing the card
+MULTICHIP_RANKS = 2
+MULTICHIP_TIMEOUT = 300
+# bench_transformer: steps of each model (after a warmup chunk)
+TRANSFORMER_STEPS = 2
+TRANSFORMER_CHUNK = 1
 
 
 def emit(obj) -> None:
@@ -3295,11 +3322,15 @@ def phase_hist_floor(torch, np, H, rates, tc_rate):
 
 
 def phase_bench(np):
-    """``python -m dmlc_core_tpu_torch.bench`` at its defaults as a child
-    process; its last line must be the final record of ``BENCH_ROUNDS``
-    rounds that went through the kernels, with the scaling probe's
-    ``scaling`` (8 gloo ranks of the host at ``BENCH_PROBE_ROWS`` rows)
-    or the budget note that skipped it."""
+    """``python -m dmlc_core_tpu_torch.bench`` at its defaults and
+    ``BENCH_CHIPS`` as a child process; its last line must be the final
+    record of ``BENCH_ROUNDS`` rounds that went through the kernels on
+    ``min(BENCH_CHIPS, cards)`` chips (the clamp note on one card; the
+    ``psum_probe`` on several), with ``scaling`` — the scaling probe's (8
+    gloo ranks of the host at ``BENCH_PROBE_ROWS`` rows) on one card, the
+    1-card refit's on several — or the budget note that skipped it."""
+    import torch
+
     drop = set(LEVER_NAMES) | {"DMLC_TPU_ROUNDS_PER_DISPATCH",
                                "DMLC_TPU_BIN_BACKEND", "BENCH_FORCE_CPU"}
     env = {k: v for k, v in os.environ.items()
@@ -3307,6 +3338,7 @@ def phase_bench(np):
     # the flagship size or a failure: no quiet drop to fewer rows
     env["BENCH_NO_FALLBACK"] = "1"
     env["BENCH_PROBE_ROWS"] = str(BENCH_PROBE_ROWS)
+    env["BENCH_CHIPS"] = str(BENCH_CHIPS)
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.bench"],
                          cwd=ROOT, env=env, capture_output=True, text=True,
@@ -3329,21 +3361,37 @@ def phase_bench(np):
             f"bench: ran {rec.get('rows')} x {rec.get('features')} "
             f"(fallback_from {rec.get('fallback_from')}), not the flagship's "
             f"{BENCH_ROWS} x {FEATURES}")
-    launches = rec["kernel"]["launches"]
-    require(launches["hist"] > 0 and launches["fused_round"] > 0,
-            f"bench: the fit missed the kernels ({launches})")
     infeed = rec.get("infeed_stall_frac") or {}
     require(0.0 <= infeed.get("value", -1.0) <= 1.0,
             f"bench: infeed_stall_frac {rec.get('infeed_stall_frac')}")
     kvs = rec.get("kvstore_sync_ms") or {}
     require(isinstance(kvs.get("value"), float) and kvs["value"] > 0,
             f"bench: kvstore_sync_ms {rec.get('kvstore_sync_ms')}")
+    cards = torch.cuda.device_count()
+    chips = min(BENCH_CHIPS, cards)
+    notes = rec.get("notes", [])
+    launches = rec["kernel"]["launches"]
+    # several ranks build every level unfused (the fused round needs one)
+    require(launches["hist"] > 0 and (launches["fused_round"] > 0
+                                      or chips > 1),
+            f"bench: the fit missed the kernels ({launches})")
+    require(rec.get("chips") == chips,
+            f"bench: BENCH_CHIPS={BENCH_CHIPS} on {cards} card(s) ran "
+            f"{rec.get('chips')} chips")
+    require(chips == BENCH_CHIPS or f"BENCH_CHIPS={BENCH_CHIPS} clamped to "
+            f"{cards} local devices" in notes,
+            f"bench: no clamp note ({notes})")
+    if chips > 1:
+        probe = rec.get("psum_probe") or {}
+        require(probe.get("sums_exact") is True
+                and probe.get("bytes_per_round", 0) > 0
+                and probe.get("allreduce_ms", 0) > 0,
+                f"bench: psum_probe {probe}")
     scaling = rec.get("scaling") or {}
     require(scaling.get("scaling_efficiency", 0) > 0
-            or any("scaling probe skipped" in n
-                   for n in rec.get("notes", [])),
-            f"bench: no scaling probe ({rec.get('scaling')}, "
-            f"{rec.get('notes')})")
+            or any(("scaling probe skipped" in n
+                    or "scaling baseline skipped" in n) for n in notes),
+            f"bench: no scaling probe ({rec.get('scaling')}, {notes})")
     phases = {}
     for ln in lines:
         r = json.loads(ln)
@@ -3355,7 +3403,7 @@ def phase_bench(np):
             "warmup_breakdown", "compile_seconds", "compile_cache",
             "bin_seconds", "time_to_first_tree", "kernel", "rows",
             "features", "rounds", "levers", "device_kind", "nvidia_smi",
-            "hbm_gbps", "scaling", "notes")
+            "hbm_gbps", "scaling", "notes", "chips", "psum_probe")
     emit({"phase": "bench", **{k: rec.get(k) for k in keys},
           "phase_elapsed_s": phases, "child_wall_seconds": wall})
     return rec
@@ -5407,6 +5455,99 @@ def spooled_launches(directory):
     return total
 
 
+def start_multichip(n_cards):
+    """Phase 13a's start: ``tools/check_multichip.py`` as children on a
+    thread — ``MULTICHIP_RANKS`` gloo ranks sharing ``cuda:0`` and, with
+    two cards or more, one rank a card over NCCL.  It runs beside phases
+    that check results, not times; :func:`finish_multichip` joins it."""
+    import threading
+
+    out = tempfile.mkdtemp(prefix="chip_multichip_")
+    env = {k: v for k, v in os.environ.items()
+           if k not in LEVER_NAMES and not k.startswith("MULTICHIP_")}
+    env["PYTHONPATH"] = ROOT
+    runs = [("cuda:0", MULTICHIP_RANKS)]
+    if n_cards >= 2:
+        runs.append(("cuda", n_cards))
+    state = {"out": out, "runs": {}}
+
+    def work():
+        for device, ranks in runs:
+            report = os.path.join(out, device.replace(":", "_") + ".json")
+            state["runs"][device] = (ranks, report, run_child(
+                [sys.executable, "-m",
+                 "dmlc_core_tpu_torch.tools.check_multichip", "--device",
+                 device, "--out", report],
+                dict(env, MULTICHIP_DEVICES=str(ranks)), MULTICHIP_TIMEOUT,
+                report[:-5]))
+
+    state["thread"] = threading.Thread(target=work, daemon=True)
+    state["t0"] = time.perf_counter()
+    state["thread"].start()
+    return state
+
+
+def finish_multichip(state, smi):
+    """Phase 13a's end: every run exited 0 with its three parities and
+    the ranks' cut bytes true, and B1 launched on every rank.  Returns
+    the kernels' launches summed over the runs' ranks."""
+    state["thread"].join()
+    total = {}
+    for device, (ranks, report_path, child) in state["runs"].items():
+        rc, wall, stdout, stderr = child
+        require(rc == 0 and os.path.exists(report_path),
+                f"multichip --device {device}: exit {rc} after {wall:.0f} s "
+                f"(None: killed at {MULTICHIP_TIMEOUT} s): {stdout[-2000:]} "
+                f"{stderr[-4000:]}")
+        with open(report_path) as f:
+            report = json.load(f)
+        require(report["n_devices"] == ranks
+                and all(report["parity"].values())
+                and report["cut_bytes_equal_across_ranks"],
+                f"multichip --device {device}: {report['parity']}, cuts "
+                f"equal {report['cut_bytes_equal_across_ranks']}")
+        require(all(r["hist"] > 0 for r in report["launches"]),
+                f"multichip --device {device}: a rank never launched hist "
+                f"({report['launches']})")
+        for r in report["launches"]:
+            for k, v in r.items():
+                total[k] = total.get(k, 0) + v
+        emit({"phase": "multichip", "device": device, "report": report,
+              "seconds": wall, "nvidia_smi": smi})
+    emit({"phase": "multichip", "launches": total,
+          "phase_seconds": time.perf_counter() - state["t0"]})
+    shutil.rmtree(state["out"], ignore_errors=True)
+    return total
+
+
+def phase_bench_transformer(torch, A, smi):
+    """Phase 11a: ``tools/bench_transformer.py``'s three models at the JAX
+    script's shapes, ``TRANSFORMER_STEPS`` steps each, in this process
+    with the attention counts set to 0 before and read after.  Returns
+    the flash kernels' launches."""
+    from dmlc_core_tpu_torch.tools import bench_transformer as bt
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    zero_attention_counts(A)
+    lines = []
+    for name, fn in bt.FNS.items():
+        rec = fn(dev, TRANSFORMER_STEPS, TRANSFORMER_CHUNK)
+        require(math.isfinite(rec["final_loss"]),
+                f"bench_transformer {name}: loss {rec['final_loss']}")
+        if name != "pipeline":
+            require(all(v > 0 for v in rec["flash_launches"].values()),
+                    f"bench_transformer {name}: the attention missed the "
+                    f"flash kernels ({rec['flash_launches']})")
+        lines.append(rec)
+        gc_cuda(torch)
+    launches = read_attention_counts(A)
+    emit({"phase": "bench_transformer", "models": lines,
+          "launches": launches, "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def start_entry_points():
     """Phase 13b's start: the examples' runner (``--jobs 2``) and the five
     drills in ``DRILL_LINES`` of children, all on threads of this process.  It
@@ -5596,6 +5737,7 @@ def main() -> int:
     attention, ulysses_shape = phase_attention_kernels(torch, A, rates,
                                                        tc_rate)
     bert_launches, first_loss = phase_bert(torch, np, A, rates)
+    bt_launches = phase_bench_transformer(torch, A, smi)
     # phase 13b beside the phases that time nothing (11b, 7, 8): their
     # checks are bytes and losses, which the side-by-side load leaves be
     entry_state = start_entry_points()
@@ -5621,8 +5763,9 @@ def main() -> int:
         require(v > 0, f"{k} was never launched on the BERT path")
         require(ulysses_launches[k] > 0,
                 f"{k} was never launched on the Ulysses path")
-        launches[k] = v + ulysses_launches[k]
+        launches[k] = v + ulysses_launches[k] + bt_launches[k]
         attention[k]["launches_bert"] = v
+        attention[k]["launches_bench_transformer"] = bt_launches[k]
         attention[k]["launches_ulysses"] = ulysses_launches[k]
         attention[k]["ulysses_B_S_H_D"] = list(ulysses_shape[k]["shape"])
         for x in ("ms", "device_ms", "bound_ms", "max_abs_err"):
@@ -5630,16 +5773,21 @@ def main() -> int:
         attention[k]["max_abs_err"] = max(attention[k]["max_abs_err"],
                                           ulysses_shape[k]["max_abs_err"])
     kernels.update(attention)
+    multichip_state = start_multichip(torch.cuda.device_count())
     phase_sparse(torch, np, smi)
     Xl, yl, lin_model = phase_linear(torch, np, smi)
     fm_model = phase_fm(torch, np, smi, Xl, yl)
     sparse_model = phase_sklearn(torch, np, smi, Xl, yl)
+    multichip_launches = finish_multichip(multichip_state, smi)
     kernels["descend"], launches["descend"] = phase_serve(
         torch, np, H, rates, smi, Xv, lossguide_fit[1], main_fit[2],
         {"gblinear": (lin_model, Xl), "fm": (fm_model, Xl),
          "sparse": (sparse_model, Xl)})
     require(launches["descend"] > 0, "descend was never launched on the "
             "serve path")
+    for k, v in multichip_launches.items():
+        launches[k] += v
+        kernels[k]["launches_multichip"] = v
     del Xl, yl, lin_model, fm_model, sparse_model
     launches["descend"] += phase_tenancy(torch, np, H, smi)
     launches["descend"] += phase_fleet(torch, np, H, smi)
@@ -5688,6 +5836,7 @@ def main() -> int:
     extra = ("unfused_chain_ms", "chain_device_ms", "device_ms",
              "library_call", "library_device_ms", "by_n_build",
              "launches_bert", "launches_ulysses", "launches_submit",
+             "launches_bench_transformer", "launches_multichip",
              "launches_examples", "launches_drills",
              "ulysses_B_S_H_D",
              "ulysses_ms", "ulysses_device_ms", "ulysses_bound_ms",

@@ -33,7 +33,8 @@ from typing import Dict, List, Optional
 
 from dmlc_core_tpu_torch.base.logging import LOG, log_fatal
 
-__all__ = ["library_path", "build", "CPP_DIR", "BUILD_ROOT", "SOURCES"]
+__all__ = ["library_path", "build", "gen_libsvm_path", "CPP_DIR",
+           "BUILD_ROOT", "SOURCES"]
 
 CPP_DIR = Path(__file__).resolve().parents[2] / "cpp"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
@@ -134,3 +135,40 @@ def library_path() -> Optional[Path]:
                     "library is absent, parsing and RecordIO run in Python")
             _PATH["lib"] = build(cxx) if cxx else None
         return _PATH["lib"]
+
+
+#: ``cpp/Makefile``'s flags for the LibSVM generator
+GEN_FLAGS = ("-O2", "-std=c++17", "-Wall")
+
+
+def gen_libsvm_path() -> Path:
+    """The Criteo-shaped LibSVM generator (``cpp/gen_libsvm.cc``), built
+    on the first call into ``build/gen_libsvm_<hash>/gen_libsvm`` with
+    ``cpp/Makefile``'s flags (the hash covers the source, the flags and
+    the compiler's version).  It is a build step, never a download:
+    without a compiler it raises."""
+    cxx = _compiler()
+    if cxx is None:
+        log_fatal("gen_libsvm: no C++ compiler on the PATH ($CXX or g++) "
+                  "to build cpp/gen_libsvm.cc")
+    src = CPP_DIR / "gen_libsvm.cc"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(GEN_FLAGS).encode() + subprocess.run(
+        [cxx, "--version"], capture_output=True).stdout)
+    out = BUILD_ROOT / f"gen_libsvm_{h.hexdigest()[:16]}" / "gen_libsvm"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [cxx, *GEN_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            log_fatal(f"gen_libsvm build failed (rc {proc.returncode}): "
+                      f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+        os.replace(tmp, out)
+    return out

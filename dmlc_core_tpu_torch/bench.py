@@ -86,12 +86,29 @@ prints ``scaling_summary`` with its basis; the flagship run calls it
 under the JAX bench's budget rule (``BENCH_SCALING=0`` turns it off) and
 carries it as ``scaling``.
 
-Not in this module: ``BENCH_CHIPS > 1`` (one GPU a process; a note says
-so).  JAX's ``recompiles_steady_state`` counts XLA compiles; the port
-compiles none, and only ``--prodsim`` fills the field, with its
-counterpart (kernel builds and loads, ``ops/_build.py``) and a basis.
+``BENCH_CHIPS=N`` is the JAX bench's chips mode on one process a card
+(0 or unset: every visible card; more than there are is clamped, with
+JAX's note; under ``BENCH_FORCE_CPU=N`` the visible devices are N CPU
+ranks over gloo).  With N > 1 this process is rank 0 and starts ranks
+1..N−1 as children (``--chips-rank``) on ``cuda:<rank>``, one NCCL group
+through ``parallel.launch``'s rendezvous; every rank makes the same
+seed-7 rows, bins its share (``shard_row_ranges``) with rank 0's cuts and
+runs the same fits; rank 0 emits the record: ``value`` per chip,
+``config.chips`` N, ``psum_probe`` (the level histograms' int64
+all-reduce of ``hist_psum_bytes_per_round`` bytes over the group, the
+median of 3 and its bus GB/s), then the group is torn down, the children
+reaped, and rank 0 refits alone on the same rows and cuts for
+``scaling`` (``BENCH_SCALING=0`` or the budget skip it, with JAX's
+notes).  A rank that fails fails the run (the record carries the error,
+the exit code is not 0), and the watchdog, the signals and every failure
+kill the children first.
+
+JAX's ``recompiles_steady_state`` counts XLA compiles; the port compiles
+none, and only ``--prodsim`` fills the field, with its counterpart
+(kernel builds and loads, ``ops/_build.py``) and a basis.
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -359,6 +376,9 @@ def emit(final=False, **extra):
 
 
 def _flush_and_exit(reason):
+    # no child rank outlives the run (the watchdog and the signals end
+    # here)
+    _kill_ranks()
     try:
         emit(final=True, terminated=reason)
     except Exception as e:  # noqa: BLE001 — the record must still exist
@@ -554,6 +574,252 @@ def _launch_counts(H):
             "fused_descend": H.fused_descend_kernel.launches}
 
 
+def _local_devices(dev):
+    """The devices a ``BENCH_CHIPS`` count is clamped to: the visible
+    cards, or on the CPU the ``BENCH_FORCE_CPU`` count (JAX's forced
+    virtual CPU devices; a value that is no count is one device)."""
+    import torch
+
+    if dev.type == "cuda":
+        return torch.cuda.device_count()
+    v = os.environ.get("BENCH_FORCE_CPU", "1")
+    return max(int(v), 1) if v.isdigit() else 1
+
+
+def _flagship_rows(rows, feats):
+    """HIGGS-like synthetic: dense gaussians and a nonlinear decision rule
+    (seed 7; ``bench.py``'s rows, the same on every rank)."""
+    rng = np.random.default_rng(7)
+    X = rng.normal(size=(rows, feats)).astype(np.float32)
+    margin = X[:, 0] * X[:, 1] + 0.5 * X[:, 2] - 0.8 * X[:, 3] * (X[:, 4] > 0)
+    return X, (margin > 0).astype(np.float32)
+
+
+#: the other ranks of a ``BENCH_CHIPS=N`` run (child processes of rank
+#: 0) and the flag that stops their monitor once they are reaped
+_RANKS = {"procs": [], "dir": None, "done": threading.Event()}
+
+
+def _kill_ranks():
+    """Kill every child rank still running (the watchdog, the signal
+    handlers and every failure path call this before exiting)."""
+    from dmlc_core_tpu_torch.parallel.launch import stop_ranks
+
+    _RANKS["done"].set()
+    with contextlib.suppress(Exception):
+        stop_ranks(_RANKS["procs"])
+
+
+def _fail_ranks(msg):
+    """A rank failed: the record carries the error and every rank's log
+    tail, the other ranks are killed and the bench exits non-zero (no
+    fallback to one card)."""
+    from dmlc_core_tpu_torch.parallel.launch import rank_logs
+
+    tails = ""
+    if _RANKS["dir"]:
+        with contextlib.suppress(Exception):
+            tails = rank_logs(os.path.join(_RANKS["dir"], "logs"),
+                              range(1, EV["config"].get("chips", 1)), 1500)
+    _kill_ranks()
+    with contextlib.suppress(Exception):
+        emit(final=True, error=f"{msg}\n{tails}"[-4000:])
+    os._exit(4)
+
+
+def _fail_run(e):
+    """The final record of a run that raised, exit code 3; a peer's death
+    shows first as this rank's collective error, so a dead child rank
+    is named (and the run ends as :func:`_fail_ranks`)."""
+    msg = f"{type(e).__name__}: {e}"[:500]
+    if _RANKS["procs"]:
+        time.sleep(0.5)
+        dead = [f"rank {r} exited with code {proc.poll()}"
+                for r, (proc, _) in enumerate(_RANKS["procs"], start=1)
+                if proc.poll() not in (None, 0)]
+        if dead:
+            _fail_ranks("; ".join(dead + [msg]))
+    _kill_ranks()
+    emit(final=True, error=msg)
+    os._exit(3)
+
+
+def _watch_ranks():
+    """A thread of rank 0: the first child rank that exits non-zero
+    fails the run (its peers would wait in a collective forever)."""
+    while not _RANKS["done"].is_set():
+        for r, (proc, _) in enumerate(_RANKS["procs"], start=1):
+            rc = proc.poll()
+            if rc not in (None, 0) and not _RANKS["done"].is_set():
+                _fail_ranks(f"rank {r} exited with code {rc}")
+        _RANKS["done"].wait(0.2)
+
+
+def _start_ranks(n_chips, cfg):
+    """Start ranks 1..N-1 of a ``BENCH_CHIPS=N`` run as child processes
+    (``--chips-rank DIR``) through ``parallel.launch``'s rendezvous, make
+    this process rank 0 of the group and join it."""
+    import tempfile
+
+    from dmlc_core_tpu_torch.parallel import collectives as coll
+    from dmlc_core_tpu_torch.parallel.launch import rank_env, start_ranks
+
+    d = tempfile.mkdtemp(prefix="bench_ranks_")
+    _RANKS["dir"] = d
+    with open(os.path.join(d, "cfg.json"), "w") as f:
+        json.dump(cfg, f)
+    base = rank_env(n_chips)
+    _RANKS["procs"] = start_ranks(
+        [sys.executable, "-m", "dmlc_core_tpu_torch.bench", "--chips-rank",
+         d], range(1, n_chips), base, os.path.join(d, "logs"))
+    threading.Thread(target=_watch_ranks, daemon=True).start()
+    for k in ("DMLC_NUM_WORKER", "DMLC_TRACKER_URI", "DMLC_TRACKER_PORT"):
+        os.environ[k] = base[k]
+    os.environ["DMLC_TASK_ID"] = "0"
+    coll.init(backend=cfg["backend"])
+
+
+def _end_ranks(timeout=120.0):
+    """Tear the group down and reap the child ranks (each must exit 0
+    within ``timeout`` seconds), so that the 1-card refit syncs with no
+    one."""
+    import shutil
+
+    from dmlc_core_tpu_torch.parallel import collectives as coll
+
+    _RANKS["done"].set()               # the reaping below takes over
+    coll.finalize()
+    for k in ("DMLC_NUM_WORKER", "DMLC_TRACKER_URI", "DMLC_TRACKER_PORT",
+              "DMLC_TASK_ID"):
+        os.environ.pop(k, None)
+    deadline = time.time() + timeout
+    for r, (proc, _) in enumerate(_RANKS["procs"], start=1):
+        try:
+            rc = proc.wait(timeout=max(deadline - time.time(), 0.1))
+        except Exception:  # noqa: BLE001 — a hung rank fails the run
+            rc = None
+        if rc != 0:
+            _fail_ranks(f"rank {r} did not exit cleanly after the run "
+                        f"(exit code {rc})")
+    _kill_ranks()
+    shutil.rmtree(_RANKS["dir"], ignore_errors=True)
+
+
+def _decide(n_chips, next_warmup=-1):
+    """Rank 0's decision after a fit, broadcast to every rank: ``-1`` no
+    more fits, else another fit with that many warmup rounds.  Returns
+    the decision (the other ranks pass a placeholder)."""
+    if n_chips <= 1:
+        return next_warmup
+    from dmlc_core_tpu_torch.parallel import collectives as coll
+
+    return int(coll.broadcast(np.asarray([next_warmup], np.int64),
+                              root=0)[0])
+
+
+def _psum_probe(dev, n_chips, depth, feats, n_bins, reps=3):
+    """Measured latency of one round's histogram sync: a standalone int64
+    all-reduce of ``hist_psum_bytes_per_round(depth, feats, n_bins)``
+    bytes over the group (every rank calls it), ``reps`` times, each
+    after a barrier and timed alone; JAX's ``_psum_probe`` fields plus
+    the median's bus rate, ``2·(n−1)/n · bytes / time`` (NCCL's busbw).
+    An upper-bound probe: inside a round the sync sits between a level's
+    accumulation and its split scan."""
+    import torch
+
+    from dmlc_core_tpu_torch.ops.histogram import hist_psum_bytes_per_round
+    from dmlc_core_tpu_torch.parallel import collectives as coll
+
+    nbytes = hist_psum_bytes_per_round(depth, feats, n_bins)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    x = torch.ones(nbytes // 8, dtype=torch.int64, device=dev)
+    coll.device_allreduce(x)                   # first use of the path
+    sync()
+    lat = []
+    for _ in range(reps):
+        coll.barrier()
+        sync()
+        t0 = time.perf_counter()
+        coll.device_allreduce(x)
+        sync()
+        lat.append(time.perf_counter() - t0)
+    # every sum is exact: n_chips ** (reps + 1) in every slot
+    ok = bool((x == n_chips ** (reps + 1)).all())
+    med = sorted(lat)[len(lat) // 2]
+    return {
+        "bytes_per_round": nbytes,
+        "allreduce_ms": round(med * 1e3, 3),
+        "allreduce_ms_samples": [round(t * 1e3, 4) for t in lat],
+        "effective_gbps": round(nbytes / med / 1e9, 2) if med > 0 else None,
+        "bus_gbps": (round(2 * (n_chips - 1) / n_chips * nbytes / med / 1e9,
+                           2) if med > 0 else None),
+        "ranks": n_chips, "dtype": "int64", "sums_exact": ok,
+    }
+
+
+def _chips_rank() -> None:
+    """Internal ``--chips-rank DIR`` entry: rank r > 0 of a
+    ``BENCH_CHIPS=N`` run, on ``cuda:<r>`` (or the CPU).  It does what
+    rank 0 does — the rows, rank 0's cuts, its share binned, the same
+    fits — and ends with the launch count and the sync probe."""
+    import torch
+
+    from dmlc_core_tpu_torch.base import faultinject
+    from dmlc_core_tpu_torch.models.histgbt import HistGBT
+    from dmlc_core_tpu_torch.ops import histogram as H
+    from dmlc_core_tpu_torch.parallel import collectives as coll
+
+    d = sys.argv[sys.argv.index("--chips-rank") + 1]
+    with open(os.path.join(d, "cfg.json")) as f:
+        cfg = json.load(f)
+    rank = int(os.environ["DMLC_TASK_ID"])
+    parent = os.getppid()
+
+    def orphaned():
+        # rank 0 gone (SIGKILL): a collective would wait for it forever
+        while True:
+            if os.getppid() != parent:
+                os._exit(5)
+            time.sleep(1.0)
+
+    threading.Thread(target=orphaned, daemon=True).start()
+    if cfg["device"] == "cuda":
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+        torch.set_num_threads(cfg["threads"])
+    coll.init(backend=cfg["backend"])
+    rows, feats, rounds = cfg["rows"], cfg["features"], cfg["rounds"]
+    model = HistGBT(n_trees=rounds, max_depth=cfg["max_depth"],
+                    n_bins=cfg["n_bins"], learning_rate=0.1, device=dev)
+    model.start_warmup(rows, feats)
+    X, y = _flagship_rows(rows, feats)
+    cuts = coll.broadcast(np.zeros((feats, cfg["n_bins"] - 1), np.float32),
+                          root=0)
+    dd = model.make_device_data(X, y, cuts=cuts)
+    del X, y
+
+    def cb(done, t_s):
+        # a rank killed mid-fit (DMLC_FAULT_INJECT="bench_rank:kill")
+        fault = faultinject.check("bench_rank", ctx=str(rank))
+        if fault is not None and fault.kind == "kill":
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    warmup = cfg["warmup"]
+    while warmup >= 0:
+        model.fit_device(dd, warmup_rounds=warmup, chunk_callback=cb)
+        warmup = _decide(coll.world_size())
+    coll.allgather(np.asarray(list(_launch_counts(H).values()), np.int64))
+    _psum_probe(dev, coll.world_size(), cfg["max_depth"], feats,
+                cfg["n_bins"])
+    coll.finalize()
+
+
 def main() -> None:
     EV["t0"] = time.time()
     budget = float(os.environ.get("BENCH_TIME_BUDGET", 480))
@@ -565,17 +831,21 @@ def main() -> None:
     n_bins = int(os.environ.get("BENCH_BINS", 256))
 
     # the flagship's levers, as bench.py sets them: int4 bin packing,
-    # exclusive-feature bundling, loss-guide growth at 2^(depth-2) leaves
+    # exclusive-feature bundling, loss-guide growth at 2^(depth-2) leaves;
+    # host cuts and binning (only the uint8 matrix goes up).  Set before
+    # any rank starts: the child ranks inherit them
     os.environ.setdefault("DMLC_BIN_PACK", "1")
     os.environ.setdefault("DMLC_FEATURE_BUNDLE", "1")
     os.environ.setdefault("DMLC_GROW_POLICY", "lossguide")
     os.environ.setdefault("DMLC_MAX_LEAVES", str(max(1 << (depth - 2), 4)))
+    os.environ.setdefault("DMLC_TPU_BIN_BACKEND", "cpu")
 
     import torch
 
     from dmlc_core_tpu_torch.models.histgbt import (HistGBT,
                                                     _fused_round_engaged)
     from dmlc_core_tpu_torch.ops import histogram as H
+    from dmlc_core_tpu_torch.parallel import collectives as coll
     from dmlc_core_tpu_torch.utils.device import (gpu_name_and_power_limit,
                                                   resolve_device)
 
@@ -591,8 +861,18 @@ def main() -> None:
     card = ({"device_kind": torch.cuda.get_device_name(dev),
              "nvidia_smi": gpu_name_and_power_limit()}
             if dev.type == "cuda" else {})
-    if int(os.environ.get("BENCH_CHIPS", "0") or 0) > 1:
-        EV["notes"].append("BENCH_CHIPS > 1 is not ported: one GPU")
+
+    # chips=N mode: BENCH_CHIPS ranks, one process a card (0 / unset:
+    # every visible card, as JAX's every local device); the rows shard
+    # over the ranks, the per-level int64 histogram all-reduce is the
+    # only traffic between cards, and the headline stays per chip
+    chips_req = int(os.environ.get("BENCH_CHIPS", "0") or 0)
+    avail = _local_devices(dev)
+    if chips_req > avail:
+        EV["notes"].append(
+            f"BENCH_CHIPS={chips_req} clamped to {avail} local devices")
+        chips_req = avail
+    n_chips = chips_req or avail
 
     rows, feats, rounds = _pick_config(deadline - time.time())
     EV["config"] = {"rows": rows, "features": feats, "rounds": rounds,
@@ -609,8 +889,24 @@ def main() -> None:
                         "hist_quant":
                             os.environ.get("DMLC_HIST_QUANT", "0") == "1",
                     },
-                    "chips": 1, **card}
-    n_chips = 1
+                    "chips": n_chips, **card}
+    if n_chips > 1:
+        cuda = dev.type == "cuda"
+        if cuda:
+            dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+        else:
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_chips))
+        cfg = {"rows": rows, "features": feats, "rounds": rounds,
+               "max_depth": depth, "n_bins": n_bins, "warmup": warmup,
+               "device": dev.type, "backend": "nccl" if cuda else "gloo",
+               "threads": torch.get_num_threads()}
+        EV["config"] = {**EV["config"], "backend": cfg["backend"],
+                        "rank_devices": [f"cuda:{r}" if cuda else "cpu"
+                                         for r in range(n_chips)]}
+        EV["phase"] = "ranks"
+        emit()
+        _start_ranks(n_chips, cfg)
     model = HistGBT(n_trees=rounds, max_depth=depth, n_bins=n_bins,
                     learning_rate=0.1, device=dev)
     # cold-start overlap: the kernels' build and load start NOW, beside
@@ -619,17 +915,16 @@ def main() -> None:
     EV["phase"] = "datagen"
     emit()
 
-    # HIGGS-like synthetic: dense gaussians + a nonlinear decision rule
-    rng = np.random.default_rng(7)
-    X = rng.normal(size=(rows, feats)).astype(np.float32)
-    margin = X[:, 0] * X[:, 1] + 0.5 * X[:, 2] - 0.8 * X[:, 3] * (X[:, 4] > 0)
-    y = (margin > 0).astype(np.float32)
+    X, y = _flagship_rows(rows, feats)
 
     EV["phase"] = "prepare"      # cuts + bin on host, uint8 upload: setup
     emit()
-    os.environ.setdefault("DMLC_TPU_BIN_BACKEND", "cpu")
-    dd = model.make_device_data(X, y, cuts=_host_cuts(X, n_bins))
-    del X, y, margin
+    cuts = _host_cuts(X, n_bins)
+    if n_chips > 1:
+        # every rank bins with rank 0's cuts
+        cuts = coll.broadcast(cuts, root=0)
+    dd = model.make_device_data(X, y, cuts=cuts)
+    del X, y
     EV["config"] = {**EV["config"],
                     "bin_seconds": round(model.last_bin_seconds or 0.0, 3)}
 
@@ -676,26 +971,32 @@ def main() -> None:
     try:
         runs = [_run_once(warmup)]
         EV["runs"] = runs
+        again = False
         if runs[0]["anomaly"]:
             est = runs[0]["seconds"] * 1.5 + 30
             if deadline - time.time() > est:
                 EV["notes"].append("chunk-rate anomaly: re-measuring once "
                                    "on resident data")
                 emit()
-                try:
-                    runs.append(_run_once(1))
-                except Exception as e:  # noqa: BLE001
-                    EV["notes"].append(
-                        f"re-measure failed ({type(e).__name__}: {e}), "
-                        "keeping first run")
+                again = True
             else:
                 EV["notes"].append(
                     f"chunk-rate anomaly but only "
                     f"{deadline - time.time():.0f}s budget left "
                     f"(< {est:.0f}s): re-measure skipped")
+        _decide(n_chips, 1 if again else -1)
+        if again:
+            try:
+                runs.append(_run_once(1))
+            except Exception as e:  # noqa: BLE001
+                if n_chips > 1:      # the other ranks are mid-fit
+                    raise
+                EV["notes"].append(
+                    f"re-measure failed ({type(e).__name__}: {e}), "
+                    "keeping first run")
+            _decide(n_chips)
     except Exception as e:  # noqa: BLE001 — bench must always emit a line
-        emit(final=True, error=f"{type(e).__name__}: {e}"[:500])
-        os._exit(3)
+        _fail_run(e)
 
     # official selection: the FIRST non-anomalous run (never best-of-2);
     # if every run is anomalous, the best run's MEDIAN-chunk rate
@@ -717,6 +1018,23 @@ def main() -> None:
         max_leaves=int(os.environ.get("DMLC_MAX_LEAVES", "0") or 0),
         fused=_fused_round_engaged(n_chips), quant=False))
     official["kernel"]["launches"] = official["kernel_launches"]
+    if n_chips > 1:
+        try:
+            by_rank = coll.allgather(np.asarray(
+                list(_launch_counts(H).values()), np.int64))
+            official["kernel"]["launches_basis"] = (
+                "launches: rank 0's of the official run; launches_by_rank: "
+                "each rank's over all its fits, warmup rounds included")
+            official["kernel"]["launches_by_rank"] = [
+                dict(zip(_launch_counts(H), map(int, row)))
+                for row in by_rank]
+            EV["phase"] = "psum_probe"
+            emit()
+            official["psum_probe"] = _psum_probe(dev, n_chips, depth, feats,
+                                                 n_bins)
+        except Exception as e:  # noqa: BLE001
+            _fail_run(e)
+        _end_ranks()
     EV["official"] = official
     EV["runs"] = runs
     EV["notes"].append(
@@ -724,7 +1042,11 @@ def main() -> None:
         "the port's histogram does no matrix product (mfu null)")
     emit()           # the headline is on stdout before the smoke fields
 
-    _run_scaling_probe(rows, deadline, official)
+    if n_chips > 1:
+        _scaling_baseline(n_chips, value, rows, feats, rounds, depth, n_bins,
+                          model.cuts.cpu().numpy(), dev, deadline, official)
+    else:
+        _run_scaling_probe(rows, deadline, official)
 
     EV["phase"] = "smoke"
     EV["smoke"] = {"infeed_stall_frac": None, "kvstore_sync_ms": None}
@@ -748,6 +1070,45 @@ def main() -> None:
                 f"{name} failed: {type(e).__name__}: {e}"[:200])
     EV["phase"] = "done"
     emit(final=True)
+
+
+def _scaling_baseline(n_chips, value, rows, feats, rounds, depth, n_bins,
+                      cuts, dev, deadline, official):
+    """The ``BENCH_CHIPS=N`` run's denominator (JAX's 1-chip oracle
+    re-measure): the group torn down, rank 0 refits alone on the same
+    global rows and cuts, and ``scaling`` is :func:`scaling_summary` of
+    the per-chip rate against that fit's rate.  Skipped with JAX's notes
+    under ``BENCH_SCALING=0`` or when the budget cannot fit it; a
+    failure is a note (the headline is on stdout already)."""
+    from dmlc_core_tpu_torch.models.histgbt import HistGBT
+
+    baseline_est = _setup_estimate(rows, feats, 0) + rounds / max(value,
+                                                                  1e-6)
+    if os.environ.get("BENCH_SCALING", "1") == "0":
+        EV["notes"].append("scaling baseline skipped: BENCH_SCALING=0")
+        return
+    if deadline - time.time() < baseline_est + 90:
+        EV["notes"].append(
+            f"scaling baseline skipped: needs ~{baseline_est:.0f}s "
+            f"of the {deadline - time.time():.0f}s left")
+        return
+    EV["phase"] = "scaling_baseline"
+    emit()
+    try:
+        Xb, yb = _flagship_rows(rows, feats)
+        model1 = HistGBT(n_trees=rounds, max_depth=depth, n_bins=n_bins,
+                         learning_rate=0.1, device=dev)
+        dd1 = model1.make_device_data(Xb, yb, cuts=cuts)
+        del Xb, yb
+        model1.fit_device(dd1, warmup_rounds=1)
+        base_rate = rounds / model1.last_fit_seconds
+        official["scaling"] = scaling_summary(n_chips, value, base_rate)
+        official["scaling"]["basis"] = (
+            f"{n_chips} ranks over {EV['config'].get('backend')} against 1 "
+            f"process on {dev}, the same rows and cuts")
+    except Exception as e:  # noqa: BLE001
+        EV["notes"].append(
+            f"scaling baseline failed: {type(e).__name__}: {e}"[:200])
 
 
 def latency_summary(lats_s):
@@ -2627,6 +2988,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if "--scaling-probe-rank" in sys.argv:
         _scaling_probe_rank()
+        sys.exit(0)
+    if "--chips-rank" in sys.argv:
+        _chips_rank()
         sys.exit(0)
     install_spool("bench", 0)
     if "--serve" in sys.argv[1:]:

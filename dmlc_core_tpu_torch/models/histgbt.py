@@ -89,8 +89,8 @@ Streamed ingest (:meth:`HistGBT.make_device_data_iter`) builds the same
 handle as ``make_device_data`` from a stream of slabs: a sketch pass, then
 the slabs through ``data.device_feed.DeviceFeed`` (pinned memory, a side
 stream) binned on the card.  JAX's sharded ingest places each device's
-rows from one process; here one process owns one card and all its rows,
-so it has no counterpart beyond that.
+rows from one process; here one process owns one card, so on several
+ranks each streams its own share of the rows, with the cuts given.
 
 Not ported: lossguide with NaN or with monotone constraints (the JAX
 package refuses both too), one process over several GPUs.
@@ -965,9 +965,14 @@ class HistGBT(_ExternalMemoryEngine):
 
         Sharded ingest (``DMLC_SHARDED_INGEST``: JAX places each device's
         row block from one process) has no counterpart beyond one rank's
-        rows: one process owns one card and every row, so the slabs map
-        onto it through ``slab_shard_slices`` with a single shard.  A data
-        axis of several ranks is refused; use :meth:`fit_external`."""
+        rows: one process owns one card, so the slabs map onto it through
+        ``slab_shard_slices`` with a single shard.  On a data axis of
+        several ranks each rank streams its OWN rows,
+        ``shard_row_ranges(n_global, world)[rank]`` of the global rows in
+        order, with ``cuts`` given (one rank's sketch is not the global
+        one: the sketch case is refused, as is a rank whose rows are not
+        its share); ``n_rows`` is then this rank's count, and the global
+        count is summed over the ranks."""
         from dmlc_core_tpu_torch.data.device_feed import DeviceFeed
         from dmlc_core_tpu_torch.data.iter import slab_shard_slices
         from dmlc_core_tpu_torch.ops.quantile import SketchAccumulator
@@ -977,10 +982,12 @@ class HistGBT(_ExternalMemoryEngine):
         CHECK(not self._missing,
               "make_device_data_iter: streamed ingest does not support "
               "missing mode (NaN bin) — impute, or fit in-core")
-        CHECK(coll.world_size() <= 1,
-              "make_device_data_iter: one process stages the rows of its "
-              "own card only (one rank per card) — use fit_external for "
-              "multi-worker jobs")
+        world = coll.world_size()
+        CHECK(world <= 1 or cuts is not None or self.cuts is not None,
+              "make_device_data_iter: on several ranks each rank streams "
+              "its own rows and the cuts must be given (one rank's sketch "
+              "is not the global one) — pass cuts=, or use fit_external "
+              "for multi-worker jobs")
         two_pass = cuts is None and self.cuts is None
         if two_pass or n_rows is None or n_features is None:
             CHECK(callable(slab_source),
@@ -1075,13 +1082,20 @@ class HistGBT(_ExternalMemoryEngine):
                 lo += L
             self.last_feed_stats = feed.stats.as_dict()
         CHECK_EQ(lo, n, "slab stream ended before the declared rows")
+        n_global = n
+        if world > 1:
+            n_global = int(coll.allreduce(np.asarray([n], np.int64))[0])
+            a, b = self.mesh.row_range(n_global)
+            CHECK_EQ(b - a, n, f"make_device_data_iter: rank "
+                     f"{coll.rank()} streamed {n} rows, not its share "
+                     f"[{a}, {b}) of the {n_global} global rows")
         self._bin_layout = None
         dd = {
             "bins_t": bins_t,
             "y_d": torch.cat(ys),
             "w_d": torch.cat(ws),
             "n": n,
-            "n_global": n,
+            "n_global": n_global,
             "n_features": F,
             "layout": None,
         }

@@ -60,9 +60,10 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
-__all__ = ["launch", "run_ranks", "free_port", "run_worker"]
+__all__ = ["launch", "run_ranks", "rank_env", "start_ranks", "stop_ranks",
+           "rank_logs", "free_port", "run_worker"]
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -87,18 +88,12 @@ def launch(job: Dict[str, Any], world: int, timeout: float,
                "--worker", str(job_path)], world, timeout, out, env)
 
 
-def run_ranks(cmd: List[str], world: int, timeout: float, log_dir: Path,
-              env: Optional[Dict[str, str]] = None) -> None:
-    """Start ``cmd`` as ``world`` processes, each with the ``DMLC_*`` env
-    ABI of its rank (rendezvous on a free port of 127.0.0.1, this
-    checkout on ``PYTHONPATH``, output to ``log_dir/rank<r>.log``), and
-    wait for all of them.
-
-    Raises ``RuntimeError`` (with every rank's last output) when a rank
-    exits non-zero or the group is not done within ``timeout`` seconds;
-    every rank still running is killed first."""
-    log_dir = Path(log_dir)
-    log_dir.mkdir(parents=True, exist_ok=True)
+def rank_env(world: int, env: Optional[Dict[str, str]] = None
+             ) -> Dict[str, str]:
+    """The environment of a group of ``world`` local ranks: ``env`` (or
+    this process's), this checkout on ``PYTHONPATH`` and the ``DMLC_*``
+    env ABI with a rendezvous on a free port of 127.0.0.1 — every rank's
+    but its ``DMLC_TASK_ID``."""
     base = dict(os.environ if env is None else env)
     base["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + ([base["PYTHONPATH"]] if base.get("PYTHONPATH")
@@ -106,11 +101,20 @@ def run_ranks(cmd: List[str], world: int, timeout: float, log_dir: Path,
     base.update({"DMLC_NUM_WORKER": str(world),
                  "DMLC_TRACKER_URI": "127.0.0.1",
                  "DMLC_TRACKER_PORT": str(free_port())})
-    procs = []
-    deadline = time.monotonic() + timeout
-    failed = None
+    return base
+
+
+def start_ranks(cmd: List[str], ranks, base: Dict[str, str],
+                log_dir: Path) -> List[Tuple[subprocess.Popen, Any]]:
+    """Start ``cmd`` once for each rank of ``ranks`` with ``base`` (a
+    :func:`rank_env`) and its ``DMLC_TASK_ID``, output to
+    ``log_dir/rank<r>.log``; returns ``(process, log file)`` pairs.  A
+    failed start kills the ranks already started."""
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    procs: List[Tuple[subprocess.Popen, Any]] = []
     try:
-        for r in range(world):
+        for r in ranks:
             log = open(log_dir / f"rank{r}.log", "w+")
             try:
                 proc = subprocess.Popen(
@@ -120,6 +124,36 @@ def run_ranks(cmd: List[str], world: int, timeout: float, log_dir: Path,
                 log.close()
                 raise
             procs.append((proc, log))
+    except BaseException:
+        stop_ranks(procs)
+        raise
+    return procs
+
+
+def stop_ranks(procs: List[Tuple[subprocess.Popen, Any]]) -> None:
+    """Kill every rank of ``procs`` still running, reap it and close its
+    log."""
+    for proc, log in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def run_ranks(cmd: List[str], world: int, timeout: float, log_dir: Path,
+              env: Optional[Dict[str, str]] = None) -> None:
+    """Start ``cmd`` as ``world`` processes, each with the ``DMLC_*`` env
+    ABI of its rank (:func:`rank_env`, output to ``log_dir/rank<r>.log``),
+    and wait for all of them.
+
+    Raises ``RuntimeError`` (with every rank's last output) when a rank
+    exits non-zero or the group is not done within ``timeout`` seconds;
+    every rank still running is killed first."""
+    log_dir = Path(log_dir)
+    deadline = time.monotonic() + timeout
+    failed = None
+    procs = start_ranks(cmd, range(world), rank_env(world, env), log_dir)
+    try:
         # poll every rank: one that dies leaves its peers waiting in a
         # collective, so the first failure ends the group
         while failed is None:
@@ -134,19 +168,22 @@ def run_ranks(cmd: List[str], world: int, timeout: float, log_dir: Path,
             else:
                 time.sleep(0.05)
     finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
+        stop_ranks(procs)
     if failed is not None:
-        tails = []
-        for r in range(world):
-            text = (log_dir / f"rank{r}.log").read_text(errors="replace")
-            tails.append(f"--- rank {r} ---\n{text[-3000:]}")
         raise RuntimeError(
             f"data-parallel job failed: rank {failed[0]} {failed[1]}\n"
-            + "\n".join(tails))
+            + rank_logs(log_dir, range(world)))
+
+
+def rank_logs(log_dir: Path, ranks, tail: int = 3000) -> str:
+    """The last ``tail`` characters of each rank's log, one block a
+    rank."""
+    blocks = []
+    for r in ranks:
+        path = Path(log_dir) / f"rank{r}.log"
+        text = path.read_text(errors="replace") if path.exists() else ""
+        blocks.append(f"--- rank {r} ---\n{text[-tail:]}")
+    return "\n".join(blocks)
 
 
 @contextlib.contextmanager

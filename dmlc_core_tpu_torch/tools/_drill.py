@@ -1,15 +1,14 @@
 """What the chaos drills (``tools/check_*.py``) share: the verdict line,
-artifact paths, the checkers' install and gate, and the trace collector's
-summary (``scripts/trace_collect.py``'s)."""
+artifact paths, and the checkers' install and gate (their traces are
+merged by ``tools/trace_collect.py``)."""
 
 from __future__ import annotations
 
-import glob
 import json
 import os
 import sys
 import tempfile
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 CHECKERS = ("DMLC_LOCKCHECK", "DMLC_RACECHECK", "DMLC_LEAKCHECK")
 
@@ -115,59 +114,3 @@ def slo_gate(spec_name: str, prefix: str, merged: Dict[str, Any],
     return scorecard
 
 
-def _load_shards(spool_dir: str) -> List[Dict[str, Any]]:
-    """Every ``trace-*.json`` shard in ``spool_dir`` (unparseable files
-    are skipped — a crashed writer must not sink the merge)."""
-    shards = []
-    for path in sorted(glob.glob(os.path.join(spool_dir, "trace-*.json"))):
-        try:
-            with open(path) as f:
-                doc = json.load(f)
-        except (OSError, ValueError):
-            continue
-        if isinstance(doc, dict) and isinstance(doc.get("traceEvents"), list):
-            doc["_path"] = path
-            shards.append(doc)
-    return shards
-
-
-def collect_traces(spool_dir: str, out_path: Optional[str] = None
-                   ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """Merge the spool's trace shards onto one timeline (each shard's
-    events offset by its ``epoch_us`` from the earliest) and summarise
-    them by distributed trace id: the pids, roles and span names each
-    request crossed.  Returns ``(merged_doc, summary)``; the merged
-    Perfetto JSON is written to ``out_path`` when given."""
-    shards = _load_shards(spool_dir)
-    epochs = [float(s.get("otherData", {}).get("epoch_us", 0.0))
-              for s in shards]
-    t0 = min(epochs) if epochs else 0.0
-    events: List[Dict[str, Any]] = []
-    traces: Dict[str, Dict[str, set]] = {}
-    for shard, epoch in zip(shards, epochs):
-        other = shard.get("otherData", {})
-        role = str(other.get("role", ""))
-        for ev in shard["traceEvents"]:
-            if not isinstance(ev, dict):
-                continue
-            if ev.get("ph") == "M" or "ts" not in ev:
-                events.append(ev)
-            else:
-                events.append(dict(ev, ts=float(ev["ts"]) + epoch - t0))
-            tid = (ev.get("args") or {}).get("trace")
-            if not tid:
-                continue
-            entry = traces.setdefault(
-                str(tid), {"pids": set(), "roles": set(), "spans": set()})
-            entry["pids"].add(int(ev.get("pid", other.get("pid", 0))))
-            entry["roles"].add(role or "process")
-            entry["spans"].add(str(ev.get("name", "")))
-    merged = {"traceEvents": events, "displayTimeUnit": "ms",
-              "otherData": {"shards": [os.path.basename(s["_path"])
-                                       for s in shards]}}
-    summary = {"traces": {tid: {k: sorted(v) for k, v in e.items()}
-                          for tid, e in traces.items()}}
-    if out_path:
-        with open(out_path, "w") as f:
-            json.dump(merged, f)
-    return merged, summary

@@ -44,9 +44,9 @@ import tempfile
 import threading
 import time
 
-from dmlc_core_tpu_torch.tools._drill import (check, collect_traces,
-                                              gate_checkers, install_checkers,
-                                              out, slo_gate)
+from dmlc_core_tpu_torch.tools._drill import (check, gate_checkers,
+                                              install_checkers, out, slo_gate)
+from dmlc_core_tpu_torch.tools.trace_collect import collect
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -270,7 +270,7 @@ def main() -> None:
 
     t_tc0 = time.time()
     trace_out = out("FLEET_TRACE_OUT", "fleet_trace.json")
-    _, tsummary = collect_traces(spool, trace_out)
+    _, tsummary = collect(spool, trace_out)
     trace_collect_s = time.time() - t_tc0
     cross = {tid: t for tid, t in tsummary["traces"].items()
              if len(t["pids"]) >= 3 and "fleet.route" in t["spans"]

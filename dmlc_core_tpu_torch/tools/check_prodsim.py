@@ -43,9 +43,9 @@ import os
 import tempfile
 import time
 
-from dmlc_core_tpu_torch.tools._drill import (check, collect_traces,
-                                              gate_checkers, install_checkers,
-                                              out, slo_gate)
+from dmlc_core_tpu_torch.tools._drill import (check, gate_checkers,
+                                              install_checkers, out, slo_gate)
+from dmlc_core_tpu_torch.tools.trace_collect import collect
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -130,7 +130,7 @@ def main() -> None:
            f"metrics spool merged {nprocs} processes across all lanes "
            f"(artifact at {metrics_out})")
     trace_out = out("PRODSIM_TRACE_OUT", "prodsim_trace.json")
-    _, tsummary = collect_traces(spool, trace_out)
+    _, tsummary = collect(spool, trace_out)
     cross = {tid: t for tid, t in tsummary["traces"].items()
              if len(t["pids"]) >= 3 and "fleet.route" in t["spans"]
              and "tenant.predict" in t["spans"]}

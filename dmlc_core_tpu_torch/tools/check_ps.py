@@ -42,8 +42,9 @@ import tempfile
 import time
 
 from dmlc_core_tpu_torch.tools._drill import (check, child_device, child_env,
-                                              collect_traces, gate_checkers,
-                                              install_checkers, out, slo_gate)
+                                              gate_checkers, install_checkers,
+                                              out, slo_gate)
+from dmlc_core_tpu_torch.tools.trace_collect import collect
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -305,7 +306,7 @@ def main() -> None:
            f"(artifact at {metrics_out})")
     t_tc0 = time.time()
     trace_out = out("PS_TRACE_OUT", "ps_trace.json")
-    _, tsummary = collect_traces(spool, trace_out)
+    _, tsummary = collect(spool, trace_out)
     trace_collect_s = time.time() - t_tc0
     cross = {tid: t for tid, t in tsummary["traces"].items()
              if len(t["pids"]) >= 2 and "ps.push" in t["spans"]

@@ -180,6 +180,101 @@ def test_bench_needs_a_gpu_unless_forced_to_the_cpu():
     assert rec["provisional"] is False and "no CUDA GPU" in rec["error"]
 
 
+def _rank_processes(tag):
+    """Live processes of a ``BENCH_CHIPS`` run's child ranks whose command
+    line names ``tag`` (the run's ``TMPDIR``)."""
+    found = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                args = f.read().decode(errors="replace").split("\0")
+        except OSError:
+            continue
+        if "--chips-rank" in args and any(tag in a for a in args):
+            found.append(int(pid))
+    return found
+
+
+def test_bench_chips_mode_on_gloo_ranks(tmp_path):
+    """``BENCH_CHIPS=2`` under ``BENCH_FORCE_CPU=2``: rank 0 and one child
+    rank over gloo; the record is per chip, with JAX's ``psum_probe``
+    fields and ``scaling`` from the 1-rank refit."""
+    res = _bench({"BENCH_FORCE_CPU": "2", "BENCH_CHIPS": "2",
+                  "BENCH_ROWS": "20000", "BENCH_ROUNDS": "4",
+                  "BENCH_WARMUP": "1", "TMPDIR": str(tmp_path)})
+    assert res.returncode == 0, res.stderr[-3000:]
+    rec = json.loads(res.stdout.splitlines()[-1])
+    assert rec["provisional"] is False and "error" not in rec, rec
+    assert rec["chips"] == 2 and rec["backend"] == "gloo"
+    assert rec["rank_devices"] == ["cpu", "cpu"]
+    assert rec["rounds_done"] == 4
+    # per chip: the run's rate over the 2 ranks, as JAX's selection says
+    if rec["value_basis"] == "wall":
+        assert rec["value"] == rec["wall_rounds_per_sec"]
+        assert rec["value"] == pytest.approx(4 / rec["seconds"] / 2,
+                                             rel=1e-2)
+    else:
+        assert rec["value"] == pytest.approx(
+            rec["rounds_per_sec_median_chunk"] / 2, abs=1e-4)
+    probe = rec["psum_probe"]
+    assert {"bytes_per_round", "allreduce_ms", "effective_gbps"} <= set(probe)
+    assert probe["bytes_per_round"] == jax_psum_bytes(6, 28, 256)
+    assert probe["sums_exact"] is True and probe["ranks"] == 2
+    assert len(probe["allreduce_ms_samples"]) == 3
+    # the median sample's rate (2 ranks: 2·(n−1)/n = 1), rounded to 0.01
+    ms = sorted(probe["allreduce_ms_samples"])[1]
+    assert probe["bus_gbps"] == pytest.approx(
+        probe["bytes_per_round"] / (ms / 1e3) / 1e9, rel=1e-2, abs=6e-3)
+    scaling = rec["scaling"]
+    base = scaling["baseline_rounds_per_sec_per_chip"]
+    assert {k: v for k, v in scaling.items() if k != "basis"} == \
+        jbench.scaling_summary(2, rec["value"], base)
+    assert rec["kernel"]["fused_round"] is False      # several ranks
+    assert len(rec["kernel"]["launches_by_rank"]) == 2
+    assert not any("not ported" in n for n in rec.get("notes", []))
+    assert _rank_processes(str(tmp_path)) == []
+
+
+def test_bench_chips_clamped_to_the_local_devices():
+    res = _bench({"BENCH_FORCE_CPU": "1", "BENCH_CHIPS": "2",
+                  "BENCH_ROWS": "20000", "BENCH_ROUNDS": "2",
+                  "BENCH_WARMUP": "1", "BENCH_SCALING": "0"})
+    assert res.returncode == 0, res.stderr[-2000:]
+    rec = json.loads(res.stdout.splitlines()[-1])
+    assert rec["chips"] == 1 and "psum_probe" not in rec
+    assert "BENCH_CHIPS=2 clamped to 1 local devices" in rec["notes"]
+
+
+def test_bench_chips_killed_rank_fails_the_run(tmp_path):
+    """A child rank SIGKILLed mid-fit: the record carries the error, the
+    exit code is not 0, nothing falls back to one rank and no rank is
+    left."""
+    res = _bench({"BENCH_FORCE_CPU": "2", "BENCH_CHIPS": "2",
+                  "BENCH_ROWS": "20000", "BENCH_ROUNDS": "50",
+                  "BENCH_WARMUP": "1", "TMPDIR": str(tmp_path),
+                  "DMLC_FAULT_INJECT": "bench_rank:kill"})
+    assert res.returncode != 0
+    rec = json.loads(res.stdout.splitlines()[-1])
+    assert rec["provisional"] is False
+    assert "rank 1 exited with code -9" in rec["error"], rec["error"]
+    assert "official" not in rec and "scaling" not in rec
+    assert _rank_processes(str(tmp_path)) == []
+
+
+def test_bench_chips_watchdog_leaves_no_rank(tmp_path):
+    res = _bench({"BENCH_FORCE_CPU": "2", "BENCH_CHIPS": "2",
+                  "BENCH_ROWS": "400000", "BENCH_ROUNDS": "5000",
+                  "BENCH_NO_FALLBACK": "1", "BENCH_TIME_BUDGET": "12",
+                  "TMPDIR": str(tmp_path)})
+    assert res.returncode == 0, res.stderr[-2000:]
+    rec = json.loads(res.stdout.splitlines()[-1])
+    assert rec["terminated"] == "budget_exhausted"
+    assert rec["chips"] == 2
+    assert _rank_processes(str(tmp_path)) == []
+
+
 def test_scaling_probe_prints_one_json_line():
     res = subprocess.run(
         [sys.executable, "-m", "dmlc_core_tpu_torch.bench",

@@ -166,6 +166,12 @@ _ENTRY_GROUPS = {
     "drills": ["dmlc_core_tpu_torch.tools._drill"]
     + [f"dmlc_core_tpu_torch.tools.check_{n}" for n in (
         "resilience", "elastic", "launch", "fleet", "tenancy", "ps")],
+    # the multi-card entry points and the last standalone tools (ROADMAP
+    # item 20)
+    "multicard_and_tools": ["dmlc_core_tpu_torch.bench"]
+    + [f"dmlc_core_tpu_torch.tools.{n}" for n in (
+        "check_multichip", "bench_kvstore", "bench_transformer",
+        "bench_external", "bench_gblinear", "trace_collect")],
 }
 
 

@@ -5,14 +5,10 @@ port bench's ``--serve``) on the CPU.
 The JAX package's own tests are loaded against the port (``*_port``):
 ``tests/test_serve.py``, ``tests/test_serve_http.py`` (with the port
 bench as ``python -m dmlc_core_tpu_torch.bench``),
-``tests/test_resilience.py`` and ``tests/test_tracectx.py``.  Left out,
-each for what the port does not have yet (the chaos soak of
-``test_resilience.py``, slow, runs under the port's lock-order, race and
-leak checkers):
-
-* ``test_tracectx.py``: ``TestTraceCollect`` (``scripts/trace_collect.py``
-  is a script of the repository, not a module of either package; its
-  own file runs it).
+``tests/test_resilience.py`` and ``tests/test_tracectx.py`` (its
+``TestTraceCollect`` against the port's ``tools/trace_collect.py``); the
+chaos soak of ``test_resilience.py``, slow, runs under the port's
+lock-order, race and leak checkers.
 
 The port's own checks: serving checkpoints, model files and generic
 state trees written by either package load in the other, the same bytes
@@ -67,9 +63,12 @@ export(globals(), _RES, ["TestRetryPolicy", "TestCircuitBreaker",
                          "TestProducerRestart", "TestCheckpointDurability",
                          "TestTrackerGrace"],
        funcs=["test_chaos_soak_train_and_serve"])
-_TRACE = load_port("test_tracectx.py")
+_TRACE = load_port("test_tracectx.py", [
+    ("import trace_collect  # noqa: E402",
+     "from dmlc_core_tpu_torch.tools import trace_collect  # noqa: E402")])
 export(globals(), _TRACE, ["TestEncoding", "TestDisabledDiscipline",
-                           "TestSpanParenting", "TestTracerMetadata"])
+                           "TestSpanParenting", "TestTracerMetadata",
+                           "TestTraceCollect"])
 # the loaded file's autouse fixture (tracing state isolation)
 _trace_isolation = _TRACE._trace_isolation
 
