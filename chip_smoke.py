@@ -86,7 +86,10 @@ and the script exits non-zero without the final ``ok`` line:
    ``colsample_bytree=0.8``: the card's sketch cuts equal the CPU's bit
    for bit, (a), (b) and the in-core ``fit(X, y, cuts=)`` write one file,
    (c) on a 200k-row slice (4 chunks) writes the CPU's file (the numpy
-   draws, uploads and feature masks on both), ``predict_iter`` over
+   draws, uploads and feature masks on both) and, again under
+   ``DMLC_METRICS_GBT_PHASES=1``, the same file with every phase
+   observed (``hist``, ``split``, ``leaf``, ``apply``: their counts and
+   seconds), ``predict_iter`` over
    the pages equals ``predict``, and a 200k-row slice written as libsvm
    text and read back through ``RowBlockIter.create("…#cache")`` trains
    the slice's ``ArrayRowIter`` file;
@@ -95,7 +98,20 @@ and the script exits non-zero without the final ``ok`` line:
    ``DeviceFeed`` binned on the card; its bins, labels and weights
    ``torch.equal`` to ``make_device_data(X, y, cuts=same)``'s, one file
    from a 5-tree ``fit_device`` of each handle; both passes' seconds, each
-   handle's peak device memory and the feed's stall fraction;
+   handle's peak device memory and the feed's stall fraction; then
+   ``make_device_data``'s device route in ``DMLC_INGEST_CHUNK_ROWS``
+   slabs (the default 2M) against the whole matrix (0), with the cuts
+   given and computed: handles ``torch.equal``, both peaks printed;
+6g4. coldstart — two cold processes side by side, started before phase
+   1's build and joined before the first kernel of this process
+   (:func:`start_coldstart`: a user's ``fit`` of the first 2M rows with
+   phase 4's parameters; ``DMLC_COLDSTART_OVERLAP=0`` and the default,
+   each on an empty kernel build directory), then that fit in this
+   process with ``DMLC_WARMUP_EXEC=1``: one model file, the launches as
+   counted, the build claimed where it ran on the handle's thread, each
+   child's ``last_compile_seconds``, time to first tree, first and steady
+   tree times (a check: they share the host; ``python3 chip_smoke.py
+   --coldstart-runs N`` measures them alone, N rounds);
 6g3. infeed — the port bench's infeed smoke (24 ``[2048, 128]`` batches
    through ``DeviceFeed(depth=2)``): its stall fraction;
 6h. ranking — ``rank:pairwise``, ``rank:ndcg`` and ``rank:map`` with
@@ -578,6 +594,20 @@ EXT_CHUNKS = 4
 EXT_SAMPLING = {"subsample": 0.8, "colsample_bytree": 0.8, "seed": 3}
 EXT_SLICE = 200_000
 EXT_BUDGET = "DMLC_TPU_EXTERNAL_DEVICE_BUDGET"
+# coldstart: configuration 1's rows cut to 2M, one cold process each
+COLD_ROWS = 2_000_000
+COLD_KNOBS = ("DMLC_COLDSTART_OVERLAP", "DMLC_WARMUP_EXEC",
+              "DMLC_INGEST_CHUNK_ROWS")
+#: the phase's two cold children (name, environment), each on an empty
+#: kernel build directory: the build inline at the first round, and on
+#: the cold-start handle's thread beside cuts and binning
+COLD_CHILDREN = (("inline", {"DMLC_COLDSTART_OVERLAP": "0"}),
+                 ("overlap", {}))
+#: ``--coldstart-runs N`` also loads the overlap child's build without
+#: and with the handle's warm launch (a cache hit, no nvcc)
+COLD_HITS = (("hit_exec0", {"DMLC_WARMUP_EXEC": "0"}),
+             ("hit_exec1", {"DMLC_WARMUP_EXEC": "1"}))
+COLD_TIMEOUT = 300
 
 # sparse: tools/bench_sparse.py's defaults (100k rows, F = 100k, density
 # 0.005, 20 rounds, 32 bins, depth 6); the card-vs-CPU and 2-rank checks
@@ -2376,6 +2406,8 @@ def phase_external(torch, np, H, smi, X, y, pages):
         sampled.append(model_bytes_of(m))
     require(sampled[0] == sampled[1], "external (c): the card's sampled "
             f"chunked file differs from the CPU's on {EXT_SLICE} rows")
+    phases = external_phase_timings(X[s], y[s], kw, slice_budget,
+                                    sampled[0])
     kept = [float(models["c"]._ext_sample_masks(r, page_rows, F)[0].mean())
             for r in range(TREES)]
     t0 = time.perf_counter()
@@ -2409,6 +2441,7 @@ def phase_external(torch, np, H, smi, X, y, pages):
           "files_equal_incore": ["a", "b"],
           "sampled_kept_share_by_round": kept,
           "sampled_slice_file_equals_cpu": True,
+          "slice_phase_timings": phases,
           "predict_iter_seconds": iter_s, "predict_iter_equals_predict": True,
           "slice_rows": EXT_SLICE, "libsvm_write_seconds": write_s,
           "libsvm_parse_seconds": parse_s, "disk_file_equals_array": True})
@@ -2417,6 +2450,62 @@ def phase_external(torch, np, H, smi, X, y, pages):
         for k in total:
             total[k] += r["launches"][k]
     return total
+
+
+def external_phase_timings(X, y, kw, budget, want_bytes):
+    """(c)'s sampled slice on the card again under
+    ``DMLC_METRICS_GBT_PHASES=1``: the chunked route waits for the card
+    after each phase and observes it into ``gbt_phase_seconds{engine=
+    "external"}``.  Checks: every phase observed as often as the trees,
+    levels and chunks say, and the file of the untimed fit.  Returns each
+    phase's count and seconds."""
+    from dmlc_core_tpu_torch import HistGBT
+    from dmlc_core_tpu_torch.base import metrics
+    from dmlc_core_tpu_torch.data.iter import ArrayRowIter
+    from dmlc_core_tpu_torch.models.gbt_split import gbt_metrics
+
+    require(metrics.enabled(), "external: metrics are off (DMLC_METRICS)")
+    ph = gbt_metrics()["phase"]
+    names = ("hist", "split", "leaf", "apply")
+
+    def state():
+        return {p: (ph.count(engine="external", phase=p),
+                    ph.sum(engine="external", phase=p)) for p in names}
+
+    before = state()
+    m = HistGBT(device=DEVICE, **kw, **EXT_SAMPLING)
+    with levers({}), external_budget(budget), \
+            env_vars({"DMLC_METRICS_GBT_PHASES": "1"}):
+        t0 = time.perf_counter()
+        m.fit_external(ArrayRowIter(X, y, page_rows=EXT_PAGE_ROWS))
+        wall = time.perf_counter() - t0
+    after = state()
+    got = {p: {"count": after[p][0] - before[p][0],
+               "seconds": after[p][1] - before[p][1]} for p in names}
+    T, D, C = kw["n_trees"], kw["max_depth"], EXT_CHUNKS
+    want = {"hist": T * D * C, "split": T * D, "leaf": T * C, "apply": T * C}
+    for p in names:
+        require(got[p]["count"] == want[p], f"external phase timings: "
+                f"{p} observed {got[p]['count']} times, want {want[p]}")
+    require(model_bytes_of(m) == want_bytes, "external phase timings: the "
+            "timed fit's file differs from the untimed one's")
+    return {"phases": got, "fit_seconds": m.last_fit_seconds,
+            "fit_wall_seconds": wall, "file_equal": True}
+
+
+@contextlib.contextmanager
+def env_vars(env):
+    """``env`` set in the environment for a block, restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def phase_ingest_iter(torch, np, H, smi, pages, X, y):
@@ -2430,9 +2519,13 @@ def phase_ingest_iter(torch, np, H, smi, pages, X, y):
     ``hist`` + 5 ``fused_round`` a tree, counts set to 0 before each fit
     and read after).  Prints both passes' seconds, each handle's peak of
     ``torch.cuda.max_memory_allocated`` over what was resident before it,
-    and the feed's stall fraction.  Returns the streamed handle's fit's
-    launches."""
+    and the feed's stall fraction.  Then ``make_device_data``'s device
+    route in ``DMLC_INGEST_CHUNK_ROWS`` slabs against the whole matrix
+    (``DMLC_INGEST_CHUNK_ROWS=0``), with the cuts given and computed:
+    bins, labels and weights ``torch.equal``, both peaks printed.
+    Returns the streamed handle's fit's launches."""
     from dmlc_core_tpu_torch import HistGBT
+    from dmlc_core_tpu_torch.models.histgbt import _ingest_chunk_rows
 
     kw = dict(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS)
     n, F = X.shape
@@ -2461,6 +2554,38 @@ def phase_ingest_iter(torch, np, H, smi, pages, X, y):
             require(torch.equal(dd[key], ref[key]), f"ingest_iter: the "
                     f"streamed handle's {key} differs from make_device_data's")
         require(sorted(dd) == sorted(ref), "ingest_iter: handle keys differ")
+        # make_device_data's device route bins DMLC_INGEST_CHUNK_ROWS
+        # slabs (default 2M; ``ref`` above); the whole-matrix route
+        # (0) gives the same handle, with the cuts given and with the
+        # cuts computed by make_device_data itself
+        chunked = {"cuts_given": (ref, ref_s, ref_peak)}
+        whole = {}
+        with env_vars({"DMLC_INGEST_CHUNK_ROWS": "0"}):
+            whole["cuts_given"] = peak_of(lambda: HistGBT(
+                device=DEVICE, **kw).make_device_data(
+                    X, y, cuts=streamed.cuts))
+        own = {}
+        for name, chunk in (("whole", "0"), ("chunked", None)):
+            with env_vars({} if chunk is None
+                          else {"DMLC_INGEST_CHUNK_ROWS": chunk}):
+                own[name] = HistGBT(device=DEVICE, **kw)
+                out = peak_of(lambda: own[name].make_device_data(X, y))
+            (whole if chunk else chunked)["cuts_computed"] = out
+        require(torch.equal(own["whole"].cuts, own["chunked"].cuts),
+                "ingest_iter: chunked make_device_data's cuts differ")
+        for case in ("cuts_given", "cuts_computed"):
+            for key in ("bins_t", "y_d", "w_d"):
+                require(torch.equal(chunked[case][0][key],
+                                    whole[case][0][key]),
+                        f"ingest_iter: make_device_data's chunked {key} "
+                        f"differs from the whole matrix's ({case})")
+        chunk_stats = {case: {
+            "chunked_seconds": chunked[case][1],
+            "whole_seconds": whole[case][1],
+            "chunked_peak_bytes": chunked[case][2],
+            "whole_peak_bytes": whole[case][2]}
+            for case in ("cuts_given", "cuts_computed")}
+        del whole, own, out
         fits = {}
         for name, model, handle in (("iter", streamed, dd),
                                     ("in_core", incore, ref)):
@@ -2482,12 +2607,257 @@ def phase_ingest_iter(torch, np, H, smi, pages, X, y):
           "iter_seconds": iter_s, "make_device_data_seconds": ref_s,
           "iter_peak_bytes": iter_peak, "make_device_data_peak_bytes":
           ref_peak, "bin_matrix_bytes": n * F,
+          "ingest_chunk_rows": _ingest_chunk_rows(),
+          "chunked_ingest": chunk_stats,
+          "chunked_bins_equal_whole": True,
           "feed_stall_fraction": feed["stall_fraction"], "feed": feed,
           "bins_equal": True, "file_equal": True,
           "launches": fits["iter"],
           "steady_rounds_per_sec": steady_rounds_per_sec(
               streamed.last_tree_times)})
     return fits["iter"]
+
+
+def coldstart_child(cfg_path):
+    """One cold process of the ``coldstart`` phase: its kernel build
+    directory (``ops/_build.BUILD_DIR``, set before the first load; empty
+    when ``cfg["fresh"]``), the first ``COLD_ROWS`` HIGGS-like rows
+    (:func:`higgs_like`'s rule, seed 7: the first rows of phase 4's) and
+    the card's context made, then a user's ``HistGBT(...).fit(X, y)``,
+    launch counts set to 0 before and read after.  Writes to
+    ``cfg["out"]`` its cold-start attributes, time to first tree (the
+    fit's wall to the first tree's fetch), first and steady tree times,
+    launches and the build events; the model to ``cfg["model"]``."""
+    sys.path.insert(0, ROOT)
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    from dmlc_core_tpu_torch.ops import _build
+    from dmlc_core_tpu_torch.ops import histogram as H
+
+    _build.BUILD_DIR = Path(cfg["build_dir"])
+    require(_build.is_built("histogram") != cfg["fresh"],
+            f"coldstart child: the build directory is "
+            f"{'not ' if cfg['fresh'] else ''}empty")
+    from dmlc_core_tpu_torch import HistGBT
+
+    X, y = higgs_like(np, COLD_ROWS, FEATURES, 7)
+    torch.zeros(1, device=DEVICE)
+    torch.cuda.synchronize()
+    model = HistGBT(device=DEVICE, **cfg["params"])
+    zero_counts(H)
+    t0 = time.perf_counter()
+    model.fit(X, y)
+    wall = time.perf_counter() - t0
+    launches = read_counts(H)
+    launches["descend"] = H.descend_kernel.launches
+    model.save_model(cfg["model"])
+    trees = model.last_tree_times
+    out = {"fit_wall_seconds": wall,
+           "time_to_first_tree": wall - model.last_fit_seconds + trees[0],
+           "first_tree_seconds": trees[0],
+           "steady_tree_seconds": statistics.median(
+               b - a for a, b in zip(trees[1:], trees[2:])),
+           "tree_times": trees,
+           "last_compile_seconds": model.last_compile_seconds,
+           "last_compile_cache": model.last_compile_cache,
+           "last_bin_seconds": model.last_bin_seconds,
+           "last_warmup_seconds": model.last_warmup_seconds,
+           "last_warmup_breakdown": model.last_warmup_breakdown,
+           "warm_launches": H.warm_launch.launches,
+           "build_events": _build.build_events(), "launches": launches}
+    with open(cfg["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def coldstart_run(d, name, extra, build_dir, fresh):
+    """One :func:`coldstart_child` in ``d``: its kernel build directory
+    ``build_dir`` (``fresh``: empty), ``extra`` over this process's
+    environment without :data:`COLD_KNOBS`, one tree a chunk.  Returns
+    its record and its model file's bytes; raises if it failed."""
+    cfg = {"params": dict(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS),
+           "build_dir": build_dir, "fresh": fresh,
+           "model": os.path.join(d, f"{name}.model"),
+           "out": os.path.join(d, f"{name}.json")}
+    cfg_path = os.path.join(d, f"{name}.cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    env = {k: v for k, v in os.environ.items() if k not in COLD_KNOBS}
+    # one tree a chunk: each tree's fetch times it
+    env.update({"DMLC_TPU_ROUNDS_PER_DISPATCH": "1", **extra})
+    rc, wall, _, err = run_child(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--coldstart-child", cfg_path], env, COLD_TIMEOUT,
+        os.path.join(d, name))
+    require(rc == 0, f"coldstart ({name}): the child exited {rc}: "
+            f"{err[-2000:]}")
+    with open(cfg["out"]) as f:
+        rec = json.load(f)
+    with open(cfg["model"], "rb") as f:
+        model = f.read()
+    rec.update({"child_wall_seconds": wall, "env": extra,
+                "fresh_build_dir": fresh})
+    return rec, model
+
+
+def start_coldstart():
+    """Phase 6g4's children (:data:`COLD_CHILDREN`, :func:`coldstart_run`
+    each on its empty build directory), side by side on threads started
+    before this process builds its kernels and makes its data, and
+    joined (:func:`finish_coldstart`) before its first kernel, so that no
+    kernel of this process shares the card with their fits.  They share
+    the host with this process's ``nvcc`` and datagen and with each
+    other: a check of the cold path, not a measurement of it
+    (``--coldstart-runs`` is that)."""
+    import threading
+
+    d = tempfile.mkdtemp(prefix="coldstart-")
+    state = {"dir": d, "runs": {}, "files": {}, "errors": []}
+
+    def run(name, extra):
+        try:
+            state["runs"][name], state["files"][name] = coldstart_run(
+                d, name, extra, os.path.join(d, f"build_{name}"), True)
+        except Exception as e:  # noqa: BLE001 — raised by the join
+            state["errors"].append(e)
+
+    state["threads"] = [threading.Thread(target=run, args=child, daemon=True)
+                        for child in COLD_CHILDREN]
+    state["t0"] = time.perf_counter()
+    for t in state["threads"]:
+        t.start()
+    return state
+
+
+def finish_coldstart(state):
+    """Join :func:`start_coldstart`'s children; raises what they raised.
+    Returns the state with the children's records and files."""
+    for t in state["threads"]:
+        t.join()
+    state["seconds"] = time.perf_counter() - state["t0"]
+    shutil.rmtree(state["dir"], ignore_errors=True)
+    if state["errors"]:
+        raise state["errors"][0]
+    return state
+
+
+def phase_coldstart(torch, np, H, smi, X, y, cold):
+    """The cold start of a user's ``HistGBT(...).fit(X, y)`` (phase 4's
+    parameters) on the first ``COLD_ROWS`` HIGGS-like rows: the children
+    of :func:`start_coldstart` (``cold``, joined), then the same fit in
+    this process with ``DMLC_WARMUP_EXEC=1``.  Checks: every model file
+    byte-equal, ``hist`` and ``fused_round`` launched as the trees and
+    levels say (``fused_descend`` never), one build and one load in each
+    child, ``last_compile_seconds`` None inline and claimed with the
+    overlap (a miss, one warm launch); in this process, whose handle
+    built and launched long ago, no further warm launch and no claim.
+    Prints each child's ``last_compile_seconds``, time to first tree and
+    first and steady tree times.  Returns the in-process fit's
+    launches."""
+    from dmlc_core_tpu_torch import HistGBT
+
+    params = dict(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS)
+    want = {"hist": TREES, "fused_round": (MAX_DEPTH - 1) * TREES,
+            "fused_descend": 0}
+    n = COLD_ROWS
+    runs, files = cold["runs"], dict(cold["files"])
+    for name, rec in runs.items():
+        require_launches(rec["launches"], want, f"coldstart ({name})")
+        require(rec["build_events"] == {"builds": 1, "loads": 1},
+                f"coldstart ({name}): build events {rec['build_events']}")
+    inline, warm = (runs[k] for k, _ in COLD_CHILDREN)
+    require(inline["last_compile_seconds"] is None
+            and inline["warm_launches"] == 0,
+            "coldstart: DMLC_COLDSTART_OVERLAP=0 still built on a thread")
+    require(warm["last_compile_seconds"] is not None
+            and warm["last_compile_cache"] == "miss"
+            and warm["warm_launches"] == 1,
+            f"coldstart (overlap): the handle claimed "
+            f"{warm['last_compile_seconds']}, {warm['last_compile_cache']} "
+            f"with {warm['warm_launches']} warm launches; want a miss and 1")
+    w0 = H.warm_launch.launches
+    with levers({}), env_vars({"DMLC_WARMUP_EXEC": "1"}):
+        model = HistGBT(device=DEVICE, **params)
+        zero_counts(H)
+        model.fit(X[:n], y[:n])
+        launches = read_counts(H)
+    require(H.warm_launch.launches == w0
+            and model.last_compile_seconds is None,
+            "coldstart: a fit in a process whose kernels were built and "
+            "launched made another warm launch or claimed a build")
+    require_launches(launches, want, "coldstart (in process)")
+    files["in_process"] = model_bytes_of(model)
+    require(len(set(files.values())) == 1,
+            "coldstart: the model files differ between "
+            f"{sorted(files)}")
+    emit({"phase": "coldstart", "card": smi, "rows": n,
+          "features": X.shape[1], "params": params, "children": runs,
+          "children_seconds": cold["seconds"],
+          "children_basis": "side by side, beside this process's build "
+                            "and datagen: a check, not a measurement",
+          "in_process": {"last_compile_seconds": model.last_compile_seconds,
+                         "last_compile_cache": model.last_compile_cache,
+                         "first_tree_seconds": model.last_tree_times[0],
+                         "launches": launches},
+          "files_equal": sorted(files)})
+    return launches
+
+
+def coldstart_runs(reps):
+    """``python3 chip_smoke.py --coldstart-runs N``: the cold start
+    measured with nothing else on the host — N rounds, one child at a
+    time, of the two cold children (:data:`COLD_CHILDREN`, each on an
+    empty build directory) and of the overlap child's build loaded
+    without and with the warm launch (:data:`COLD_HITS`), the order
+    reversed every other round.  Prints each child's record, then each
+    configuration's min, median and max of time to first tree, first and
+    steady tree and ``last_compile_seconds``; checks one model file."""
+    sys.path.insert(0, ROOT)
+    from dmlc_core_tpu_torch.utils import device as device_mod
+
+    smi = device_mod.gpu_name_and_power_limit()
+    d = tempfile.mkdtemp(prefix="coldstart-runs-")
+    cold = dict(COLD_CHILDREN)
+    built = os.path.join(d, "build_overlap_0")
+    got = {}
+    files = set()
+    try:
+        for r in range(reps):
+            # round 0 ends with the hits, on the build its overlap child made
+            order = list(COLD_CHILDREN) + list(COLD_HITS)
+            for name, extra in order[::-1] if r % 2 else order:
+                bdir = (os.path.join(d, f"build_{name}_{r}") if name in cold
+                        else built)
+                rec, model = coldstart_run(d, f"{name}_{r}", extra, bdir,
+                                           name in cold)
+                files.add(model)
+                rec.update({"name": name, "round": r})
+                emit({"phase": "coldstart_runs", "card": smi, **rec})
+                got.setdefault(name, []).append(rec)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    require(len(files) == 1, "coldstart runs: the model files differ")
+    keys = ("time_to_first_tree", "first_tree_seconds",
+            "steady_tree_seconds", "last_compile_seconds",
+            "last_bin_seconds")
+    summary = {}
+    for name, recs in got.items():
+        summary[name] = {"runs": len(recs)}
+        for k in keys:
+            v = sorted(x[k] for x in recs if x[k] is not None)
+            if v:
+                summary[name][k] = {"min": v[0],
+                                    "median": statistics.median(v),
+                                    "max": v[-1]}
+    emit({"phase": "coldstart_runs", "part": "summary", "card": smi,
+          "rows": COLD_ROWS, "features": FEATURES, "reps": reps,
+          "one_model_file": True, "summary": summary})
+    return 0
 
 
 def phase_infeed(torch, smi):
@@ -5670,6 +6040,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--coldstart-child"]:
+        return coldstart_child(sys.argv[2])
+    if sys.argv[1:2] == ["--coldstart-runs"]:
+        return coldstart_runs(int(sys.argv[2]))
     from dmlc_core_tpu_torch.data.iter import ArrayRowIter
     from dmlc_core_tpu_torch.ops import _build
     from dmlc_core_tpu_torch.ops import attention as A
@@ -5679,6 +6053,7 @@ def main() -> int:
     t_start = time.perf_counter()
     # one tree per chunk in the fit phases: each tree's fetch times it
     os.environ["DMLC_TPU_ROUNDS_PER_DISPATCH"] = "1"
+    cold = start_coldstart()
     smi = phase_device(torch, device_mod, _build)
     rates = card_rates(torch.cuda.get_device_name(0))
     tc_rate = tensor_rate(torch.cuda.get_device_name(0))
@@ -5693,6 +6068,7 @@ def main() -> int:
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "higgs_like": list(X.shape), "covtype_like": list(C.shape),
           "covtype_positive_share": float(cy.mean())})
+    cold = finish_coldstart(cold)
     check_inf_binning(torch, np)
     kernels = phase_kernels(torch, H, rates)
     layout_kernels, mats = phase_kernels_layout(torch, np, H, rates, C, cy)
@@ -5725,6 +6101,7 @@ def main() -> int:
                    phase_monotone(torch, np, H, smi, X, y, Xv, yv),
                    phase_external(torch, np, H, smi, X, y, pages),
                    phase_ingest_iter(torch, np, H, smi, pages, X, y),
+                   phase_coldstart(torch, np, H, smi, X, y, cold),
                    ranking_launches):
         for k, v in counts.items():
             launches[k] += v

@@ -1,21 +1,26 @@
 """Typed, validated, self-documenting parameter structs.
 
 Reference parity: ``include/dmlc/parameter.h :: Parameter<PType>`` CRTP —
-``Init(kwargs)``, ``InitAllowUnknown``, ``__DICT__()``,
-``DMLC_DECLARE_FIELD`` (default, range, enum, description),
-``FieldEntry<T>`` specializations and ``ParamInitOption`` (SURVEY.md §2a).
+``Init(kwargs)``, ``InitAllowUnknown``, ``UpdateDict``, ``__DICT__()``,
+``__FIELDS__()``, ``Save/Load(JSON)``, ``DMLC_DECLARE_FIELD(f).set_default()
+.set_range().set_lower_bound().add_enum().describe()``, ``FieldEntry<T>``
+specializations, ``ParamInitOption`` and ``dmlc::GetEnv<T>`` (SURVEY.md
+§2a).
 
 Fields are declared with :func:`field` descriptors on a :class:`Parameter`
 subclass; a metaclass collects them in declaration order.  Values are
-parsed from strings exactly like the reference and range/enum-validated.
+parsed from strings exactly like the reference, range/enum-validated, and
+round-trip through JSON.
 
-This package's own copy of the part of ``dmlc_core_tpu.base.parameter``
-it uses, so ``to_dict()`` (and hence a saved model's param payload) is
-the same dict in both packages.
+This package's own copy of ``dmlc_core_tpu.base.parameter``: ``to_dict()``
+(and hence a saved model's param payload), :meth:`Parameter.save_json`'s
+text and :meth:`Parameter.__hash__` are the JAX package's, so a parameter
+file written by either package loads in the other.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import (
     Any,
@@ -120,6 +125,31 @@ class FieldEntry:
         self.enum = list(enum) if enum is not None else None
         self.validator = validator
         self.name: str = "?"  # filled by the metaclass
+
+    # fluent API kept for source-level familiarity with the reference
+    def set_default(self, v: Any) -> "FieldEntry":
+        self.default = v
+        return self
+
+    def set_range(self, lo: Any, hi: Any) -> "FieldEntry":
+        self.lower_bound, self.upper_bound = lo, hi
+        return self
+
+    def set_lower_bound(self, lo: Any) -> "FieldEntry":
+        self.lower_bound = lo
+        return self
+
+    def set_upper_bound(self, hi: Any) -> "FieldEntry":
+        self.upper_bound = hi
+        return self
+
+    def add_enum(self, v: Any) -> "FieldEntry":
+        self.enum = (self.enum or []) + [v]
+        return self
+
+    def describe(self, text: str) -> "FieldEntry":
+        self.description = text
+        return self
 
     @property
     def has_default(self) -> bool:
@@ -252,6 +282,15 @@ class Parameter(metaclass=_ParameterMeta):
             )
         return unknown
 
+    def update_dict(self, kwargs: Dict[str, Any]) -> None:
+        """Init from dict, then write the struct's values back into it.
+
+        Reference parity: ``Parameter::UpdateDict`` — keeps an external
+        string-dict (e.g. an XGBoost-style config) in sync with the struct.
+        """
+        self.init(kwargs, allow_unknown=True)
+        kwargs.update({k: getattr(self, k) for k in self.__param_fields__})
+
     def __setattr__(self, name: str, value: Any) -> None:
         entry = self.__param_fields__.get(name)
         if entry is not None:
@@ -268,12 +307,62 @@ class Parameter(metaclass=_ParameterMeta):
         """Reference parity: ``__FIELDS__()``."""
         return dict(cls.__param_fields__)
 
+    @classmethod
+    def doc_string(cls) -> str:
+        """Generated docs for all fields (the reference's __DOC__ output)."""
+        lines = []
+        for name, e in cls.__param_fields__.items():
+            constraints = []
+            if e.has_default:
+                constraints.append(f"default={e.default!r}")
+            if e.lower_bound is not None:
+                constraints.append(f">={e.lower_bound!r}")
+            if e.upper_bound is not None:
+                constraints.append(f"<={e.upper_bound!r}")
+            if e.enum is not None:
+                constraints.append(f"one of {e.enum!r}")
+            suffix = f" ({', '.join(constraints)})" if constraints else ""
+            lines.append(f"{name} : {e.type.__name__}{suffix}\n    {e.description}")
+        return "\n".join(lines)
+
     def __repr__(self) -> str:
         body = ", ".join(f"{k}={v!r}" for k, v in self.to_dict().items())
         return f"{type(self).__name__}({body})"
 
     def __eq__(self, other: Any) -> bool:
         return type(other) is type(self) and other.to_dict() == self.to_dict()
+
+    def __hash__(self) -> int:
+        # equal parameters hash alike, list fields included (the JAX
+        # package's hash: a static jit argument there, a cache key here)
+        items = sorted(self.to_dict().items(), key=lambda kv: kv[0])
+        return hash((type(self).__name__,
+                     tuple((k, _freeze(v)) for k, v in items)))
+
+    # -- JSON round trip -------------------------------------------------
+    def save(self, stream) -> None:
+        """Write JSON to a dmlc Stream.  Reference: ``Parameter::Save(JSONWriter)``."""
+        stream.write(self.save_json().encode("utf-8"))
+
+    def load(self, stream) -> None:
+        """Read JSON from a dmlc Stream.  Reference: ``Parameter::Load(JSONReader)``."""
+        data = stream.read_all() if hasattr(stream, "read_all") else stream.read(-1)
+        self.load_json(bytes(data).decode("utf-8"))
+
+    def save_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    def load_json(self, text: str) -> None:
+        self.init(json.loads(text))
+
+
+def _freeze(v: Any) -> Any:
+    """``v`` with lists, tuples and dicts made hashable tuples."""
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
+    return v
 
 
 def get_env(name: str, default: T, type: Optional[Type[T]] = None) -> T:

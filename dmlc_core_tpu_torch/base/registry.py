@@ -1,23 +1,61 @@
 """Global factory registries.
 
 Reference parity: ``include/dmlc/registry.h :: Registry<EntryType>::Get()
-->Register(name)/Find(name)/ListAllNames(), DMLC_REGISTRY_ENABLE/REGISTER``
-(SURVEY.md §2a).
+->Register(name)/Find(name)/ListAllNames(), FunctionRegEntryBase,
+DMLC_REGISTRY_ENABLE/REGISTER`` (SURVEY.md §2a).
 
-This package's own copy of the part of ``dmlc_core_tpu.base.registry`` it
-uses: the GBT objectives self-register here by name.  Import of the
-defining module is the registration event.
+This package's own copy of ``dmlc_core_tpu.base.registry``: the GBT
+objectives, parsers, input splits and filesystems self-register here by
+name.  Import of the defining module is the registration event.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Generic, List, Optional, TypeVar
+from typing import Any, Callable, Dict, Generic, List, Optional, TypeVar
 
 from dmlc_core_tpu_torch.base.logging import log_fatal
 
-__all__ = ["Registry"]
+__all__ = ["Registry", "FunctionRegEntry"]
 
 E = TypeVar("E")
+
+
+class FunctionRegEntry:
+    """A registry entry carrying a factory plus self-documentation.
+
+    Reference parity: ``dmlc::FunctionRegEntryBase`` — ``set_body``,
+    ``describe``, ``add_argument``, ``set_return_type``.
+    """
+
+    def __init__(self, name: str):
+        self.name = name
+        self.body: Optional[Callable[..., Any]] = None
+        self.description: str = ""
+        self.arguments: List[Dict[str, str]] = []
+        self.return_type: str = ""
+
+    def set_body(self, fn: Callable[..., Any]) -> "FunctionRegEntry":
+        self.body = fn
+        return self
+
+    def describe(self, text: str) -> "FunctionRegEntry":
+        self.description = text
+        return self
+
+    def add_argument(self, name: str, type_str: str,
+                     description: str) -> "FunctionRegEntry":
+        self.arguments.append({"name": name, "type": type_str,
+                               "description": description})
+        return self
+
+    def set_return_type(self, type_str: str) -> "FunctionRegEntry":
+        self.return_type = type_str
+        return self
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        if self.body is None:
+            log_fatal(f"Registry entry {self.name!r} has no body")
+        return self.body(*args, **kwargs)
 
 
 class Registry(Generic[E]):
@@ -61,15 +99,23 @@ class Registry(Generic[E]):
     def register(self, name: str, entry: Optional[E] = None, override: bool = False):
         """Register ``entry`` under ``name``.
 
-        With no ``entry``, returns a decorator that registers the decorated
-        object itself.
+        With no ``entry``, returns a decorator: plain functions are wrapped
+        in a :class:`FunctionRegEntry` (carrying ``__doc__`` as the
+        description); classes and existing FunctionRegEntry objects are
+        registered as themselves (a class's docs live on the class).
         """
         if entry is not None:
             self._register(name, entry, override)
             return entry
 
         def deco(obj: Any) -> Any:
-            self._register(name, obj, override)
+            if isinstance(obj, (FunctionRegEntry, type)):
+                self._register(name, obj, override)
+            else:
+                e = FunctionRegEntry(name).set_body(obj)
+                if getattr(obj, "__doc__", None):
+                    e.describe(obj.__doc__)
+                self._register(name, e, override)
             return obj
 
         return deco
@@ -99,3 +145,7 @@ class Registry(Generic[E]):
     def list_all_names(self) -> List[str]:
         """Reference: ``Registry::ListAllNames``."""
         return sorted(self._entries)
+
+    def remove(self, name: str) -> None:
+        """Unregister (mostly for tests)."""
+        self._entries.pop(name, None)

@@ -197,9 +197,10 @@ def _attach_metrics(out):
     compact summary inline (phase p50s and counts, rounds, collective and
     histogram-sync bytes, retries and injected faults, and the spool's
     merged process count when this process spools), as JAX's record has
-    them.  JAX's ``recompiles_steady_state`` (under ``DMLC_JITCHECK``)
-    has no counterpart: the port compiles no program.  Never fatal: the
-    headline record must survive."""
+    them, then the SLO scorecard (:func:`_attach_slo`).  JAX's
+    ``recompiles_steady_state`` (under ``DMLC_JITCHECK``) has no
+    counterpart: the port compiles no program.  Never fatal: the headline
+    record must survive."""
     try:
         from dmlc_core_tpu_torch.base.metrics import default_registry
 
@@ -245,6 +246,43 @@ def _attach_metrics(out):
         out["metrics_summary"] = summary
     except Exception as e:  # noqa: BLE001
         out["metrics_error"] = f"{type(e).__name__}: {e}"[:200]
+    _attach_slo(out)
+
+
+def _slo_path():
+    """--slo PATH / --slo=PATH / DMLC_SLO_SPEC env — committed SLO spec
+    to score the final record against (None = skip)."""
+    for i, a in enumerate(sys.argv):
+        if a == "--slo" and i + 1 < len(sys.argv):
+            return sys.argv[i + 1]
+        if a.startswith("--slo="):
+            return a.split("=", 1)[1]
+    return os.environ.get("DMLC_SLO_SPEC") or None
+
+
+def _attach_slo(out):
+    """Score the final record against a committed SLO spec (``--slo
+    PATH`` / ``DMLC_SLO_SPEC``), as JAX's bench does: the snapshot is the
+    spool's merged view when this process spools, else the registry's;
+    the record itself is the evidence, so objectives can name its fields.
+    Never fatal: the headline record must survive a scorecard failure."""
+    path = _slo_path()
+    if not path:
+        return
+    try:
+        from dmlc_core_tpu_torch.base import metrics_agg, slo
+        from dmlc_core_tpu_torch.base.metrics import default_registry
+
+        sw = metrics_agg.installed_spool()
+        if sw is not None:
+            sw.flush()
+            snapshot, _ = metrics_agg.merge_spool(os.path.dirname(sw.path))
+        else:
+            snapshot = default_registry().snapshot()
+        out["slo"] = slo.evaluate(slo.SLOSpec.load(path), snapshot,
+                                  evidence=out)
+    except Exception as e:  # noqa: BLE001
+        out["slo_error"] = f"{type(e).__name__}: {e}"[:200]
 
 
 def _smoke_infeed(dev):

@@ -65,11 +65,19 @@ the trees of a chunk stay on the device and come to the host in one
 fetch, whose arrival time is the chunk's timestamp
 (``last_chunk_times``), as the JAX package's dispatch chunks.
 ``fit_device(warmup_rounds=k)`` first runs ``k`` discarded rounds on a
-copy of the margins (the first use of every kernel and torch op), and
-:meth:`HistGBT.start_warmup` builds and loads the CUDA kernels on a
-thread while the caller makes its data — the port's "compile".  With
-``DMLC_TPU_BIN_BACKEND=cpu`` the bins are made on the host and only the
-uint8 matrix goes to the device.
+copy of the margins (the first use of every kernel and torch op).  The
+port's "compile", the CUDA kernels' build and load, runs once a process
+on a thread (:class:`_KernelWarmup`) beside cuts, binning and upload:
+every ``make_device_data``, ``make_device_data_iter``, ``fit_device``
+and ``fit_external`` parks the process's handle for the boosting loop to
+join, and :meth:`HistGBT.start_warmup` starts it before the caller's
+data exists (``DMLC_COLDSTART_OVERLAP=0``: inline at the first round).
+The device route bins ``DMLC_INGEST_CHUNK_ROWS`` rows at a time into the
+matrix allocated once (:meth:`HistGBT._bin_rows`): slices of the device
+``X`` when it went up for the cuts, else host slabs through pinned
+memory, so the whole f32 ``X`` is never on the card beside its bins
+unless the cuts need it.  With ``DMLC_TPU_BIN_BACKEND=cpu`` the bins are
+made on the host and only the uint8 matrix goes to the device.
 
 NaN-as-missing (XGBoost's learned default direction) switches on at the
 first NaN of the training data: bin ``n_bins-1`` holds NaN, each node
@@ -109,7 +117,7 @@ import torch
 from dmlc_core_tpu_torch.base import metrics as _metrics
 from dmlc_core_tpu_torch.base.logging import CHECK, CHECK_EQ, LOG, log_fatal
 from dmlc_core_tpu_torch.base.parameter import Parameter, field, get_env
-from dmlc_core_tpu_torch.base.timer import get_time
+from dmlc_core_tpu_torch.base.timer import block_until_ready_time, get_time
 from dmlc_core_tpu_torch.models.gbt_objectives import (
     _METRICS_BY_OBJECTIVE, EVAL_METRIC_NAMES, EVAL_METRICS, OBJECTIVE_NAMES,
     OBJECTIVES, fold_scale_pos_weight)
@@ -233,49 +241,141 @@ def _rounds_schedule(n_trees: int, eval_every: int = 0) -> Tuple[int, int]:
     return K, n_trees % K
 
 
+def _ingest_chunk_rows() -> int:
+    """Rows per ingest slab (``DMLC_INGEST_CHUNK_ROWS``, default 2M; 0
+    bins the whole matrix at once) — the JAX package's knob, whose
+    multiple is the mesh's device count there and 1 here (one process a
+    card)."""
+    rows = get_env("DMLC_INGEST_CHUNK_ROWS", 2_000_000, int)
+    return max(rows, 0)
+
+
+def _warmup_exec_mode() -> str:
+    """``DMLC_WARMUP_EXEC``: whether the cold-start handle also launches
+    each kernel of the boosting loop once after building and loading
+    them.  ``auto`` (default) launches on a CUDA device, where a kernel's
+    first launch pays CUDA's lazy module load (the card's one-time cost,
+    as the TPU's first dispatch paid its staging); ``1`` launches
+    wherever a kernel can run (the CPU has none); ``0`` builds and loads
+    only — the JAX package's knob and check."""
+    v = os.environ.get("DMLC_WARMUP_EXEC", "auto")
+    CHECK(v in ("auto", "0", "1"),
+          f"DMLC_WARMUP_EXEC must be 'auto', '0' or '1', got {v!r}")
+    return v
+
+
+def _untimed(phase: str, fn: Callable[..., Any], *args, **kwargs) -> Any:
+    """A phase run as is (the default of :meth:`HistGBT._grow_tree`)."""
+    return fn(*args, **kwargs)
+
+
+def _phase_timer(engine: str) -> Callable[..., Any]:
+    """``timed(phase, fn, *args)``: ``fn(*args)`` waited for on the
+    device (:func:`~dmlc_core_tpu_torch.base.timer.block_until_ready_time`)
+    and its seconds observed into ``gbt_phase_seconds{engine, phase}``
+    — the JAX external engine's ``DMLC_METRICS_GBT_PHASES`` timings."""
+    phase_hist = gbt_metrics()["phase"]
+
+    def timed(phase: str, fn: Callable[..., Any], *args, **kwargs) -> Any:
+        out, dt = block_until_ready_time(fn, *args, **kwargs)
+        phase_hist.observe(dt, engine=engine, phase=phase)
+        return out
+
+    return timed
+
+
 class _KernelWarmup:
-    """The port's compile step in the background: ``nvcc`` and the
-    ``ctypes`` load of the CUDA sources a fit launches (``ops/_build.py``)
-    on a thread, so that it overlaps the caller's datagen and binning.
+    """The port's cold-start handle (the JAX package's
+    ``_RoundProgramWarmup``), one a process and device
+    (:func:`_process_warmup`): on a CUDA device, ``nvcc`` and the
+    ``ctypes`` load of the CUDA sources the boosting loop launches
+    (``ops/_build.py``) on a thread, then, when ``launch``
+    (:func:`_warmup_exec_mode`), one launch of each of their kernels on
+    tiny tensors (``ops.histogram.warm_launch``, on a side stream), so
+    that the build and the modules' first load overlap the caller's cuts,
+    binning and upload.  The kernels do not depend on the data: every
+    later fit of the process finds the handle done and starts nothing.
+    On the CPU there is nothing to build and the handle is done at once.
+
     ``cache`` is ``"hit"`` when every library was built already,
     ``"miss"`` when this build makes one; ``seconds`` the thread's
-    duration once it has ended."""
+    duration once it has ended (None on the CPU); ``claimed`` whether a
+    fit has joined it — only that first fit reports its time
+    (:meth:`HistGBT._warmup`)."""
 
     #: the CUDA sources of the boosting loop's kernels
     SOURCES = ("histogram",)
 
-    def __init__(self) -> None:
+    def __init__(self, device: torch.device, launch: bool, n_features: int,
+                 n_bins: int, n_nodes: int) -> None:
         from dmlc_core_tpu_torch.ops import _build
 
+        self.device = device
+        self.builds = device.type == "cuda"
+        self.cache: Optional[str] = None
+        self.seconds: Optional[float] = None
+        self.claimed = False
+        self._error: Optional[BaseException] = None
+        self._thread: Optional[threading.Thread] = None
+        if not self.builds:
+            return
         self.cache = ("hit" if all(_build.is_built(n) for n in self.SOURCES)
                       else "miss")
-        self.seconds: Optional[float] = None
-        self._error: Optional[Exception] = None
         self._t0 = get_time()
-        self._thread = threading.Thread(target=self._run,
-                                        name="dmlc-kernel-warmup",
-                                        daemon=True)
+        self._thread = threading.Thread(
+            target=self._run, args=(launch, n_features, n_bins, n_nodes),
+            name="dmlc-kernel-warmup", daemon=True)
         self._thread.start()
 
-    def _run(self) -> None:
+    def _run(self, launch: bool, n_features: int, n_bins: int,
+             n_nodes: int) -> None:
         from dmlc_core_tpu_torch.ops._build import load_library
+        from dmlc_core_tpu_torch.ops.histogram import warm_launch
 
         try:
             for name in self.SOURCES:
                 load_library(name)
-        except Exception as e:  # noqa: BLE001 — re-raised by join()
+            if launch:
+                side = torch.cuda.Stream(self.device)
+                with torch.cuda.device(self.device), torch.cuda.stream(side):
+                    warm_launch(self.device, n_features, n_bins, n_nodes)
+                side.synchronize()
+        except BaseException as e:  # noqa: BLE001 — re-raised by join()
             self._error = e
         finally:
             self.seconds = get_time() - self._t0
 
     def join(self) -> float:
         """Wait for the build; returns the seconds waited.  Raises what
-        the build raised."""
+        the build raised, after dropping the handle from the process's,
+        so that the next fit builds again."""
         t0 = get_time()
-        self._thread.join()
+        if self._thread is not None:
+            self._thread.join()
         if self._error is not None:
+            with _WARMUPS_LOCK:
+                if _WARMUPS.get(str(self.device)) is self:
+                    del _WARMUPS[str(self.device)]
             raise self._error
         return get_time() - t0
+
+
+#: this process's cold-start handle of each device, by ``str(device)``
+_WARMUPS: Dict[str, _KernelWarmup] = {}
+_WARMUPS_LOCK = threading.Lock()
+
+
+def _process_warmup(device: torch.device, n_features: int, n_bins: int,
+                    n_nodes: int) -> _KernelWarmup:
+    """This process's :class:`_KernelWarmup` of ``device``, started by
+    the first call (whose shapes size the warm launch's tensors)."""
+    launch = _warmup_exec_mode() != "0"
+    with _WARMUPS_LOCK:
+        warm = _WARMUPS.get(str(device))
+        if warm is None:
+            warm = _WARMUPS[str(device)] = _KernelWarmup(
+                device, launch, n_features, n_bins, n_nodes)
+    return warm
 
 
 def _fetch_trees(trees: List[Dict[str, torch.Tensor]]
@@ -506,7 +606,9 @@ class HistGBT(_ExternalMemoryEngine):
         self.last_tree_times: List[float] = []
         #: cold-start breakdown of the last fit: bin = cuts, binning and
         #: upload (make_device_data); compile = the kernel build thread's
-        #: duration (start_warmup; None without it); warm_dispatch = the
+        #: duration (None when this fit claimed no build: the CPU,
+        #: DMLC_COLDSTART_OVERLAP=0, several ranks, a process whose
+        #: earlier fit joined the build already); warm_dispatch = the
         #: discarded warmup rounds' wall; warmup = the wait for the build
         #: thread + warm_dispatch; compile_cache = "hit" | "miss" | None
         self.last_bin_seconds: Optional[float] = None
@@ -514,12 +616,14 @@ class HistGBT(_ExternalMemoryEngine):
         self.last_warm_dispatch_seconds: Optional[float] = None
         self.last_warmup_seconds: Optional[float] = None
         #: {trace, dispatch, device} of warm_dispatch: trace = the wait for
-        #: a pending start_warmup's kernel build and load (0 without one),
+        #: the parked handle's kernel build and load (0 without one),
         #: dispatch = issuing the warmup rounds, device = waiting for them
         #: to finish
         self.last_warmup_breakdown: Optional[Dict[str, float]] = None
         self.last_compile_cache: Optional[str] = None
-        self._pending_warmup: Optional[_KernelWarmup] = None
+        #: (this process's cold-start handle, the key of the fit it was
+        #: parked for), joined by the next fit (:meth:`_maybe_start_warmup`)
+        self._pending_warmup: Optional[Tuple[_KernelWarmup, tuple]] = None
         self._train_preds: Optional[torch.Tensor] = None
         #: global rows of the last fit (train_margins' gather)
         self._train_rows = 0
@@ -736,7 +840,7 @@ class HistGBT(_ExternalMemoryEngine):
         yv = np.ascontiguousarray(eval_set[1], dtype=np.float32)
         CHECK_EQ(len(yv), len(Xv), "eval_set X/y row mismatch")
         self._check_nan_allowed(Xv, "eval_set")
-        bins_v = self._bin_matrix(Xv)
+        bins_v = self._bin_rows(Xv, 0, len(Xv))
         yv_d = torch.from_numpy(yv).to(self.device)
         if p.eval_metric:
             metric_fn, maximize = EVAL_METRICS[p.eval_metric]
@@ -807,6 +911,47 @@ class HistGBT(_ExternalMemoryEngine):
                  for lo in range(0, max(len(X), 1), self._PREDICT_BATCH)]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
+    def _bin_rows(self, X: np.ndarray, lo: int, hi: int,
+                  X_d: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """:meth:`_bins_of` rows ``[lo, hi)`` of numpy ``X`` on the
+        model's device — the chunked ingest of the JAX package's
+        ``_bin_ingest_streamed`` / ``_bin_eval_chunked``.  One call when
+        ``DMLC_INGEST_CHUNK_ROWS`` is 0 or covers the rows; else slabs of
+        that many rows, each binned into its columns of the feature-major
+        matrix allocated once.  The slabs are slices of ``X_d`` (``X``
+        already on the device, for the cuts) when given, else host slabs
+        through a :class:`~dmlc_core_tpu_torch.data.device_feed.DeviceFeed`
+        (pinned memory, a side stream, one slab ahead of its binning), so
+        the whole f32 slice is never on the device.  Binning is per
+        element: the bins are those of one call at any slab size."""
+        from dmlc_core_tpu_torch.data.device_feed import DeviceFeed
+
+        n = hi - lo
+        chunk = _ingest_chunk_rows()
+        if chunk <= 0 or n <= chunk:
+            x = (X_d[lo:hi] if X_d is not None
+                 else torch.from_numpy(X[lo:hi]).to(self.device))
+            return self._bins_of(x)
+        starts = range(lo, hi, chunk)
+
+        def fill(slabs) -> torch.Tensor:
+            out, at = None, 0
+            for x in slabs:
+                b = self._bins_of(x)
+                if out is None:
+                    out = torch.empty(b.shape[0], n, dtype=b.dtype,
+                                      device=b.device)
+                out[:, at:at + b.shape[1]] = b
+                at += b.shape[1]
+            CHECK_EQ(at, n, "ingest slabs do not cover the rows")
+            return out
+
+        if X_d is not None:
+            return fill(X_d[a:min(a + chunk, hi)] for a in starts)
+        with DeviceFeed(lambda: (X[a:min(a + chunk, hi)] for a in starts),
+                        self.device, depth=1, host_prefetch=2) as feed:
+            return fill(iter(lambda: next(feed, None), None))
+
     def _check_nan_allowed(self, X: np.ndarray, where: str) -> None:
         """NaN given to a model not in missing mode fails loudly: plain
         binning would put NaN in the top value bin."""
@@ -868,9 +1013,15 @@ class HistGBT(_ExternalMemoryEngine):
         weight = fold_scale_pos_weight(p, y, weight)
         host = _host_bin_requested()
         lo, hi = self.mesh.row_range(n)
+        # the kernels' build starts now, beside cuts, binning and upload
+        self._maybe_start_warmup(F, hi - lo)
         w = (None if weight is None else
              torch.from_numpy(np.ascontiguousarray(weight, np.float32)))
-        X_d = None if host else torch.from_numpy(X).to(self.device)
+        # the device route uploads the whole f32 X only when the cuts are
+        # computed here (then binned in slices of it); with cuts, host
+        # slabs go up one ahead of their binning (_bin_rows)
+        X_d = (torch.from_numpy(X).to(self.device)
+               if not host and cuts is None and self.cuts is None else None)
         # missing mode: n_bins-1 value bins, bin n_bins-1 for NaN
         cut_bins = p.n_bins - 1 if missing else p.n_bins
         if cuts is not None:
@@ -896,7 +1047,7 @@ class HistGBT(_ExternalMemoryEngine):
             if host:
                 return torch.from_numpy(_host_bin_t(X[a:b], cuts_np,
                                                     missing=missing))
-            return self._bins_of(X_d[a:b])
+            return self._bin_rows(X, a, b, X_d)
 
         bins_t = binned(lo, hi).to(self.device)
         layout = None
@@ -1035,7 +1186,7 @@ class HistGBT(_ExternalMemoryEngine):
                  "cuts must be standard mode (n_bins-1 boundaries) for "
                  "the streamed ingest")
         n = int(n_rows)
-        self.start_warmup(n, F)
+        self._maybe_start_warmup(F, n)
 
         # -- pass 2: bin each slab on the card into its rows -----------
         host = _host_bin_requested()
@@ -1104,21 +1255,54 @@ class HistGBT(_ExternalMemoryEngine):
         self.last_bin_seconds = get_time() - t_bin
         return dd
 
+    def _warm_key(self, n_features: int, n_rows: int,
+                  eval_every: int = 0) -> tuple:
+        """What a fit of ``n_rows`` × ``n_features`` on this model runs
+        (shapes, rounds schedule, parameters): a fit claims the time of
+        the cold-start handle parked for it only when this is equal, as
+        the JAX package uses a warmed program only when it is the one it
+        dispatches.  It never starts, defers or replaces a build."""
+        p = self.param
+        K, rem = _rounds_schedule(p.n_trees, eval_every)
+        return (n_features, n_rows, K, rem, p.to_dict())
+
+    def _maybe_start_warmup(self, n_features: int, n_rows: int,
+                            eval_every: int = 0
+                            ) -> Optional[_KernelWarmup]:
+        """Park this process's cold-start handle (:func:`_process_warmup`,
+        started here if no fit has started it) on
+        ``self._pending_warmup`` with the key of the fit it is parked for,
+        for :meth:`_warmup` to join.  A handle already parked is kept
+        with its key (the bench parks one before its data exists).
+
+        ``DMLC_COLDSTART_OVERLAP=0`` restores the inline build at the
+        first round exactly; a data axis of several ranks stays inline
+        too, as the JAX package's does."""
+        if os.environ.get("DMLC_COLDSTART_OVERLAP", "1") == "0":
+            return None
+        if coll.world_size() > 1 or self.mesh.size > 1:
+            return None
+        if self._pending_warmup is None:
+            p = self.param
+            warm = _process_warmup(self.device, n_features, p.n_bins,
+                                   max((1 << p.max_depth) >> 1, 1))
+            self._pending_warmup = (
+                warm, self._warm_key(n_features, n_rows, eval_every))
+        return self._pending_warmup[0]
+
     def start_warmup(self, n_rows: int, n_features: int) -> bool:
         """Start building and loading the boosting loop's CUDA kernels on
-        a thread, before the training data exists (the bench's cold-start
-        overlap: the build runs while datagen and binning do).  The next
-        :meth:`fit_device` joins it and reports it as
-        ``last_compile_seconds`` / ``last_compile_cache``; without it the
-        first round builds the kernels.  The build does not depend on the
-        data's shape: ``n_rows``/``n_features`` only mirror the JAX
-        signature.  Returns False on the CPU (nothing to build) or when a
-        warmup is already pending."""
-        del n_rows, n_features
-        if self.device.type != "cuda" or self._pending_warmup is not None:
-            return False
-        self._pending_warmup = _KernelWarmup()
-        return True
+        a thread before the training data exists (the bench's cold-start
+        overlap: the build runs while datagen and binning do).  Rows are
+        this process's, as :meth:`make_device_data` will hold them: the
+        handle parked here is the one it keeps and :meth:`fit_device`
+        joins, reporting ``last_compile_seconds`` /
+        ``last_compile_cache`` when the fit is the one it was parked for.
+        Returns whether a kernel build is parked: False on the CPU
+        (nothing to build), under ``DMLC_COLDSTART_OVERLAP=0`` and on
+        several ranks."""
+        warm = self._maybe_start_warmup(n_features, n_rows)
+        return warm is not None and warm.builds
 
     def _compute_bin_layout(self, bins_t: torch.Tensor, n_features: int,
                             sample: Optional[np.ndarray]
@@ -1224,6 +1408,9 @@ class HistGBT(_ExternalMemoryEngine):
         the early-stopping state is reset.  ``eval_every`` makes chunk
         ends fall on its multiples (:func:`_rounds_schedule`) and logs
         this rank's training loss there."""
+        # nothing parked by make_device_data (or an earlier fit took it):
+        # park this process's build now; the join below reports it
+        self._maybe_start_warmup(dd["n_features"], dd["n"], eval_every)
         if resume and self.trees:
             CHECK(self.cuts is not None, "resume-fit without cuts")
             n_prior = len(self.trees)
@@ -1307,10 +1494,18 @@ class HistGBT(_ExternalMemoryEngine):
                 return self._grow_tree_lossguide(bins_t, g, h, layout,
                                                  leaves, heap, feat_mask)
         else:
+            # DMLC_METRICS_GBT_PHASES=1 (metrics on) times each phase of
+            # the external chunked route's trees, waiting for the device
+            # after each: off, nothing synchronises
+            timed = (_phase_timer("external")
+                     if "chunks" in dd and _metrics.enabled()
+                     and os.environ.get("DMLC_METRICS_GBT_PHASES", "0") == "1"
+                     else _untimed)
+
             def grow(g, h, feat_mask):
                 tree, deltas = self._grow_tree(
                     [(get, g[lo:hi], h[lo:hi]) for get, lo, hi in chunks],
-                    layout, feat_mask, mono)
+                    layout, feat_mask, mono, timed)
                 return tree, (deltas[0] if len(deltas) == 1
                               else torch.cat(deltas))
 
@@ -1361,7 +1556,8 @@ class HistGBT(_ExternalMemoryEngine):
                 out.append(key_r)
             return out
 
-        self._warmup(boost, preds, chunk_keys(n_prior, warmup_rounds))
+        self._warmup(boost, preds, chunk_keys(n_prior, warmup_rounds),
+                     self._warm_key(F, dd["n"], eval_every))
         # bin bytes the kept rounds upload (non-resident external chunks)
         self.last_upload_bytes = 0
         K, rem = _rounds_schedule(p.n_trees, eval_every)
@@ -1436,19 +1632,28 @@ class HistGBT(_ExternalMemoryEngine):
             feat_mask = scores <= kth
         return keep, feat_mask
 
-    def _warmup(self, boost, preds: torch.Tensor, keys: List) -> None:
-        """Join a pending :meth:`start_warmup`, then run one discarded
+    def _warmup(self, boost, preds: torch.Tensor, keys: List,
+                warm_key: tuple) -> None:
+        """Join the parked cold-start handle, then run one discarded
         round of ``boost`` per entry of ``keys`` (its sampling key, or
         None) on a copy of ``preds``; sets the ``last_warmup_*`` /
-        ``last_compile_*`` attributes."""
+        ``last_compile_*`` attributes.  The compile time is claimed by the
+        first fit that joins the process's handle, and only when the
+        handle was parked for it (``warm_key``: not when a parameter
+        changed since, or the eval schedule or the rows differ); later
+        fits find the kernels ready.  A failed build raises here."""
         rounds = len(keys)
-        warm, self._pending_warmup = self._pending_warmup, None
+        parked, self._pending_warmup = self._pending_warmup, None
         join_wait = 0.0
         self.last_compile_seconds = self.last_compile_cache = None
-        if warm is not None:
+        if parked is not None:
+            warm, key = parked
             join_wait = warm.join()
-            self.last_compile_seconds = warm.seconds
-            self.last_compile_cache = warm.cache
+            with _WARMUPS_LOCK:
+                first, warm.claimed = not warm.claimed, True
+            if warm.builds and first and key == warm_key:
+                self.last_compile_seconds = warm.seconds
+                self.last_compile_cache = warm.cache
         t_w = get_time()
         dispatch_s = device_s = 0.0
         if rounds > 0:
@@ -1475,7 +1680,8 @@ class HistGBT(_ExternalMemoryEngine):
                                             torch.Tensor, torch.Tensor]],
                    layout: Optional[_bl.BinLayout] = None,
                    feat_mask: Optional[torch.Tensor] = None,
-                   mono: Optional[np.ndarray] = None
+                   mono: Optional[np.ndarray] = None,
+                   timed: Callable[..., Any] = _untimed
                    ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
         """One depth-wise tree → (tree arrays, each chunk's margin delta).
 
@@ -1508,7 +1714,13 @@ class HistGBT(_ExternalMemoryEngine):
         root), then bounds its children: on a real split (``thr < B-1``)
         of a constrained feature the midpoint of the two clipped child
         weights caps one child and floors the other; leaves are clipped
-        into their bounds — the JAX package's propagation."""
+        into their bounds — the JAX package's propagation.
+
+        ``timed(phase, fn, *args)`` runs each phase — ``hist`` (a chunk's
+        descend and histogram; a fused round, its split scan included),
+        ``split`` (the split scan), ``leaf`` (a chunk's final descend),
+        ``apply`` (a chunk's leaf gather) — the JAX external engine's
+        phase names (:func:`_phase_timer`; by default untimed)."""
         p = self.param
         depth, B = p.max_depth, p.n_bins
         lam, alpha = p.reg_lambda, p.reg_alpha
@@ -1552,14 +1764,16 @@ class HistGBT(_ExternalMemoryEngine):
                                            B, scales=scales, layout=layout,
                                            sync=hook)
 
-                hist = sync.f32_sync(_sum_chunks(chunks, root,
-                                                 sync.acc_sync))
-                scores = score_fn(hist)
+                hist = sync.f32_sync(_sum_chunks(
+                    chunks, lambda *a: timed("hist", root, *a),
+                    sync.acc_sync))
+                scores = timed("split", score_fn, hist)
             elif sync.fused_rounds and len(chunks) == 1:
-                nodes[0], hist, scores = fused_round(
-                    chunks[0][0](), nodes[0], feat, thr, gs[0], hs[0],
-                    prev_hist, n_nodes >> 1, B, score_fn=score_fn,
-                    by_node=True, scales=scales, layout=layout)
+                nodes[0], hist, scores = timed(
+                    "hist", fused_round, chunks[0][0](), nodes[0], feat,
+                    thr, gs[0], hs[0], prev_hist, n_nodes >> 1, B,
+                    score_fn=score_fn, by_node=True, scales=scales,
+                    layout=layout)
             else:
                 def left_of(c, bins, hook, _f=feat, _t=thr, _d=dirv,
                             _n=n_nodes >> 1):
@@ -1570,9 +1784,11 @@ class HistGBT(_ExternalMemoryEngine):
                         sync=hook)
                     return left
 
-                left = _sum_chunks(chunks, left_of, sync.acc_sync)
+                left = _sum_chunks(chunks,
+                                   lambda *a: timed("hist", left_of, *a),
+                                   sync.acc_sync)
                 hist = sibling_pairs(sync.f32_sync(left), prev_hist)
-                scores = score_fn(hist)
+                scores = timed("split", score_fn, hist)
             prev_hist = hist
             if missing:
                 feat, thr, dirv, gn = scores[:4]
@@ -1599,8 +1815,9 @@ class HistGBT(_ExternalMemoryEngine):
         if missing:
             tree["dir"] = torch.stack(dirs)
         # final descend into the leaf layer
-        return tree, [leaf[_advance_node(bins(), nodes[c], feat, thr, layout,
-                                         dirv, miss_bin)]
+        return tree, [timed("apply", leaf.__getitem__,
+                            timed("leaf", _advance_node, bins(), nodes[c],
+                                  feat, thr, layout, dirv, miss_bin))
                       for c, (bins, _, _) in enumerate(chunks)]
 
     def _grow_tree_lossguide(self, bins_t: torch.Tensor, g: torch.Tensor,

@@ -32,6 +32,15 @@ bounded device memory.
 Leaves come from the deepest level's summed histogram at each split, as
 in the in-core fit (the JAX chunked route takes separate leaf sums; in
 the port those equal the in-core fit's only this way).
+
+Under ``DMLC_METRICS_GBT_PHASES=1`` (with metrics on) the chunked route
+waits for the device after each phase of a tree — each chunk's descend
+and histogram, the split scan, each chunk's final descend and its leaf
+gather — and observes its seconds into ``gbt_phase_seconds{engine=
+"external", phase="hist" | "split" | "leaf" | "apply"}``, the JAX
+engine's names (``HistGBT._grow_tree``); off (the default), nothing
+synchronises.  The kernels' build starts after pass 2, beside the pages'
+concat and upload (the cold-start handle of ``HistGBT``).
 """
 
 from __future__ import annotations
@@ -158,6 +167,9 @@ class _ExternalMemoryEngine:
         self.last_bin_seconds = get_time() - t1
 
         N = sum(len(pg["y"]) for pg in pages)
+        # the kernels' build starts now, beside the pages' concat and
+        # upload (the cold-start handle the boosting loop joins)
+        self._maybe_start_warmup(F, N, eval_every)
         budget = get_env("DMLC_TPU_EXTERNAL_DEVICE_BUDGET", 6 << 30, int)
         row_state = _ROW_STATE[0] + _ROW_STATE[1] * K
         no_sampling = p.subsample >= 1.0 and p.colsample_bytree >= 1.0

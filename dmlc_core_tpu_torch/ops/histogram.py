@@ -829,6 +829,37 @@ def fused_descend_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
 fused_descend_kernel.launches = 0
 
 
+def warm_launch(device: torch.device, n_features: int, n_bins: int,
+                n_nodes: int) -> None:
+    """Launch each kernel of the boosting loop once on tiny tensors
+    (64 rows of ``n_features``) on ``device``'s current stream: the
+    accumulation at 1 and ``n_nodes`` nodes (the deepest level's
+    parents, whose plan may take the other instantiation), the epilogue
+    without and with a parent, and the descend.  CUDA loads a kernel's
+    module at its first launch; the cold-start handle
+    (``models.histgbt._KernelWarmup``) calls this so that the first round
+    does not pay it.  The results are thrown away and no wrapper's count
+    moves: these are no fit's work.  Counts its calls in
+    ``warm_launch.launches``."""
+    n = 64
+    bins = torch.zeros(n_features, n, dtype=torch.uint8, device=device)
+    node = torch.zeros(n, dtype=torch.int32, device=device)
+    g = torch.ones(n, dtype=torch.float32, device=device)
+    for nodes in sorted({1, max(n_nodes, 1)}):
+        acc = _accum_kernel(bins, node, g, g, nodes, n_bins, 0, 0, False,
+                            None)
+        _epilogue_kernel(acc, None, nodes, 0, 0)
+        prev = torch.zeros(2, nodes, n_features, n_bins,
+                           dtype=torch.float32, device=device)
+        _epilogue_kernel(acc, prev, nodes, 0, 0)
+    split = torch.zeros(1, dtype=torch.int32, device=device)
+    _descend_kernel(bins, node, split, split, True, None)
+    _count(warm_launch, "launches")
+
+
+warm_launch.launches = 0
+
+
 def launch_counts() -> Dict[str, int]:
     """Every wrapper's launches in this process so far, by the names of
     ``chip_smoke.py``'s kernels line."""

@@ -11,16 +11,9 @@ JAX package's top level come from the port's modules that define them),
 ``Stream.create``, the serializer, ``json_io``, the blocking queue, the
 threaded iterator, RecordIO, the input splits, ``Stream.as_file``) and
 ``tests/test_concurrency_ext.py`` (``ThreadGroup``, ``ThreadLocalStore``,
-the tracer and the annotations), each whole but for ``test_base.py``'s
-tests of what the port's copies of ``base/parameter.py``,
-``base/registry.py`` and ``base/timer.py`` do not hold (they are the
-parts of those modules the port uses): ``Parameter``'s JSON save and
-load, ``update_dict``, field docs, ``__doc__`` and hash
-(``TestParameter``'s ``test_dict_fields_docs``, ``test_update_dict``,
-``test_json_round_trip``, ``test_hashable_for_jit_static_arg``;
-``test_param_doc_string``, ``test_param_hashable_with_list_field``),
-``FunctionRegEntry`` (``TestRegistry.test_register_find_list``) and
-``Timer`` (``TestTimer``).
+the tracer and the annotations), each whole: ``Parameter``'s JSON save
+and load, ``update_dict``, field docs and hash, ``FunctionRegEntry`` and
+``Timer`` included.
 
 The port's own check: the PS wire schemas are the JAX package's, and the
 ``base`` and ``io`` packages export the JAX package's names for these
@@ -61,20 +54,9 @@ _BASE = load_port("test_base.py", [(
     "                                        LOG)\n"
     "from dmlc_core_tpu.base.parameter import Parameter, field, get_env\n"
     "from dmlc_core_tpu.base.registry import Registry\n"
-    "from dmlc_core_tpu.base.timer import get_time\n"),
-    ("from dmlc_core_tpu.base.timer import Timer\n", "")])
-#: tests of the parts of the JAX package's parameter, registry and timer
-#: that the port's copies leave out (they hold what the port uses)
-_BASE_LEFT_OUT = {
-    "TestParameter": ("test_dict_fields_docs", "test_update_dict",
-                      "test_json_round_trip",
-                      "test_hashable_for_jit_static_arg"),
-    "TestRegistry": ("test_register_find_list",)}
-export(globals(), _BASE,
-       [n for n in dir(_BASE) if n.startswith("Test") and n != "TestTimer"],
-       [n for n in dir(_BASE) if n.startswith("test_") and n not in (
-           "test_param_doc_string", "test_param_hashable_with_list_field")],
-       left_out=_BASE_LEFT_OUT)
+    "from dmlc_core_tpu.base.timer import get_time\n")])
+export(globals(), _BASE, [n for n in dir(_BASE) if n.startswith("Test")],
+       [n for n in dir(_BASE) if n.startswith("test_")])
 _IO = load_port("test_io.py")
 export(globals(), _IO, [n for n in dir(_IO) if n.startswith("Test")],
        [n for n in dir(_IO) if n.startswith("test_")])

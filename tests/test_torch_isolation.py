@@ -246,6 +246,37 @@ def test_last_host_modules_load_no_jax(group):
     assert "LOADED []" in res.stdout, res.stdout
 
 
+def test_base_api_modules_load_no_jax():
+    # dmlc-core's parameter, registry and timer API and the knob
+    # registry stand alone, used as well as imported
+    code = (
+        "import sys\n"
+        "from dmlc_core_tpu_torch.base import knobs\n"
+        "from dmlc_core_tpu_torch.base.parameter import Parameter, field\n"
+        "from dmlc_core_tpu_torch.base.registry import (FunctionRegEntry,\n"
+        "                                               Registry)\n"
+        "from dmlc_core_tpu_torch.base.timer import Timer, "
+        "block_until_ready_time\n"
+        "class P(Parameter):\n"
+        "    k = field(int, default=1, description='k')\n"
+        "p = P(k=3)\n"
+        "q = P()\n"
+        "q.load_json(p.save_json())\n"
+        "assert q == p and hash(q) == hash(p) and 'k' in P.doc_string()\n"
+        "reg = Registry('isolation_probe')\n"
+        "reg.register('f')(lambda: 2)\n"
+        "assert isinstance(reg['f'], FunctionRegEntry) and reg['f']() == 2\n"
+        "with Timer() as t:\n"
+        "    block_until_ready_time(lambda: 1)\n"
+        "assert t.elapsed >= 0 and knobs.get('DMLC_INGEST_CHUNK_ROWS')\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}\n"
+        "             or m.startswith('jax'))\n"
+        "print('LOADED', bad)\n")
+    res = _run_clean(code)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
+
+
 def test_no_finished_kernel_in_source():
     # the port's kernels are its own: no fused attention operator, no
     # torch.compile, no package of finished kernels anywhere in it
