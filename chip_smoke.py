@@ -21,7 +21,17 @@ and the script exits non-zero without the final ``ok`` line:
    ``torch.profiler`` trace, beside its bound and, where one PyTorch call
    computes the same function, that call (``fused_descend`` also beside
    the unfused chain it replaces, ``descend_kernel`` then ``hist`` over
-   left children, by CUDA events and device time);
+   left children, by CUDA events and device time); ``descend_kernel`` at
+   training's final descend (n_prev 32) beside its bound and its sector
+   bound (32 bytes of each distinct split feature a warp); and
+   ``forest_kernel`` (``ops/forest.py``, every tree of a forest in one
+   launch) on 100 random trees of depth 6 over those bins, against its
+   plain version and the per-level chain it replaced (``descend_kernel``
+   a level), bit for bit, timed beside both and its two bound terms
+   (bytes; trees × depth shared-memory lookups a row), then on a
+   depth-12 forest of u32 records, the softmax forest of covtype's shape
+   (7 classes), a missing-mode forest on 1,000,003 rows and in its
+   leaves mode;
 3. kernels_layout — the same for the LAYOUT MODES (``hist_layout``,
    ``fused_round_layout`` at n_prev 1, 4, 16) on the physical matrices of
    configurations 2a (12 rows: two bundles) and 2b (34 rows: 22 int4
@@ -66,8 +76,8 @@ and the script exits non-zero without the final ``ok`` line:
    fit of a 100k-row slice on the card and on the CPU: equal files;
 6d. resume — configuration 1 on the HIGGS-like rows: 3 trees, then
    ``fit_device(resume=True)`` for 2 more, writes phase 5's file; the
-   3-tree ensemble replayed on the handle (``descend_kernel``, 18
-   launches) equals the carried margins bit for bit; ``load_model`` of a
+   3-tree ensemble replayed on the handle (one ``forest_kernel`` launch,
+   no ``descend_kernel``) equals the carried margins bit for bit; ``load_model`` of a
    saved 3-tree file, then ``fit``, writes the same file;
 6e. sampling — ``subsample=0.8``, ``colsample_bytree=0.8``, seed 3, the
    depth-wise fit on the HIGGS-like rows: each round's keep and feature
@@ -123,7 +133,8 @@ and the script exits non-zero without the final ``ok`` line:
    ``fused_round`` at n_prev 1..16 against their plain versions on the
    rank fit's own padded matrix (``[136, 2,720,000]``, its accumulation
    plan) with ``rank:ndcg`` g/h of seeded margins;
-6i. introspect — ``predict_leaf`` on the card equal to the CPU's, and
+6i. introspect — ``predict_leaf`` on the card (one ``forest_kernel``
+   launch) equal to the CPU's, and
    ``dump_model`` / ``feature_importances`` equal, for phase 4's model
    and 6c's depth-wise softmax model;
 7. cross-device — depth-wise, 1, 2a, 2b and missing on 100k-row slices, on
@@ -233,13 +244,14 @@ and the script exits non-zero without the final ``ok`` line:
 12f. serve — phase 5's model (configuration 1) in a ``ModelRegistry``,
     its ladder 8..256 warmed: at every bucket (full and partly padded)
     the served predictions bit-identical to ``predict`` and to the CPU's
-    ``predict`` of the same file, 30 ``descend_kernel`` launches (trees ×
-    depth) a batch; ``descend_kernel`` against ``descend_plain`` at a
-    256-row batch's shapes, every tree and level, timed beside its bound;
-    the HTTP frontend end to end (4 clients, a hot swap to phase 4's
-    model under traffic, every response bit-identical to the version it
-    reports, trees × depth launches a batch, the counts set to 0 just
-    before and read just after); GBLinear, FM and SparseHistGBT through
+    ``predict`` of the same file, one ``forest_kernel`` launch and no
+    ``descend_kernel`` a batch; ``forest_kernel`` against its plain
+    version and the per-level chain at every bucket (full and partly
+    padded) with that model and the port bench's (20 trees of depth 4),
+    timed at 256 rows beside both and its bound; the HTTP frontend end to
+    end (4 clients, a hot swap to phase 4's model under traffic, every
+    response bit-identical to the version it reports, one forest launch a
+    batch, the counts set to 0 just before and read just after); GBLinear, FM and SparseHistGBT through
     ``ModelRunner``, bit-identical to their ``predict``; the port
     bench's ``--serve`` as a child process at its defaults;
 12g. tenancy — 12 ``HistGBT`` tenants (3..6 trees, depth 3..6, each its
@@ -250,16 +262,16 @@ and the script exits non-zero without the final ``ok`` line:
     bit-identical to that tenant's ``predict`` on the card and to the
     CPU's ``predict`` of the same bytes; evictions and restores both > 0,
     each tenant's probe answered alike before and after the traffic;
-    ``descend_kernel`` launched trees × depth a batch, plus trees × depth
-    × the ladder's 4 buckets for each page-in's warmup (the counts set to
-    0 just before and read just after); ``torch.cuda.memory_allocated``
+    ``forest_kernel`` launched once a batch, plus once a bucket of the
+    ladder's 4 for each page-in's warmup, ``descend_kernel`` never (the
+    counts set to 0 just before and read just after); ``torch.cuda.memory_allocated``
     with the cap full and after the run, the page-ins' wall times; then
     the port bench's ``--tenants`` as a child process at its defaults;
 12h. fleet — (a) in process, on the card: a ``FleetTracker``, 3
     ``Replica(device="cuda")`` holding the port bench's v1 (5 trees,
     depth 4) and a ``FleetRouter``: sequential routed predicts
     bit-identical to the direct ``predict`` of the version each response
-    reports (and to the CPU's), trees × depth launches a batch, the
+    reports (and to the CPU's), one ``forest_kernel`` launch a batch, the
     routed latency; one replica killed uncleanly under 3 clients' traffic
     (zero dropped, zero wrong); a staged rollout to v2 (10 trees) under
     traffic converging on v2; no replica answered a predict with 500
@@ -274,15 +286,16 @@ and the script exits non-zero without the final ``ok`` line:
     at depth 4 and 32 bins) behind a ``ModelPublisher`` with a 4096-row
     holdout: 6 refreshes with the launch counts set to 0 just before and
     read just after (``hist`` once and ``fused_round`` three times a
-    tree, ``descend_kernel`` for the margin replay and the gate); the
+    tree, ``descend_kernel`` into each tree's leaves, ``forest_kernel``
+    for the margin replay and the gate); the
     card's model file after 3 refreshes equal to the CPU's; the
     warm-start contract on the card (window 1, decay 1 over chunks A
     then B writes ``fit(A); fit(B)``'s file); two refreshes on
     flipped labels rolled back by the gate, traffic on the good
     version; then one refresh at ``chunk_rows`` 262,144 (window 2:
     524,288 × 28) with its tail, decode, fit and publish seconds, and
-    ``hist``, ``fused_round`` and ``descend_kernel`` held against their
-    plain versions at that window's shapes; then the port bench's
+    ``hist``, ``fused_round``, ``descend_kernel`` and ``forest_kernel``
+    held against their plain versions at that window's shapes; then the port bench's
     ``--stream`` as a child process at its defaults (staleness
     percentiles, at least one refresh published);
 12j. ps — an in-process scheduler and 2 servers, 2 worker threads each
@@ -375,17 +388,19 @@ and the script exits non-zero without the final ``ok`` line:
     11, 11a and 11b's Ulysses run for attention — each beside its part and
     the kernels' times at the Ulysses shard —, phase 12's timing pass for the
     B5 variants, phases
-    12f-12h's HTTP runs for ``descend``, phase 12i's refreshes for
-    ``hist``, ``fused_round`` and ``descend``, phase 12k2's three runs
-    for the same three (``launches_submit``), phase 12m's drill for
-    the same three, phase 13a's ranks for ``hist``, ``fused_round``,
-    ``fused_descend`` and ``descend`` (``launches_multichip``) and phase
-    13b's examples and drills for the same three
+    12f-12h's HTTP runs for ``forest``, phase 12i's refreshes for
+    ``hist``, ``fused_round``, ``descend`` and ``forest``, phase 12k2's
+    three runs for the first three (``launches_submit``), phase 12m's
+    drill for all four, phase 13a's ranks for ``hist``, ``fused_round``,
+    ``fused_descend``, ``descend`` and ``forest``
+    (``launches_multichip``) and phase 13b's examples and drills for
+    ``hist``, ``fused_round``, ``descend`` and ``forest``
     (``launches_examples``, ``launches_drills``); ``descend_dir`` is
     ``descend_kernel``'s direction mode, B2's descend on the missing
-    path, ``descend`` its plain mode, a served batch's and a refresh's
-    margin replay), then the card's name and power limit, then the
-    ``ok`` line.
+    path, ``descend`` its plain mode, training's final descend;
+    ``forest`` is every prediction: a served batch, a margin replay, an
+    eval set's chunk, ``predict_leaf``), then the card's name and power
+    limit, then the ``ok`` line.
 
 The fit phases (3b-8) run with ``DMLC_TPU_ROUNDS_PER_DISPATCH=1``: each
 tree is its own chunk, fetched on its own, so ``last_tree_times`` stay
@@ -426,6 +441,17 @@ SEED = 0
 #: n_prev of the levels of trees deeper than the main path's (depth 7's
 #: last level, the first level past shared memory, ``max_depth=12``'s last)
 DEEP_N_PREV = (32, 64, 2048)
+#: the forest kernel's checks (``ops/forest.py``): 100 random trees of
+#: depth 6 on the flagship's rows; a depth-12 forest (rows, trees); the
+#: softmax forest of covtype's shape (rounds × 7 classes, depth 6, 54
+#: features); a missing-mode forest on rows that are no multiple of 16
+#: (rows, trees, depth); predict_leaf's rows; the JAX package's chunk
+FOREST_TREES = 100
+FOREST_DEEP = (1_000_000, 8)
+FOREST_SOFTMAX_ROUNDS = 5
+FOREST_MISSING = (1_000_003, 20, MAX_DEPTH)
+FOREST_LEAF_ROWS = 100_000
+TREE_CHUNK = 64
 #: covtype's row count and schema (UCI Covertype / LIBSVM covtype.binary):
 #: 10 integer columns, 4 one-hot wilderness columns at these counts, 40
 #: one-hot soil columns
@@ -603,6 +629,11 @@ COLD_KNOBS = ("DMLC_COLDSTART_OVERLAP", "DMLC_WARMUP_EXEC",
 #: the cold-start handle's thread beside cuts and binning
 COLD_CHILDREN = (("inline", {"DMLC_COLDSTART_OVERLAP": "0"}),
                  ("overlap", {}))
+#: each child's nvcc builds and library loads: the inline fit loads the
+#: histogram kernels at its first round; the handle builds and loads
+#: histogram.cu and forest.cu side by side (an eval set's forest walk
+#: then waits on nothing)
+COLD_BUILDS = {"inline": 1, "overlap": 2}
 #: ``--coldstart-runs N`` also loads the overlap child's build without
 #: and with the handle's warm launch (a cache hit, no nvcc)
 COLD_HITS = (("hit_exec0", {"DMLC_WARMUP_EXEC": "0"}),
@@ -647,9 +678,12 @@ SK_TREES = 20
 SK_SLICE = 20_000
 SK_SPARSE_ROWS = 100_000
 SK_MIN_ACC = 0.7
-#: serve: the bucket ladder of the port bench's --serve
+#: serve: the bucket ladder of the port bench's --serve, and its model
+#: (trees of depth 4, 64 bins, on 50,000 rows of 28 features, seed 11)
 SERVE_MAX_BATCH = 256
 SERVE_MIN_BUCKET = 8
+SERVE_BENCH_TREES = 20
+SERVE_BENCH_DEPTH = 4
 SERVE_CLIENTS = 4
 SERVE_PHASE_S = 1.5
 SERVE_TIMEOUT = 300
@@ -1150,7 +1184,8 @@ def summarize(cases, library_ms=None):
     measured), the largest error."""
     mean = {k: statistics.fmean(c[k] for c in cases)
             for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                      "unfused_chain_ms", "chain_device_ms")
+                      "unfused_chain_ms", "chain_device_ms",
+                      "sector_bound_ms")
             if k in cases[0]}
     by = {c["bound_by"] for c in cases}
     return {**mean, "library_ms": library_ms,
@@ -1186,7 +1221,7 @@ def check_inf_binning(torch, np):
           "nan_cuts": nan_cuts, "rows_differing": differ})
 
 
-def phase_kernels(torch, H, rates):
+def phase_kernels(torch, np, H, rates):
     """Each kernel against its plain version at the main path's shapes."""
     n, F, B = ROWS, FEATURES, N_BINS
     bins, g, h, masked, gen, kg, kh = kernel_inputs(torch, H)
@@ -1211,6 +1246,13 @@ def phase_kernels(torch, H, rates):
         emit({"phase": "kernel", "name": "fused_descend", "n": n, "F": F,
               "B": B, **case})
     out["fused_descend"] = summarize(cases)
+    # -- descend: training's final descend, a depth-6 tree's last level ---
+    case = check_descend(torch, H, bins, masked, gen, 1 << (MAX_DEPTH - 1),
+                         rates)
+    emit({"phase": "kernel", "name": "descend", "n": n, "F": F, "B": B,
+          **case})
+    out["descend"] = summarize([case])
+    out["forest"] = phase_forest(torch, np, bins, rates)
     return out
 
 
@@ -1361,25 +1403,221 @@ def levers(env):
 
 
 # ---------------------------------------------------------------------------
+# the forest kernel (ops/forest.py): every tree of a forest in one launch
+# ---------------------------------------------------------------------------
+
+def random_forest(np, rng, T, depth, F, B, K=1, missing=False, thr_lo=0):
+    """``T`` random depth-wise trees (``K`` classes each) in the model's
+    per-tree arrays: features in ``[0, F)``, thresholds in ``[thr_lo,
+    B-1]`` (``B-1``: all left; −1: all right), leaves of either sign,
+    padding slots 0, directions in missing mode."""
+    half = max((1 << depth) >> 1, 1)
+    shape = (K,) if K > 1 else ()
+    live = np.zeros(shape + (depth, half), bool)
+    for lv in range(depth):
+        live[..., lv, :1 << lv] = True
+    out = []
+    for _ in range(T):
+        t = {"feat": np.where(live, rng.integers(0, F, live.shape), 0
+                              ).astype(np.int32),
+             "thr": np.where(live, rng.integers(thr_lo, B, live.shape), 0
+                             ).astype(np.int32),
+             "leaf": rng.normal(size=shape + (1 << depth,)
+                                ).astype(np.float32)}
+        if missing:
+            t["dir"] = np.where(live, rng.integers(0, 2, live.shape), 0
+                                ).astype(np.int32)
+        out.append(t)
+    return out
+
+
+def f32_equal(torch, a, b) -> bool:
+    """The same bytes (−0.0 against +0.0 differs)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.int32),
+                            b.contiguous().view(torch.int32)))
+
+
+def chain_chunks(torch, np, trees, device):
+    """The per-level chain's tables: ``(stacked chunk, short)`` a chunk
+    of ``TREE_CHUNK`` trees, on ``device`` (single output)."""
+    return [({k: torch.from_numpy(np.stack([t[k] for t in
+                                             trees[lo:lo + TREE_CHUNK]])
+                                  ).to(device) for k in trees[0]},
+             len(trees) - lo < TREE_CHUNK)
+            for lo in range(0, len(trees), TREE_CHUNK)]
+
+
+def run_chain(bins, chunks, depth, init, miss_bin):
+    """The per-level chain the forest kernel replaced: ``descend_kernel``
+    a tree level, a gather and an add a tree (``histgbt._predict_trees``),
+    chunk by chunk, + 0.0 after a short last chunk."""
+    from dmlc_core_tpu_torch.models.histgbt import _predict_trees
+
+    margin = init
+    for st, short in chunks:
+        margin = _predict_trees(bins, st["feat"], st["thr"], st["leaf"],
+                                depth, margin, st.get("dir"), miss_bin)
+        if short:
+            margin = margin + 0.0
+    return margin
+
+
+def check_forest(torch, np, bins, trees, depth, init, miss_bin, rates,
+                 what, chain=False, timed=False):
+    """``forest_kernel`` on ``trees`` (packed once) against
+    ``predict_forest_plain`` on the same packed tables, bit for bit, twice
+    over (and, with ``chain``, against the per-level chain); with
+    ``timed``, by CUDA events and device time beside its two bound terms,
+    the plain version's time and (``chain``) the chain's."""
+    from dmlc_core_tpu_torch.ops import forest as FO
+
+    dev = bins.device
+    forest = FO.pack_forest(trees, depth, dev, miss_bin,
+                            add_zero=len(trees) % TREE_CHUNK != 0)
+
+    def kernel():
+        return FO.forest_kernel(bins, forest, init)
+
+    a, b = kernel(), kernel()
+    c = FO.predict_forest_plain(bins, forest, init)
+    torch.cuda.synchronize()
+    require(f32_equal(torch, a, c), f"forest_kernel != plain ({what})")
+    require(f32_equal(torch, a, b),
+            f"forest_kernel not reproducible ({what})")
+    require(bool(torch.isfinite(a).all()),
+            f"forest margins not finite ({what})")
+    F, n = bins.shape
+    out = {"what": what, "rows": n, "F": F, "trees": forest.per_class,
+           "classes": forest.n_class, "depth": depth,
+           "split_features": forest.n_used, "wide_records": forest.wide,
+           "missing": forest.missing, "tree_bytes": forest.tree_bytes,
+           "max_abs_err": max_abs_err(torch, a, c), "library_ms": None}
+    if rates is not None:
+        bd = FO.forest_bounds(n, forest.n_used, forest, rates[0])
+        out.update(bytes_bound_ms=bd["bytes_ms"],
+                   lookups_bound_ms=bd["lookups_ms"],
+                   bound_ms=max(bd["bytes_ms"], bd["lookups_ms"]),
+                   bound_by=("bytes" if bd["bytes_ms"] >= bd["lookups_ms"]
+                             else "operations"))
+    chunks = chain_chunks(torch, np, trees, dev) if chain else None
+    if chain:
+        d = run_chain(bins, chunks, depth, init, miss_bin)
+        require(f32_equal(torch, a, d),
+                f"forest_kernel != the per-level chain ({what})")
+    if timed:
+        out["ms"] = time_ms(torch, kernel, REPS)
+        out["device_ms"] = device_ms(torch, kernel, REPS)
+        out["plain_ms"] = time_ms(
+            torch, lambda: FO.predict_forest_plain(bins, forest, init), 3)
+        if chain:
+            def chained():
+                return run_chain(bins, chunks, depth, init, miss_bin)
+
+            out["per_level_chain_ms"] = time_ms(torch, chained, 3)
+            out["per_level_chain_device_ms"] = device_ms(torch, chained, 3)
+    return out
+
+
+def check_forest_leaves(torch, bins, trees, depth, miss_bin, what):
+    """The leaves mode (``predict_leaf``) against its plain version."""
+    from dmlc_core_tpu_torch.ops import forest as FO
+
+    forest = FO.pack_forest(trees, depth, bins.device, miss_bin)
+    a = FO.forest_kernel(bins, forest)
+    c = FO.predict_forest_plain(bins, forest)
+    torch.cuda.synchronize()
+    require(a.dtype == torch.int32 and torch.equal(a, c),
+            f"forest_kernel (leaves) != plain ({what})")
+    return {"what": what, "rows": bins.shape[1], "trees": len(trees),
+            "depth": depth, "shape": list(a.shape), "max_abs_err": 0.0}
+
+
+def phase_forest(torch, np, bins, rates):
+    """The forest kernel at the main path's shapes: 100 random trees of
+    depth 6 on the flagship's ``[28, 10M]`` bins (held against the plain
+    version and the per-level chain, timed beside both and its two bound
+    terms), a depth-12 forest with u32 records (thresholds of −1), the
+    softmax forest of covtype's shape, a missing-mode forest on rows that
+    are no multiple of 16 (the byte loads), and the leaves mode.  Returns
+    the ``kernels`` entry (the 10M timings, the largest error)."""
+    dev = bins.device
+    rng = np.random.default_rng(SEED)
+    F, n = bins.shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    trees = random_forest(np, rng, FOREST_TREES, MAX_DEPTH, F, N_BINS)
+    init = torch.randn(n, device=dev, generator=gen)
+    cases = [check_forest(torch, np, bins, trees, MAX_DEPTH, init, -1, rates,
+                          "flagship", chain=True, timed=True)]
+    emit({"phase": "kernel", "name": "forest", **cases[0]})
+    rows, T = FOREST_DEEP
+    deep = random_forest(np, rng, T, 12, F, N_BINS, thr_lo=-1)
+    cases.append(check_forest(
+        torch, np, bins[:, :rows].contiguous(), deep, 12,
+        init[:rows].contiguous(), -1, rates, "depth12", chain=True,
+        timed=True))
+    require(cases[-1]["wide_records"],
+            "forest: the depth-12 forest's records are not u32")
+    C = torch.randint(0, N_BINS, (COVTYPE_FEATURES, COVTYPE_ROWS),
+                      dtype=torch.uint8, device=dev, generator=gen)
+    K = len(COVER_TYPE_COUNTS)
+    soft = random_forest(np, rng, FOREST_SOFTMAX_ROUNDS, MAX_DEPTH,
+                         COVTYPE_FEATURES, N_BINS, K=K)
+    cases.append(check_forest(
+        torch, np, C, soft, MAX_DEPTH,
+        torch.randn(COVTYPE_ROWS, K, device=dev, generator=gen), -1, rates,
+        f"softmax{K}", timed=True))
+    del C
+    rows, T, depth = FOREST_MISSING
+    miss_bin = N_BINS - 1
+    M = torch.randint(0, miss_bin, (F, rows), dtype=torch.uint8, device=dev,
+                      generator=gen)
+    M = torch.where(torch.rand(F, rows, device=dev, generator=gen) < 0.1,
+                    miss_bin, M).to(torch.uint8)
+    missing = random_forest(np, rng, T, depth, F, N_BINS, missing=True)
+    cases.append(check_forest(
+        torch, np, M, missing, depth,
+        torch.randn(rows, device=dev, generator=gen), miss_bin, rates,
+        "missing", chain=True, timed=True))
+    del M
+    for case in cases[1:]:
+        emit({"phase": "kernel", "name": "forest", **case})
+    leaves = check_forest_leaves(
+        torch, bins[:, :FOREST_LEAF_ROWS].contiguous(), trees, MAX_DEPTH,
+        -1, "leaves")
+    emit({"phase": "kernel", "name": "forest", **leaves})
+    keep = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "bytes_bound_ms", "lookups_bound_ms",
+            "per_level_chain_ms", "per_level_chain_device_ms")
+    main = cases[0]
+    return {**{k: main[k] for k in keep},
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "cases": {c["what"]: {k: c[k] for k in keep + ("rows", "trees")
+                                  if k in c}
+                      for c in cases[1:]}}
+
+
+# ---------------------------------------------------------------------------
 # the model's paths
 # ---------------------------------------------------------------------------
 
 def zero_counts(H):
+    from dmlc_core_tpu_torch.ops.forest import forest_kernel
+
     for fn in (H.hist_kernel, H.fused_round_kernel):
         fn.launches = 0
         fn.layout_launches = 0
     H.fused_descend_kernel.launches = 0
     H.descend_kernel.launches = 0
     H.descend_kernel.dir_launches = 0
+    forest_kernel.launches = 0
 
 
 def read_counts(H):
-    return {"hist": H.hist_kernel.launches,
-            "fused_round": H.fused_round_kernel.launches,
-            "hist_layout": H.hist_kernel.layout_launches,
-            "fused_round_layout": H.fused_round_kernel.layout_launches,
-            "fused_descend": H.fused_descend_kernel.launches,
-            "descend_dir": H.descend_kernel.dir_launches}
+    """Every wrapper's launches (``ops.histogram.launch_counts``: B1-B3,
+    the descend in both modes, the forest kernel)."""
+    return H.launch_counts()
 
 
 def fit_path(torch, np, H, X, y, Xv, yv, env, min_acc):
@@ -1388,7 +1626,7 @@ def fit_path(torch, np, H, X, y, Xv, yv, env, min_acc):
     every round (replayed from the trees), held-out accuracy, and
     ``save_model`` → ``load_model`` giving the same predictions."""
     from dmlc_core_tpu_torch import HistGBT
-    from dmlc_core_tpu_torch.models.histgbt import _predict_trees
+    from dmlc_core_tpu_torch.ops.forest import pack_forest, predict_forest
 
     model = HistGBT(n_trees=TREES, max_depth=MAX_DEPTH, n_bins=N_BINS,
                     device=DEVICE)
@@ -1401,16 +1639,12 @@ def fit_path(torch, np, H, X, y, Xv, yv, env, min_acc):
     n = len(X)
     bins_t = model._bin_matrix(X)
     y_d = torch.from_numpy(y).to(DEVICE)
-    stacked = model._stacked_trees(model.trees)
-    dirs = stacked.get("dir")
     margin = torch.zeros(n, device=DEVICE)
     losses = []
     for t in range(TREES):
-        margin = _predict_trees(bins_t, stacked["feat"][t:t + 1],
-                                stacked["thr"][t:t + 1],
-                                stacked["leaf"][t:t + 1], MAX_DEPTH, margin,
-                                None if dirs is None else dirs[t:t + 1],
-                                model._miss_bin())
+        margin = predict_forest(bins_t, pack_forest(
+            model.trees[t:t + 1], MAX_DEPTH, DEVICE, model._miss_bin()),
+            margin)
         losses.append(float(model._obj.metric(margin, y_d)))
     del bins_t
     require(all(b < a for a, b in zip(losses, losses[1:])) and
@@ -1651,7 +1885,9 @@ def check_descend_dir(torch, H, bins, masked, gen, n_prev, miss_bin, rates):
         f"NaN rows do not follow their direction {what}")
     nbytes = n + 4 * n + 4 * n + 12 * n_prev
     b_ms, b_by = bound(nbytes, n, rates)
+    sector = sector_bytes(torch, feat[safe], nd >= 0) + 8 * n + 12 * n_prev
     return {
+        "sector_bound_ms": sector / rates[0] * 1e3, "sector_bytes": sector,
         "n_prev": n_prev, "missing_rows": int(miss.sum()),
         "missing_right": int((a[miss] % 2).sum()),
         "ms": time_ms(torch, lambda: run(feat, thr, dirv, True), REPS),
@@ -1663,6 +1899,64 @@ def check_descend_dir(torch, H, bins, masked, gen, n_prev, miss_bin, rates):
         "device_ms": device_ms(torch, lambda: run(feat, thr, dirv, True),
                                10 * REPS),
         "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": max_abs_err(torch, a, c), "bytes": nbytes}
+
+
+def sector_bytes(torch, feat_of_row, live) -> int:
+    """Bytes of the 32-byte sectors a per-level descend must read of the
+    feature-major bins: a warp's 32 consecutive rows read one sector of
+    each distinct feature their nodes split on (rows with no node read
+    none).  ``n`` a multiple of 32 (the flagship's 10M)."""
+    n = feat_of_row.shape[0]
+    require(n % 32 == 0, "sector_bytes: rows must be a multiple of 32")
+    f = torch.where(live, feat_of_row.to(torch.int32), -1).view(-1, 32)
+    f = f.sort(dim=1).values
+    distinct = ((f[:, 1:] != f[:, :-1]) & (f[:, 1:] >= 0)).sum(1) \
+        + (f[:, 0] >= 0).to(torch.int64)
+    return 32 * int(distinct.sum())
+
+
+def check_descend(torch, H, bins, masked, gen, n_prev, rates):
+    """``descend_kernel`` without a direction — training's final descend
+    (a depth-6 tree's last level: ``n_prev`` parents, per-node tables) —
+    against ``descend_plain``, twice over, in both table forms; timed
+    beside its bound (the bin byte, the node id in and out: 9 bytes a
+    row, plus the tables) and the sector bound (32 bytes of each distinct
+    split feature a warp, :func:`sector_bytes`)."""
+    F, n = bins.shape
+    dev = bins.device
+    nd = torch.randint(0, n_prev, (n,), dtype=torch.int32, device=dev,
+                       generator=gen)
+    nd = torch.where(masked, -1, nd).to(torch.int32)
+    feat = torch.randint(0, F, (n_prev,), dtype=torch.int32, device=dev,
+                         generator=gen)
+    thr = torch.randint(0, N_BINS, (n_prev,), dtype=torch.int32,
+                        device=dev, generator=gen)
+
+    def run(f_, t_, by_node):
+        return H.descend_kernel(bins, nd, f_, t_, by_node)
+
+    a, b = run(feat, thr, True), run(feat, thr, True)
+    c = H.descend_plain(bins, nd, feat, thr, True)
+    torch.cuda.synchronize()
+    what = f"(n_prev={n_prev})"
+    require(torch.equal(a, c), f"descend_kernel != plain {what}")
+    require(torch.equal(a, b), f"descend_kernel not reproducible {what}")
+    safe = nd.clamp(min=0).long()
+    require(torch.equal(run(feat[safe], thr[safe], False), a),
+            f"descend_kernel per-row form differs {what}")
+    nbytes = n + 4 * n + 4 * n + 8 * n_prev
+    b_ms, b_by = bound(nbytes, n, rates)
+    sector = sector_bytes(torch, feat[safe], nd >= 0) + 8 * n + 8 * n_prev
+    return {
+        "n_prev": n_prev,
+        "ms": time_ms(torch, lambda: run(feat, thr, True), REPS),
+        "plain_ms": time_ms(torch, lambda: H.descend_plain(
+            bins, nd, feat, thr, True), max(3, REPS // 3)),
+        "device_ms": device_ms(torch, lambda: run(feat, thr, True),
+                               10 * REPS),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "sector_bound_ms": sector / rates[0] * 1e3, "sector_bytes": sector,
         "max_abs_err": max_abs_err(torch, a, c), "bytes": nbytes}
 
 
@@ -1996,8 +2290,8 @@ def phase_resume(torch, np, H, smi, X, y, lossguide_bytes):
     """Continued training on configuration 1 (the bench's levers on the
     HIGGS-like rows): 3 trees then ``fit_device(resume=True)`` for 2 more
     write phase 5's 5-tree file; the replay of the 3-tree ensemble on the
-    handle (``descend_kernel``, counted) equals the carried margins bit
-    for bit; a saved 3-tree model, loaded and ``fit`` on, writes the same
+    handle (one ``forest_kernel`` launch, no ``descend_kernel``, counted)
+    equals the carried margins bit for bit; a saved 3-tree model, loaded and ``fit`` on, writes the same
     file.  Returns the launches."""
     from dmlc_core_tpu_torch import HistGBT
 
@@ -2010,18 +2304,20 @@ def phase_resume(torch, np, H, smi, X, y, lossguide_bytes):
         model.fit_device(dd)
         carried = model._train_preds.clone()
         model._train_preds = None
-        H.descend_kernel.launches = 0
+        before = read_counts(H)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         replayed = model._resume_margin(dd)
         torch.cuda.synchronize()
         replay_s = time.perf_counter() - t0
-        replay_launches = H.descend_kernel.launches
+        after = read_counts(H)
+        replay_launches = {k: after[k] - before[k]
+                           for k in ("forest", "descend")}
         require(torch.equal(replayed, carried),
                 "resume: replayed margins differ from the carried ones")
-        require(replay_launches == RESUME_FIRST * MAX_DEPTH,
-                f"resume: the replay launched descend_kernel "
-                f"{replay_launches} times, want {RESUME_FIRST * MAX_DEPTH}")
+        require(replay_launches == {"forest": 1, "descend": 0},
+                f"resume: the replay launched {replay_launches}, want one "
+                "forest_kernel and no descend_kernel")
         model._train_preds = carried
         model.param.n_trees = second
         model.fit_device(dd, resume=True)
@@ -2047,7 +2343,7 @@ def phase_resume(torch, np, H, smi, X, y, lossguide_bytes):
     emit({"phase": "resume", "card": smi, "rows": len(X),
           "levers": BENCH_LEVERS, "legs": [RESUME_FIRST, second],
           "launches": launches, "replay_seconds": replay_s,
-          "replay_descend_launches": replay_launches,
+          "replay_launches": replay_launches,
           "replayed_equals_carried": True,
           "resume_file_equals_uninterrupted": True,
           "load_model_fit_equals_uninterrupted": True,
@@ -2752,8 +3048,9 @@ def phase_coldstart(torch, np, H, smi, X, y, cold):
     of :func:`start_coldstart` (``cold``, joined), then the same fit in
     this process with ``DMLC_WARMUP_EXEC=1``.  Checks: every model file
     byte-equal, ``hist`` and ``fused_round`` launched as the trees and
-    levels say (``fused_descend`` never), one build and one load in each
-    child, ``last_compile_seconds`` None inline and claimed with the
+    levels say (``fused_descend`` never), one build and one load in the
+    inline child and two of each (``histogram.cu`` and ``forest.cu``) in
+    the overlap child, ``last_compile_seconds`` None inline and claimed with the
     overlap (a miss, one warm launch); in this process, whose handle
     built and launched long ago, no further warm launch and no claim.
     Prints each child's ``last_compile_seconds``, time to first tree and
@@ -2768,8 +3065,10 @@ def phase_coldstart(torch, np, H, smi, X, y, cold):
     runs, files = cold["runs"], dict(cold["files"])
     for name, rec in runs.items():
         require_launches(rec["launches"], want, f"coldstart ({name})")
-        require(rec["build_events"] == {"builds": 1, "loads": 1},
-                f"coldstart ({name}): build events {rec['build_events']}")
+        want_b = COLD_BUILDS[name]
+        require(rec["build_events"] == {"builds": want_b, "loads": want_b},
+                f"coldstart ({name}): build events {rec['build_events']}, "
+                f"want {want_b} of each")
     inline, warm = (runs[k] for k, _ in COLD_CHILDREN)
     require(inline["last_compile_seconds"] is None
             and inline["warm_launches"] == 0,
@@ -2990,9 +3289,11 @@ def phase_introspect(np, H, smi, models):
     """``predict_leaf`` on the card equals the CPU's (the model loaded on
     the CPU from its file), and ``dump_model`` (with stats) and
     ``feature_importances`` (both types) give equal strings, for each of
-    ``models`` (name → (model, held-out rows)).  Returns the launches of
-    the card's ``predict_leaf``."""
+    ``models`` (name → (model, held-out rows)); the card's
+    ``predict_leaf`` is one ``forest_kernel`` launch (no
+    ``descend_kernel``).  Returns those launches."""
     from dmlc_core_tpu_torch import HistGBT
+    from dmlc_core_tpu_torch.ops.forest import forest_kernel
 
     total = 0
     for name, (model, rows) in models.items():
@@ -3001,8 +3302,14 @@ def phase_introspect(np, H, smi, models):
             model.save_model(path)
             cpu = HistGBT.load_model(path, device="cpu")
         H.descend_kernel.launches = 0
+        forest_kernel.launches = 0
         leaves = model.predict_leaf(rows)
-        total += H.descend_kernel.launches
+        require(forest_kernel.launches == 1
+                and H.descend_kernel.launches == 0,
+                f"introspect {name}: predict_leaf launched forest_kernel "
+                f"{forest_kernel.launches} and descend_kernel "
+                f"{H.descend_kernel.launches} times, want 1 and 0")
+        total += forest_kernel.launches
         want = cpu.predict_leaf(rows)
         require(leaves.dtype == np.int32 and np.array_equal(leaves, want),
                 f"introspect {name}: predict_leaf differs between cuda and "
@@ -3017,7 +3324,7 @@ def phase_introspect(np, H, smi, models):
                 f"introspect {name}: feature_importances differ")
         emit({"phase": "introspect", "model": name, "card": smi,
               "rows": len(rows), "leaf_shape": list(leaves.shape),
-              "descend_launches": H.descend_kernel.launches,
+              "forest_launches": 1,
               "dump_lines": dump.count("\n"),
               "dump_sha_prefix": hashlib.sha256(
                   dump.encode()).hexdigest()[:16],
@@ -4083,44 +4390,49 @@ def phase_sklearn(torch, np, smi, X, y):
     return sparse_model
 
 
-def check_descend_serve(torch, H, model, rows, rates):
-    """``descend_kernel`` (B2's descend, no direction) at a served batch's
-    shapes: the batch's bins ``[F, b]`` at every level of every tree of
-    ``model`` (the node ids of the real descend), against
-    ``descend_plain``, twice over; then the deepest level timed beside
-    its bound (the bin byte, the node id in and out: 9 bytes a row, plus
-    the tables)."""
+def serve_bench_model(np):
+    """The port bench's ``--serve`` model on the card: ``SERVE_BENCH_TREES``
+    trees of depth ``SERVE_BENCH_DEPTH``, 64 bins, on 50,000 rows of 28
+    normal features from seed 11 (``bench._serve_bench``'s rule)."""
+    from dmlc_core_tpu_torch import HistGBT
+
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(50_000, FEATURES)).astype(np.float32)
+    y = (X[:, 0] * X[:, 1] + 0.5 * X[:, 2] > 0).astype(np.float32)
+    return HistGBT(n_trees=SERVE_BENCH_TREES, max_depth=SERVE_BENCH_DEPTH,
+                   n_bins=64, learning_rate=0.3, device=DEVICE).fit(X, y), X
+
+
+def check_forest_serve(torch, np, models, rows, ladder, rates):
+    """``forest_kernel`` at the serve buckets: for each of ``models``
+    (name → model) the bins of every bucket's batch (full and partly
+    padded, as the runner pads it) and the model's forest, against
+    ``predict_forest_plain`` and the per-level chain, bit for bit; at the
+    largest bucket timed beside both, its two bound terms and the chain's
+    device time."""
     dev = torch.device(DEVICE)
-    bins = model._bins_of(torch.from_numpy(rows).to(dev))
-    st = model._stacked_trees(model.trees)
-    F, n = bins.shape
-    err = 0.0
-    for t in range(st["feat"].shape[0]):
-        node = torch.zeros(n, dtype=torch.int32, device=dev)
-        for lv in range(MAX_DEPTH):
-            feat = st["feat"][t, lv].to(torch.int32).contiguous()
-            thr = st["thr"][t, lv].to(torch.int32).contiguous()
-            a = H.descend_kernel(bins, node, feat, thr, True)
-            b = H.descend_kernel(bins, node, feat, thr, True)
-            c = H.descend_plain(bins, node, feat, thr, True)
-            require(torch.equal(a, c) and torch.equal(a, b),
-                    f"descend_kernel != plain (tree {t}, level {lv})")
-            err = max(err, max_abs_err(torch, a, c))
-            last = (node, feat, thr)
-            node = a
-    node, feat, thr = last
-    n_prev = 1 << (MAX_DEPTH - 1)
-    nbytes = n + 4 * n + 4 * n + 8 * n_prev
-    b_ms, b_by = bound(nbytes, n, rates)
-    return {"rows": n, "F": F, "n_prev": n_prev,
-            "ms": time_ms(torch, lambda: H.descend_kernel(
-                bins, node, feat, thr, True), REPS, inner=10),
-            "plain_ms": time_ms(torch, lambda: H.descend_plain(
-                bins, node, feat, thr, True), REPS, inner=10),
-            "device_ms": device_ms(torch, lambda: H.descend_kernel(
-                bins, node, feat, thr, True), 10 * REPS),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "max_abs_err": err, "bytes": nbytes}
+    out = {}
+    for name, model in models.items():
+        depth, err, timed = model.param.max_depth, 0.0, None
+        for b in ladder:
+            for k in (b, b - b // 4 - 1):
+                x = np.zeros((b, rows.shape[1]), np.float32)
+                x[:k] = rows[:k]
+                bins = model._bins_of(torch.from_numpy(x).to(dev))
+                case = check_forest(
+                    torch, np, bins, model.trees, depth,
+                    model._base_margin(b), model._miss_bin(), rates,
+                    f"serve {name} bucket {b} ({k} rows)", chain=True,
+                    timed=(b == ladder[-1] and k == b))
+                err = max(err, case["max_abs_err"])
+                if "ms" in case:
+                    timed = case
+        out[name] = {key: timed[key] for key in (
+            "rows", "trees", "depth", "ms", "device_ms", "plain_ms",
+            "per_level_chain_ms", "per_level_chain_device_ms", "bound_ms",
+            "bound_by", "bytes_bound_ms", "lookups_bound_ms")}
+        out[name]["max_abs_err"] = err
+    return out
 
 
 def serve_http(np, registry, direct, Xv, swap):
@@ -4181,15 +4493,18 @@ def phase_serve(torch, np, H, rates, smi, Xv, lossguide_bytes, main_model,
     ladder (``SERVE_MIN_BUCKET``..``SERVE_MAX_BATCH``) warmed; at every
     bucket (full and partly padded) the served predictions bit-identical
     to ``model.predict`` and to the CPU's ``predict`` of the same file,
-    ``descend_kernel`` launched trees × depth times a batch; the kernel
-    held against its plain version at a served batch's shapes; the HTTP
-    frontend end to end with a hot swap to phase ``main``'s model, each
-    response bit-identical to the version it reports, the launch counts
-    set to 0 just before and read just after; ``others`` (GBLinear, FM,
-    SparseHistGBT on the card) through ``ModelRunner``, bit-identical to
-    their ``predict``; then the port bench's ``--serve`` as a child
-    process at its defaults.  Returns the
-    ``descend`` kernels entry and its launches on the HTTP path."""
+    one ``forest_kernel`` launch and no ``descend_kernel`` a batch; the
+    forest kernel held against its plain version and the per-level chain
+    at every bucket with that model and the port bench's
+    (:func:`check_forest_serve`); the HTTP frontend end to end with a hot
+    swap to phase ``main``'s model, each response bit-identical to the
+    version it reports, the launch counts set to 0 just before and read
+    just after; ``others`` (GBLinear, FM, SparseHistGBT on the card)
+    through ``ModelRunner``, bit-identical to their ``predict``; then the
+    port bench's ``--serve`` as a child process at its defaults.  Returns
+    the forest kernel's serve timings and its launches on the HTTP
+    path."""
+    from dmlc_core_tpu_torch.ops.forest import forest_kernel
     from dmlc_core_tpu_torch.serve import ModelRegistry, model_from_bytes
     from dmlc_core_tpu_torch.serve.runner import ModelRunner, _dense_as_csr
 
@@ -4204,19 +4519,17 @@ def phase_serve(torch, np, H, rates, smi, Xv, lossguide_bytes, main_model,
     ladder = [SERVE_MIN_BUCKET << i for i in range(runner.shape_bound)]
     require(sorted(runner.compiled_shapes) == ladder,
             f"serve: warmed {sorted(runner.compiled_shapes)}")
-    per_batch = TREES * MAX_DEPTH
     buckets = {}
     for b in ladder:
         for k in (b, b - b // 4 - 1):
             rows = Xv[1000:1000 + k]
-            H.descend_kernel.launches = 0
-            H.descend_kernel.dir_launches = 0
+            zero_counts(H)
             got = runner.predict(rows)
-            launches = H.descend_kernel.launches
-            require(launches == per_batch
-                    and H.descend_kernel.dir_launches == 0,
-                    f"serve: {launches} descend launches for a batch of "
-                    f"{k} rows, want {per_batch}")
+            launches = read_counts(H)
+            require(launches["forest"] == 1 and launches["descend"] == 0
+                    and launches["descend_dir"] == 0,
+                    f"serve: {launches} for a batch of {k} rows, want one "
+                    "forest launch and no descend")
             require(got.tobytes() == model.predict(rows).tobytes(),
                     f"serve: bucket {b} ({k} rows) != model.predict")
             require(got.tobytes() == cpu.predict(rows).tobytes(),
@@ -4227,21 +4540,24 @@ def phase_serve(torch, np, H, rates, smi, Xv, lossguide_bytes, main_model,
             runner.predict(Xv[:b])
             times.append((time.perf_counter() - t0) * 1e3)
         buckets[b] = statistics.median(times)
-    entry = check_descend_serve(torch, H, model, Xv[:SERVE_MAX_BATCH], rates)
-    emit({"phase": "kernel", "name": "descend", **entry})
+    entry = check_forest_serve(
+        torch, np, {"configuration_1": model,
+                    "serve_bench": serve_bench_model(np)[0]},
+        Xv[1000:1000 + SERVE_MAX_BATCH], ladder, rates)
+    emit({"phase": "kernel", "name": "forest", "serve": entry})
     direct = {1: model.predict(Xv), 2: main_model.predict(Xv)}
     require(direct[1].tobytes() != direct[2].tobytes(),
             "serve: the two versions predict alike")
-    H.descend_kernel.launches = 0
-    H.descend_kernel.dir_launches = 0
+    zero_counts(H)
     batches, answers = serve_http(
         np, registry, direct, Xv,
         lambda: registry.publish(main_model, source="main"))
-    launches = H.descend_kernel.launches
-    require(H.descend_kernel.dir_launches == 0,
-            "serve: direction-mode descends on the serve path")
-    require(launches == per_batch * batches and batches > 0,
-            f"serve: {launches} descend launches for {batches} batches")
+    http = read_counts(H)
+    launches = http["forest"]
+    require(http["descend"] == 0 and http["descend_dir"] == 0,
+            f"serve: descends on the serve path ({http})")
+    require(launches == batches and batches > 0,
+            f"serve: {launches} forest launches for {batches} batches")
     versions = sorted({v for v, _ in answers})
     require(versions == [1, 2], f"serve: versions answered {versions}")
     require(all(ok for _, ok in answers), "serve: a response differs from "
@@ -4263,13 +4579,11 @@ def phase_serve(torch, np, H, rates, smi, Xv, lossguide_bytes, main_model,
     emit({"phase": "serve", "card": smi, "trees": TREES,
           "max_depth": MAX_DEPTH, "ladder": ladder, "warmup_seconds": warm_s,
           "bucket_predict_ms": buckets,
-          "descend_launches_per_batch": per_batch,
+          "forest_launches_per_batch": 1, "descend_launches_per_batch": 0,
           "http_batches": batches, "http_responses": len(answers),
-          "http_descend_launches": launches,
+          "http_forest_launches": launches,
           "http_versions": versions, "families": fam,
-          "descend_kernel_ms": entry["ms"],
-          "descend_kernel_device_ms": entry["device_ms"],
-          "bench": bench})
+          "forest_kernel": entry, "bench": bench})
     return entry, launches
 
 
@@ -4306,8 +4620,8 @@ def bench_child(mode, metric, timeout):
 def phase_serve_bench(np):
     """``python -m dmlc_core_tpu_torch.bench --serve`` at its defaults as
     a child process; its last line must be a final record with completed
-    requests, latency percentiles, buckets within the bound and
-    ``descend_kernel`` trees × depth launches a batch."""
+    requests, latency percentiles, buckets within the bound and one
+    ``forest_kernel`` launch and no ``descend_kernel`` a batch."""
     platform = "cpu" if DEVICE == "cpu" else "gpu"
     rec = bench_child("--serve", "serve_requests_per_sec", SERVE_TIMEOUT)
     require(rec["completed"] > 0 and rec["latency_p99_ms"] is not None,
@@ -4315,10 +4629,12 @@ def phase_serve_bench(np):
     require(rec["compiled_shapes"]
             and len(rec["compiled_shapes"]) <= rec["shape_bound"],
             f"bench --serve: shapes {rec['compiled_shapes']}")
-    require(platform == "cpu" or rec["descend_launches_per_batch"]
-            == rec["descend_launches_per_batch_expected"],
-            f"bench --serve: {rec.get('descend_launches_per_batch')} "
-            "descend launches a batch")
+    require(platform == "cpu" or (
+        rec["forest_launches_per_batch"]
+        == rec["forest_launches_per_batch_expected"] == 1
+        and rec["descend_launches"] == 0),
+            f"bench --serve: {rec.get('forest_launches_per_batch')} forest "
+            f"and {rec.get('descend_launches')} descend launches")
     return rec
 
 
@@ -4335,7 +4651,7 @@ def restore_stats(names):
 def phase_tenancy(torch, np, H, smi):
     """Multi-tenant serving on the card through the frontend's
     ``tenants=`` seam (see the module docstring, 12g).  Returns the
-    ``descend_kernel`` launches of its HTTP run."""
+    ``forest_kernel`` launches of its HTTP run."""
     from dmlc_core_tpu_torch.models import HistGBT
     from dmlc_core_tpu_torch.serve import (ModelRegistry, ResilientClient,
                                            ServeFrontend, model_from_bytes,
@@ -4349,7 +4665,7 @@ def phase_tenancy(torch, np, H, smi):
     names = [f"t{i:02d}" for i in range(TENANTS)]
     reg = TenantRegistry(resident_cap=TENANT_CAP, device=DEVICE,
                          max_batch=TENANT_MAX_BATCH, min_bucket=8)
-    expected, per_batch, fit_s = {}, {}, 0.0
+    expected, shapes, fit_s = {}, {}, 0.0
     for i, name in enumerate(names):
         trees, depth = 3 + i % 4, 3 + (i // 4 + i) % 4
         y = (X[:, i % FEATURES] + 0.5 * X[:, (i + 1) % FEATURES]
@@ -4363,7 +4679,7 @@ def phase_tenancy(torch, np, H, smi):
         require(card.tobytes() == cpu.tobytes(),
                 f"tenancy {name}: card and CPU predict differ")
         expected[name] = card
-        per_batch[name] = trees * depth
+        shapes[name] = (trees, depth)
         reg.publish(name, m)
         del m
     gc_cuda(torch)
@@ -4379,8 +4695,7 @@ def phase_tenancy(torch, np, H, smi):
     answers, lats, before = [], [], {}
     single = ModelRegistry(name="chip-tenancy", device=DEVICE,
                            max_batch=TENANT_MAX_BATCH)
-    H.descend_kernel.launches = 0
-    H.descend_kernel.dir_launches = 0
+    zero_counts(H)
     with ServeFrontend(single, max_batch=TENANT_MAX_BATCH,
                        tenants=reg) as fe:
         client = ResilientClient(fe.url)
@@ -4397,12 +4712,13 @@ def phase_tenancy(torch, np, H, smi):
                             == expected[name][lo:lo + k].tobytes()))
         after = {name: client.predict(probe, tenant=name)
                  for name in names}
-    launches = H.descend_kernel.launches
+    http = read_counts(H)
+    launches = http["forest"]
     pages = restore_stats(names)
     gc_cuda(torch)
     mem_after = torch.cuda.memory_allocated()
-    require(H.descend_kernel.dir_launches == 0,
-            "tenancy: direction-mode descends on the serve path")
+    require(http["descend"] == 0 and http["descend_dir"] == 0,
+            f"tenancy: descends on the serve path ({http})")
     require(all(ok and v == 1 for _, v, ok in answers),
             "tenancy: a response differs from its tenant's predict")
     for name in names:
@@ -4419,28 +4735,31 @@ def phase_tenancy(torch, np, H, smi):
     served = {n: 2 for n in names}           # the two probes
     for name, _, _ in answers:
         served[name] += 1
-    want = sum(served[n] * per_batch[n] + n_pages[n] * per_batch[n] * ladder
-               for n in names)
-    require(launches == want, f"tenancy: {launches} descend launches, want "
-            f"{want} (trees x depth a batch, x {ladder} a page-in)")
+    want = sum(served[n] + n_pages[n] * ladder for n in names)
+    require(launches == want, f"tenancy: {launches} forest launches, want "
+            f"{want} (one a batch, {ladder} a page-in)")
     page_s = sum(pages[n][1] - pages0[n][1] for n in names)
     bench = bench_child("--tenants", "tenant_requests_per_sec",
                         SERVE_TIMEOUT)
     require(bench["wrong"] == 0 and bench["requests"] > 0
             and bench["evictions"] > 0 and bench["warm_restores"] > 0,
             f"bench --tenants: {json.dumps(bench)[:500]}")
-    require(DEVICE == "cpu" or bench["descend_launches"] > 0,
-            "bench --tenants: no descend launches")
+    require(DEVICE == "cpu" or (
+        bench["forest_launches"] == bench["forest_launches_expected"] > 0
+        and bench["descend_launches"] == 0),
+            f"bench --tenants: {bench.get('forest_launches')} forest "
+            f"launches (want {bench.get('forest_launches_expected')}), "
+            f"{bench.get('descend_launches')} descend")
     emit({"phase": "tenancy", "card": smi, "tenants": TENANTS,
           "resident_cap": TENANT_CAP, "fit_seconds": fit_s,
-          "trees_x_depth": per_batch, "ladder_buckets": ladder,
+          "trees_and_depth": shapes, "ladder_buckets": ladder,
           "requests": len(answers) + 2 * TENANTS,
           "by_tenant": {n: served[n] for n in names},
           "evictions": evictions, "restores": restores,
           "page_in_seconds_mean": page_s / max(restores, 1),
           "latency_p50_ms": statistics.median(lats) * 1e3,
           "latency_p99_ms": sorted(lats)[int(0.99 * (len(lats) - 1))] * 1e3,
-          "descend_launches": launches,
+          "forest_launches": launches,
           "memory_allocated_cap_full": mem_full,
           "memory_allocated_after": mem_after,
           "bench": bench})
@@ -4521,7 +4840,7 @@ def fleet_traffic(np, url, Xs, direct, seconds, action, clients=3):
 
 def phase_fleet(torch, np, H, smi):
     """The replica fleet on the card (see the module docstring, 12h).
-    Returns the ``descend_kernel`` launches of its sequential routed
+    Returns the ``forest_kernel`` launches of its sequential routed
     run."""
     from dmlc_core_tpu_torch.base.resilience import RetryPolicy
     from dmlc_core_tpu_torch.models import HistGBT
@@ -4568,17 +4887,17 @@ def phase_fleet(torch, np, H, smi):
         # the router hides a replica's failed predict (a 500) by failing
         # over to the next one: every 500 of this phase fails it
         errors0 = predict_500s()
-        H.descend_kernel.launches = 0
-        H.descend_kernel.dir_launches = 0
+        zero_counts(H)
         seq, lats = routed(np, client, Xs, direct, rng, FLEET_REQUESTS,
                            FLEET_MAX_BATCH)
-        launches = H.descend_kernel.launches
+        http = read_counts(H)
+        launches = http["forest"]
         require(all(v == 1 and ok for v, ok in seq),
                 "fleet: a routed response differs from v1's predict")
-        require(launches == trees[1] * depth * len(seq)
-                and H.descend_kernel.dir_launches == 0,
-                f"fleet: {launches} descend launches for {len(seq)} "
-                f"batches, want {trees[1] * depth} a batch")
+        require(launches == len(seq) and http["descend"] == 0
+                and http["descend_dir"] == 0,
+                f"fleet: {http} for {len(seq)} batches, want one forest "
+                "launch a batch and no descend")
         from dmlc_core_tpu_torch.base.metrics import default_registry
         routed_by = {se["labels"]["replica"]: se["value"] for se in
                      default_registry().snapshot()["metrics"]
@@ -4651,8 +4970,8 @@ def phase_fleet(torch, np, H, smi):
           "routed_latency_p99_ms":
               sorted(lats)[int(0.99 * (len(lats) - 1))] * 1e3,
           "routed_by_replica": routed_by,
-          "descend_launches": launches,
-          "descend_launches_per_batch": launches / len(seq),
+          "forest_launches": launches,
+          "forest_launches_per_batch": launches / len(seq),
           "kill_responses": len(kill_out), "kill_dropped": 0,
           "rollout": report,
           "rollout_versions": sorted({v for v, _ in roll_out}),
@@ -4690,10 +5009,11 @@ def stream_trainer(path, device, publisher=None, chunk_rows=STREAM_CHUNK,
                          name=name)
 
 
-def stream_kernels(torch, H, model, X):
-    """``hist`` (root), ``fused_round`` (each level below it) and
-    ``descend_kernel`` (every level of every tree) at a refresh's own
-    shapes — the window's bins ``[28, 524288]`` in 32 bins — against
+def stream_kernels(torch, np, H, model, X):
+    """``hist`` (root), ``fused_round`` (each level below it),
+    ``descend_kernel`` (every level of every tree) and ``forest_kernel``
+    (the refresh's whole model: the margin replay's walk) at a refresh's
+    own shapes — the window's bins ``[28, 524288]`` in 32 bins — against
     their plain versions on the same inputs, bit for bit."""
     dev = torch.device(DEVICE)
     bins = model._bins_of(torch.from_numpy(X).to(dev))
@@ -4712,6 +5032,10 @@ def stream_kernels(torch, H, model, X):
     require(torch.equal(a, c), "stream: hist kernel != hist_plain")
     errs = {"hist": max_abs_err(torch, a, c), "fused_round": 0.0,
             "descend": 0.0}
+    forest = check_forest(torch, np, bins, model.trees,
+                          STREAM_KW["max_depth"], model._base_margin(n),
+                          model._miss_bin(), None, "stream window")
+    errs["forest"] = forest["max_abs_err"]
     for lv in range(1, STREAM_KW["max_depth"]):
         n_prev = 1 << (lv - 1)
         nd = torch.randint(0, n_prev, (n,), dtype=torch.int32, device=dev,
@@ -4765,9 +5089,8 @@ def phase_stream(torch, np, H, smi):
     tr = stream_trainer(shard, DEVICE, publisher=pub)
     zero_counts(H)
     outs = tr.run(max_refreshes=STREAM_REFRESHES, timeout=1.0)
-    launches = {"hist": H.hist_kernel.launches,
-                "fused_round": H.fused_round_kernel.launches,
-                "descend": H.descend_kernel.launches}
+    launches = {k: read_counts(H)[k]
+                for k in ("hist", "fused_round", "descend", "forest")}
     require(len(outs) == STREAM_REFRESHES
             and [o["window_rows"] for o in outs[:2]]
             == [STREAM_CHUNK, STREAM_CHUNK * STREAM_WINDOW],
@@ -4777,6 +5100,8 @@ def phase_stream(torch, np, H, smi):
             == trees * (STREAM_KW["max_depth"] - 1),
             f"stream: launches {launches} for {trees} trees")
     require(launches["descend"] > 0, "stream: no descend launch (the "
+            "trees' final descend runs on the card)")
+    require(launches["forest"] > 0, "stream: no forest launch (the "
             "margin replay and the gate run on the card)")
     require(pub.activations >= 1, "stream: nothing activated")
     # the card's model file after 3 refreshes equals the CPU's
@@ -4851,14 +5176,13 @@ def phase_stream(torch, np, H, smi):
     tb.refresh(timeout=30.0)                  # the window's first chunk
     zero_counts(H)
     r = tb.refresh(timeout=30.0)
-    big_launches = {"hist": H.hist_kernel.launches,
-                    "fused_round": H.fused_round_kernel.launches,
-                    "descend": H.descend_kernel.launches}
+    big_launches = {k: read_counts(H)[k]
+                    for k in ("hist", "fused_round", "descend", "forest")}
     require(r is not None and r["window_rows"] == 2 * STREAM_BIG,
             f"stream: big refresh {r}")
     for k, v in big_launches.items():
         launches[k] += v
-    errs = stream_kernels(torch, H, tb.model, Xb)
+    errs = stream_kernels(torch, np, H, tb.model, Xb)
     emit({"phase": "stream", "part": "big_refresh", "chunk_rows": STREAM_BIG,
           "window_rows": r["window_rows"], "features": FEATURES,
           "tail_seconds": parts["tail"], "decode_seconds": parts["decode"],
@@ -5102,7 +5426,7 @@ def phase_recovery(torch, np, H, smi, X, y, lossguide_bytes):
         torch.cuda.synchronize()
         resume_s = time.perf_counter() - t0
         counts = read_counts(H)
-        replay = H.descend_kernel.launches
+        replay = counts["forest"]
     require(tr2.resumed_from == 2, f"recovery: resumed from "
             f"{tr2.resumed_from}")
     require(model_bytes_of(m2) == lossguide_bytes,
@@ -5112,7 +5436,7 @@ def phase_recovery(torch, np, H, smi, X, y, lossguide_bytes):
     emit({"phase": "recovery", "part": "run_device", "stride": 2,
           "killed_at_round": 2, "resumed_from": 2,
           "resume_seconds": resume_s, "launches": counts,
-          "replay_descend_launches": replay, "file_equal_main": True})
+          "replay_forest_launches": replay, "file_equal_main": True})
     # (b) run over fit_external: 2 worker threads on the card under an
     # ElasticTracker, clean and with a kill and rejoin
     Xs, ys = X[:ELASTIC_ROWS], y[:ELASTIC_ROWS]
@@ -5740,9 +6064,10 @@ def phase_prodsim(np, smi):
             f"prodsim ran on {rec['platform']}, not {platform}")
     parent = rec["kernel_launches"]["parent"]
     replicas = rec["kernel_launches"]["replicas"]
-    served = sum((d or {}).get("descend", 0) for d in replicas.values())
+    served = sum((d or {}).get("forest", 0) for d in replicas.values())
     launches = {"hist": parent["hist"], "fused_round": parent["fused_round"],
-                "descend": parent["descend"] + served}
+                "descend": parent["descend"],
+                "forest": parent["forest"] + served}
     if platform == "gpu":
         for k, v in launches.items():
             require(v > 0, f"{k} was never launched on the prodsim path "
@@ -6018,7 +6343,7 @@ def finish_entry_points(state, smi):
               "seconds": wall})
     if cuda:
         for part, counts in launches.items():
-            for k in ("hist", "fused_round", "descend"):
+            for k in ("hist", "fused_round", "descend", "forest"):
                 require(counts.get(k, 0) > 0,
                         f"{k} was never launched by the {part} ({counts})")
     emit({"phase": "drills", "drills": list(DRILLS),
@@ -6070,7 +6395,7 @@ def main() -> int:
           "covtype_positive_share": float(cy.mean())})
     cold = finish_coldstart(cold)
     check_inf_binning(torch, np)
-    kernels = phase_kernels(torch, H, rates)
+    kernels = phase_kernels(torch, np, H, rates)
     layout_kernels, mats = phase_kernels_layout(torch, np, H, rates, C, cy)
     kernels.update(layout_kernels)
     Xm, Xmv, kernels["descend_dir"], miss_stats = phase_missing(
@@ -6156,18 +6481,21 @@ def main() -> int:
     fm_model = phase_fm(torch, np, smi, Xl, yl)
     sparse_model = phase_sklearn(torch, np, smi, Xl, yl)
     multichip_launches = finish_multichip(multichip_state, smi)
-    kernels["descend"], launches["descend"] = phase_serve(
+    kernels["forest"]["serve"], served = phase_serve(
         torch, np, H, rates, smi, Xv, lossguide_fit[1], main_fit[2],
         {"gblinear": (lin_model, Xl), "fm": (fm_model, Xl),
          "sparse": (sparse_model, Xl)})
-    require(launches["descend"] > 0, "descend was never launched on the "
-            "serve path")
+    require(served > 0, "forest was never launched on the serve path")
+    launches["forest"] += served
+    for name, case in kernels["forest"]["serve"].items():
+        kernels["forest"]["max_abs_err"] = max(
+            kernels["forest"]["max_abs_err"], case["max_abs_err"])
     for k, v in multichip_launches.items():
         launches[k] += v
         kernels[k]["launches_multichip"] = v
     del Xl, yl, lin_model, fm_model, sparse_model
-    launches["descend"] += phase_tenancy(torch, np, H, smi)
-    launches["descend"] += phase_fleet(torch, np, H, smi)
+    launches["forest"] += phase_tenancy(torch, np, H, smi)
+    launches["forest"] += phase_fleet(torch, np, H, smi)
     stream_launches, stream_errs = phase_stream(torch, np, H, smi)
     for k, v in stream_launches.items():
         require(v > 0, f"{k} was never launched on the stream path")
@@ -6185,13 +6513,14 @@ def main() -> int:
         launches[k] += v
     phase_bench(np)
     for part, counts in zip(("examples", "drills"), entry):
-        for k in ("hist", "fused_round", "descend"):
+        for k in ("hist", "fused_round", "descend", "forest"):
             launches[k] += counts.get(k, 0)
             kernels[k][f"launches_{part}"] = counts.get(k, 0)
     for k, v in floor.items():
         launches[k] = v.pop("launches")
     kernels.update(floor)
     hist_src = "dmlc_core_tpu_torch/ops/csrc/histogram.cu"
+    forest_src = "dmlc_core_tpu_torch/ops/csrc/forest.cu"
     attn_src = "dmlc_core_tpu_torch/ops/csrc/attention.cu"
     floor_src = "dmlc_core_tpu_torch/ops/csrc/hist_floor.cu"
     # the library kernel the JAX package calls (installed jax 0.9.0)
@@ -6204,13 +6533,19 @@ def main() -> int:
                 # B2's descend, in the direction mode of the unfused
                 # chain's descend (fused_descend_histogram's dir_sel)
                 "descend_dir": "dmlc_core_tpu/ops/histogram.py:531",
-                # B2's descend alone: predict's, so a served batch's
+                # B2's descend alone: training's final descend
                 "descend": "dmlc_core_tpu/ops/histogram.py:531",
+                # every tree of a forest: predict, a served batch, the
+                # margin replay (the JAX package's compiled predict)
+                "forest": "dmlc_core_tpu/models/histgbt.py:2962",
                 "flash_fwd": f"{lib}:331",
                 "flash_bwd_dkv": f"{lib}:796",
                 "flash_bwd_dq": f"{lib}:1146",
                 **{k: "scripts/spike_hist_floor.py:55" for k in floor}}
     extra = ("unfused_chain_ms", "chain_device_ms", "device_ms",
+             "per_level_chain_ms", "per_level_chain_device_ms",
+             "bytes_bound_ms", "lookups_bound_ms", "sector_bound_ms",
+             "cases", "serve",
              "library_call", "library_device_ms", "by_n_build",
              "launches_bert", "launches_ulysses", "launches_submit",
              "launches_bench_transformer", "launches_multichip",
@@ -6221,7 +6556,8 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": (attn_src if name in attention else
-                    floor_src if name in floor else hist_src),
+                    floor_src if name in floor else
+                    forest_src if name == "forest" else hist_src),
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -36,8 +36,8 @@ every bucket warmed, then Poisson arrivals at ``SERVE_QPS`` (300) for
 ``SERVE_SECONDS`` (10) through a ``DynamicBatcher`` (``SERVE_MAX_BATCH``
 256, ``SERVE_MAX_DELAY_MS`` 2, request sizes from ``SERVE_REQ_SIZES``,
 default ``1,1,1,1,2,4,8,16``); metric ``serve_requests_per_sec`` with
-``bench.py``'s record fields, plus ``descend_kernel``'s launches per
-served batch.  ``BENCH_FORCE_CPU=1`` runs it on the CPU.
+``bench.py``'s record fields, plus ``forest_kernel``'s launches per
+served batch (one) beside ``descend_kernel``'s (none: training's only).  ``BENCH_FORCE_CPU=1`` runs it on the CPU.
 
 ``--fleet`` is the JAX bench's fleet mode (:func:`_fleet_bench`): v1 (5
 trees) and v2 (10 trees) depth-4, 32-bin ``HistGBT`` models on
@@ -53,8 +53,8 @@ processes supervised by a ``LauncherScaler`` JobSet behind a
 ``TenantRegistry`` capped at ``TENANTS_RESIDENT_CAP`` (4) resident
 runners, ``TENANTS_THREADS`` (4) threads drawing tenants from a bounded
 Zipf (``TENANTS_ZIPF_A`` 1.1) for ``TENANTS_SECONDS`` (6); metric
-``tenant_requests_per_sec``, plus ``descend_kernel``'s launches per
-served batch on a card.
+``tenant_requests_per_sec``, plus ``forest_kernel``'s and
+``descend_kernel``'s launches per served batch on a card.
 
 ``--stream`` is the JAX bench's online-learning mode
 (:func:`_stream_bench`): a generator thread appends events at
@@ -1195,7 +1195,8 @@ def _serve_bench() -> None:
     request sizes drawn uniformly from ``SERVE_REQ_SIZES`` (repeat a size
     to weight it).  One provisional line per phase, then a final line
     with throughput, latency percentiles, reject counts, a batch-size
-    summary and, on a card, ``descend_kernel``'s launches per batch.
+    summary and, on a card, ``forest_kernel``'s launches per batch (one)
+    beside ``descend_kernel``'s (none).
     Every bucket is warmed before the timed window."""
     t0 = time.time()
     budget = float(os.environ.get("BENCH_TIME_BUDGET", 480))
@@ -1217,6 +1218,7 @@ def _serve_bench() -> None:
 
     from dmlc_core_tpu_torch.models import HistGBT
     from dmlc_core_tpu_torch.ops import histogram as H
+    from dmlc_core_tpu_torch.ops.forest import forest_kernel
     from dmlc_core_tpu_torch.serve import (DynamicBatcher, ModelRegistry,
                                            QueueFullError)
 
@@ -1262,6 +1264,7 @@ def _serve_bench() -> None:
 
     _serve_emit({"value": 0.0, "phase": "load", **cfg})
     H.descend_kernel.launches = 0
+    forest_kernel.launches = 0
     submitted = rejected = 0
     start = time.perf_counter()
     next_t = start
@@ -1284,6 +1287,7 @@ def _serve_bench() -> None:
     batcher.close(drain=True)
     wall = time.perf_counter() - start
     descends = H.descend_kernel.launches
+    forests = forest_kernel.launches
 
     # batch-size evidence straight from the serve instruments
     batch_summary = {}
@@ -1303,11 +1307,15 @@ def _serve_bench() -> None:
     except Exception:  # noqa: BLE001 — evidence, not the headline
         pass
     if dev.type == "cuda" and batch_summary.get("batches"):
+        # a served batch is one forest launch, every tree and level
         batch_summary["descend_launches"] = descends
         batch_summary["descend_launches_per_batch"] = (
             descends / batch_summary["batches"])
-        batch_summary["descend_launches_per_batch_expected"] = (
-            n_trees * depth)
+        batch_summary["descend_launches_per_batch_expected"] = 0
+        batch_summary["forest_launches"] = forests
+        batch_summary["forest_launches_per_batch"] = (
+            forests / batch_summary["batches"])
+        batch_summary["forest_launches_per_batch_expected"] = 1
 
     done = len(lats)
     _serve_emit({
@@ -1535,8 +1543,8 @@ def _tenants_bench() -> None:
     bit-exactly against the publishing model, so ``wrong`` is
     paging-correctness evidence; the final line carries per-tenant
     p50/p99, the eviction/restore totals, the page-ins' wall times and,
-    on a card, ``descend_kernel``'s launches per served batch beside
-    trees × depth."""
+    on a card, ``forest_kernel``'s launches per served batch (one) and
+    ``descend_kernel``'s (none)."""
     t0 = time.time()
     budget = float(os.environ.get("BENCH_TIME_BUDGET", 480))
     n_tenants = int(os.environ.get("TENANTS_N", 12))
@@ -1556,6 +1564,7 @@ def _tenants_bench() -> None:
     from dmlc_core_tpu_torch.base.metrics import default_registry
     from dmlc_core_tpu_torch.models import HistGBT
     from dmlc_core_tpu_torch.ops import histogram as H
+    from dmlc_core_tpu_torch.ops.forest import forest_kernel
     from dmlc_core_tpu_torch.serve.fleet.loadgen import (sample_tenant,
                                                          zipf_weights)
     from dmlc_core_tpu_torch.serve.tenancy import TenantRegistry
@@ -1568,14 +1577,12 @@ def _tenants_bench() -> None:
     names = [f"t{i:02d}" for i in range(n_tenants)]
     expected = {}
     depth = 3
-    per_batch = {}
     for i, name in enumerate(names):
         yt = (Xt[:, i % feats] + 0.5 * Xt[:, (i + 1) % feats]
               > 0).astype(np.float32)
         m = HistGBT(n_trees=3 + i % 3, max_depth=depth, n_bins=32,
                     device=dev).fit(Xt, yt)
         reg.publish(name, m)
-        per_batch[name] = m.param.n_trees * depth
         # HistGBT is bit-exact across batch shapes, so any prefix of
         # this full-batch oracle is THE expected answer for a request
         expected[name] = np.asarray(m.predict(X))
@@ -1608,6 +1615,7 @@ def _tenants_bench() -> None:
                         restore.sum(tenant=name)) for name in names}
     _tenants_emit({"value": 0.0, "phase": "load", **cfg})
     H.descend_kernel.launches = 0
+    forest_kernel.launches = 0
     workers = [threading.Thread(target=worker, args=(i,), daemon=True)
                for i in range(n_threads)]
     t_load = time.perf_counter()
@@ -1619,6 +1627,7 @@ def _tenants_bench() -> None:
         w.join(timeout=60)
     wall = time.perf_counter() - t_load
     descends = H.descend_kernel.launches
+    forests = forest_kernel.launches
 
     count = sum(len(v) for v in lat.values())
     by_tenant = {}
@@ -1638,13 +1647,15 @@ def _tenants_bench() -> None:
         extra.update(
             descend_launches=descends, batches=n_batches,
             descend_launches_per_batch=descends / max(n_batches, 1),
-            # a page-in's warmup runs the bucket ladder through the
-            # kernel too; the workers' threads share the counter, so a
-            # lost increment can leave the count a launch short
-            descend_launches_expected=(
-                sum(served[n] * per_batch[n] for n in names)
-                + sum((restore.count(tenant=n) - restores0[n][0])
-                      * per_batch[n] * ladder for n in names)))
+            descend_launches_expected=0,
+            forest_launches=forests,
+            forest_launches_per_batch=forests / max(n_batches, 1),
+            # one a batch; a page-in's warmup runs the bucket ladder
+            # through the kernel too (the count is one lock's: no lost
+            # increment)
+            forest_launches_expected=(
+                n_batches + sum(restore.count(tenant=n) - restores0[n][0]
+                                for n in names) * ladder))
     _tenants_emit({
         "value": round(count / max(wall, 1e-9), 2),
         "phase": "done",
@@ -1715,6 +1726,7 @@ def _stream_bench() -> None:
     from dmlc_core_tpu_torch.io.recordio import encode_records
     from dmlc_core_tpu_torch.models import HistGBT
     from dmlc_core_tpu_torch.ops import histogram as H
+    from dmlc_core_tpu_torch.ops.forest import forest_kernel
     from dmlc_core_tpu_torch.serve import ModelRegistry
     from dmlc_core_tpu_torch.stream import (ModelPublisher, OnlineTrainer,
                                             RecordIOTailer,
@@ -1791,7 +1803,8 @@ def _stream_bench() -> None:
     _stream_emit({"value": 0.0, "phase": "loop", **cfg})
 
     counters = ((H.hist_kernel, "launches"), (H.fused_round_kernel,
-                "launches"), (H.descend_kernel, "launches"))
+                "launches"), (H.descend_kernel, "launches"),
+                (forest_kernel, "launches"))
     before = [getattr(fn, a) for fn, a in counters]
     staleness = []
     served_floor = 0                  # events covered by an activation
@@ -1833,7 +1846,8 @@ def _stream_bench() -> None:
     if dev.type == "cuda":
         extra["kernel_launches"] = {
             name: getattr(fn, a) - b for name, (fn, a), b in zip(
-                ("hist", "fused_round", "descend"), counters, before)}
+                ("hist", "fused_round", "descend", "forest"), counters,
+                before)}
     final = {
         "value": q(0.95) or 0.0,
         "phase": "done",
@@ -2209,6 +2223,7 @@ def _prodsim_bench() -> dict:
     from dmlc_core_tpu_torch.models import HistGBT
     from dmlc_core_tpu_torch.ops import _build
     from dmlc_core_tpu_torch.ops import histogram as H
+    from dmlc_core_tpu_torch.ops.forest import forest_kernel
     from dmlc_core_tpu_torch.parallel.ps import PSScheduler
     from dmlc_core_tpu_torch.serve.client import ResilientClient
     from dmlc_core_tpu_torch.serve.fleet import (FleetRouter, FleetTracker,
@@ -2223,7 +2238,8 @@ def _prodsim_bench() -> dict:
 
     dev, card = _bench_device(_prodsim_emit, cfg)
     counters = ((H.hist_kernel, "hist"), (H.fused_round_kernel,
-                "fused_round"), (H.descend_kernel, "descend"))
+                "fused_round"), (H.descend_kernel, "descend"),
+                (forest_kernel, "forest"))
     launches0 = {name: fn.launches for fn, name in counters}
     stale_hist = default_registry().histogram(
         "stream_staleness_seconds",

@@ -43,6 +43,13 @@ keeps the cuts, replays the ensemble's margins tree by tree (or takes the
 carried ones) and threads the global round index, so that 3 + 2 rounds
 write the 5-round file.
 
+Prediction (``predict``, ``predict_iter``, ``predict_leaf``, the margin
+replay and the eval set's margins) packs the forest once
+(``ops.forest.pack_forest``) and walks every tree of it in one
+``forest_kernel`` launch a batch on the card (the plain version on the
+CPU); the per-level chain it replaced, :func:`_predict_trees`, is kept as
+the reference the tests and ``chip_smoke.py`` hold it against.
+
 Data parallel (``mesh=``, a :class:`~dmlc_core_tpu_torch.parallel.mesh.
 Mesh` over a ``torch.distributed`` group, one process per GPU): every
 rank passes the same global ``X, y``, derives the same cuts from it and
@@ -129,6 +136,7 @@ from dmlc_core_tpu_torch.models.gbt_split import (_advance_node,
                                                   gbt_metrics)
 from dmlc_core_tpu_torch.utils import prng
 from dmlc_core_tpu_torch.ops import binlayout as _bl
+from dmlc_core_tpu_torch.ops.forest import pack_forest, predict_forest
 from dmlc_core_tpu_torch.ops.histogram import (build_histogram,
                                                dequantize_hist_sum,
                                                fused_descend_histogram,
@@ -288,10 +296,12 @@ class _KernelWarmup:
     """The port's cold-start handle (the JAX package's
     ``_RoundProgramWarmup``), one a process and device
     (:func:`_process_warmup`): on a CUDA device, ``nvcc`` and the
-    ``ctypes`` load of the CUDA sources the boosting loop launches
-    (``ops/_build.py``) on a thread, then, when ``launch``
+    ``ctypes`` load of the CUDA sources the boosting loop and its eval
+    set launch (``ops/_build.py``; ``histogram.cu`` and ``forest.cu``
+    built side by side) on a thread, then, when ``launch``
     (:func:`_warmup_exec_mode`), one launch of each of their kernels on
-    tiny tensors (``ops.histogram.warm_launch``, on a side stream), so
+    tiny tensors (``ops.histogram.warm_launch`` and
+    ``ops.forest.warm_launch``, on a side stream), so
     that the build and the modules' first load overlap the caller's cuts,
     binning and upload.  The kernels do not depend on the data: every
     later fit of the process finds the handle done and starts nothing.
@@ -303,8 +313,9 @@ class _KernelWarmup:
     fit has joined it — only that first fit reports its time
     (:meth:`HistGBT._warmup`)."""
 
-    #: the CUDA sources of the boosting loop's kernels
-    SOURCES = ("histogram",)
+    #: the CUDA sources of the boosting loop's kernels, and of the forest
+    #: kernel of its eval set and margin replay
+    SOURCES = ("histogram", "forest")
 
     def __init__(self, device: torch.device, launch: bool, n_features: int,
                  n_bins: int, n_nodes: int) -> None:
@@ -329,16 +340,19 @@ class _KernelWarmup:
 
     def _run(self, launch: bool, n_features: int, n_bins: int,
              n_nodes: int) -> None:
-        from dmlc_core_tpu_torch.ops._build import load_library
+        from dmlc_core_tpu_torch.ops import forest
+        from dmlc_core_tpu_torch.ops._build import build_all, load_library
         from dmlc_core_tpu_torch.ops.histogram import warm_launch
 
         try:
+            build_all(self.SOURCES)         # one nvcc a source, together
             for name in self.SOURCES:
                 load_library(name)
             if launch:
                 side = torch.cuda.Stream(self.device)
                 with torch.cuda.device(self.device), torch.cuda.stream(side):
                     warm_launch(self.device, n_features, n_bins, n_nodes)
+                    forest.warm_launch(self.device)
                 side.synchronize()
         except BaseException as e:  # noqa: BLE001 — re-raised by join()
             self._error = e
@@ -859,9 +873,11 @@ class HistGBT(_ExternalMemoryEngine):
         state = {"best_at": 0, "margin": margin}
 
         def after_chunk(done: int, chunk) -> bool:
-            st = {k: torch.stack([t[k] for t in chunk]) for k in chunk[0]}
-            state["margin"] = self._apply_stacked(bins_v, st,
-                                                  state["margin"])
+            # the chunk's trees, fetched onto the host: self.trees' last
+            forest = pack_forest(self.trees[-len(chunk):], p.max_depth,
+                                 self.device, self._miss_bin())
+            state["margin"] = predict_forest(bins_v, forest,
+                                             state["margin"])
             score = float(metric_fn(state["margin"], yv_d))
             self.eval_history.append((n_prior + done, score))
             improved = (self.best_score is None
@@ -2017,44 +2033,31 @@ class HistGBT(_ExternalMemoryEngine):
     def _stacked_trees(self, trees: List[Dict[str, np.ndarray]]
                        ) -> Dict[str, torch.Tensor]:
         """The forest as stacked device tensors ``[T, ...]`` (``[T, K,
-        ...]`` for ``multi:softmax``), with ``dir`` in missing mode."""
+        ...]`` for ``multi:softmax``), with ``dir`` in missing mode: the
+        tables of the per-level chain :func:`_predict_trees`."""
         keys = ("feat", "thr", "leaf") + (("dir",) if "dir" in trees[0]
                                           else ())
         return {k: torch.from_numpy(np.stack([t[k] for t in trees])
                                     ).to(self.device)
                 for k in keys}
 
-    def _apply_stacked(self, bins_t: torch.Tensor,
-                       st: Dict[str, torch.Tensor],
-                       margin: torch.Tensor) -> torch.Tensor:
-        """Add a stacked forest's leaves onto ``margin`` ([n], or [n, K]
-        class by class), tree by tree in order."""
-        depth, miss = self.param.max_depth, self._miss_bin()
-        return _by_class(st, lambda s, c: _predict_trees(
-            bins_t, s["feat"], s["thr"], s["leaf"], depth,
-            margin if c is None else margin[:, c], s.get("dir"), miss), 1)
-
-    def _forest(self, trees: List[Dict[str, np.ndarray]]
-                ) -> List[Tuple[Dict[str, torch.Tensor], bool]]:
-        """The forest on the device in the JAX package's chunks of
-        ``_TREE_CHUNK`` trees: ``(stacked chunk, whether it is short)``."""
-        return [(self._stacked_trees(trees[lo:lo + _TREE_CHUNK]),
-                 len(trees) - lo < _TREE_CHUNK)
-                for lo in range(0, len(trees), _TREE_CHUNK)]
+    def _forest(self, trees: List[Dict[str, np.ndarray]]):
+        """The forest packed on the device for one
+        :func:`~dmlc_core_tpu_torch.ops.forest.predict_forest` call
+        (``ops/forest.py``).  The JAX package walks it in chunks of
+        ``_TREE_CHUNK`` trees and pads the last with all-zero trees; a
+        zero tree adds +0.0, so a forest whose last chunk is short ends
+        with one +0.0 (a margin of −0.0 becomes +0.0) without walking
+        the padding."""
+        return pack_forest(trees, self.param.max_depth, self.device,
+                           self._miss_bin(),
+                           add_zero=len(trees) % _TREE_CHUNK != 0)
 
     def _apply_forest(self, bins_t: torch.Tensor, forest,
                       init: torch.Tensor) -> torch.Tensor:
         """Add a :meth:`_forest`'s margins onto ``init`` in training's
-        order.  The JAX package pads the last chunk with all-zero trees;
-        a zero tree adds +0.0, so one +0.0 after a short chunk gives its
-        bits (a margin of −0.0 becomes +0.0) without descending the
-        padding."""
-        margin = init
-        for st, short in forest:
-            margin = self._apply_stacked(bins_t, st, margin)
-            if short:
-                margin = margin + 0.0
-        return margin
+        order: one ``forest_kernel`` launch on the card."""
+        return predict_forest(bins_t, forest, init)
 
     def _apply_trees(self, bins_t: torch.Tensor,
                      trees: List[Dict[str, np.ndarray]],
@@ -2138,8 +2141,8 @@ class HistGBT(_ExternalMemoryEngine):
                      n_trees: Optional[int] = None) -> np.ndarray:
         """Each row's leaf in each tree — XGBoost's ``pred_leaf=True``:
         int32 ``[n, T]`` (``multi:softmax``: ``[n, T, K]``) of positions in
-        ``[0, 2^max_depth)`` of the tree's leaf layer.  Rows descend by
-        ``descend_kernel`` on the card."""
+        ``[0, 2^max_depth)`` of the tree's leaf layer.  One
+        ``forest_kernel`` launch a batch on the card."""
         CHECK(self.cuts is not None, "predict before fit")
         CHECK(len(self.trees) > 0, "no trees trained")
         use = self._resolve_trees(n_trees)
@@ -2149,17 +2152,13 @@ class HistGBT(_ExternalMemoryEngine):
         if len(X) == 0:
             return np.zeros((0, len(use), K) if K > 1 else (0, len(use)),
                             np.int32)
-        st = self._stacked_trees(use)
-        depth, miss = self.param.max_depth, self._miss_bin()
+        forest = pack_forest(use, self.param.max_depth, self.device,
+                             self._miss_bin())
         outs = []
         for lo in range(0, len(X), self._PREDICT_BATCH):
             bins_t = self._bins_of(torch.from_numpy(
                 X[lo:lo + self._PREDICT_BATCH]).to(self.device))
-            out = _by_class(st, lambda s, c: torch.stack([
-                _tree_leaf(bins_t, s["feat"][t], s["thr"][t], depth,
-                           _at(s.get("dir"), t), miss)
-                for t in range(s["feat"].shape[0])], dim=1), 2)
-            outs.append(out.cpu().numpy())
+            outs.append(predict_forest(bins_t, forest).cpu().numpy())
         return np.concatenate(outs) if len(outs) > 1 else outs[0]
 
     def dump_model(self, with_stats: bool = False,
@@ -2406,16 +2405,6 @@ def _at(a: Optional[torch.Tensor], i: int) -> Optional[torch.Tensor]:
     return None if a is None else a[i]
 
 
-def _by_class(st: Dict[str, torch.Tensor], fn, dim: int) -> torch.Tensor:
-    """``fn(forest, c)`` over a stacked forest: once with ``c`` None for
-    a single-output forest ``[T, depth, half]``, else once per class on
-    its ``[:, c]`` slice of ``[T, K, ...]``, stacked along ``dim``."""
-    if st["feat"].dim() == 3:
-        return fn(st, None)
-    return torch.stack([fn({k: v[:, c] for k, v in st.items()}, c)
-                        for c in range(st["feat"].shape[1])], dim=dim)
-
-
 def _tree_leaf(bins_t, feat, thr, depth: int, dirs=None,
                miss_bin: int = -1) -> torch.Tensor:
     """Each row's leaf position in one tree ``[depth, half]``, int32
@@ -2433,7 +2422,10 @@ def _predict_trees(bins_t, feats, thrs, leaves, depth: int, init,
                    dirs=None, miss_bin: int = -1):
     """Sum leaf values over trees ``[T, depth, half]`` onto ``init`` [n],
     tree by tree in order (the summation order of training's margin
-    updates)."""
+    updates): the per-level chain, ``descend_kernel`` a tree level on the
+    card, that ``forest_kernel`` (``ops/forest.py``) replaced.  No route
+    of the package calls it: the tests and ``chip_smoke.py`` hold the
+    forest kernel against it and time it."""
     total = init
     for t in range(feats.shape[0]):
         total = total + leaves[t][_tree_leaf(bins_t, feats[t], thrs[t],

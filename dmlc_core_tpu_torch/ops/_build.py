@@ -31,13 +31,15 @@ __all__ = ["load_library", "build_all", "is_built", "build_events",
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
-#: each source's flags.  histogram and hist_floor: -fmad=false, no
-#: multiply-add contraction, so every float operation rounds as its plain
-#: PyTorch version's does (their kernels are held bit for bit).
+#: each source's flags.  histogram, forest and hist_floor: -fmad=false,
+#: no multiply-add contraction, so every float operation rounds as its
+#: plain PyTorch version's does (their kernels are held bit for bit).
 #: attention: held by a tolerance, so contraction stays on.
 NVCC_FLAGS: Dict[str, Tuple[str, ...]] = {
     "histogram": ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                   "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"),
+    "forest": ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"),
     "hist_floor": ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                    "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"),
     "attention": ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -70,6 +72,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                _I, _I, _I, _LL, _I, _I, _I, _I, _I, _I, _F,
                                _F, _P, _P, _P),
         "dmlc_hist_epilogue": (_P, _P, _P, _I, _LL, _D, _D, _P),
+    },
+    "forest": {
+        # bins, n, used, n_used; blob, tree_bytes, dir_off, rec_off,
+        # wide; n_trees, per_class, n_class, depth; missing, miss_bin,
+        # add_zero; init, margin, leaf; threads, group_trees, smem, stream
+        "dmlc_predict_forest": (_P, _LL, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
+                                _P),
     },
     "hist_floor": {
         # bins, row stride, node, g, h; n_tiles, tile_rows, F, n_build,

@@ -21,9 +21,10 @@ function:
   path, where left children are summed over ranks first).
 
 :func:`descend_kernel` / :func:`descend_plain` is B2's descend on its own:
-the first half of the unfused chain, training's final descend and
-prediction, and with a table of learned missing directions the descend of
-NaN-as-missing mode (JAX's ``fused_descend_histogram`` with ``dir_sel``).
+the first half of the unfused chain and training's final descend, and
+with a table of learned missing directions the descend of NaN-as-missing
+mode (JAX's ``fused_descend_histogram`` with ``dir_sel``).  Prediction
+walks whole forests in one launch instead (``ops/forest.py``).
 
 Each has a LAYOUT MODE (``layout=`` a :class:`~dmlc_core_tpu_torch.ops.
 binlayout.BinLayout`): the input is then the physical ``[phys_rows, n]``
@@ -339,7 +340,7 @@ def descend_plain(bins_t: torch.Tensor, node_id: torch.Tensor,
     ``miss_bin`` follow it instead of the threshold.  The plain version
     of :func:`descend_kernel`, and the one plain descend of the package:
     the plain kernels' descend, and on CPU tensors training's final
-    descend and prediction, route by it."""
+    descend, route by it."""
     valid = node_id >= 0
     if by_node:
         key = torch.where(valid, node_id, 0).to(torch.int64)
@@ -747,8 +748,7 @@ def descend_kernel(bins_t: torch.Tensor, node_id: torch.Tensor,
                    miss_bin: Optional[int] = None) -> torch.Tensor:
     """CUDA descend: ``new_node [n]`` int32, the function of
     :func:`descend_plain` in one launch — B2's descend on its own (the
-    unfused chain's first half, training's final descend and
-    prediction).  ``feat``/``thr`` (and ``dir_sel``, the learned missing
+    unfused chain's first half and training's final descend).  ``feat``/``thr`` (and ``dir_sel``, the learned missing
     direction, 1 = left, for rows in ``miss_bin``) are per-node tables
     (``by_node``) or per-row arrays, int32.  Counts its calls in
     ``descend_kernel.launches``, those with a direction in
@@ -863,13 +863,16 @@ warm_launch.launches = 0
 def launch_counts() -> Dict[str, int]:
     """Every wrapper's launches in this process so far, by the names of
     ``chip_smoke.py``'s kernels line."""
+    from dmlc_core_tpu_torch.ops.forest import forest_kernel
+
     return {"hist": hist_kernel.launches,
             "fused_round": fused_round_kernel.launches,
             "hist_layout": hist_kernel.layout_launches,
             "fused_round_layout": fused_round_kernel.layout_launches,
             "fused_descend": fused_descend_kernel.launches,
             "descend": descend_kernel.launches,
-            "descend_dir": descend_kernel.dir_launches}
+            "descend_dir": descend_kernel.dir_launches,
+            "forest": forest_kernel.launches}
 
 
 def _spool_launches(directory: str) -> None:

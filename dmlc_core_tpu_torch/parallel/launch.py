@@ -232,8 +232,10 @@ def run_worker(job: Dict[str, Any]) -> None:
     coll.init(backend=job["backend"])
     out = Path(job["out"])
     out.mkdir(parents=True, exist_ok=True)    # a worker dmlc-submit started
+    from dmlc_core_tpu_torch.ops.forest import forest_kernel
+
     kernels = (H.hist_kernel, H.fused_round_kernel, H.fused_descend_kernel,
-               H.descend_kernel)
+               H.descend_kernel, forest_kernel)
     for run in job["runs"]:
         name = run["name"]
         data = {**job, **run}             # a run may bring its own rows
@@ -316,6 +318,7 @@ def run_worker(job: Dict[str, Any]) -> None:
                 "best_iteration": model.best_iteration,
                 "best_score": model.best_score,
                 "descend_launches": H.descend_kernel.launches,
+                "forest_launches": forest_kernel.launches,
                 "native": {**_native.calls(), **_native_io.calls()}}
         margins = (model.train_margins() if model._train_preds is not None
                    else None)

@@ -33,7 +33,7 @@ the same tracker commands, admin routes, ``FLEET_*`` env ABI and metric
 names, so a replica of either package registers with a tracker of the
 other.  :class:`Replica` takes ``device=`` (``None``: ``cuda``) and hands
 it to its :class:`ModelRegistry` and :class:`TenantRegistry`, so every
-served batch of a ``HistGBT`` runs ``descend_kernel`` on that card.  A
+served batch of a ``HistGBT`` runs ``forest_kernel`` on that card.  A
 replica subprocess (:data:`REPLICA_COMMAND`, ``python -m
 dmlc_core_tpu_torch.serve.fleet.replica``) takes its device from
 ``FLEET_DEVICE`` — unset means ``cuda`` — the port's counterpart of the
@@ -181,13 +181,16 @@ class ReplicaFrontend(ServeFrontend):
             p99 = serve_metrics()["queue_wait"].quantile(
                 0.99, batcher=self.registry.name)
         doc["queue_wait_p99_s"] = p99
-        # every served HistGBT batch is descend_kernel launches on a card
-        # (0 on the CPU): a drill reads them, the kernel builds and
-        # library loads, and the device from the health doc
+        # every served HistGBT batch is one forest_kernel launch on a
+        # card (0 on the CPU; descend_kernel is training's): a drill
+        # reads them, the kernel builds and library loads, and the device
+        # from the health doc
         from dmlc_core_tpu_torch.ops import _build
+        from dmlc_core_tpu_torch.ops.forest import forest_kernel
         from dmlc_core_tpu_torch.ops.histogram import descend_kernel
 
-        doc["kernel_launches"] = {"descend": descend_kernel.launches}
+        doc["kernel_launches"] = {"descend": descend_kernel.launches,
+                                  "forest": forest_kernel.launches}
         doc["kernel_builds"] = _build.build_events()
         doc["device"] = str(self.registry.device)
         return doc

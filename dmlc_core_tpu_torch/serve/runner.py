@@ -14,10 +14,11 @@ same: the batcher and the frontend's ``max_batch`` contract rest on it,
 and ``compiled_shapes`` keeps its meaning — the bucket shapes executed,
 at most ``log2(max_batch) + 1`` of them, each logged once.
 
-On a card, a served ``HistGBT`` batch runs ``descend_kernel`` (B2's
-descend, ``ops/histogram.py``) once per tree and level through
-``HistGBT.predict``.  :meth:`ModelRunner.warmup` builds and loads the
-kernels and touches the CUDA context before the first live request; the
+On a card, a served ``HistGBT`` batch is one ``forest_kernel`` launch
+(every tree and level, ``ops/forest.py``) through ``HistGBT.predict``.
+:meth:`ModelRunner.warmup` builds and loads the kernel (its first
+bucket's ``predict``) and touches the CUDA context before the first live
+request; the
 batcher's flush thread, not the caller's, then runs ``predict``, so each
 call runs under ``torch.cuda.device(model.device)`` — the model's own
 card, never the thread's current device.  A runner on a ``cuda`` model

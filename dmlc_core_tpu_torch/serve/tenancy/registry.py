@@ -29,7 +29,7 @@ The PyTorch port's counterpart of
 ``dmlc_core_tpu/serve/tenancy/registry.py``.  The port compiles nothing
 per shape (``serve/runner.py``), so a page-in has no compile cache to
 deserialise: its warmup runs the bucket ladder through the model's
-predict — on a card, ``descend_kernel`` trees × depth times a bucket.
+predict — on a card, one ``forest_kernel`` launch a bucket.
 :class:`TenantRegistry` takes ``device=`` (``None``: ``cuda``) and puts
 every model it rebuilds from bytes there; paging a tenant out drops its
 runner and its model, and with them the model's tensors on the card.

@@ -29,7 +29,7 @@ predictions for the last good version.
 The PyTorch port's counterpart of ``dmlc_core_tpu/stream/publisher.py``,
 over the port's ``serve/registry.py``.  The snapshot lands on the
 model's own device (``clone_model``), so the gate's holdout predictions
-run where the model lives — on a card, ``descend_kernel``.
+run where the model lives — on a card, ``forest_kernel``.
 """
 
 from __future__ import annotations

@@ -44,8 +44,9 @@ The PyTorch port's counterpart of ``dmlc_core_tpu/stream/trainer.py``:
 the same policy, knobs, metrics and summaries.  Each refresh is the
 port's ``HistGBT.fit`` on the model's device, so on a card a refresh
 runs the histogram kernels (``hist_kernel`` at the root,
-``fused_round_kernel`` below it) and ``descend_kernel`` for the margin
-replay of the existing trees.  The warm-start parity contract holds
+``fused_round_kernel`` below it, ``descend_kernel`` into each tree's
+leaf layer) and ``forest_kernel`` for the margin replay of the existing
+trees.  The warm-start parity contract holds
 within the port bit for bit, on the CPU and on a card.
 """
 

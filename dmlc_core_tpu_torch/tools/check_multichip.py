@@ -85,11 +85,13 @@ def _model_bytes(model) -> bytes:
 
 def _launches() -> Dict[str, int]:
     from dmlc_core_tpu_torch.ops import histogram as H
+    from dmlc_core_tpu_torch.ops.forest import forest_kernel
 
     return {"hist": H.hist_kernel.launches,
             "fused_round": H.fused_round_kernel.launches,
             "fused_descend": H.fused_descend_kernel.launches,
-            "descend": H.descend_kernel.launches}
+            "descend": H.descend_kernel.launches,
+            "forest": forest_kernel.launches}
 
 
 def _rank_worker(d: Path) -> None:

@@ -24,7 +24,12 @@ then ``hist_kernel`` over left children), both by device time and each checked
 equal to the other.  ``--floor`` adds B5, the six one-hot
 product variants of ``tools/spike_hist_floor.py`` at n_build 1 and 2 on the
 spike's inputs (10M rows, the first 24 features), by device time.
-``--no-rounds`` leaves out ``hist`` and ``fused_round``.  ``--attention``
+``--forest`` adds ``forest_kernel`` (``ops/forest.py``) on random forests
+made from ``chip_smoke.py``'s rule: 100 trees of depth 6 over the ``[28,
+rows]`` bins, 8 trees of depth 12 (thresholds of −1: u32 records) over the
+first million rows, and the serve bench's 20 trees of depth 4 over a
+256-row batch, each by device time and checked bit-equal to its plain
+version.  ``--no-rounds`` leaves out ``hist`` and ``fused_round``.  ``--attention``
 times the three flash-attention kernels instead
 (``flash_fwd_kernel``, ``flash_bwd_dkv_kernel``, ``flash_bwd_dq_kernel``) at
 BERT-base's ``[8, 512, 12, 64]``, non-causal and causal, by device time from a
@@ -144,8 +149,25 @@ def this_chip_smoke():
     return chip_smoke
 
 
+def forest_cases(c, torch, np, bins, gen):
+    """``forest_kernel``'s timing cases: (name, bins, trees, depth, init)
+    from ``chip_smoke.py``'s ``random_forest`` rule, seeded."""
+    rng = np.random.default_rng(SEED)
+    F, n = bins.shape
+    init = torch.randn(n, device=bins.device, generator=gen)
+    small = bins[:, :256].contiguous()
+    return [("forest_flagship", bins,
+             c.random_forest(np, rng, 100, 6, F, N_BINS), 6, init),
+            ("forest_depth12", bins[:, :1_000_000].contiguous(),
+             c.random_forest(np, rng, 8, 12, F, N_BINS, thr_lo=-1), 12,
+             init[:1_000_000].contiguous()),
+            ("forest_serve256", small,
+             c.random_forest(np, rng, 20, 4, F, N_BINS), 4,
+             init[:256].contiguous())]
+
+
 def run_one(root, rows, reps, profile=False, layouts=False, rounds=True,
-            descend=False, floor=False):
+            descend=False, floor=False, forest=False):
     c = this_chip_smoke()
     sys.path.insert(0, root)
     import torch
@@ -194,6 +216,24 @@ def run_one(root, rows, reps, profile=False, layouts=False, rounds=True,
             for name, fn in fns.items():
                 out["device_ms"][f"{name}_{n_prev}"] = c.device_ms(torch, fn,
                                                                    reps)
+    if forest:
+        import numpy as np
+
+        from dmlc_core_tpu_torch.ops import forest as FO
+
+        out["forest_equal"] = {}
+        for name, fb, trees, depth, init in forest_cases(c, torch, np, bins,
+                                                         gen):
+            packed = FO.pack_forest(trees, depth, dev, -1,
+                                    add_zero=len(trees) % 64 != 0)
+
+            def fn(fb=fb, packed=packed, init=init):
+                return FO.forest_kernel(fb, packed, init)
+
+            out["forest_equal"][name] = bool(torch.equal(
+                fn().view(torch.int32),
+                FO.predict_forest_plain(fb, packed, init).view(torch.int32)))
+            out["device_ms"][name] = c.device_ms(torch, fn, reps)
     if layouts:
         del bins
         for cfg, lay, phys in layout_matrices(c):
@@ -307,7 +347,8 @@ def layout_matrices(c):
 
 
 def run_ab(base, rows, reps, profile=False, attention=False,
-           layouts=False, rounds=True, descend=False, floor=False):
+           layouts=False, rounds=True, descend=False, floor=False,
+           forest=False):
     runs = []
     for root in (base, ROOT, ROOT, base):
         proc = subprocess.run(
@@ -318,7 +359,8 @@ def run_ab(base, rows, reps, profile=False, attention=False,
             + (["--layouts"] if layouts else [])
             + ([] if rounds else ["--no-rounds"])
             + (["--descend"] if descend else [])
-            + (["--floor"] if floor else []),
+            + (["--floor"] if floor else [])
+            + (["--forest"] if forest else []),
             check=True, capture_output=True, text=True, timeout=900)
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
@@ -360,19 +402,23 @@ def main():
     ap.add_argument("--floor", action="store_true",
                     help="also B5's six one-hot product variants at "
                          "n_build 1 and 2, by device time")
+    ap.add_argument("--forest", action="store_true",
+                    help="also forest_kernel on random forests (100 trees "
+                         "of depth 6, 8 of depth 12, a served batch), by "
+                         "device time")
     ap.add_argument("--no-rounds", dest="rounds", action="store_false",
                     help="leave out hist and fused_round")
     args = ap.parse_args()
     if args.ab:
         run_ab(os.path.abspath(args.ab), args.rows, args.reps, args.profile,
                args.attention, args.layouts, args.rounds, args.descend,
-               args.floor)
+               args.floor, args.forest)
     elif args.attention:
         run_attention(os.path.abspath(args.root), args.reps)
     else:
         run_one(os.path.abspath(args.root), args.rows, args.reps,
                 args.profile, args.layouts, args.rounds, args.descend,
-                args.floor)
+                args.floor, args.forest)
 
 
 if __name__ == "__main__":

@@ -76,10 +76,12 @@ def _paths(tree, bins, miss_bin):
 
 def _train_margins_by_tree(model, bins_t):
     """The training margins after each tree, ``[T, ...]``, replayed by the
-    port's descend (the JAX model's trees too: the routing is integer)."""
+    port's forest walk (the JAX model's trees too: the routing is
+    integer)."""
     import torch
 
     from dmlc_core_tpu_torch.models.histgbt import HistGBT
+    from dmlc_core_tpu_torch.ops.forest import pack_forest, predict_forest
 
     port = HistGBT(device="cpu", **{k: v for k, v in
                                     model.param.to_dict().items()})
@@ -88,8 +90,9 @@ def _train_margins_by_tree(model, bins_t):
     margin = port._base_margin(bins_t.shape[1])
     out = []
     for tree in model.trees:
-        margin = port._apply_stacked(bins_t, port._stacked_trees([
-            {k: np.asarray(v) for k, v in tree.items()}]), margin)
+        margin = predict_forest(bins_t, pack_forest(
+            [{k: np.asarray(v) for k, v in tree.items()}],
+            port.param.max_depth, "cpu", port._miss_bin()), margin)
         out.append(margin.numpy())
     return out
 
